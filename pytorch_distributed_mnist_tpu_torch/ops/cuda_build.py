@@ -1,0 +1,134 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+use it is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared
+library under the checkout's ``build/torch_kernels/`` and loaded with
+``ctypes``. The library's directory is keyed on a hash of the source and
+the flags, so an edited source rebuilds and an unchanged one is reused.
+No PyTorch header is compiled: a build takes seconds, not minutes.
+
+Nothing here runs at import: the CPU tests import every module, and the
+CPU has no ``nvcc``. :func:`build` starts one ``nvcc`` per source, all at
+once, so a caller that needs several kernels (``chip_smoke.py``) pays for
+the slowest build only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# name -> {C symbol: (argtypes, restype)}. Every pointer and the stream are
+# c_void_p: left undeclared, ctypes would pass a Python int as a 32-bit int
+# and cut the pointer.
+KERNELS: Dict[str, Dict[str, tuple]] = {
+    "matmul_i8": {
+        # a, b, c, m, n, k, lda, ldb, ldc, splits, device, stream
+        "matmul_i8_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P], _I),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+#: name -> {"seconds": wall time of the build (0.0 when cached),
+#: "log": nvcc's output (ptxas register and shared-memory lines)}
+build_info: Dict[str, dict] = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    digest = hashlib.sha256()
+    with open(source_path(name), "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, f"{name}-{digest.hexdigest()[:16]}",
+                        f"lib{name}.so")
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the
+    toolkit's usual place; raises when none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on the PATH): the "
+        "port's CUDA kernels are built from source at first use")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every kernel in ``names`` (default: all) that has no
+    library yet, one ``nvcc`` process per source, all started together.
+    Returns :data:`build_info` for those names; raises with nvcc's output
+    when any build fails."""
+    names = list(KERNELS if names is None else names)
+    with _lock:
+        running = {}
+        for name in names:
+            target = library_path(name)
+            if os.path.isfile(target):
+                build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+                continue
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            tmp = f"{target}.tmp{os.getpid()}"
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running[name] = (proc, tmp, target, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, target, t0) in running.items():
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, target)  # atomic: a reader never sees half a file
+            build_info[name] = {"seconds": seconds, "log": log}
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {name: build_info[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built at first use, with every symbol's
+    ``argtypes``/``restype`` declared."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(library_path(name))
+            for symbol, (argtypes, restype) in KERNELS[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _loaded[name] = lib
+    return lib
