@@ -6,16 +6,21 @@ Phases, each printing one JSON line:
 
 1. device and build: the card's name and power limit (``nvidia-smi``) and
    the build of every hand-written kernel from ``csrc/`` (``nvcc``,
-   ``sm_90a``);
+   ``sm_90a``, one process per source, all at once);
 2. kernel against plain: ``matmul_i8`` against ``matmul_i8_plain`` on the
-   card at every shape of the int8 serving path plus ragged ones; the int32
-   outputs must be exactly equal;
+   card at every shape of the int8 serving path plus ragged ones (exactly
+   equal); the cross-entropy kernels against ``xent_fwd_plain`` /
+   ``xent_bwd_plain`` at B in {1, 7, 256, 300} and C in {10, 128} with
+   saturated tie rows (``rtol=atol=1e-6``: the sum of exp is taken in
+   another order); the Adam kernel against ``adam_leaf_plain`` at every
+   cnn leaf shape and two ragged sizes, for steps 1, 2 and 10 (bitwise);
 3. timings: per path shape, the device time per call (``torch.profiler``'s
    CUDA trace) and the host's time between back-to-back calls (CUDA
-   events) of the kernel's wrapper, its plain version and, where
-   ``torch._int_mm`` takes the shape, that library call (timed here as a
-   yardstick only; the port never calls it), beside the least time the
-   card could take;
+   events) of each kernel's wrapper, its plain version and one PyTorch
+   call computing the same function (``torch._int_mm``,
+   ``F.cross_entropy`` and its backward, ``torch.optim.Adam(fused=True)``;
+   timed here as yardsticks only, the port never calls them), beside the
+   least time the card could take;
 4. server: the port's server (``--model cnn --serve-precision int8``,
    fused plane, default buckets) boots in-process over a seeded checkpoint,
    answers concurrent and sequential ``/predict`` requests, ``/healthz`` and
@@ -24,9 +29,18 @@ Phases, each printing one JSON line:
    the kernel's launch count over this phase must rise;
 5. forward profile: the device time of one int8 fused forward per bucket,
    by part (convs, pooling, the int8 products, elementwise work,
-   reductions, copies), beside
-   the host's wall time per forward;
-6. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+   reductions, copies), beside the host's wall time per forward;
+6. train: the port's CLI ``run()`` in-process, ``--model cnn --loss fused
+   --optimizer adam_pallas``, 2 epochs of 8192 synthetic images at batch
+   256: both epoch lines, a falling train loss, test accuracy >= 90%,
+   exact launch counts of the three training kernels, 32-leaf
+   checkpoints, a resume from ``checkpoint_0.npz`` that repeats epoch 1's
+   line, and ``-e`` on ``model_best.npz``;
+7. train profile: the device time of one train step by part (convs, the
+   fc products, the cross-entropy kernels, Adam, other elementwise work,
+   copies), beside the host's wall time per step and its time per part
+   (batch copy, forward, loss, backward, optimizer, metrics);
+8. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -59,14 +73,27 @@ CHECK_SHAPES = ([(m,) + FC1 for m in PATH_BUCKETS]
                 + [(m,) + FC2 for m in PATH_BUCKETS]
                 + [(5, 784, 10), (33, 12544, 128), (3, 7, 5), (130, 200, 70)])
 # Peak rates of the part nvidia-smi names (data sheets, dense): device
-# memory bytes/s and int8 tensor-core operations/s.
+# memory bytes/s, int8 tensor-core operations/s, float32 operations/s
+# outside the tensor cores.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 1513e12),
-    "H100 NVL": (3.9e12, 1671e12),
-    "H100": (3.35e12, 1979e12),  # SXM
-    "H200": (4.8e12, 1979e12),
+    "H100 PCIe": (2.0e12, 1513e12, 51e12),
+    "H100 NVL": (3.9e12, 1671e12, 60e12),
+    "H100": (3.35e12, 1979e12, 67e12),  # SXM
+    "H200": (4.8e12, 1979e12, 67e12),
 }
 TPU_KERNEL = "pytorch_distributed_mnist_tpu/ops/pallas/matmul_i8.py:66"
+TPU_XENT_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:124"
+TPU_XENT_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:154"
+TPU_ADAM = "pytorch_distributed_mnist_tpu/ops/pallas/adam.py:64"
+CSRC = "pytorch_distributed_mnist_tpu_torch/csrc"
+# The training path: batch 256 of cnn's 10 classes; the smoke's run.
+TRAIN_BATCH = 256
+CLASSES = 10
+TRAIN_ARGS = ["--model", "cnn", "--loss", "fused", "--optimizer",
+              "adam_pallas", "--dataset", "synthetic",
+              "--synthetic-train-size", "8192", "--synthetic-test-size",
+              "2048", "--batch-size", str(TRAIN_BATCH), "--seed", str(SEED)]
+TRAIN_EPOCHS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -133,26 +160,35 @@ def call_ms(fn, iters: int = 50) -> float:
 def device_ms(fn, iters: int = 20) -> dict:
     """Device time per call of ``fn``: every kernel, fill and copy it runs
     on the card, from the profiler's CUDA trace over ``iters`` calls.
-    Returns ``{kernel name: ms per call}``; raises when the trace holds no
-    device time."""
+    Returns ``{kernel name: ms per call}``. Now and then a trace comes back
+    without its device events although the calls ran; such a trace is
+    taken again, up to three times in all, then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            per[evt.name] = (per.get(evt.name, 0.0)
-                             + evt.time_range.elapsed_us() / iters / 1e3)
-    if not per or sum(per.values()) <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return per
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.events():
+            # A named range (``Optimizer.step#...``) is mirrored onto the
+            # device's timeline as an annotation spanning its kernels: it
+            # is not device work of its own.
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(evt, "is_user_annotation", False)
+                    and not evt.name.startswith("Optimizer.")):
+                per[evt.name] = (per.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / iters / 1e3)
+        if per and sum(per.values()) > 0:
+            return per
+        print("chip_smoke.py: a profiler trace held no device time; taking "
+              "it again", file=sys.stderr, flush=True)
+    raise AssertionError("the profiler recorded no device time")
 
 
 def int_mm_takes(m: int, k: int, n: int) -> bool:
@@ -486,6 +522,400 @@ def phase_server(device_flag: str = "cuda") -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def ulps(a, b) -> int:
+    """Largest distance in float32 units in the last place between two
+    tensors (their int32 bit patterns; 0 when bitwise equal)."""
+    import torch
+
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def xent_inputs(b: int, c: int, gen, device):
+    """Logits (scale 3) with saturated rows: row 0 at the exact tie
+    (``lse == picked`` in float32), row 1 ``[1e4, 0, ...]``; labels and an
+    upstream gradient."""
+    import torch
+
+    logits = torch.randn(b, c, device=device, generator=gen) * 3
+    labels = torch.randint(0, c, (b,), device=device, generator=gen)
+    logits[0] = 0.0
+    logits[0, 0] = 20.0
+    labels[0] = 0
+    if b > 1:
+        logits[1] = 0.0
+        logits[1, 1] = 1e4
+        labels[1] = 1
+    g = torch.rand(b, device=device, generator=gen)
+    return logits, labels, g
+
+
+def adam_hyper_scalars(device):
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops.adam import ADAM_DEFAULTS
+
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in {"learning_rate": 1e-3, **ADAM_DEFAULTS}.items()}
+
+
+def cnn_leaf_shapes():
+    """The 8 cnn param shapes, in the order the optimizer walks them."""
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        jax_param_order,
+    )
+
+    params = dict(get_model("cnn").named_parameters())
+    return [(n, tuple(params[n].shape)) for n in jax_param_order(params)]
+
+
+def phase_train_kernels_vs_plain(device) -> dict:
+    """The cross-entropy and Adam kernels against their plain versions on
+    the card; returns each kernel's largest error."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
+    for b in (1, 7, 256, 300):
+        for c in (10, 128):
+            logits, labels, g = xent_inputs(b, c, gen, device)
+            loss, lse = xent.xent_fwd(logits, labels)
+            want_loss, want_lse = xent.xent_fwd_plain(logits, labels)
+            # Both backwards from the kernel's lse, so they gate alike.
+            dl = xent.xent_bwd(logits, labels, lse, g)
+            want_dl = xent.xent_bwd_plain(logits, labels, lse, g)
+            torch.cuda.synchronize()
+            for got, want in ((loss, want_loss), (lse, want_lse),
+                              (dl, want_dl)):
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            if float(loss[0]) != 0.0:
+                raise AssertionError("the tie row's loss is not clamped to 0")
+            worst["xent_fwd"] = max(worst["xent_fwd"], float(max(
+                (loss - want_loss).abs().max(), (lse - want_lse).abs().max())))
+            worst["xent_bwd"] = max(worst["xent_bwd"],
+                                    float((dl - want_dl).abs().max()))
+    hyper = adam_hyper_scalars(device)
+    sizes = [s for _, s in cnn_leaf_shapes()] + [(1,), (1000003,)]
+    adam_err, adam_ulps = 0.0, 0
+    for shape in sizes:
+        for t in (1, 2, 10):
+            h = adam.adam_hypers(hyper, torch.tensor(float(t),
+                                                     device=device))
+            p, g = (torch.randn(shape, device=device, generator=gen)
+                    for _ in range(2))
+            m = torch.randn(shape, device=device, generator=gen) * 0.1
+            v = torch.rand(shape, device=device, generator=gen) * 0.01
+            got = [p.clone(), m.clone(), v.clone()]
+            want = [p.clone(), m.clone(), v.clone()]
+            adam.adam_leaf(got[0], g, got[1], got[2], h)
+            adam.adam_leaf_plain(want[0], g, want[1], want[2], h)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                adam_err = max(adam_err, float((a - b).abs().max()))
+                adam_ulps = max(adam_ulps, ulps(a, b))
+    if adam_ulps > 2:
+        raise AssertionError(f"adam kernel is {adam_ulps} ulp from its "
+                             f"plain version (at most 2 allowed)")
+    emit("kernel_vs_plain", kernel="xent_fwd+xent_bwd",
+         batches=[1, 7, 256, 300], classes=[10, 128], rtol=1e-6, atol=1e-6,
+         max_abs_err_fwd=worst["xent_fwd"], max_abs_err_bwd=worst["xent_bwd"])
+    emit("kernel_vs_plain", kernel="adam", shapes=[list(s) for s in sizes],
+         steps=[1, 2, 10], bitwise=adam_ulps == 0, max_ulp=adam_ulps,
+         max_abs_err=adam_err)
+    return {**worst, "adam": adam_err}
+
+
+def _kernel_ms(per: dict, name: str) -> float:
+    return sum(v for k, v in per.items() if name in k)
+
+
+def phase_train_timings(device, peaks) -> dict:
+    """Device and host ms of each training kernel at the path's shapes:
+    xent at 256 x 10, Adam per cnn leaf and over all 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    bw, _, f32_rate = peaks
+    b, c = TRAIN_BATCH, CLASSES
+    logits, labels, g = xent_inputs(b, c, gen, device)
+    _, lse = xent.xent_fwd(logits, labels)
+    rows = {}
+
+    # Bytes: each input read once, each output written once; operations:
+    # about 4 float32 operations per logit (max, subtract, exp, add) and 5
+    # in the backward (subtract, exp, subtract, two multiplies).
+    fwd_bytes = 4 * b * c + 8 * b + 4 * b + 4 * b
+    bwd_bytes = 4 * b * c + 8 * b + 4 * b + 4 * b + 4 * b * c
+    x_lib = logits.clone().requires_grad_(True)
+    out_lib = F.cross_entropy(x_lib, labels, reduction="none")
+    for name, bytes_moved, ops, calls in (
+            ("xent_fwd", fwd_bytes, 4 * b * c, {
+                "kernel": lambda: xent.xent_fwd(logits, labels),
+                "plain": lambda: xent.xent_fwd_plain(logits, labels),
+                "library": lambda: F.cross_entropy(logits, labels,
+                                                   reduction="none")}),
+            ("xent_bwd", bwd_bytes, 5 * b * c, {
+                "kernel": lambda: xent.xent_bwd(logits, labels, lse, g),
+                "plain": lambda: xent.xent_bwd_plain(logits, labels, lse, g),
+                "library": lambda: torch.autograd.grad(
+                    out_lib, x_lib, g, retain_graph=True)})):
+        t_bytes, t_ops = bytes_moved / bw * 1e3, ops / f32_rate * 1e3
+        row = {"shape": [b, c], "bytes": bytes_moved,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        for what, fn in calls.items():
+            row[f"{what}_ms"] = sum(device_ms(fn).values())
+            row[f"{what}_call_ms"] = call_ms(fn)
+        rows[name] = row
+        emit("timing", kernel=name, **row)
+
+    # Adam: one launch per cnn leaf, and one optimizer step over all 8
+    # (the kernels plus the hypers vector's few scalar ops).
+    hyper = adam_hyper_scalars(device)
+    h = adam.adam_hypers(hyper, torch.tensor(3.0, device=device))
+    leaves = []
+    for name, shape in cnn_leaf_shapes():
+        p = torch.randn(shape, device=device, generator=gen)
+        p.grad = torch.randn(shape, device=device, generator=gen) * 1e-3
+        leaves.append((name, p))
+    per_leaf, total = [], {"kernel_ms": 0.0, "plain_ms": 0.0,
+                           "kernel_call_ms": 0.0, "bound_ms": 0.0}
+    for name, p in leaves:
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        n = p.numel()
+        t_bytes, t_ops = 28 * n / bw * 1e3, 15 * n / f32_rate * 1e3
+        kper = device_ms(lambda: adam.adam_leaf(p, p.grad, m, v, h))
+        row = {"leaf": name, "numel": n, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "kernel_ms": _kernel_ms(kper, "adam_kernel"),
+               "kernel_call_ms": call_ms(
+                   lambda: adam.adam_leaf(p, p.grad, m, v, h)),
+               "plain_ms": sum(device_ms(lambda: adam.adam_leaf_plain(
+                   p, p.grad, m, v, h)).values())}
+        per_leaf.append(row)
+        for key in total:
+            total[key] += row[key]
+    params = [p for _, p in leaves]
+    fused = adam.FusedAdam(params, lr=1e-3)
+    library = torch.optim.Adam(params, lr=1e-3, fused=True)
+    step_per = device_ms(fused.step)
+    total.update(numel=sum(r["numel"] for r in per_leaf),
+                 step_ms=sum(step_per.values()),
+                 step_call_ms=call_ms(fused.step),
+                 library_ms=sum(device_ms(library.step).values()),
+                 library_call_ms=call_ms(library.step))
+    rows["adam"] = {"leaves": per_leaf, "all_8": total}
+    emit("timing", kernel="adam", leaves=per_leaf, all_8=total)
+    return rows
+
+
+def _train_lines(text: str, prefix: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith(prefix)]
+
+
+def _run_cli(argv: list):
+    """The port's CLI ``run()`` in-process; returns (summary, stdout)."""
+    import contextlib
+    import io
+
+    from pytorch_distributed_mnist_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = cli.run(cli.build_parser().parse_args(argv))
+    return summary, out.getvalue()
+
+
+def phase_train(device_flag: str = "cuda") -> dict:
+    """Train cnn through the CLI, resume and evaluate; returns the three
+    training kernels' launch counts over the training run."""
+    import math
+    import shutil
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        read_checkpoint_arrays,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt = os.path.join(root, "run")
+    base = TRAIN_ARGS + ["--device", device_flag]
+    try:
+        # The main path's run starts here.
+        xent.xent_fwd.launches = xent.xent_bwd.launches = 0
+        adam.adam_leaf.launches = 0
+        t0 = time.perf_counter()
+        summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
+                                        "--checkpoint-dir", ckpt])
+        wall_s = time.perf_counter() - t0
+        launches = {"xent_fwd": xent.xent_fwd.launches,
+                    "xent_bwd": xent.xent_bwd.launches,
+                    "adam": adam.adam_leaf.launches}
+        # ... and ends here.
+        lines = _train_lines(out, "Epoch: ")
+        hist = summary["history"]
+        if len(lines) != TRAIN_EPOCHS or len(hist) != TRAIN_EPOCHS:
+            raise AssertionError(f"expected {TRAIN_EPOCHS} epoch lines:\n{out}")
+        if not hist[1]["train_loss"] < hist[0]["train_loss"]:
+            raise AssertionError(f"train loss did not fall: {lines}")
+        if hist[1]["test_acc"] < 0.90:
+            raise AssertionError(f"test accuracy {hist[1]['test_acc']:.4f} "
+                                 f"< 0.90 after epoch 1")
+        train_size = int(TRAIN_ARGS[TRAIN_ARGS.index(
+            "--synthetic-train-size") + 1])
+        test_size = int(TRAIN_ARGS[TRAIN_ARGS.index(
+            "--synthetic-test-size") + 1])
+        steps = TRAIN_EPOCHS * (train_size // TRAIN_BATCH)
+        evals = TRAIN_EPOCHS * math.ceil(test_size / TRAIN_BATCH)
+        want = {"xent_fwd": steps + evals, "xent_bwd": steps,
+                "adam": 8 * steps}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches}, expected {want}")
+        files = sorted(os.listdir(ckpt))
+        if files != ["checkpoint_0.npz", "checkpoint_1.npz",
+                     "model_best.npz"]:
+            raise AssertionError(f"checkpoint files: {files}")
+        for name in files:
+            _, leaves = read_checkpoint_arrays(os.path.join(ckpt, name))
+            if len(leaves) != 32:
+                raise AssertionError(f"{name} holds {len(leaves)} leaves")
+
+        _, resumed_out = _run_cli(base + [
+            "--epochs", str(TRAIN_EPOCHS), "--checkpoint-dir",
+            os.path.join(root, "resumed"), "--resume",
+            os.path.join(ckpt, "checkpoint_0.npz")])
+        resumed = _train_lines(resumed_out, "Epoch: ")
+        if resumed != lines[1:]:
+            raise AssertionError(f"resume did not repeat epoch 1:\n"
+                                 f"{lines[1:]}\n{resumed}")
+        _, eval_out = _run_cli(base + [
+            "-e", "--checkpoint-dir", os.path.join(root, "eval"),
+            "--resume", os.path.join(ckpt, "model_best.npz")])
+        test_lines = _train_lines(eval_out, "Test Loss: ")
+        if len(test_lines) != 1 or _train_lines(eval_out, "Epoch: "):
+            raise AssertionError(f"-e printed:\n{eval_out}")
+        emit("train", epoch_lines=lines, resumed_epoch_lines=resumed,
+             eval_line=test_lines[0], launches=launches,
+             expected_launches=want, train_steps=steps, eval_batches=evals,
+             images_per_sec=[r["images_per_sec"] for r in hist],
+             test_acc=[r["test_acc"] for r in hist], wall_s=wall_s,
+             resume_repeats_epoch_1=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_kind(kernel: str) -> str:
+    """A device kernel's part of a train step, by its name."""
+    name = kernel.lower()
+    for ours in ("xent_fwd", "xent_bwd", "adam"):
+        if f"{ours}_kernel" in name:
+            return ours
+    if "memcpy" in name or "memset" in name:
+        return "copy"
+    if any(s in name for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                               "implicit", "winograd")):
+        return "conv"
+    if any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass", "cublas")):
+        return "fc_gemm"
+    return "other_elementwise"
+
+
+def phase_train_profile(device) -> dict:
+    """Where one train step's device time goes (cnn, batch 256, fused loss
+    and Adam, the host-to-device copy of the batch included), beside the
+    host's wall time per step."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.data.loader import to_device
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        normalize_images,
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.loss import (
+        cross_entropy,
+        set_loss_impl,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
+        metrics_init,
+        metrics_update,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
+
+    set_loss_impl("fused")
+    state = create_train_state(get_model("cnn"), SEED, device,
+                               optimizer="adam_pallas")
+    images, labels = synthetic_dataset(TRAIN_BATCH, seed=SEED + 30)
+    host = {"image": normalize_images(images),
+            "label": labels.astype(np.int64),
+            "mask": np.ones(TRAIN_BATCH, np.float32)}
+
+    def step():
+        return train_step(state, to_device(host, device))
+
+    per = device_ms(step)
+    by_kind = {}
+    for name, ms in per.items():
+        by_kind[_train_kind(name)] = by_kind.get(_train_kind(name), 0.0) + ms
+    iters = 50
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+
+    # The host's time per part: train_step's calls, in its order, each
+    # timed on the host's clock. The device runs behind, so each span is
+    # the Python and launch work of the part, not its device time.
+    parts = ("to_device", "forward", "loss", "backward", "optimizer",
+             "metrics")
+    host_ms = dict.fromkeys(parts, 0.0)
+    for _ in range(iters):
+        stamps = [time.perf_counter()]
+        batch = to_device(host, device)
+        stamps.append(time.perf_counter())
+        logits = state.model(batch["image"])
+        stamps.append(time.perf_counter())
+        loss = cross_entropy(logits, batch["label"], batch["mask"])
+        stamps.append(time.perf_counter())
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        stamps.append(time.perf_counter())
+        state.optimizer.step()
+        stamps.append(time.perf_counter())
+        state.step.add_(1)
+        metrics_update(metrics_init(device), loss.detach(), logits.detach(),
+                       batch["label"], batch["mask"])
+        stamps.append(time.perf_counter())
+        for part, a, b in zip(parts, stamps, stamps[1:]):
+            host_ms[part] += (b - a) / iters * 1e3
+    torch.cuda.synchronize()
+    device_total = sum(per.values())
+    row = {"batch": TRAIN_BATCH, "wall_ms": wall_ms, "device_ms": device_total,
+           "device_busy": device_total / wall_ms, "by_kind_ms": by_kind,
+           "host_ms": host_ms,
+           "images_per_sec_steady": TRAIN_BATCH / wall_ms * 1e3,
+           "distinct_kernels": len(per),
+           "top": sorted(((ms, name[:90]) for name, ms in per.items()),
+                         reverse=True)[:10]}
+    emit("train_profile", **row)
+    return row
+
+
 def main() -> int:
     import_port()
     import torch
@@ -510,9 +940,13 @@ def main() -> int:
                   for k, v in info.items()})
 
     max_err = phase_kernel_vs_plain(device)
+    train_err = phase_train_kernels_vs_plain(device)
     rows = phase_timings(device, peaks)
+    train_rows = phase_train_timings(device, peaks)
     launches = phase_server()
     phase_forward_profile(device)
+    train_launches = phase_train()
+    phase_train_profile(device)
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -532,6 +966,26 @@ def main() -> int:
         "at": "fc1 128x12544x128",
         "shapes": rows,
     }]
+    for kname, replaces in (("xent_fwd", TPU_XENT_FWD),
+                            ("xent_bwd", TPU_XENT_BWD)):
+        row = train_rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"{CSRC}/xent.cu",
+            "replaces": replaces, "launches": train_launches[kname],
+            "max_abs_err": train_err[kname], "ms": row["kernel_ms"],
+            "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "at": f"{TRAIN_BATCH}x{CLASSES}"})
+    all_8 = train_rows["adam"]["all_8"]
+    kernels.append({
+        "name": "adam", "route": "cuda", "source": f"{CSRC}/adam.cu",
+        "replaces": TPU_ADAM, "launches": train_launches["adam"],
+        "max_abs_err": train_err["adam"], "ms": all_8["kernel_ms"],
+        "call_ms": all_8["kernel_call_ms"], "step_ms": all_8["step_ms"],
+        "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
+        "bound_by": "bytes", "library_ms": all_8["library_ms"],
+        "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,270 @@
 """Command-line entry of the port.
 
-``python -m pytorch_distributed_mnist_tpu_torch serve ...`` boots the
-HTTP inference server (``serve/server.py``). Training, the JAX package's
-default subcommand, is not ported yet: any other subcommand exits 2.
+``python -m pytorch_distributed_mnist_tpu_torch [flags]`` trains, as the
+JAX package's bare command does: per-epoch reshuffle, train, eval, the
+reference's epoch line, ``checkpoint_{e}.npz`` plus ``model_best.npz``,
+``--resume`` (a path or ``auto``) and ``-e`` to evaluate only. It runs on
+the card unless ``--device cpu`` is given.
+``python -m pytorch_distributed_mnist_tpu_torch serve ...`` boots the HTTP
+inference server (``serve/server.py``).
+
+The flags are the single-device main-path subset of the JAX package's
+``build_parser``, with its defaults, except ``--trainer-mode``, which
+defaults to ``stepwise``, the one mode ported (``scan`` and ``explicit``
+exit 2). Flags for several processes, meshes, ZeRO, elastic runs and
+publishing are not accepted yet.
 """
 
 from __future__ import annotations
 
+import argparse
+import random
 import sys
 from typing import Optional
 
-NOT_PORTED = ("training is not ported yet: the PyTorch port serves only "
-              "(python -m pytorch_distributed_mnist_tpu_torch serve ...)")
+import numpy as np
+import torch
+
+from pytorch_distributed_mnist_tpu_torch.data.loader import MNISTDataLoader
+from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+    load_dataset,
+    normalize_images,
+)
+from pytorch_distributed_mnist_tpu_torch.models import get_model, list_models
+from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
+from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+    is_corrupt_checkpoint_error,
+    latest_checkpoint,
+    quarantine_checkpoint,
+    save_checkpoint,
+    try_resume,
+)
+from pytorch_distributed_mnist_tpu_torch.train.lr_schedule import (
+    step_decay_schedule,
+)
+from pytorch_distributed_mnist_tpu_torch.train.state import (
+    OPTIMIZERS,
+    create_train_state,
+)
+from pytorch_distributed_mnist_tpu_torch.train.trainer import MODES, Trainer
+from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
+from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
+from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+    JsonlSink,
+    StepTimer,
+)
+
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m pytorch_distributed_mnist_tpu_torch",
+        description="MNIST training on one NVIDIA card (PyTorch/CUDA port)",
+        allow_abbrev=False,
+    )
+    p.add_argument("--root", type=str, default="data", help="dataset root dir")
+    p.add_argument("-j", "--workers", type=int, default=4,
+                   help="accepted for parity with the JAX package; the port "
+                        "gathers batches on the main thread")
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--start-epoch", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--momentum", type=float, default=0.9,
+                   help="for --optimizer sgd")
+    p.add_argument("--wd", "--weight-decay", type=float, default=1e-4,
+                   dest="weight_decay", help="for --optimizer sgd")
+    p.add_argument("--resume", type=str, default="",
+                   help="checkpoint path to resume from, or 'auto' for the "
+                        "newest checkpoint in --checkpoint-dir (trains "
+                        "fresh when there is none yet)")
+    p.add_argument("-e", "--evaluate", action="store_true",
+                   help="evaluate on the test set and exit")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--model", type=str, default="cnn", choices=list_models())
+    p.add_argument("--dataset", type=str, default="mnist",
+                   choices=["mnist", "fashion_mnist", "synthetic"])
+    p.add_argument("--allow-synthetic", action="store_true",
+                   help="if the real dataset's IDX files are missing, train "
+                        "on the labelled synthetic dataset instead of "
+                        "exiting")
+    p.add_argument("--dtype", type=str, default=None, choices=list(_DTYPES),
+                   help="compute dtype; default bfloat16 activations with "
+                        "float32 params and logits. f32 also turns TF32 "
+                        "off on the card")
+    p.add_argument("--optimizer", type=str, default="adam",
+                   choices=list(OPTIMIZERS),
+                   help="adam_pallas = the fused CUDA update kernel")
+    p.add_argument("--loss", type=str, default="xla", choices=["xla", "fused"],
+                   help="cross-entropy impl: xla (plain torch ops) or fused "
+                        "(the CUDA forward and backward kernels)")
+    p.add_argument("--trainer-mode", type=str, default="stepwise",
+                   choices=["scan", "stepwise", "explicit"],
+                   help="only stepwise is ported")
+    p.add_argument("--checkpoint-dir", type=str, default="checkpoints")
+    p.add_argument("--keep-last", type=int, default=0, metavar="N",
+                   help="prune per-epoch checkpoints more than N epochs "
+                        "older than the latest published one (model_best "
+                        "is never pruned); 0 keeps every epoch's file")
+    p.add_argument("--metrics-file", type=str, default=None,
+                   help="append one JSON line per epoch")
+    p.add_argument("--synthetic-train-size", type=int, default=60000)
+    p.add_argument("--synthetic-test-size", type=int, default=10000)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default, raises without a card), cuda:N or "
+                        "cpu")
+    return p
+
+
+def _build_loaders(args, seed: int):
+    name = "mnist" if args.dataset == "synthetic" else args.dataset
+    synthesize = args.dataset == "synthetic"
+    used_synthetic = synthesize
+
+    def load_split(train: bool):
+        nonlocal used_synthetic
+        n = args.synthetic_train_size if train else args.synthetic_test_size
+        if not synthesize:
+            try:
+                return load_dataset(args.root, name, train=train,
+                                    synthesize_if_missing=False)
+            except FileNotFoundError:
+                split = "train" if train else "test"
+                if not args.allow_synthetic:
+                    raise SystemExit(
+                        f"no {name} {split}-split IDX files under "
+                        f"{args.root!r} — place them there, or pass "
+                        f"--allow-synthetic to train on labelled fake data, "
+                        f"or --dataset synthetic.") from None
+                log0(f"WARNING: no {name} {split}-split IDX files under "
+                     f"{args.root!r}; using the synthetic fallback dataset")
+                used_synthetic = True
+        return load_dataset(args.root, name, train=train,
+                            synthetic_train_size=n, synthetic_test_size=n,
+                            seed=seed)
+
+    train_images, train_labels = load_split(train=True)
+    test_images, test_labels = load_split(train=False)
+    train_loader = MNISTDataLoader(normalize_images(train_images),
+                                   train_labels, batch_size=args.batch_size,
+                                   train=True, seed=seed)
+    test_loader = MNISTDataLoader(normalize_images(test_images), test_labels,
+                                  batch_size=args.batch_size, train=False,
+                                  seed=seed)
+    return train_loader, test_loader, used_synthetic
+
+
+def _resume(args, state):
+    """``(state, start_epoch, best_acc, path)``. Under ``--resume auto`` a
+    corrupt newest checkpoint is quarantined and the next-older one
+    tried; a mismatch (another model or optimizer) raises."""
+    auto = args.resume == "auto"
+    while True:
+        if auto:
+            path = latest_checkpoint(args.checkpoint_dir)
+            if not path:
+                log0(f"=> --resume auto: no checkpoint in "
+                     f"'{args.checkpoint_dir}' yet, training fresh")
+                return state, 0, 0.0, ""
+        else:
+            path = args.resume
+        try:
+            state, start_epoch, best_acc = try_resume(path, state)
+        except Exception as exc:
+            if auto and is_corrupt_checkpoint_error(exc):
+                dest = quarantine_checkpoint(path)
+                log0(f"=> quarantined corrupt checkpoint {path!r} -> "
+                     f"{dest!r} ({exc!r}); falling back to the next-older "
+                     f"epoch")
+                continue
+            raise
+        return state, start_epoch, best_acc, path
+
+
+def run(args, epoch_callback=None) -> dict:
+    """Train (or, with ``-e``, evaluate) as the flags say; returns a
+    summary dict. ``epoch_callback(epoch, history_row) -> bool`` fires
+    after each epoch's checkpoint; True stops the loop."""
+    log0(args)
+    if args.trainer_mode not in MODES:
+        print(f"--trainer-mode {args.trainer_mode} is not ported yet: the "
+              f"PyTorch port trains in {', '.join(MODES)} mode",
+              file=sys.stderr)
+        raise SystemExit(2)
+    seed = args.seed if args.seed is not None else 0
+    if args.seed is not None:
+        random.seed(args.seed)
+        np.random.seed(args.seed)
+        torch.manual_seed(args.seed)
+    device = resolve_device(args.device)
+    set_loss_impl(args.loss)
+    model_kwargs = {}
+    if args.dtype:
+        model_kwargs["compute_dtype"] = _DTYPES[args.dtype]
+    state = create_train_state(
+        get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
+        optimizer=args.optimizer, momentum=args.momentum,
+        weight_decay=args.weight_decay)
+    state, start_epoch, best_acc, resume_path = _resume(args, state)
+    if not (resume_path and start_epoch > 0):
+        # A resumed checkpoint's epoch wins over --start-epoch.
+        start_epoch = args.start_epoch
+    train_loader, test_loader, synthesized = _build_loaders(args, seed)
+    trainer = Trainer(state, train_loader, test_loader, device,
+                      mode=args.trainer_mode)
+    lr_of = step_decay_schedule(args.lr)
+
+    if args.evaluate:
+        test_loss, test_acc = trainer.evaluate()
+        log0(f"Test Loss: {test_loss}, Test Acc: {test_acc}")
+        return {"test_loss": test_loss.average,
+                "test_acc": test_acc.accuracy, "best_acc": best_acc,
+                "start_epoch": start_epoch, "epochs_run": 0}
+
+    sink = JsonlSink(args.metrics_file) if args.metrics_file else None
+    timer = StepTimer()
+    history = []
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_sample_epoch(epoch)
+        trainer.state.with_learning_rate(lr_of(epoch))
+        # The pass reads its metrics back before it returns, so the timed
+        # span holds all of the epoch's device work and nothing else.
+        with timer.measure(len(train_loader) * args.batch_size):
+            train_loss, train_acc = trainer.train()
+        test_loss, test_acc = trainer.evaluate()
+        synth_tag = ", dataset: synthetic" if synthesized else ""
+        log0(f"Epoch: {epoch}/{args.epochs}, lr: {lr_of(epoch):g},"
+             f" train loss: {train_loss}, train acc: {train_acc},"
+             f" test loss: {test_loss}, test acc: {test_acc}"
+             f"{synth_tag}")
+        is_best = test_acc.accuracy > best_acc
+        best_acc = max(test_acc.accuracy, best_acc)
+        save_checkpoint(trainer.state, epoch=epoch, best_acc=best_acc,
+                        is_best=is_best, directory=args.checkpoint_dir,
+                        keep_last=args.keep_last,
+                        parallel_layout={"tensor": 1, "sequence": 1,
+                                         "expert": 1, "pipeline": 1})
+        history.append({"epoch": epoch, "train_loss": train_loss.average,
+                        "train_acc": train_acc.accuracy,
+                        "test_loss": test_loss.average,
+                        "test_acc": test_acc.accuracy,
+                        "images_per_sec": timer.last_images_per_sec})
+        if sink is not None:
+            sink.write({**history[-1], "lr": lr_of(epoch),
+                        "best_acc": best_acc,
+                        "dataset": ("synthetic" if synthesized
+                                    else args.dataset)})
+        if epoch_callback is not None and epoch_callback(epoch, history[-1]):
+            break
+    ips = timer.images_per_sec
+    # The reference's line; one device, so the per-chip rate is the rate.
+    log0(f"throughput: {ips:,.0f} images/sec ({ips:,.0f}/chip), "
+         f"best acc: {best_acc * 100:.2f}%")
+    return {"best_acc": best_acc, "history": history,
+            "images_per_sec": ips,
+            "dataset_synthesized": synthesized,
+            "start_epoch": start_epoch, "epochs_run": len(history)}
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -23,5 +276,4 @@ def main(argv: Optional[list] = None) -> None:
 
         serve_main(argv[1:])
         return
-    print(NOT_PORTED, file=sys.stderr)
-    raise SystemExit(2)
+    run(build_parser().parse_args(argv))

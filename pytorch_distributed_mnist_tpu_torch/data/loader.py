@@ -1,0 +1,94 @@
+"""Batch loading for one process.
+
+Counterpart of ``pytorch_distributed_mnist_tpu/data/loader.py``'s
+``MNISTDataLoader`` without its device-array assembly: the loader yields
+numpy batches (``epoch_ticks`` + ``host_batch``, the same index space as
+the reference's), and :func:`to_device` moves one to the card from pinned
+host memory. Train batches drop the ragged tail (``drop_last``); eval
+batches pad it by wrapping and mask the padding out.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from pytorch_distributed_mnist_tpu_torch.data.sampler import (
+    DistributedShardSampler,
+)
+
+
+class MNISTDataLoader:
+    """Iterates ``{"image", "label", "mask"}`` numpy batches."""
+
+    def __init__(
+        self,
+        images: np.ndarray,  # float32 (N, 28, 28, 1), already normalized
+        labels: np.ndarray,  # int (N,)
+        batch_size: int,
+        train: bool = True,
+        seed: int = 0,
+        drop_last: Optional[bool] = None,
+    ) -> None:
+        self.images = images
+        self.labels = np.asarray(labels, np.int64)  # torch's index type
+        self.batch_size = batch_size
+        self.train = train
+        self.drop_last = train if drop_last is None else drop_last
+        self.sampler = DistributedShardSampler(
+            dataset_len=images.shape[0], shuffle=train, seed=seed)
+
+    def set_sample_epoch(self, epoch: int) -> None:
+        """Reseed this epoch's shuffle (the reference's name)."""
+        self.sampler.set_epoch(epoch)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        n = len(self.sampler)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def epoch_ticks(self, epoch: Optional[int] = None):
+        """``(steps, batch)`` index matrix and 0/1 validity mask of an
+        epoch; a ragged tail (eval) wraps from the front and is masked."""
+        idx, valid = self.sampler.indices_and_mask(epoch)
+        steps = self.steps_per_epoch
+        need = steps * self.batch_size
+        mask = np.ones(need, np.float32)
+        mask[: min(idx.size, need)] = valid[:need]
+        if need > idx.size:
+            mask[idx.size:] = 0.0
+            idx = np.concatenate([idx, idx[: need - idx.size]])
+        shape = (steps, self.batch_size)
+        return idx[:need].reshape(shape), mask.reshape(shape)
+
+    def host_batch(self, row: np.ndarray, mrow: np.ndarray) \
+            -> Dict[str, np.ndarray]:
+        """One batch's host rows for an ``epoch_ticks`` row."""
+        return {"image": self.images[row], "label": self.labels[row],
+                "mask": mrow}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        m, mask = self.epoch_ticks()
+        for row, mrow in zip(m, mask):
+            yield self.host_batch(row, mrow)
+
+    def __len__(self) -> int:
+        return self.steps_per_epoch
+
+
+def to_device(batch: Dict[str, np.ndarray],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``. For the card each array is
+    copied into pinned host memory and sent with ``non_blocking=True``, so
+    the copy is queued on the current stream behind the previous step's
+    work instead of stalling the host."""
+    out = {}
+    for key, arr in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[key] = t
+    return out

@@ -1,5 +1,5 @@
-"""MNIST-family dataset IO: the IDX format, the reference normalize, and a
-deterministic synthetic dataset.
+"""MNIST-family dataset IO: the IDX format, the reference normalize, a
+deterministic synthetic dataset and ``load_dataset`` over ``--root``.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/data/mnist.py`` (the
 pure-NumPy paths; the port has no native loader). ``normalize_images`` is
@@ -11,6 +11,7 @@ as one float32 NumPy expression; the serving plane's on-device normalize
 from __future__ import annotations
 
 import gzip
+import os
 import struct
 from typing import Tuple
 
@@ -93,6 +94,54 @@ def synthetic_dataset(
         canvas[r : r + gh, c : c + gw] = glyphs[labels[i]] * 255.0 * intensity[i]
         images[i] = np.clip(canvas + noise[i], 0, 255).astype(np.uint8)
     return images, labels
+
+
+_FILES = {
+    True: ("train-images-idx3-ubyte", "train-labels-idx1-ubyte"),
+    False: ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"),
+}
+
+
+def dataset_dir(root: str, name: str) -> str:
+    """Directory holding the IDX files of dataset ``name`` under ``root``:
+    torchvision's layout (``root/MNIST/raw``), ``root/<name>/`` or
+    ``root/`` itself."""
+    tv = {"mnist": "MNIST/raw", "fashion_mnist": "FashionMNIST/raw"}.get(
+        name, name)
+    for sub in (tv, name, ""):
+        d = os.path.join(root, sub) if sub else root
+        if os.path.isfile(os.path.join(d, _FILES[True][0])) or os.path.isfile(
+                os.path.join(d, _FILES[True][0] + ".gz")):
+            return d
+    return os.path.join(root, name)
+
+
+def load_dataset(root: str, name: str = "mnist", train: bool = True,
+                 synthesize_if_missing: bool = True,
+                 synthetic_train_size: int = 60000,
+                 synthetic_test_size: int = 10000,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``(images u8 (N, 28, 28), labels u8)`` from the split's IDX files
+    under ``root`` (plain or ``.gz``), else the synthetic dataset (train
+    and test drawn from disjoint seeds), else ``FileNotFoundError``. Real
+    files always win. There is no download: nothing is fetched."""
+    d = dataset_dir(root, name)
+    img_name, lbl_name = _FILES[train]
+    for suffix in ("", ".gz"):
+        ip = os.path.join(d, img_name + suffix)
+        lp = os.path.join(d, lbl_name + suffix)
+        if os.path.isfile(ip) and os.path.isfile(lp):
+            images, labels = parse_idx(ip), parse_idx(lp)
+            if images.shape[0] != labels.shape[0]:
+                raise ValueError(f"{ip}: image/label count mismatch")
+            return images, labels
+    if not synthesize_if_missing:
+        raise FileNotFoundError(
+            f"no {name} IDX files under {root!r} (looked in {d!r}); place "
+            "train-images-idx3-ubyte[.gz] etc. there, or enable the "
+            "synthetic fallback")
+    n = synthetic_train_size if train else synthetic_test_size
+    return synthetic_dataset(n, seed=seed + (0 if train else 1_000_003))
 
 
 def normalize_images(images: np.ndarray) -> np.ndarray:

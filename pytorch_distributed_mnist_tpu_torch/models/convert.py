@@ -1,17 +1,27 @@
-"""Carry params between the JAX package's layout and the port's.
+"""Carry params and train states between the JAX package's layout and the
+port's.
 
-A JAX checkpoint names each param leaf by its path in the train state,
-e.g. ``['params']['params']['conv1']['kernel']``. The port's models name
-them as PyTorch does (``conv1.weight``, ``fc1.kernel``). Convolution
-kernels go from HWIO to OIHW; Dense kernels keep ``(in, out)``, the
-``(K, N)`` operand the int8 matmul takes; biases are unchanged.
+A JAX checkpoint names each leaf by its path in the train state, e.g.
+``['params']['params']['conv1']['kernel']``. The port's models name
+params as PyTorch does (``conv1.weight``, ``fc1.kernel``). Convolution
+kernels, and their Adam moments, go from HWIO to OIHW; Dense kernels keep
+``(in, out)``, the ``(K, N)`` operand the int8 matmul takes; biases are
+unchanged.
+
+A full train state is carried leaf by leaf in the order JAX flattens it
+(:func:`state_leaves`), because the JAX loader restores by position: the
+sorted keys ``opt_state``, ``params``, ``step``; inside ``opt_state`` the
+injection wrapper's ``count``, its ``hyperparams`` (sorted) and its inner
+state; every per-param tree in :func:`jax_param_order`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from pytorch_distributed_mnist_tpu_torch.models.registry import get_model
 
@@ -25,11 +35,41 @@ def param_shapes(model_name: str) -> Dict[str, tuple]:
             for name, p in get_model(model_name).named_parameters()}
 
 
-def jax_leaf_name(port_name: str) -> str:
-    """``conv1.weight`` -> ``['params']['params']['conv1']['kernel']``."""
+def jax_param_path(port_name: str) -> str:
+    """``conv1.weight`` -> ``['params']['conv1']['kernel']``: the param's
+    path inside the flax variables (and inside each moment tree)."""
     layer, leaf = port_name.rsplit(".", 1)
     leaf = "bias" if leaf == "bias" else "kernel"
-    return f"['params']['params']['{layer}']['{leaf}']"
+    return f"['params']['{layer}']['{leaf}']"
+
+
+def jax_leaf_name(port_name: str) -> str:
+    """``conv1.weight`` -> ``['params']['params']['conv1']['kernel']``."""
+    return "['params']" + jax_param_path(port_name)
+
+
+def key_path(jax_name: str) -> Tuple[str, ...]:
+    """The dict keys of a JAX leaf name, outermost first."""
+    return tuple(re.findall(r"\['([^']*)'\]", jax_name))
+
+
+def jax_param_order(port_names: Iterable[str]) -> List[str]:
+    """Port param names in the order JAX flattens the params tree: nested
+    dicts flatten by sorted keys at each level (layer, then ``bias`` before
+    ``kernel``), which is the lexicographic order of the key paths."""
+    return sorted(port_names, key=lambda n: key_path(jax_leaf_name(n)))
+
+
+def _to_jax_layout(arr: np.ndarray) -> np.ndarray:
+    """A C-ordered copy, HWIO for a 4-D leaf (0-d leaves stay 0-d)."""
+    return np.array(arr.transpose(_OIHW_TO_HWIO) if arr.ndim == 4 else arr,
+                    order="C")
+
+
+def _to_port_layout(arr: np.ndarray) -> np.ndarray:
+    """A C-ordered copy, OIHW for a 4-D leaf (0-d leaves stay 0-d)."""
+    return np.array(arr.transpose(_HWIO_TO_OIHW) if arr.ndim == 4 else arr,
+                    order="C")
 
 
 def params_from_jax(model_name: str, flat: Dict[str, np.ndarray]) \
@@ -44,27 +84,21 @@ def params_from_jax(model_name: str, flat: Dict[str, np.ndarray]) \
         if key not in flat:
             raise ValueError(f"model {model_name!r}: checkpoint has no leaf "
                              f"{key}")
-        arr = np.asarray(flat[key], dtype=np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(_HWIO_TO_OIHW)
+        arr = _to_port_layout(np.asarray(flat[key], dtype=np.float32))
         if arr.shape != shape:
             raise ValueError(f"model {model_name!r}: leaf {key} has shape "
                              f"{arr.shape} in the port's layout, expected "
                              f"{shape}")
-        out[name] = np.array(arr, dtype=np.float32, order="C")
+        out[name] = arr
     return out
 
 
 def params_to_jax(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax`: port params -> JAX-named
     leaves in the JAX layouts (what the checkpoint writer stores)."""
-    out = {}
-    for name, value in params.items():
-        arr = np.asarray(value, dtype=np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(_OIHW_TO_HWIO)
-        out[jax_leaf_name(name)] = np.ascontiguousarray(arr)
-    return out
+    return {jax_leaf_name(name): _to_jax_layout(
+                np.asarray(value, dtype=np.float32))
+            for name, value in params.items()}
 
 
 def init_params(model_name: str, seed: int) -> Dict[str, np.ndarray]:
@@ -81,3 +115,62 @@ def init_params(model_name: str, seed: int) -> Dict[str, np.ndarray]:
             arr = rng.normal(0.0, 1.0 / np.sqrt(fan_in), size=shape)
         out[name] = arr.astype(np.float32)
     return out
+
+
+def state_leaves(state) -> List[Tuple[str, torch.Tensor]]:
+    """``(JAX leaf name, tensor)`` of every leaf of a port train state
+    (``train/state.py::TrainState``), in the JAX package's flatten order.
+    The tensors are the live ones (device, port layout)."""
+    params = dict(state.model.named_parameters())
+    names = jax_param_order(params)
+    opt = state.optimizer
+    if [id(p) for p in opt.params] != [id(params[n]) for n in names]:
+        raise ValueError("the optimizer's params are not the model's in "
+                         "the JAX flatten order")
+    out = [("['opt_state'].count", opt.count)]
+    out += [(f"['opt_state'].hyperparams['{k}']", opt.hyperparams[k])
+            for k in sorted(opt.hyperparams)]
+    for prefix, value in opt.inner_leaves():
+        if isinstance(value, list):
+            out += [(prefix + jax_param_path(n), t)
+                    for n, t in zip(names, value)]
+        else:
+            out.append((prefix, value))
+    out += [(jax_leaf_name(n), params[n]) for n in names]
+    out.append(("['step']", state.step))
+    return out
+
+
+def state_to_jax(state) -> List[Tuple[str, np.ndarray]]:
+    """The train state as ``(JAX name, host array in the JAX layout)`` in
+    flatten order: what the checkpoint writer stores. One device-to-host
+    copy per leaf."""
+    return [(name, _to_jax_layout(t.detach().cpu().numpy()))
+            for name, t in state_leaves(state)]
+
+
+def load_state_from_jax(state, names: Sequence[str],
+                        arrays: Sequence[np.ndarray], path: str = "") -> None:
+    """Restore a train state in place from a checkpoint's leaves, by
+    position as the JAX loader does, checking the count, each name and
+    each shape; dtypes follow the live state (int32 counts, float32
+    rest). Raises ``ValueError`` on any mismatch, before anything is
+    written."""
+    leaves = state_leaves(state)
+    if len(leaves) != len(arrays):
+        raise ValueError(f"{path}: checkpoint has {len(arrays)} leaves, "
+                         f"current state has {len(leaves)} — "
+                         f"model/optimizer mismatch")
+    staged = []
+    for (name, t), saved, arr in zip(leaves, names, arrays):
+        if name != saved:
+            raise ValueError(f"{path}: leaf {saved} where the state has "
+                             f"{name} — model/optimizer mismatch")
+        arr = _to_port_layout(np.asarray(arr))
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"{path}: leaf {name} shape {arr.shape} != "
+                             f"expected {tuple(t.shape)}")
+        staged.append((t, torch.from_numpy(arr)))
+    with torch.no_grad():
+        for t, value in staged:
+            t.copy_(value.to(t.dtype))

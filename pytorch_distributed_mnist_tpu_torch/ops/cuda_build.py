@@ -31,7 +31,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # name -> {C symbol: (argtypes, restype)}. Every pointer and the stream are
 # c_void_p: left undeclared, ctypes would pass a Python int as a 32-bit int
@@ -41,6 +41,17 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         # a, b, c, m, n, k, lda, ldb, ldc, splits, device, stream
         "matmul_i8_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P], _I),
+    },
+    "xent": {
+        # logits, labels, loss, lse, b, c, ld, device, stream
+        "xent_fwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # logits, labels, lse, g, dlogits, b, c, ld, ldd, device, stream
+        "xent_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                            _I),
+    },
+    "adam": {
+        # p, g, m, v, hypers, n, device, stream
+        "adam_launch": ([_P, _P, _P, _P, _P, _L, _I, _P], _I),
     },
 }
 

@@ -42,6 +42,9 @@ from pytorch_distributed_mnist_tpu_torch.serve.programs import (
     QuantLeaf,
     get_precision,
 )
+from pytorch_distributed_mnist_tpu_torch.train.steps import (
+    make_forward_program,
+)
 from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import WarmupLog
 
@@ -212,6 +215,9 @@ class InferenceEngine:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.model = model.eval()
+        # Evaluation's forward (train/steps.py): serve and eval cannot
+        # disagree on the forward's math.
+        self._apply = make_forward_program(self.model)
         self._precision_spec = get_precision(precision)
         self.precision = self._precision_spec.name
         self._forward = self._precision_spec.wrap_forward(self._apply)
@@ -229,10 +235,6 @@ class InferenceEngine:
             dtype=self._precision_spec.input_dtype, pin=self._cuda)
         self._raw_staging = StagingPool(self.buckets, self.raw_shape,
                                         dtype=torch.uint8, pin=self._cuda)
-
-    def _apply(self, params, x):
-        return torch.func.functional_call(self.model, params, (x,),
-                                          strict=True)
 
     def _place(self, params):
         """Quantize (host-side, per install) and move a params dict to this

@@ -2,13 +2,20 @@
 
 Counterpart of the npz paths of ``pytorch_distributed_mnist_tpu/train/
 checkpoint.py``. A ``checkpoint_{e}.npz`` is a zip of ``leaf_{i}`` arrays
-plus a ``__meta__`` JSON (``epoch`` stored as ``e + 1``, ``leaf_names``,
-``format_version``, ``world``). Serving reads the ``['params']`` leaves by
-name and ignores ``opt_state`` and ``step``. The writer stores params
-only, with the same atomic tmp + ``os.replace`` publish, so a directory
-written here is served by the port's reload watcher exactly as a training
-run's is. Sharded ``.ckpt`` and delta ``.manifest`` layouts are not
-ported yet.
+plus a ``__meta__`` JSON (``epoch`` stored as ``e + 1``, ``best_acc``,
+``leaf_names``, ``format_version``, ``world``). Every write goes to a tmp
+name and is published with ``os.replace``, so a reader (the serving
+reload watcher, a resume) never sees half a file.
+
+- Training (:func:`save_checkpoint`, :func:`load_checkpoint`) carries the
+  full train state: params, optimizer state and step, leaf by leaf in the
+  JAX package's flatten order (``models/convert.py::state_leaves``),
+  because the JAX loader restores by position. A checkpoint written here
+  resumes in the JAX package and the other way round.
+- Serving (:func:`load_params`) reads the ``['params']`` leaves by name;
+  :func:`save_params_checkpoint` writes params only.
+
+Sharded ``.ckpt`` and delta ``.manifest`` layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,11 +24,21 @@ import io
 import json
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pytorch_distributed_mnist_tpu_torch.models.convert import (
+    key_path,
+    load_state_from_jax,
+    state_to_jax,
+)
+
 FORMAT_VERSION = 1
+# Quarantine suffix for corrupt checkpoints; the ``checkpoint_{e}.npz``
+# pattern never matches it.
+CORRUPT_SUFFIX = ".corrupt"
 
 
 def _read_meta(path: str) -> Dict[str, Any]:
@@ -54,22 +71,23 @@ def load_params(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     return params, int(meta["epoch"]) - 1
 
 
-def save_params_checkpoint(flat: Dict[str, np.ndarray], *, epoch: int,
-                           directory: str, best_acc: float = 0.0) -> str:
-    """Publish ``checkpoint_{epoch}.npz`` holding ``flat`` (JAX-named
-    param leaves) in the v1 layout; returns its path. Written to a tmp
-    name and renamed, so a watcher never sees half a file."""
+def _write_npz(leaves: List[Tuple[str, np.ndarray]], *, epoch: int,
+               best_acc: float, directory: str,
+               parallel_layout: Optional[Dict[str, Any]] = None) -> str:
+    """Publish ``checkpoint_{epoch}.npz`` holding ``leaves`` in the given
+    order; returns its path. Written to a tmp name and renamed."""
     os.makedirs(directory, exist_ok=True)
-    names = sorted(flat)
     meta = {
         "epoch": epoch + 1,
         "best_acc": float(best_acc),
-        "leaf_names": names,
+        "leaf_names": [name for name, _ in leaves],
         "format_version": FORMAT_VERSION,
         "world": {"processes": 1, "devices": 1},
     }
-    payload = {f"leaf_{i}": np.asarray(flat[name])
-               for i, name in enumerate(names)}
+    if parallel_layout is not None:
+        meta["parallel_layout"] = dict(parallel_layout)
+    payload = {f"leaf_{i}": np.asarray(arr)
+               for i, (_, arr) in enumerate(leaves)}
     buf = io.BytesIO()
     np.savez(buf, __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8),
              **payload)
@@ -79,6 +97,57 @@ def save_params_checkpoint(flat: Dict[str, np.ndarray], *, epoch: int,
         f.write(buf.getvalue())
     os.replace(tmp, path)  # atomic publish
     return path
+
+
+def save_params_checkpoint(flat: Dict[str, np.ndarray], *, epoch: int,
+                           directory: str, best_acc: float = 0.0) -> str:
+    """Publish ``checkpoint_{epoch}.npz`` holding ``flat`` (JAX-named
+    param leaves) in the v1 layout, in the order JAX flattens nested
+    dicts (sorted keys at each level); returns its path."""
+    names = sorted(flat, key=key_path)
+    return _write_npz([(name, flat[name]) for name in names], epoch=epoch,
+                      best_acc=best_acc, directory=directory)
+
+
+def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
+                    directory: str, keep_last: int = 0,
+                    parallel_layout: Optional[Dict[str, Any]] = None) -> str:
+    """Write the full train state to ``checkpoint_{epoch}.npz`` (meta
+    epoch ``epoch + 1``, the epoch a resume continues at), copy it to
+    ``model_best.npz`` when ``is_best``, then prune past ``keep_last``;
+    returns the path. The leaves come off the device here: one host sync
+    per save."""
+    path = _write_npz(state_to_jax(state), epoch=epoch, best_acc=best_acc,
+                      directory=directory, parallel_layout=parallel_layout)
+    if is_best:
+        best = os.path.join(directory, "model_best.npz")
+        shutil.copyfile(path, best + ".tmp")
+        os.replace(best + ".tmp", best)
+    prune_checkpoints(directory, keep_last)
+    return path
+
+
+def load_checkpoint(path: str, state) -> Tuple[Any, int, float]:
+    """Restore ``state`` in place from a full-state checkpoint of the same
+    model and optimizer (the port's or the JAX package's); returns
+    ``(state, start_epoch, best_acc)``. Raises ``ValueError`` on a leaf
+    count, name or shape mismatch and leaves the state untouched."""
+    meta, leaves = read_checkpoint_arrays(path)
+    load_state_from_jax(state, list(leaves), list(leaves.values()), path)
+    return state, int(meta["epoch"]), float(meta["best_acc"])
+
+
+def try_resume(path: str, state) -> Tuple[Any, int, float]:
+    """The reference's resume policy: load ``path`` if it exists, else
+    warn and continue fresh with ``(state, 0, 0.0)``."""
+    if path and os.path.isfile(path):
+        state, start_epoch, best_acc = load_checkpoint(path, state)
+        print(f"=> loaded checkpoint '{path}' (epoch {start_epoch})",
+              flush=True)
+        return state, start_epoch, best_acc
+    if path:
+        print(f"=> no checkpoint found at '{path}'", flush=True)
+    return state, 0, 0.0
 
 
 def checkpoint_parallel_layout(path: str) -> Optional[Dict[str, Any]]:
@@ -123,3 +192,37 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     """Path of the highest-epoch ``checkpoint_{e}.npz``, or None."""
     found = _epoch_checkpoints(directory)
     return found[-1][1] if found else None
+
+
+def quarantine_checkpoint(path: str) -> str:
+    """Rename a corrupt checkpoint out of the resolution namespace:
+    ``checkpoint_{e}.npz`` -> ``checkpoint_{e}.npz.corrupt`` (then
+    ``.corrupt2``...), so ``latest_checkpoint`` falls back to the
+    next-older epoch and pruning never touches the evidence. Returns the
+    quarantine path."""
+    dest = path + CORRUPT_SUFFIX
+    n = 2
+    while os.path.exists(dest):
+        dest = f"{path}{CORRUPT_SUFFIX}{n}"
+        n += 1
+    os.replace(path, dest)
+    return dest
+
+
+def prune_checkpoints(directory: str, keep_last: int) -> None:
+    """Delete per-epoch checkpoints strictly older than the latest
+    published epoch minus ``keep_last`` (``keep_last <= 0`` keeps all;
+    ``model_best`` is never pruned). Keyed to the latest published epoch
+    ``L``, the window ``[L - keep_last, L]`` always survives, so a serving
+    reload watcher mid-load on the previous latest keeps its file for
+    ``keep_last`` further publishes."""
+    if keep_last <= 0:
+        return
+    found = _epoch_checkpoints(directory)
+    if not found:
+        return
+    latest_epoch = found[-1][0]
+    for epoch, path in found:
+        if epoch >= latest_epoch - keep_last:
+            break  # sorted: everything from here on is inside the window
+        os.remove(path)

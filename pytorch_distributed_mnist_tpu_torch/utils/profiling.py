@@ -1,5 +1,6 @@
-"""Serving observability of the port: the JSONL metrics sink, the
-:class:`ServeLog` behind ``/stats``, and the per-bucket warm-up record.
+"""Observability of the port: the training :class:`StepTimer`, the JSONL
+metrics sink, the :class:`ServeLog` behind ``/stats``, and the per-bucket
+warm-up record.
 
 Counterpart of the serving parts of ``pytorch_distributed_mnist_tpu/
 utils/profiling.py``. The reference's ``CompileLog`` block of ``/stats``
@@ -18,6 +19,40 @@ import os
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+
+class StepTimer:
+    """Throughput meter over explicitly measured phases: only wall time
+    inside ``measure(...)`` counts, so eval and checkpoint time between
+    epochs do not dilute the training rate. The caller makes sure the
+    device work is done before a block exits (the trainer reads its
+    metrics back inside it)."""
+
+    def __init__(self) -> None:
+        self.images = 0
+        self.seconds = 0.0
+        self.last_images = 0
+        self.last_seconds = 0.0
+
+    @contextlib.contextmanager
+    def measure(self, images: int):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.last_seconds = time.perf_counter() - t0
+            self.last_images = images
+            self.seconds += self.last_seconds
+            self.images += images
+
+    @property
+    def images_per_sec(self) -> float:
+        return self.images / max(self.seconds, 1e-9)
+
+    @property
+    def last_images_per_sec(self) -> float:
+        """Rate of the most recent measured phase only."""
+        return self.last_images / max(self.last_seconds, 1e-9)
 
 
 class JsonlSink:

@@ -91,6 +91,38 @@ def test_init_params_is_seeded_and_shaped():
     assert a["conv1.weight"].shape == (32, 1, 3, 3)
 
 
+def test_training_init_draws_like_flax_lecun_normal():
+    # The values are the port's own (a torch generator), so the contract
+    # is the distribution. Biases are zero. Each kernel's std is
+    # sqrt(1 / fan_in), which is what the 0.8796 constant makes of a normal
+    # cut at 2 std, within 4 standard errors of a std estimate
+    # (4 / sqrt(2n): 17% for conv1's 288 draws, 0.2% for fc1's 1.6 M). No
+    # draw lies past the cut. fc1's quantiles are within 2% of a std of
+    # those of flax's lecun_normal on the same shape (5 standard errors
+    # of the 1% quantile at that size).
+    from pytorch_distributed_mnist_tpu_torch.models.registry import (
+        lecun_normal_init,
+    )
+
+    model = get_model("cnn")
+    lecun_normal_init(model, seed=0)
+    for name, p in model.named_parameters():
+        got = p.detach().numpy().ravel()
+        if name.endswith(".bias"):
+            assert not got.any()
+            continue
+        fan_in = got.size // p.shape[0 if p.dim() == 4 else 1]
+        std = (1.0 / fan_in) ** 0.5
+        assert abs(got.std() / std - 1) < 4 / (2 * got.size) ** 0.5, name
+        assert np.abs(got).max() <= 2 * std / 0.87962566103423978 * (1 + 1e-6)
+    got = model.fc1.kernel.detach().numpy().ravel()
+    want = np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.key(0), (12544, 128), jnp.float32)).ravel()
+    qs = [0.01, 0.1, 0.5, 0.9, 0.99]
+    np.testing.assert_allclose(np.quantile(got, qs), np.quantile(want, qs),
+                               atol=0.02 * want.std(), rtol=0)
+
+
 @pytest.mark.parametrize("name", ["cnn", "linear"])
 @pytest.mark.parametrize("layout", ["nhwc", "hw", "flat"])
 def test_f32_logits_match_jax(name, layout):
