@@ -40,7 +40,21 @@ Phases, each printing one JSON line:
    fc products, the cross-entropy kernels, Adam, other elementwise work,
    copies), beside the host's wall time per step and its time per part
    (batch copy, forward, loss, backward, optimizer, metrics);
-8. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+8. flash against plain: the forward, dQ and dK/dV kernels against
+   ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` at the
+   ViT's shape (256, 49, 4, 16) and at T in {1, 16, 196, 200}, D in {8,
+   16, 32, 64, 128}, float32 and bfloat16, causal and not
+   (``flash_tolerance`` states each tolerance and why);
+9. flash timings: device ms per call of the three kernels at the ViT's
+   shape in bf16, their plain versions, ``F.scaled_dot_product_attention``
+   forward and backward as the yardstick, and each kernel's bound;
+10. train the ViT: as phase 6 with ``--model vit --attention flash``:
+   test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
+   160, flash_dq and flash_dkv 128, xent 80/64, adam 1984), 101-leaf
+   checkpoints, resume and ``-e``;
+11. ViT train profile: as phase 7 for one ViT step (flash kernels, GEMMs,
+   LayerNorm/GELU and other elementwise work, xent, Adam, copies);
+12. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -74,17 +88,19 @@ CHECK_SHAPES = ([(m,) + FC1 for m in PATH_BUCKETS]
                 + [(5, 784, 10), (33, 12544, 128), (3, 7, 5), (130, 200, 70)])
 # Peak rates of the part nvidia-smi names (data sheets, dense): device
 # memory bytes/s, int8 tensor-core operations/s, float32 operations/s
-# outside the tensor cores.
+# outside the tensor cores, bf16 tensor-core operations/s.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 1513e12, 51e12),
-    "H100 NVL": (3.9e12, 1671e12, 60e12),
-    "H100": (3.35e12, 1979e12, 67e12),  # SXM
-    "H200": (4.8e12, 1979e12, 67e12),
+    "H100 PCIe": (2.0e12, 1513e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 1671e12, 60e12, 835e12),
+    "H100": (3.35e12, 1979e12, 67e12, 989e12),  # SXM
+    "H200": (4.8e12, 1979e12, 67e12, 989e12),
 }
 TPU_KERNEL = "pytorch_distributed_mnist_tpu/ops/pallas/matmul_i8.py:66"
 TPU_XENT_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:124"
 TPU_XENT_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:154"
 TPU_ADAM = "pytorch_distributed_mnist_tpu/ops/pallas/adam.py:64"
+TPU_FLASH_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:147"
+TPU_FLASH_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:274"
 CSRC = "pytorch_distributed_mnist_tpu_torch/csrc"
 # The training path: batch 256 of cnn's 10 classes; the smoke's run.
 TRAIN_BATCH = 256
@@ -94,6 +110,32 @@ TRAIN_ARGS = ["--model", "cnn", "--loss", "fused", "--optimizer",
               "--synthetic-train-size", "8192", "--synthetic-test-size",
               "2048", "--batch-size", str(TRAIN_BATCH), "--seed", str(SEED)]
 TRAIN_EPOCHS = 2
+# The ViT's training path (--attention flash): its defaults (patch 4, 49
+# tokens, embed 64, 4 heads of 16, depth 2), the same data and batch.
+VIT_TRAIN_ARGS = ["--model", "vit", "--attention", "flash", "--loss",
+                  "fused", "--optimizer", "adam_pallas", "--dataset",
+                  "synthetic", "--synthetic-train-size", "8192",
+                  "--synthetic-test-size", "2048", "--batch-size",
+                  str(TRAIN_BATCH), "--seed", str(SEED)]
+VIT_SHAPE = (TRAIN_BATCH, 49, 4, 16)  # (B, T, H, D) of each attention
+VIT_DEPTH = 2
+# What each training run's checks need: its flags, the train state's
+# leaf count, the params the optimizer walks, the attention layers, and
+# the test-accuracy floor after epoch 1. The ViT's floor sits a few
+# points under the CPU rehearsal of the same command (92.68%, plain
+# versions; README).
+TRAIN_RUNS = {
+    "cnn": {"args": TRAIN_ARGS, "leaves": 32, "params": 8, "depth": 0,
+            "floor": 0.90},
+    "vit": {"args": VIT_TRAIN_ARGS, "leaves": 101, "params": 31,
+            "depth": VIT_DEPTH, "floor": 0.88},
+}
+# Shapes the flash kernels are held against their plain versions at: the
+# ViT's, then T in {1, 16, 196, 200} and D in {16, 32, 64, 128} at small
+# B*H, and D = 8 (below one thread's 16 dims).
+FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
+                      (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
+                      (3, 130, 2, 32), (1, 70, 1, 8)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -641,7 +683,7 @@ def phase_train_timings(device, peaks) -> dict:
     from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    bw, _, f32_rate = peaks
+    bw, _, f32_rate, _ = peaks
     b, c = TRAIN_BATCH, CLASSES
     logits, labels, g = xent_inputs(b, c, gen, device)
     _, lse = xent.xent_fwd(logits, labels)
@@ -715,6 +757,181 @@ def phase_train_timings(device, peaks) -> dict:
     return rows
 
 
+def flash_tolerance(dtype) -> dict:
+    """Kernel against plain version, per output. float32: the same
+    products summed in another order (FMA chains over D and over keys with
+    an online max, against torch's batched products after the row max),
+    so ``rtol 1e-4`` with ``atol 1e-5`` times the output's largest value.
+    bfloat16: both sum in float32 from the same bf16 inputs and round once
+    at the output, where float32 noise can cross a rounding boundary: one
+    bf16 step, ``rtol 2**-7``, with ``atol 2**-8`` times the largest value.
+    lse and delta stay float32 in both."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return {"rtol": 2.0 ** -7, "atol_scale": 2.0 ** -8}
+    return {"rtol": 1e-4, "atol_scale": 1e-5}
+
+
+def _close(name, got, want, tol, where) -> float:
+    """Raises unless ``got`` is within ``tol`` of ``want``; returns the
+    largest absolute error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    atol = tol["atol_scale"] * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=atol,
+                               msg=lambda m: f"{name} at {where}: {m}")
+    return float((got - want).abs().max())
+
+
+def flash_inputs(shape, dtype, gen, device):
+    """q, k, v as the ViT hands them over (slices of one (B, T, 3, H, D)
+    product) and an upstream gradient dO."""
+    import torch
+
+    b, t, h, d = shape
+    qkv = torch.randn(b, t, 3, h, d, device=device, generator=gen).to(dtype)
+    do = torch.randn(b, t, h, d, device=device, generator=gen).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
+def phase_flash_vs_plain(device) -> dict:
+    """The three flash kernels against their plain versions on the card,
+    at every shape of ``FLASH_CHECK_SHAPES``, float32 and bfloat16, causal
+    and not; O, lse, dQ, delta, dK and dV all compared. Each backward
+    kernel takes the plain forward's O and lse (and the dK/dV kernel the
+    plain delta), so each is held against its plain version on the same
+    inputs. Returns each kernel's largest error."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    f32 = flash_tolerance(torch.float32)
+    for shape in FLASH_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = flash_tolerance(dtype)
+            for causal in (False, True):
+                where = f"{shape} {dtype} causal={causal}"
+                q, k, v, do = flash_inputs(shape, dtype, gen, device)
+                o, lse = flash.flash_fwd(q, k, v, causal=causal)
+                want_o, want_lse = flash.flash_fwd_plain(q, k, v,
+                                                         causal=causal)
+                dq, delta = flash.flash_dq(q, k, v, want_o, want_lse, do,
+                                           causal=causal)
+                want_dq, want_delta = flash.flash_dq_plain(
+                    q, k, v, want_o, want_lse, do, causal=causal)
+                dk, dv = flash.flash_dkv(q, k, v, want_lse, want_delta, do,
+                                         causal=causal)
+                want_dk, want_dv = flash.flash_dkv_plain(
+                    q, k, v, want_lse, want_delta, do, causal=causal)
+                torch.cuda.synchronize()
+                if o.dtype != dtype or dq.dtype != dtype \
+                        or lse.dtype != torch.float32:
+                    raise AssertionError(f"flash output dtypes at {where}")
+                worst["flash_fwd"] = max(
+                    worst["flash_fwd"],
+                    _close("O", o, want_o, tol, where),
+                    _close("lse", lse, want_lse, f32, where))
+                worst["flash_dq"] = max(
+                    worst["flash_dq"], _close("dQ", dq, want_dq, tol, where),
+                    _close("delta", delta, want_delta, f32, where))
+                worst["flash_dkv"] = max(
+                    worst["flash_dkv"], _close("dK", dk, want_dk, tol, where),
+                    _close("dV", dv, want_dv, tol, where))
+    emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
+         dtypes=["float32", "bfloat16"], causal=[False, True],
+         tolerance={"float32": flash_tolerance(torch.float32),
+                    "bfloat16": flash_tolerance(torch.bfloat16)},
+         max_abs_err=worst)
+    return worst
+
+
+def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
+    """(least ms, what bounds it, bytes, operations) of one flash kernel:
+    each input read once and each output written once (q, k, v, O, dO,
+    dQ, dK, dV of ``elem_bytes`` each; lse and delta float32), against the
+    products' 2 operations per multiply-add (two products in the forward,
+    three in dQ, four in dK/dV) at the card's bf16 tensor-core rate."""
+    b, t, h, d = shape
+    tensor = b * t * h * d * elem_bytes
+    row = b * h * t * 4
+    bytes_moved, products = {
+        # q, k, v in; O, lse out
+        "flash_fwd": (3 * tensor + tensor + row, 2),
+        # q, k, v, O, dO, lse in; dQ, delta out
+        "flash_dq": (5 * tensor + row + tensor + row, 3),
+        # q, k, v, dO, lse, delta in; dK, dV out
+        "flash_dkv": (4 * tensor + 2 * row + 2 * tensor, 4),
+    }[kernel]
+    ops = products * 2 * b * h * t * t * d
+    t_bytes = bytes_moved / peaks[0] * 1e3
+    t_ops = ops / peaks[3] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, bytes_moved, ops
+
+
+def phase_flash_timings(device, peaks) -> dict:
+    """Device ms per call of each flash kernel at the ViT's training shape
+    in bf16, beside its plain version, its bound and the library yardstick
+    (``F.scaled_dot_product_attention``'s forward, and its backward, which
+    computes dQ, dK and dV in one call; timed here only, the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    q, k, v, do = flash_inputs(VIT_SHAPE, torch.bfloat16, gen, device)
+    o, lse = flash.flash_fwd(q, k, v)
+    _, delta = flash.flash_dq(q, k, v, o, lse, do)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+    lib_do = do.transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                          retain_graph=True)
+    calls = {
+        "flash_fwd": {
+            "kernel": lambda: flash.flash_fwd(q, k, v),
+            "plain": lambda: flash.flash_fwd_plain(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))},
+        "flash_dq": {
+            "kernel": lambda: flash.flash_dq(q, k, v, o, lse, do),
+            "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do),
+            "library": lib_bwd},
+        "flash_dkv": {
+            "kernel": lambda: flash.flash_dkv(q, k, v, lse, delta, do),
+            "plain": lambda: flash.flash_dkv_plain(q, k, v, lse, delta, do),
+            "library": lib_bwd},
+    }
+    rows = {}
+    for name, fns in calls.items():
+        least, by, bytes_moved, ops = flash_bound_ms(name, VIT_SHAPE, 2,
+                                                     peaks)
+        row = {"shape": list(VIT_SHAPE), "dtype": "bfloat16",
+               "bytes": bytes_moved, "operations": ops, "bound_ms": least,
+               "bound_by": by,
+               "library_call": ("F.scaled_dot_product_attention"
+                                if name == "flash_fwd" else
+                                "its backward (dQ, dK and dV in one call)")}
+        for what, fn in fns.items():
+            per = device_ms(fn)
+            row[f"{what}_ms"] = sum(per.values())
+            row[f"{what}_call_ms"] = call_ms(fn)
+            if what == "kernel":
+                row["kernel_only_ms"] = _kernel_ms(per, f"{name}_kernel")
+            if what == "library":
+                row["library_kernels"] = sorted(k[:60] for k in per)
+        rows[name] = row
+        emit("timing", kernel=name, **row)
+    return rows
+
+
 def _train_lines(text: str, prefix: str) -> list:
     return [ln for ln in text.splitlines() if ln.startswith(prefix)]
 
@@ -732,31 +949,46 @@ def _run_cli(argv: list):
     return summary, out.getvalue()
 
 
-def phase_train(device_flag: str = "cuda") -> dict:
-    """Train cnn through the CLI, resume and evaluate; returns the three
-    training kernels' launch counts over the training run."""
+def _launch_counters(model: str) -> dict:
+    """The wrappers whose kernels the ``model`` training run launches,
+    looked up when called (a CPU rehearsal swaps in counting plain
+    versions)."""
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, flash, xent
+
+    counters = {"xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
+                "adam": adam.adam_leaf}
+    if TRAIN_RUNS[model]["depth"]:
+        counters.update(flash_fwd=flash.flash_fwd, flash_dq=flash.flash_dq,
+                        flash_dkv=flash.flash_dkv)
+    return counters
+
+
+def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
+    """Train ``model`` (``TRAIN_RUNS``) through the CLI, resume and
+    evaluate; returns its kernels' launch counts over the training run."""
     import math
     import shutil
 
-    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         read_checkpoint_arrays,
     )
 
+    run_cfg = TRAIN_RUNS[model]
+    args = run_cfg["args"]
+    phase = "train" if model == "cnn" else f"train_{model}"
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     ckpt = os.path.join(root, "run")
-    base = TRAIN_ARGS + ["--device", device_flag]
+    base = args + ["--device", device_flag]
     try:
         # The main path's run starts here.
-        xent.xent_fwd.launches = xent.xent_bwd.launches = 0
-        adam.adam_leaf.launches = 0
+        for wrapper in _launch_counters(model).values():
+            wrapper.launches = 0
         t0 = time.perf_counter()
         summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
                                         "--checkpoint-dir", ckpt])
         wall_s = time.perf_counter() - t0
-        launches = {"xent_fwd": xent.xent_fwd.launches,
-                    "xent_bwd": xent.xent_bwd.launches,
-                    "adam": adam.adam_leaf.launches}
+        launches = {name: wrapper.launches
+                    for name, wrapper in _launch_counters(model).items()}
         # ... and ends here.
         lines = _train_lines(out, "Epoch: ")
         hist = summary["history"]
@@ -764,17 +996,19 @@ def phase_train(device_flag: str = "cuda") -> dict:
             raise AssertionError(f"expected {TRAIN_EPOCHS} epoch lines:\n{out}")
         if not hist[1]["train_loss"] < hist[0]["train_loss"]:
             raise AssertionError(f"train loss did not fall: {lines}")
-        if hist[1]["test_acc"] < 0.90:
+        if hist[1]["test_acc"] < run_cfg["floor"]:
             raise AssertionError(f"test accuracy {hist[1]['test_acc']:.4f} "
-                                 f"< 0.90 after epoch 1")
-        train_size = int(TRAIN_ARGS[TRAIN_ARGS.index(
-            "--synthetic-train-size") + 1])
-        test_size = int(TRAIN_ARGS[TRAIN_ARGS.index(
-            "--synthetic-test-size") + 1])
+                                 f"< {run_cfg['floor']:.2f} after epoch 1")
+        train_size = int(args[args.index("--synthetic-train-size") + 1])
+        test_size = int(args[args.index("--synthetic-test-size") + 1])
         steps = TRAIN_EPOCHS * (train_size // TRAIN_BATCH)
         evals = TRAIN_EPOCHS * math.ceil(test_size / TRAIN_BATCH)
         want = {"xent_fwd": steps + evals, "xent_bwd": steps,
-                "adam": 8 * steps}
+                "adam": run_cfg["params"] * steps}
+        depth = run_cfg["depth"]
+        if depth:
+            want.update(flash_fwd=depth * (steps + evals),
+                        flash_dq=depth * steps, flash_dkv=depth * steps)
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
         files = sorted(os.listdir(ckpt))
@@ -783,7 +1017,7 @@ def phase_train(device_flag: str = "cuda") -> dict:
             raise AssertionError(f"checkpoint files: {files}")
         for name in files:
             _, leaves = read_checkpoint_arrays(os.path.join(ckpt, name))
-            if len(leaves) != 32:
+            if len(leaves) != run_cfg["leaves"]:
                 raise AssertionError(f"{name} holds {len(leaves)} leaves")
 
         _, resumed_out = _run_cli(base + [
@@ -800,11 +1034,12 @@ def phase_train(device_flag: str = "cuda") -> dict:
         test_lines = _train_lines(eval_out, "Test Loss: ")
         if len(test_lines) != 1 or _train_lines(eval_out, "Epoch: "):
             raise AssertionError(f"-e printed:\n{eval_out}")
-        emit("train", epoch_lines=lines, resumed_epoch_lines=resumed,
+        emit(phase, epoch_lines=lines, resumed_epoch_lines=resumed,
              eval_line=test_lines[0], launches=launches,
              expected_launches=want, train_steps=steps, eval_batches=evals,
              images_per_sec=[r["images_per_sec"] for r in hist],
-             test_acc=[r["test_acc"] for r in hist], wall_s=wall_s,
+             test_acc=[r["test_acc"] for r in hist],
+             test_acc_floor=run_cfg["floor"], wall_s=wall_s,
              resume_repeats_epoch_1=True)
         return launches
     finally:
@@ -814,7 +1049,8 @@ def phase_train(device_flag: str = "cuda") -> dict:
 def _train_kind(kernel: str) -> str:
     """A device kernel's part of a train step, by its name."""
     name = kernel.lower()
-    for ours in ("xent_fwd", "xent_bwd", "adam"):
+    for ours in ("xent_fwd", "xent_bwd", "adam", "flash_fwd", "flash_dq",
+                 "flash_dkv"):
         if f"{ours}_kernel" in name:
             return ours
     if "memcpy" in name or "memset" in name:
@@ -827,10 +1063,10 @@ def _train_kind(kernel: str) -> str:
     return "other_elementwise"
 
 
-def phase_train_profile(device) -> dict:
-    """Where one train step's device time goes (cnn, batch 256, fused loss
-    and Adam, the host-to-device copy of the batch included), beside the
-    host's wall time per step."""
+def phase_train_profile(device, model: str = "cnn") -> dict:
+    """Where one train step's device time goes (``model`` at batch 256,
+    fused loss and Adam, the ViT with flash attention, the host-to-device
+    copy of the batch included), beside the host's wall time per step."""
     import numpy as np
     import torch
 
@@ -840,6 +1076,7 @@ def phase_train_profile(device) -> dict:
         synthetic_dataset,
     )
     from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.flash import flash_attention
     from pytorch_distributed_mnist_tpu_torch.ops.loss import (
         cross_entropy,
         set_loss_impl,
@@ -854,7 +1091,8 @@ def phase_train_profile(device) -> dict:
     from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
 
     set_loss_impl("fused")
-    state = create_train_state(get_model("cnn"), SEED, device,
+    kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
+    state = create_train_state(get_model(model, **kwargs), SEED, device,
                                optimizer="adam_pallas")
     images, labels = synthetic_dataset(TRAIN_BATCH, seed=SEED + 30)
     host = {"image": normalize_images(images),
@@ -912,7 +1150,8 @@ def phase_train_profile(device) -> dict:
            "distinct_kernels": len(per),
            "top": sorted(((ms, name[:90]) for name, ms in per.items()),
                          reverse=True)[:10]}
-    emit("train_profile", **row)
+    emit("train_profile" if model == "cnn" else f"train_{model}_profile",
+         model=model, **row)
     return row
 
 
@@ -947,6 +1186,10 @@ def main() -> int:
     phase_forward_profile(device)
     train_launches = phase_train()
     phase_train_profile(device)
+    flash_err = phase_flash_vs_plain(device)
+    flash_rows = phase_flash_timings(device, peaks)
+    vit_launches = phase_train(model="vit")
+    phase_train_profile(device, model="vit")
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -986,6 +1229,19 @@ def main() -> int:
         "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
         "bound_by": "bytes", "library_ms": all_8["library_ms"],
         "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each"})
+    for kname, replaces in (("flash_fwd", TPU_FLASH_FWD),
+                            ("flash_dq", TPU_FLASH_BWD),
+                            ("flash_dkv", TPU_FLASH_BWD)):
+        row = flash_rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"{CSRC}/flash.cu",
+            "replaces": replaces, "launches": vit_launches[kname],
+            "max_abs_err": flash_err[kname], "ms": row["kernel_ms"],
+            "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call": row["library_call"],
+            "at": "x".join(map(str, VIT_SHAPE)) + " (B, T, H, D) bf16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ inference server (``serve/server.py``).
 The flags are the single-device main-path subset of the JAX package's
 ``build_parser``, with its defaults, except ``--trainer-mode``, which
 defaults to ``stepwise``, the one mode ported (``scan`` and ``explicit``
-exit 2). Flags for several processes, meshes, ZeRO, elastic runs and
-publishing are not accepted yet.
+exit 2). ``--model vit --attention flash`` trains the ViT through the
+flash-attention kernels (``ops/flash.py``). Flags for several processes,
+meshes, ZeRO, elastic runs, publishing and ``--remat`` are not accepted
+yet.
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ from pytorch_distributed_mnist_tpu_torch.data.mnist import (
     load_dataset,
     normalize_images,
 )
-from pytorch_distributed_mnist_tpu_torch.models import get_model, list_models
+from pytorch_distributed_mnist_tpu_torch.models import (
+    get_model,
+    list_models,
+    model_accepts,
+)
 from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
 from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
     is_corrupt_checkpoint_error,
@@ -83,6 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="evaluate on the test set and exit")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--model", type=str, default="cnn", choices=list_models())
+    p.add_argument("--attention", type=str, default="dense",
+                   choices=["dense", "flash"],
+                   help="core attention impl for --model vit: dense torch "
+                        "softmax or the flash CUDA kernels (forward, dQ, "
+                        "dK/dV)")
+    p.add_argument("--patch-size", type=int, default=4,
+                   help="ViT patch size (28 must divide evenly; tokens = "
+                        "(28/patch)^2)")
     p.add_argument("--dataset", type=str, default="mnist",
                    choices=["mnist", "fashion_mnist", "synthetic"])
     p.add_argument("--allow-synthetic", action="store_true",
@@ -115,6 +129,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default, raises without a card), cuda:N or "
                         "cpu")
     return p
+
+
+def _model_kwargs(args) -> dict:
+    """The model's constructor arguments from the flags, with the JAX
+    CLI's refusals of flags the model does not take."""
+    model_kwargs = {}
+    if args.dtype:
+        model_kwargs["compute_dtype"] = _DTYPES[args.dtype]
+    patch = args.patch_size
+    if patch < 1 or 28 % patch:
+        raise SystemExit(f"--patch-size {patch}: 28 must divide evenly into "
+                         f"patches (try 2, 4, 7, or 14)")
+    if args.attention == "flash":
+        if not model_accepts(args.model, "attention_fn"):
+            raise SystemExit(
+                f"--attention {args.attention} not supported: model "
+                f"{args.model!r} does not accept an attention_fn")
+        from pytorch_distributed_mnist_tpu_torch.ops.flash import (
+            flash_attention,
+        )
+
+        model_kwargs["attention_fn"] = flash_attention
+    if patch != 4:
+        if not model_accepts(args.model, "patch_size"):
+            raise SystemExit(f"--patch-size only applies to models with "
+                             f"patches; {args.model!r} does not accept one")
+        model_kwargs["patch_size"] = patch
+    return model_kwargs
 
 
 def _build_loaders(args, seed: int):
@@ -192,6 +234,7 @@ def run(args, epoch_callback=None) -> dict:
               f"PyTorch port trains in {', '.join(MODES)} mode",
               file=sys.stderr)
         raise SystemExit(2)
+    model_kwargs = _model_kwargs(args)
     seed = args.seed if args.seed is not None else 0
     if args.seed is not None:
         random.seed(args.seed)
@@ -199,9 +242,6 @@ def run(args, epoch_callback=None) -> dict:
         torch.manual_seed(args.seed)
     device = resolve_device(args.device)
     set_loss_impl(args.loss)
-    model_kwargs = {}
-    if args.dtype:
-        model_kwargs["compute_dtype"] = _DTYPES[args.dtype]
     state = create_train_state(
         get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
         optimizer=args.optimizer, momentum=args.momentum,

@@ -1,12 +1,18 @@
-"""Model zoo of the port: ``linear`` and ``cnn``, registered by name."""
+"""Model zoo of the port: ``linear``, ``cnn`` and ``vit``, registered by
+name."""
 
-from pytorch_distributed_mnist_tpu_torch.models import cnn, linear  # registers
+from pytorch_distributed_mnist_tpu_torch.models import (  # registers
+    attention,
+    cnn,
+    linear,
+)
 from pytorch_distributed_mnist_tpu_torch.models.registry import (
     get_model,
     list_models,
     model_accepts,
+    model_field_default,
     register_model,
 )
 
-__all__ = ["cnn", "get_model", "linear", "list_models", "model_accepts",
-           "register_model"]
+__all__ = ["attention", "cnn", "get_model", "linear", "list_models",
+           "model_accepts", "model_field_default", "register_model"]

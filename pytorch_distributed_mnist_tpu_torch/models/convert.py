@@ -23,24 +23,34 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from pytorch_distributed_mnist_tpu_torch.models.registry import get_model
+from pytorch_distributed_mnist_tpu_torch.models.registry import (
+    get_model,
+    param_kind,
+)
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
-def param_shapes(model_name: str) -> Dict[str, tuple]:
-    """The port's param names and shapes for ``model_name``."""
-    return {name: tuple(p.shape)
-            for name, p in get_model(model_name).named_parameters()}
+def param_shapes(model_name: str, **model_kwargs) -> Dict[str, tuple]:
+    """The port's param names and shapes for ``model_name`` built with
+    ``model_kwargs`` (the ViT's shapes follow its ``patch_size``)."""
+    return {name: tuple(p.shape) for name, p in
+            get_model(model_name, **model_kwargs).named_parameters()}
 
 
 def jax_param_path(port_name: str) -> str:
-    """``conv1.weight`` -> ``['params']['conv1']['kernel']``: the param's
-    path inside the flax variables (and inside each moment tree)."""
-    layer, leaf = port_name.rsplit(".", 1)
-    leaf = "bias" if leaf == "bias" else "kernel"
-    return f"['params']['{layer}']['{leaf}']"
+    """A port param name -> its path inside the flax variables (and inside
+    each moment tree): every module level is one key, and the leaf is
+    named as flax names it (:func:`registry.param_kind`).
+    ``conv1.weight`` -> ``['params']['conv1']['kernel']``;
+    ``block0.attn.qkv.kernel`` -> ``['params']['block0']['attn']['qkv']
+    ['kernel']``; ``block0.ln1.weight`` -> ``...['ln1']['scale']``;
+    ``pos_embed`` -> ``['params']['pos_embed']``."""
+    *layers, leaf = port_name.split(".")
+    kind = param_kind(port_name)
+    keys = layers + ([leaf] if kind == "pos_embed" else [kind])
+    return "['params']" + "".join(f"['{k}']" for k in keys)
 
 
 def jax_leaf_name(port_name: str) -> str:
@@ -72,14 +82,15 @@ def _to_port_layout(arr: np.ndarray) -> np.ndarray:
                     order="C")
 
 
-def params_from_jax(model_name: str, flat: Dict[str, np.ndarray]) \
-        -> Dict[str, np.ndarray]:
+def params_from_jax(model_name: str, flat: Dict[str, np.ndarray],
+                    **model_kwargs) -> Dict[str, np.ndarray]:
     """JAX-named leaves (extra leaves such as ``opt_state`` are ignored)
     -> the port's float32 params, validated name by name and shape by
-    shape. Raises ``ValueError`` when a leaf is missing or misshapen: a
-    checkpoint of another model is refused, never half-loaded."""
+    shape (of the model built with ``model_kwargs``). Raises
+    ``ValueError`` when a leaf is missing or misshapen: a checkpoint of
+    another model is refused, never half-loaded."""
     out = {}
-    for name, shape in param_shapes(model_name).items():
+    for name, shape in param_shapes(model_name, **model_kwargs).items():
         key = jax_leaf_name(name)
         if key not in flat:
             raise ValueError(f"model {model_name!r}: checkpoint has no leaf "
@@ -104,12 +115,19 @@ def params_to_jax(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def init_params(model_name: str, seed: int) -> Dict[str, np.ndarray]:
     """Seeded random params in the port's layout, made with numpy: each
     kernel drawn normal with variance 1/fan_in, each bias normal with
-    scale 0.01 (so the bias path is exercised too)."""
+    scale 0.01 (so the bias path is exercised too), each LayerNorm scale
+    1 plus normal noise of scale 0.01, ``pos_embed`` normal with scale
+    0.02."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, shape in param_shapes(model_name).items():
-        if name.endswith(".bias"):
+        kind = param_kind(name)
+        if kind == "bias":
             arr = rng.normal(0.0, 0.01, size=shape)
+        elif kind == "scale":
+            arr = 1.0 + rng.normal(0.0, 0.01, size=shape)
+        elif kind == "pos_embed":
+            arr = rng.normal(0.0, 0.02, size=shape)
         else:
             fan_in = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
             arr = rng.normal(0.0, 1.0 / np.sqrt(fan_in), size=shape)

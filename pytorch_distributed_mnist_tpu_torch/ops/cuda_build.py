@@ -32,6 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
+# The flash entries' shape, scale and type arguments: b, h, t, d, the
+# element strides sb, st, sh of q/k/v, scale, causal, bf16, device, stream.
+_FLASH_TAIL = [_I, _I, _I, _I, _L, _L, _L, _F, _I, _I, _I, _P]
 
 # name -> {C symbol: (argtypes, restype)}. Every pointer and the stream are
 # c_void_p: left undeclared, ctypes would pass a Python int as a 32-bit int
@@ -52,6 +56,14 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     "adam": {
         # p, g, m, v, hypers, n, device, stream
         "adam_launch": ([_P, _P, _P, _P, _P, _L, _I, _P], _I),
+    },
+    "flash": {
+        # q, k, v, o, lse, then the tail
+        "flash_fwd_launch": ([_P] * 5 + _FLASH_TAIL, _I),
+        # q, k, v, o, dout, lse, delta, dq, then the tail
+        "flash_dq_launch": ([_P] * 8 + _FLASH_TAIL, _I),
+        # q, k, v, dout, lse, delta, dk, dv, then the tail
+        "flash_dkv_launch": ([_P] * 8 + _FLASH_TAIL, _I),
     },
 }
 

@@ -1,0 +1,357 @@
+"""Flash attention: the hand-written CUDA kernels (forward, dQ, dK/dV),
+their plain PyTorch versions, and the autograd function built on them.
+
+Counterpart of ``pytorch_distributed_mnist_tpu/ops/pallas/flash.py``,
+selected by ``--attention flash`` for the ViT. Layout ``(B, T, H, D)``,
+self-attention only (Tq == Tk). The forward saves ``lse = m + log l`` per
+row, ``(B, H, T)`` float32, and the backward recomputes every probability
+from it:
+
+    delta_i = rowsum(dO_i * O_i)
+    P_ij    = exp(scale * q_i.k_j - lse_i)       (0 where masked)
+    dQ_i    = scale * sum_j P_ij (dO_i.V_j - delta_i) K_j
+    dV_j    = sum_i P_ij dO_i
+    dK_j    = scale * sum_i P_ij (dO_i.V_j - delta_i) Q_i
+
+The causal mask is start-aligned (``qi >= kj``), as the reference's
+kernels have it. A row with nothing to attend gives O = 0 and
+``lse = NEG_INF``. Scores and sums are float32; O, dQ, dK and dV come back
+in the inputs' dtype (float32 or bfloat16).
+
+:func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv` launch
+``csrc/flash.cu`` for CUDA tensors (built at first use,
+``ops/cuda_build.py``) and take the plain versions only for tensors on
+the CPU. There is no fallback from one to the other: a CUDA tensor
+launches the kernel or raises. ``delta`` is computed by the dQ kernel,
+which hands it to the dK/dV kernel; :func:`flash_dq` returns it.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
+from pytorch_distributed_mnist_tpu_torch.ops.attention import NEG_INF
+
+__all__ = ["flash_attention", "flash_bwd_plain", "flash_dkv",
+           "flash_dkv_plain", "flash_dq", "flash_dq_plain", "flash_fwd",
+           "flash_fwd_plain"]
+
+MAX_HEAD_DIM = 128  # the kernels hold 16 head dims per thread, 8 threads
+_TYPES = (torch.float32, torch.bfloat16)
+
+_count_lock = threading.Lock()
+
+
+def _check(q: torch.Tensor, *same: torch.Tensor) -> None:
+    """q, and every tensor of ``same``, is a (B, T, H, D) float32 or
+    bfloat16 tensor of q's shape and type, D <= 128, on q's device."""
+    if q.dim() != 4:
+        raise ValueError(f"flash attention takes (B, T, H, D) operands, got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _TYPES:
+        raise ValueError(f"flash attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got D={q.shape[-1]}")
+    for t in same:
+        if t.device != q.device:
+            raise ValueError(f"operands on different devices: {q.device} / "
+                             f"{t.device}")
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash attention operands must match q's "
+                             f"{tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
+    b, t, h, _ = q.shape
+    for r in rows:
+        if r.device != q.device:
+            raise ValueError(f"operands on different devices: {q.device} / "
+                             f"{r.device}")
+        if r.dtype != torch.float32 or r.shape != (b, h, t):
+            raise ValueError(f"flash attention takes ({b}, {h}, {t}) float32 "
+                             f"row statistics, got {tuple(r.shape)} "
+                             f"{r.dtype}")
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    return True
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return float(q.shape[-1] ** -0.5 if scale is None else scale)
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> (B, H, T, D) float32."""
+    return x.float().permute(0, 2, 1, 3)
+
+
+def _keep(t: int, causal: bool, device) -> torch.Tensor:
+    """(T, T) boolean, True = attend: all, or the start-aligned triangle."""
+    keep = torch.ones((t, t), dtype=torch.bool, device=device)
+    return keep.tril() if causal else keep
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(O, lse)``: O ``(B, T, H, D)`` in q's dtype, lse ``(B, H, T)``
+    float32. The forward kernel's function in torch ops, with the (T, T)
+    scores materialized. Runs on any device; the CPU path of
+    :func:`flash_fwd` and the yardstick the kernel is held against on the
+    card."""
+    _check(q, k, v)
+    scale = _scale(q, scale)
+    keep = _keep(q.shape[1], causal, q.device)
+    s = (_heads(q) * scale) @ _heads(k).transpose(-1, -2)  # (B, H, T, T)
+    s = torch.where(keep, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p @ _heads(v)) / torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full((), NEG_INF, device=q.device))
+    return (o.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
+            lse[..., 0].contiguous())
+
+
+def _delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` in float32, ``(B, H, T)``."""
+    return (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def _ds_plain(q, k, v, lse, delta, do, causal: bool, scale: float):
+    """``(P, dS)``, (B, H, T, T) float32: the probabilities recomputed from
+    ``lse`` and ``dS = P * (dO.V - delta)``."""
+    keep = _keep(q.shape[1], causal, q.device)
+    s = scale * (_heads(q) @ _heads(k).transpose(-1, -2))
+    p = torch.where(keep, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    return p, p * (_heads(do) @ _heads(v).transpose(-1, -2)
+                   - delta[..., None])
+
+
+def _out(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) float32 -> (B, T, H, D) contiguous in ``like``'s dtype."""
+    return x.permute(0, 2, 1, 3).to(like.dtype).contiguous()
+
+
+def flash_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                   causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dQ, delta)`` as :func:`flash_dq` gives them, in torch ops."""
+    _check(q, k, v, o, do)
+    _check_rows(q, lse)
+    scale = _scale(q, scale)
+    delta = _delta_plain(o, do)
+    _, ds = _ds_plain(q, k, v, lse, delta, do, causal, scale)
+    return _out(scale * (ds @ _heads(k)), q), delta
+
+
+def flash_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor, do: torch.Tensor,
+                    *, causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` as :func:`flash_dkv` gives them, in torch ops."""
+    _check(q, k, v, do)
+    _check_rows(q, lse, delta)
+    scale = _scale(q, scale)
+    p, ds = _ds_plain(q, k, v, lse, delta, do, causal, scale)
+    return (_out(scale * (ds.transpose(-1, -2) @ _heads(q)), k),
+            _out(p.transpose(-1, -2) @ _heads(do), v))
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dQ, dK, dV)`` in q's, k's and v's dtype from the forward's O and
+    lse and the upstream gradient dO: the two backward kernels' function
+    in torch ops."""
+    dq, delta = flash_dq_plain(q, k, v, o, lse, do, causal=causal,
+                               scale=scale)
+    dk, dv = flash_dkv_plain(q, k, v, lse, delta, do, causal=causal,
+                             scale=scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k and v as the kernels take them: one set of strides with a unit
+    stride along D. The ViT's slices of its qkv product already are;
+    anything else is copied to contiguous tensors."""
+    if (q.stride() == k.stride() == v.stride()
+            and (q.shape[-1] == 1 or q.stride(-1) == 1)):
+        return q, k, v
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _shape_args(q: torch.Tensor) -> tuple:
+    b, t, h, d = q.shape
+    return (b, h, t, d, q.stride(0), q.stride(1), q.stride(2))
+
+
+def _launch(symbol: str, q: torch.Tensor, pointers: list, scale: float,
+            causal: bool) -> None:
+    lib = cuda_build.load("flash")
+    err = getattr(lib, symbol)(
+        *pointers, *_shape_args(q), scale, int(causal),
+        int(q.dtype == torch.bfloat16), q.device.index, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err} at "
+                           f"{tuple(q.shape)} {q.dtype}")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(O, lse)`` as :func:`flash_fwd_plain` gives them. CUDA tensors
+    launch the forward kernel (counted in ``flash_fwd.launches``); CPU
+    tensors take :func:`flash_fwd_plain`."""
+    _check(q, k, v)
+    if not _on_card(q, "flash_fwd"):
+        return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
+    q, k, v = _views(q, k, v)
+    b, t, h, d = q.shape
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    _launch("flash_fwd_launch", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr()], _scale(q, scale), causal)
+    with _count_lock:
+        flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+             causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dQ, delta)``: dQ ``(B, T, H, D)`` in q's dtype and ``delta =
+    rowsum(dO * O)`` ``(B, H, T)`` float32, which :func:`flash_dkv` takes.
+    CUDA tensors launch the dQ kernel (counted in ``flash_dq.launches``);
+    CPU tensors take :func:`flash_dq_plain`."""
+    _check(q, k, v, o, do)
+    _check_rows(q, lse)
+    if not _on_card(q, "flash_dq"):
+        return flash_dq_plain(q, k, v, o, lse, do, causal=causal,
+                              scale=scale)
+    q, k, v = _views(q, k, v)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    b, t, h, d = q.shape
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    _launch("flash_dq_launch", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
+            _scale(q, scale), causal)
+    with _count_lock:
+        flash_dq.launches += 1
+    return dq, delta
+
+
+def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lse: torch.Tensor, delta: torch.Tensor, do: torch.Tensor, *,
+              causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` in k's and v's dtype from the forward's lse and
+    :func:`flash_dq`'s delta. CUDA tensors launch the dK/dV kernel (counted
+    in ``flash_dkv.launches``); CPU tensors take :func:`flash_dkv_plain`."""
+    _check(q, k, v, do)
+    _check_rows(q, lse, delta)
+    if not _on_card(q, "flash_dkv"):
+        return flash_dkv_plain(q, k, v, lse, delta, do, causal=causal,
+                               scale=scale)
+    q, k, v = _views(q, k, v)
+    do, lse, delta = do.contiguous(), lse.contiguous(), delta.contiguous()
+    b, t, h, d = q.shape
+    dk = torch.empty((b, t, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, h, d), dtype=v.dtype, device=q.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_dkv_launch", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+            _scale(q, scale), causal)
+    with _count_lock:
+        flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O from the forward kernel; the backward runs the dQ kernel, then the
+    dK/dV kernel. Saves q, k, v, O and lse (the reference's custom_vjp
+    residuals, here unpadded)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, delta = flash_dq(q, k, v, o, lse, do, causal=ctx.causal,
+                             scale=ctx.scale)
+        dk, dv = flash_dkv(q, k, v, lse, delta, do, causal=ctx.causal,
+                           scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    block: Optional[int] = None) -> torch.Tensor:
+    """Flash attention on ``(B, T, H, D)``; drop-in for
+    ``ops.attention.full_attention`` and differentiable through the
+    backward kernels. Self-attention shapes only: Tq must equal Tk (the
+    start-aligned causal mask and the dense oracle's end-aligned one agree
+    exactly there).
+
+    ``block`` is checked as the reference checks it (a multiple of 8, at
+    most 512) and then ignored: the CUDA kernels tile by 64 rows whatever
+    it says."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"flash_attention requires Tq == Tk (self-attention); got "
+            f"Tq={q.shape[1]}, Tk={k.shape[1]} — use full_attention for "
+            f"cross-attention shapes")
+    if block is not None and (block < 8 or block % 8):
+        raise ValueError(f"block must be a multiple of 8, got {block}")
+    if block is not None and block > 512:
+        raise ValueError(
+            f"block must be <= 512 (block^2 f32 scratch exceeds VMEM "
+            f"beyond that), got {block}")
+    return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))

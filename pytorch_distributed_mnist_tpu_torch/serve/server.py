@@ -27,7 +27,8 @@ batcher's worker, which owns device submission):
 - ``POST /drain`` — ``{"drain": true|false}`` closes/reopens /predict
   admission (503 + Retry-After) while in-flight requests complete.
 
-Not ported yet: multi-device pools, sharded and pipeline serve modes,
+Not ported yet: serving the ViT (``--model vit`` exits 2 at boot),
+multi-device pools, sharded and pipeline serve modes,
 the precision canary, multi-model serving, the autoscaler, delta
 checkpoint distribution and fleet registration. Their flags are absent
 from the parser rather than accepted and ignored.
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -76,6 +78,11 @@ from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
     ServeLog,
 )
+
+
+# Models the port serves. The ViT trains in the port but is not served
+# until its serving path is held against the JAX package's engine.
+SERVED_MODELS = ("cnn", "linear")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -619,6 +626,12 @@ def create_server(args) -> ThreadingHTTPServer:
     if model_name not in list_models():
         raise SystemExit(f"unknown --model {model_name!r}; "
                          f"available: {list_models()}")
+    if model_name not in SERVED_MODELS:
+        print(f"--model {model_name}: the PyTorch port does not serve the "
+              f"ViT yet (served: {', '.join(SERVED_MODELS)}); train it "
+              f"with python -m pytorch_distributed_mnist_tpu_torch --model "
+              f"{model_name}", file=sys.stderr)
+        raise SystemExit(2)
     device = resolve_device(args.device)
     buckets = _parse_buckets(args.buckets)
     shed_policy = _parse_watermarks(args.shed_watermarks)

@@ -89,3 +89,78 @@ def test_adam_kernel_equals_plain_bitwise(card, n, t):
     assert adam.adam_leaf.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+FLASH_SHAPES = [(256, 49, 4, 16), (2, 1, 2, 16), (2, 16, 2, 16),
+                (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
+                (3, 130, 2, 32), (1, 70, 1, 8)]
+
+
+def _flash_close(got, want, dtype):
+    # float32: the same products summed in another order (rtol 1e-4, atol
+    # 1e-5 of the largest value). bfloat16: both sum in float32 from the
+    # same inputs and round once at the output (one bf16 step: rtol 2**-7,
+    # atol 2**-8 of the largest value).
+    rtol, scale = (2.0 ** -7, 2.0 ** -8) if dtype == torch.bfloat16 \
+        else (1e-4, 1e-5)
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=scale * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain(card, shape, dtype, causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    b, t, h, d = shape
+    gen = torch.Generator(device=card).manual_seed(b * t * h * d + causal)
+    # q, k and v as the ViT hands them over: slices of one qkv product.
+    qkv = torch.randn(b, t, 3, h, d, device=card, generator=gen).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(b, t, h, d, device=card, generator=gen).to(dtype)
+    before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+              flash.flash_dkv.launches)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    want_o, want_lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+    dq, delta = flash.flash_dq(q, k, v, want_o, want_lse, do, causal=causal)
+    want_dq, want_delta = flash.flash_dq_plain(q, k, v, want_o, want_lse, do,
+                                               causal=causal)
+    dk, dv = flash.flash_dkv(q, k, v, want_lse, want_delta, do,
+                             causal=causal)
+    want_dk, want_dv = flash.flash_dkv_plain(q, k, v, want_lse, want_delta,
+                                             do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    for got, want in ((o, want_o), (dq, want_dq), (dk, want_dk),
+                      (dv, want_dv)):
+        _flash_close(got, want, dtype)
+    for got, want in ((lse, want_lse), (delta, want_delta)):
+        _flash_close(got, want, torch.float32)
+
+
+def test_flash_attention_trains_through_the_kernels(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn(4, 49, 4, 16, device=card, generator=gen)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(4, 49, 4, 16, device=card, generator=gen)
+    before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+              flash.flash_dkv.launches)
+    flash.flash_attention(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches) == tuple(n + 1 for n in before)
+    from pytorch_distributed_mnist_tpu_torch.ops.attention import (
+        full_attention,
+    )
+
+    qd, kd, vd = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    full_attention(qd, kd, vd).backward(g)
+    for got, want in ((q.grad, qd.grad), (k.grad, kd.grad),
+                      (v.grad, vd.grad)):
+        _flash_close(got, want, torch.float32)

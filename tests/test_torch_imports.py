@@ -48,6 +48,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 def test_the_ported_modules_keep_their_counterparts_paths():
     names = set(_modules())
     for rel in ("models.registry", "models.linear", "models.cnn",
+                "models.attention", "ops.attention", "ops.flash",
                 "ops.matmul_i8", "ops.xent", "ops.adam", "ops.loss",
                 "ops.metrics", "data.mnist", "data.sampler", "data.loader",
                 "train.checkpoint", "train.state", "train.steps",

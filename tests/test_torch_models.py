@@ -53,12 +53,13 @@ def _images(n, seed):
 
 
 def test_registry_and_capability_probe():
-    assert list_models() == ["cnn", "linear"]
+    assert list_models() == ["cnn", "linear", "vit"]
     assert model_accepts("cnn", "matmul")
     assert model_accepts("linear", "matmul")
+    assert model_accepts("vit", "matmul")
     assert not model_accepts("cnn", "dot_general")
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("vit")
+        get_model("typo")
 
 
 def test_params_from_jax_names_shapes_and_layouts():

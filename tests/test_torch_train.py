@@ -1,7 +1,8 @@
 """The port's training path (``train/``, ``cli.py``) against the JAX
-package's, on the CPU: one ``cnn`` step from one shared checkpoint, two
-synthetic epochs of ``linear`` through both command lines, and the port's
-own bit-exact resume.
+package's, on the CPU: one ``cnn`` step and one ``vit --attention flash``
+step from one shared checkpoint, two synthetic epochs of ``linear``
+through both command lines, and the port's own bit-exact resume. (The
+ViT's two CLI epochs are in ``test_torch_vit_cli.py``.)
 
 Both sides compute in float32 here (``--dtype f32``); the JAX kernels run
 in Pallas interpret mode. Each tolerance is stated where it is used.
@@ -23,16 +24,25 @@ from pytorch_distributed_mnist_tpu.data.mnist import (
 )
 from pytorch_distributed_mnist_tpu.models import get_model as jax_get_model
 from pytorch_distributed_mnist_tpu.ops import loss as jax_loss
+from pytorch_distributed_mnist_tpu.ops.pallas.flash import (
+    flash_attention as jax_flash_attention,
+)
 from pytorch_distributed_mnist_tpu.train import checkpoint as jax_ckpt
+from pytorch_distributed_mnist_tpu.train.state import TrainState as JaxState
 from pytorch_distributed_mnist_tpu.train.state import (
     create_train_state as jax_create_train_state,
+)
+from pytorch_distributed_mnist_tpu.train.state import (
+    make_optimizer as jax_make_optimizer,
 )
 from pytorch_distributed_mnist_tpu_torch.cli import build_parser, run
 from pytorch_distributed_mnist_tpu_torch.models import get_model
 from pytorch_distributed_mnist_tpu_torch.models.convert import (
     jax_param_path,
+    key_path,
 )
 from pytorch_distributed_mnist_tpu_torch.ops import loss as port_loss
+from pytorch_distributed_mnist_tpu_torch.ops.flash import flash_attention
 from pytorch_distributed_mnist_tpu_torch.train import checkpoint as port_ckpt
 from pytorch_distributed_mnist_tpu_torch.train.state import (
     create_train_state,
@@ -57,9 +67,10 @@ def fused_loss():
 
 def _layer_leaf(tree, port_name):
     """The leaf of a flax ``{'params': {...}}`` tree for a port name."""
-    layer, leaf = port_name.rsplit(".", 1)
-    return np.asarray(tree["params"][layer][
-        "bias" if leaf == "bias" else "kernel"])
+    node = tree
+    for key in key_path(jax_param_path(port_name)):
+        node = node[key]
+    return np.asarray(node)
 
 
 def _port_layout(arr):
@@ -133,6 +144,79 @@ def test_one_cnn_step_matches_jax_from_one_checkpoint(tmp_path, fused_loss):
     assert int(state.step) == 0  # the step counter is the train loop's
     assert int(opt.count) == int(jnew.opt_state.count) == 1
     assert int(opt.inner_count) == int(inner.count) == 1
+
+
+def test_one_vit_flash_step_matches_jax_from_one_checkpoint(tmp_path,
+                                                          fused_loss):
+    # The JAX state as create_train_state builds it, with the init jitted
+    # (the ViT's eager init dispatches op by op: 9 s against 2 s).
+    jmodel = jax_get_model("vit", compute_dtype=jnp.float32,
+                           attention_fn=jax_flash_attention)
+    params = jax.jit(jmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, 28, 28, 1), jnp.float32))
+    tx = jax_make_optimizer(1e-3, "adam_pallas", 0.9, 1e-4)
+    jstate = JaxState(step=jnp.zeros((), jnp.int32), params=params,
+                      opt_state=tx.init(params), apply_fn=jmodel.apply,
+                      tx=tx)
+    path = jax_ckpt.save_checkpoint(jstate, epoch=-1, best_acc=0.0,
+                                    is_best=False, directory=str(tmp_path))
+    state = create_train_state(
+        get_model("vit", compute_dtype=torch.float32,
+                  attention_fn=flash_attention),
+        seed=1, device=CPU, optimizer="adam_pallas")
+    port_ckpt.load_checkpoint(path, state)
+
+    images, labels = synthetic_dataset(8, seed=5)
+    x = normalize_images(images)
+    y = labels.astype(np.int32)
+    mask = np.ones(8, np.float32)
+
+    @jax.jit
+    def grad_fn(params):
+        def loss_fn(params):
+            logits = jstate.apply_fn(params, jnp.asarray(x), train=True)
+            return jax_loss.cross_entropy(logits, jnp.asarray(y),
+                                          jnp.asarray(mask)), logits
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jlogits), jgrads = grad_fn(jstate.params)
+    jnew = jstate.apply_gradients(jgrads)
+
+    model, opt = state.model, state.optimizer
+    logits = model(torch.from_numpy(x))
+    loss = port_loss.cross_entropy(logits, torch.from_numpy(y).long(),
+                                   torch.from_numpy(mask))
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.step()
+
+    # float32 on both sides; the products sum in another order in XLA and
+    # in PyTorch.
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    inner = jnew.opt_state.inner_state[0]
+    for name, p in model.named_parameters():
+        g_want = _layer_leaf(jgrads, name)
+        scale = np.abs(g_want).max()
+        np.testing.assert_allclose(grads[name].numpy(), g_want, rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=name)
+        np.testing.assert_allclose(
+            opt.state[p]["mu"].numpy(), _layer_leaf(inner.mu, name),
+            rtol=1e-4, atol=1e-5 * scale, err_msg=name)
+        np.testing.assert_allclose(
+            opt.state[p]["nu"].numpy(), _layer_leaf(inner.nu, name),
+            rtol=2e-4, atol=1e-10 * scale ** 2, err_msg=name)
+        # As in the cnn step: where |g| is at the summation-order noise,
+        # Adam's first step (about -lr * sign(g)) may differ; elsewhere the
+        # params agree to an ulp or two.
+        live = np.abs(g_want) >= 1e-5
+        assert live.mean() > 0.5, name
+        np.testing.assert_allclose(
+            p.detach().numpy()[live], _layer_leaf(jnew.params, name)[live],
+            rtol=1e-6, atol=1e-9, err_msg=name)
+    assert int(opt.count) == int(jnew.opt_state.count) == 1
 
 
 _COMMON = ["--dataset", "synthetic", "--model", "linear", "--dtype", "f32",
@@ -241,7 +325,7 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--spawn", "2"], ["--zero-overlap"],
                                   ["--optimizer-sharding", "zero1"],
-                                  ["--publish", "delta"]])
+                                  ["--publish", "delta"], ["--remat"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as info:
         build_parser().parse_args(flag)
@@ -255,3 +339,31 @@ def test_training_asks_for_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         run(build_parser().parse_args(["--model", "linear",
                                        "--checkpoint-dir", str(tmp_path)]))
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--model", "cnn", "--attention", "flash"],
+     "--attention flash not supported: model 'cnn' does not accept an "
+     "attention_fn"),
+    (["--model", "linear", "--patch-size", "7"],
+     "--patch-size only applies to models with patches; 'linear' does not "
+     "accept one"),
+    (["--model", "vit", "--patch-size", "5"],
+     "--patch-size 5: 28 must divide evenly into patches"),
+])
+def test_model_flags_the_model_does_not_take_exit(flags, message, tmp_path):
+    # The JAX CLI's refusals, before any device or data is touched.
+    with pytest.raises(SystemExit) as info:
+        run(build_parser().parse_args(flags + [
+            "--device", "cpu", "--checkpoint-dir", str(tmp_path)]))
+    assert str(info.value.code).startswith(message)
+
+
+def test_serving_the_vit_exits_2(tmp_path, capsys):
+    from pytorch_distributed_mnist_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as info:
+        main(["serve", "--model", "vit", "--device", "cpu",
+              "--checkpoint-dir", str(tmp_path), "--port", "0"])
+    assert info.value.code == 2
+    assert "does not serve the ViT yet" in capsys.readouterr().err
