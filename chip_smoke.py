@@ -41,20 +41,27 @@ Phases, each printing one JSON line:
    copies), beside the host's wall time per step and its time per part
    (batch copy, forward, loss, backward, optimizer, metrics);
 8. flash against plain: the forward, dQ and dK/dV kernels against
-   ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain`` at the
-   ViT's shape (256, 49, 4, 16) and at T in {1, 16, 196, 200}, D in {8,
-   16, 32, 64, 128}, float32 and bfloat16, causal and not
-   (``flash_tolerance`` states each tolerance and why);
-9. flash timings: device ms per call of the three kernels at the ViT's
+   ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain``, and
+   ``flash_bwd`` (the fused backward kernel, or the dQ and dK/dV kernels,
+   as its route says) against ``flash_bwd_plain``, twice, for the same
+   bits, at the ViT's shape (256, 49, 4, 16) and at T in {1, 16, 70, 100,
+   128, 130, 196, 200}, D in {8, 16, 32, 48, 64, 128}, float32 and
+   bfloat16, causal and not (``flash_tolerance`` states each tolerance
+   and why), with the route each took;
+9. flash timings: device ms per call of the four kernels at the ViT's
    shape in bf16, their plain versions, ``F.scaled_dot_product_attention``
    forward and backward as the yardstick, and each kernel's bound;
-10. train the ViT: as phase 6 with ``--model vit --attention flash``:
+10. the split backward route on the attention path: ``flash_attention``
+   forward and backward at (32, 196, 4, 16) bf16 and at the ViT's shape in
+   float32 launch the dQ and dK/dV kernels (and not the fused one), with
+   gradients held against ``flash_bwd_plain``;
+11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
-   160, flash_dq and flash_dkv 128, xent 80/64, adam 1984), 101-leaf
-   checkpoints, resume and ``-e``;
-11. ViT train profile: as phase 7 for one ViT step (flash kernels, GEMMs,
+   160, flash_bwd 128, flash_dq and flash_dkv 0, xent 80/64, adam 1984),
+   101-leaf checkpoints, resume and ``-e``;
+12. ViT train profile: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies);
-12. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+13. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -132,10 +139,17 @@ TRAIN_RUNS = {
 }
 # Shapes the flash kernels are held against their plain versions at: the
 # ViT's, then T in {1, 16, 196, 200} and D in {16, 32, 64, 128} at small
-# B*H, and D = 8 (below one thread's 16 dims).
+# B*H, D = 8 (below one thread's 16 dims), and for the fused backward
+# (bf16, T <= 128) its widest case T = 128, D = 128 and a D of 48 that its
+# 16-wide tiles pad.
 FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
                       (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
-                      (3, 130, 2, 32), (1, 70, 1, 8)]
+                      (3, 130, 2, 32), (1, 70, 1, 8), (2, 128, 2, 128),
+                      (3, 100, 3, 48)]
+# The split backward route's cases on the attention path: a T above the
+# fused kernel's 128 (the ViT at --patch-size 2 has 196 tokens) in bf16,
+# and the ViT's shape in float32.
+SPLIT_ROUTE_CASES = [((32, 196, 4, 16), "bfloat16"), (VIT_SHAPE, "float32")]
 
 
 def emit(phase: str, **fields) -> None:
@@ -785,6 +799,15 @@ def _close(name, got, want, tol, where) -> float:
     return float((got - want).abs().max())
 
 
+def tolerance_used(got, want, tol) -> float:
+    """The largest share of ``tol``'s allowance (``atol + rtol * |want|``)
+    that any element of ``got`` uses: at most 1 when ``_close`` passes."""
+    got, want = got.float(), want.float()
+    atol = tol["atol_scale"] * max(1.0, float(want.abs().max()))
+    return float(((got - want).abs() / (atol + tol["rtol"] * want.abs()))
+                 .max())
+
+
 def flash_inputs(shape, dtype, gen, device):
     """q, k, v as the ViT hands them over (slices of one (B, T, 3, H, D)
     product) and an upstream gradient dO."""
@@ -796,19 +819,29 @@ def flash_inputs(shape, dtype, gen, device):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
 
 
+def _bwd_counts(flash) -> tuple:
+    return (flash.flash_bwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches)
+
+
 def phase_flash_vs_plain(device) -> dict:
-    """The three flash kernels against their plain versions on the card,
-    at every shape of ``FLASH_CHECK_SHAPES``, float32 and bfloat16, causal
-    and not; O, lse, dQ, delta, dK and dV all compared. Each backward
-    kernel takes the plain forward's O and lse (and the dK/dV kernel the
-    plain delta), so each is held against its plain version on the same
-    inputs. Returns each kernel's largest error."""
+    """The flash kernels against their plain versions on the card, at
+    every shape of ``FLASH_CHECK_SHAPES``, float32 and bfloat16, causal and
+    not; O, lse, dQ, delta, dK and dV all compared. Each backward kernel
+    takes the plain forward's O and lse (and the dK/dV kernel the plain
+    delta), so each is held against its plain version on the same inputs.
+    ``flash_bwd`` runs twice on the same inputs: both calls must give the
+    same bits, and only its route's counters may move (the fused kernel's,
+    or the dQ and dK/dV kernels'). Returns each kernel's largest error and
+    the route of every case."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
-    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+             "flash_bwd": 0.0}
+    routes, used = {}, {}
     f32 = flash_tolerance(torch.float32)
     for shape in FLASH_CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -841,11 +874,40 @@ def phase_flash_vs_plain(device) -> dict:
                 worst["flash_dkv"] = max(
                     worst["flash_dkv"], _close("dK", dk, want_dk, tol, where),
                     _close("dV", dv, want_dv, tol, where))
+
+                route = flash._bwd_route(shape, dtype)
+                before = _bwd_counts(flash)
+                got = flash.flash_bwd(q, k, v, want_o, want_lse, do,
+                                      causal=causal)
+                again = flash.flash_bwd(q, k, v, want_o, want_lse, do,
+                                        causal=causal)
+                torch.cuda.synchronize()
+                moved = tuple(b - a for a, b in zip(before,
+                                                    _bwd_counts(flash)))
+                if moved != ((2, 0, 0) if route == "fused" else (0, 2, 2)):
+                    raise AssertionError(f"flash_bwd on the {route} route "
+                                         f"moved (bwd, dq, dkv) by {moved} "
+                                         f"at {where}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"flash_bwd gave other bits on a "
+                                         f"second call at {where}")
+                worst["flash_bwd"] = max(
+                    worst["flash_bwd"],
+                    *(_close(f"flash_bwd {name}", a, b, tol, where)
+                      for name, a, b in zip(("dQ", "dK", "dV"), got,
+                                            (want_dq, want_dk, want_dv))))
+                key = f"{'x'.join(map(str, shape))} {dtype}".replace(
+                    "torch.", "")
+                routes[key] = route
+                used[key] = max(used.get(key, 0.0), *(
+                    tolerance_used(a, b, tol) for a, b in zip(
+                        got, (want_dq, want_dk, want_dv))))
     emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          dtypes=["float32", "bfloat16"], causal=[False, True],
          tolerance={"float32": flash_tolerance(torch.float32),
                     "bfloat16": flash_tolerance(torch.bfloat16)},
-         max_abs_err=worst)
+         max_abs_err=worst, flash_bwd_routes=routes,
+         flash_bwd_tolerance_used=used, flash_bwd_same_bits=True)
     return worst
 
 
@@ -854,7 +916,8 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
     each input read once and each output written once (q, k, v, O, dO,
     dQ, dK, dV of ``elem_bytes`` each; lse and delta float32), against the
     products' 2 operations per multiply-add (two products in the forward,
-    three in dQ, four in dK/dV) at the card's bf16 tensor-core rate."""
+    three in dQ, four in dK/dV, five in the fused backward) at the card's
+    bf16 tensor-core rate."""
     b, t, h, d = shape
     tensor = b * t * h * d * elem_bytes
     row = b * h * t * 4
@@ -865,6 +928,8 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
         "flash_dq": (5 * tensor + row + tensor + row, 3),
         # q, k, v, dO, lse, delta in; dK, dV out
         "flash_dkv": (4 * tensor + 2 * row + 2 * tensor, 4),
+        # q, k, v, O, dO, lse in; dQ, dK, dV out (delta stays on chip)
+        "flash_bwd": (5 * tensor + row + 3 * tensor, 5),
     }[kernel]
     ops = products * 2 * b * h * t * t * d
     t_bytes = bytes_moved / peaks[0] * 1e3
@@ -878,7 +943,9 @@ def phase_flash_timings(device, peaks) -> dict:
     in bf16, beside its plain version, its bound and the library yardstick
     (``F.scaled_dot_product_attention``'s forward, and its backward, which
     computes dQ, dK and dV in one call; timed here only, the port never
-    calls it)."""
+    calls it). The backward's yardstick is set against the fused kernel,
+    and against the split pair (dQ then dK/dV) as one: neither split
+    kernel alone computes what it computes."""
     import torch
     import torch.nn.functional as F
 
@@ -902,11 +969,13 @@ def phase_flash_timings(device, peaks) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))},
         "flash_dq": {
             "kernel": lambda: flash.flash_dq(q, k, v, o, lse, do),
-            "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do),
-            "library": lib_bwd},
+            "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do)},
         "flash_dkv": {
             "kernel": lambda: flash.flash_dkv(q, k, v, lse, delta, do),
-            "plain": lambda: flash.flash_dkv_plain(q, k, v, lse, delta, do),
+            "plain": lambda: flash.flash_dkv_plain(q, k, v, lse, delta, do)},
+        "flash_bwd": {
+            "kernel": lambda: flash.flash_bwd(q, k, v, o, lse, do),
+            "plain": lambda: flash.flash_bwd_plain(q, k, v, o, lse, do),
             "library": lib_bwd},
     }
     rows = {}
@@ -915,10 +984,11 @@ def phase_flash_timings(device, peaks) -> dict:
                                                      peaks)
         row = {"shape": list(VIT_SHAPE), "dtype": "bfloat16",
                "bytes": bytes_moved, "operations": ops, "bound_ms": least,
-               "bound_by": by,
-               "library_call": ("F.scaled_dot_product_attention"
-                                if name == "flash_fwd" else
-                                "its backward (dQ, dK and dV in one call)")}
+               "bound_by": by, "library_ms": None,
+               "library_call": {
+                   "flash_fwd": "F.scaled_dot_product_attention",
+                   "flash_bwd": "its backward (dQ, dK and dV in one call)",
+               }.get(name)}
         for what, fn in fns.items():
             per = device_ms(fn)
             row[f"{what}_ms"] = sum(per.values())
@@ -927,9 +997,64 @@ def phase_flash_timings(device, peaks) -> dict:
                 row["kernel_only_ms"] = _kernel_ms(per, f"{name}_kernel")
             if what == "library":
                 row["library_kernels"] = sorted(k[:60] for k in per)
+        if name == "flash_bwd":
+            # The split route's pair at the same inputs, in this call.
+            row["split_pair_ms"] = (rows["flash_dq"]["kernel_ms"]
+                                    + rows["flash_dkv"]["kernel_ms"])
         rows[name] = row
         emit("timing", kernel=name, **row)
     return rows
+
+
+def phase_flash_split_route(device) -> dict:
+    """``flash_attention``'s forward and backward on the split route
+    (``SPLIT_ROUTE_CASES``): the dQ and dK/dV kernels must each launch once
+    per case and the fused kernel never; the gradients are held against
+    ``flash_bwd_plain`` on the forward kernel's O and lse. Returns the
+    launch counts of that run."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    cases = []
+    for shape, dtype_name in SPLIT_ROUTE_CASES:
+        dtype = getattr(torch, dtype_name)
+        if flash._bwd_route(shape, dtype) != "split":
+            raise AssertionError(f"{shape} {dtype_name} is not on the split "
+                                 f"route")
+        q, k, v, do = flash_inputs(shape, dtype, gen, device)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        cases.append((shape, dtype, leaves, do))
+    # The split route's run starts here.
+    flash.flash_bwd.launches = 0
+    flash.flash_dq.launches = 0
+    flash.flash_dkv.launches = 0
+    for _, _, leaves, do in cases:
+        flash.flash_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    launches = {"flash_bwd": flash.flash_bwd.launches,
+                "flash_dq": flash.flash_dq.launches,
+                "flash_dkv": flash.flash_dkv.launches}
+    # ... and ends here.
+    want = {"flash_bwd": 0, "flash_dq": len(cases),
+            "flash_dkv": len(cases)}
+    if launches != want:
+        raise AssertionError(f"split route launch counts {launches}, "
+                             f"expected {want}")
+    worst = 0.0
+    for shape, dtype, leaves, do in cases:
+        where = f"{shape} {dtype} (split route)"
+        q, k, v = (x.detach() for x in leaves)
+        o, lse = flash.flash_fwd(q, k, v)
+        want_grads = flash.flash_bwd_plain(q, k, v, o, lse, do)
+        for name, x, w in zip(("dQ", "dK", "dV"), leaves, want_grads):
+            worst = max(worst, _close(name, x.grad, w,
+                                      flash_tolerance(dtype), where))
+    emit("flash_split_route",
+         cases=[[list(s), d] for s, d in SPLIT_ROUTE_CASES],
+         launches=launches, expected_launches=want, max_abs_err=worst)
+    return launches
 
 
 def _train_lines(text: str, prefix: str) -> list:
@@ -958,8 +1083,8 @@ def _launch_counters(model: str) -> dict:
     counters = {"xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
                 "adam": adam.adam_leaf}
     if TRAIN_RUNS[model]["depth"]:
-        counters.update(flash_fwd=flash.flash_fwd, flash_dq=flash.flash_dq,
-                        flash_dkv=flash.flash_dkv)
+        counters.update(flash_fwd=flash.flash_fwd, flash_bwd=flash.flash_bwd,
+                        flash_dq=flash.flash_dq, flash_dkv=flash.flash_dkv)
     return counters
 
 
@@ -1007,8 +1132,9 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
                 "adam": run_cfg["params"] * steps}
         depth = run_cfg["depth"]
         if depth:
+            # bf16 at T = 49: every backward takes the fused route.
             want.update(flash_fwd=depth * (steps + evals),
-                        flash_dq=depth * steps, flash_dkv=depth * steps)
+                        flash_bwd=depth * steps, flash_dq=0, flash_dkv=0)
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
         files = sorted(os.listdir(ckpt))
@@ -1049,8 +1175,8 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
 def _train_kind(kernel: str) -> str:
     """A device kernel's part of a train step, by its name."""
     name = kernel.lower()
-    for ours in ("xent_fwd", "xent_bwd", "adam", "flash_fwd", "flash_dq",
-                 "flash_dkv"):
+    for ours in ("xent_fwd", "xent_bwd", "adam", "flash_fwd", "flash_bwd",
+                 "flash_dq", "flash_dkv"):
         if f"{ours}_kernel" in name:
             return ours
     if "memcpy" in name or "memset" in name:
@@ -1188,6 +1314,7 @@ def main() -> int:
     phase_train_profile(device)
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
+    split_launches = phase_flash_split_route(device)
     vit_launches = phase_train(model="vit")
     phase_train_profile(device, model="vit")
 
@@ -1229,19 +1356,26 @@ def main() -> int:
         "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
         "bound_by": "bytes", "library_ms": all_8["library_ms"],
         "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each"})
-    for kname, replaces in (("flash_fwd", TPU_FLASH_FWD),
-                            ("flash_dq", TPU_FLASH_BWD),
-                            ("flash_dkv", TPU_FLASH_BWD)):
+    # flash_fwd and flash_bwd run on the bf16 ViT path (train_vit); the
+    # split pair on the split route's path (flash_split_route).
+    for kname, replaces, source, launched in (
+            ("flash_fwd", TPU_FLASH_FWD, "flash.cu", vit_launches),
+            ("flash_bwd", TPU_FLASH_BWD, "flash_bwd.cu", vit_launches),
+            ("flash_dq", TPU_FLASH_BWD, "flash.cu", split_launches),
+            ("flash_dkv", TPU_FLASH_BWD, "flash.cu", split_launches)):
         row = flash_rows[kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": f"{CSRC}/flash.cu",
-            "replaces": replaces, "launches": vit_launches[kname],
+        entry = {
+            "name": kname, "route": "cuda", "source": f"{CSRC}/{source}",
+            "replaces": replaces, "launches": launched[kname],
             "max_abs_err": flash_err[kname], "ms": row["kernel_ms"],
             "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_call": row["library_call"],
-            "at": "x".join(map(str, VIT_SHAPE)) + " (B, T, H, D) bf16"})
+            "at": "x".join(map(str, VIT_SHAPE)) + " (B, T, H, D) bf16"}
+        if kname == "flash_bwd":
+            entry["split_pair_ms"] = row["split_pair_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

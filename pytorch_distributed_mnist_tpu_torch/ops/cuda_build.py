@@ -65,6 +65,10 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         # q, k, v, dout, lse, delta, dk, dv, then the tail
         "flash_dkv_launch": ([_P] * 8 + _FLASH_TAIL, _I),
     },
+    "flash_bwd": {
+        # q, k, v, o, dout, lse, dq, dk, dv, then the tail (bf16 must be 1)
+        "flash_bwd_launch": ([_P] * 9 + _FLASH_TAIL, _I),
+    },
 }
 
 _lock = threading.Lock()

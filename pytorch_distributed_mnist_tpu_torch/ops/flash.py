@@ -1,5 +1,6 @@
-"""Flash attention: the hand-written CUDA kernels (forward, dQ, dK/dV),
-their plain PyTorch versions, and the autograd function built on them.
+"""Flash attention: the hand-written CUDA kernels (forward; the backward
+fused in one kernel, or split into a dQ and a dK/dV kernel), their plain
+PyTorch versions, and the autograd function built on them.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/ops/pallas/flash.py``,
 selected by ``--attention flash`` for the ViT. Layout ``(B, T, H, D)``,
@@ -18,12 +19,22 @@ kernels have it. A row with nothing to attend gives O = 0 and
 ``lse = NEG_INF``. Scores and sums are float32; O, dQ, dK and dV come back
 in the inputs' dtype (float32 or bfloat16).
 
-:func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv` launch
-``csrc/flash.cu`` for CUDA tensors (built at first use,
-``ops/cuda_build.py``) and take the plain versions only for tensors on
-the CPU. There is no fallback from one to the other: a CUDA tensor
-launches the kernel or raises. ``delta`` is computed by the dQ kernel,
-which hands it to the dK/dV kernel; :func:`flash_dq` returns it.
+:func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_dq` and
+:func:`flash_dkv` launch ``csrc/flash.cu`` and ``csrc/flash_bwd.cu`` for
+CUDA tensors (built at first use, ``ops/cuda_build.py``) and take the
+plain versions only for tensors on the CPU. There is no fallback from one
+to the other: a CUDA tensor launches a kernel or raises.
+
+The backward (:func:`flash_bwd`) takes one of two routes on the card,
+chosen by :func:`_bwd_route` from the shape and dtype alone:
+
+- ``"fused"``: bfloat16, T <= 128 and D a multiple of 8 (D <= 128 holds
+  for every route). One kernel per call computes delta, dQ, dK and dV for
+  a whole (batch, head) on the tensor cores.
+- ``"split"``: everything else (float32, whose 1e-4 tolerance rests on
+  exact float32 products; T > 128, such as the ViT at ``--patch-size 2``;
+  D not a multiple of 8). :func:`flash_dq`, which also computes delta, and
+  then :func:`flash_dkv`, both with float32 FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -36,11 +47,14 @@ import torch
 from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
 from pytorch_distributed_mnist_tpu_torch.ops.attention import NEG_INF
 
-__all__ = ["flash_attention", "flash_bwd_plain", "flash_dkv",
+__all__ = ["flash_attention", "flash_bwd", "flash_bwd_plain", "flash_dkv",
            "flash_dkv_plain", "flash_dq", "flash_dq_plain", "flash_fwd",
            "flash_fwd_plain"]
 
 MAX_HEAD_DIM = 128  # the kernels hold 16 head dims per thread, 8 threads
+# The fused backward keeps a whole (batch, head) in one block: one warp per
+# 16-row tile, at most 8, and the (T, T) dS in shared memory.
+FUSED_MAX_T = 128
 _TYPES = (torch.float32, torch.bfloat16)
 
 _count_lock = threading.Lock()
@@ -181,8 +195,9 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` in q's, k's and v's dtype from the forward's O and
-    lse and the upstream gradient dO: the two backward kernels' function
-    in torch ops."""
+    lse and the upstream gradient dO: the backward's function in torch ops
+    (the CPU path of :func:`flash_bwd`, and the yardstick both of its
+    routes are held against on the card)."""
     dq, delta = flash_dq_plain(q, k, v, o, lse, do, causal=causal,
                                scale=scale)
     dk, dv = flash_dkv_plain(q, k, v, lse, delta, do, causal=causal,
@@ -212,9 +227,29 @@ def _shape_args(q: torch.Tensor) -> tuple:
     return (b, h, t, d, q.stride(0), q.stride(1), q.stride(2))
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary and every stride but the
+    last is a multiple of 8 elements: the fused kernel's 16-byte loads of
+    bf16 rows need both."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:-1])
+               for t in tensors)
+
+
+def _bwd_route(shape, dtype) -> str:
+    """``"fused"`` when :func:`flash_bwd`'s one-kernel backward takes a
+    ``(B, T, H, D)`` problem of this dtype (bfloat16, T <= 128, D a
+    multiple of 8), else ``"split"`` (the dQ kernel, then the dK/dV
+    kernel)."""
+    _, t, _, d = shape
+    if dtype == torch.bfloat16 and t <= FUSED_MAX_T and d % 8 == 0:
+        return "fused"
+    return "split"
+
+
 def _launch(symbol: str, q: torch.Tensor, pointers: list, scale: float,
-            causal: bool) -> None:
-    lib = cuda_build.load("flash")
+            causal: bool, lib_name: str = "flash") -> None:
+    lib = cuda_build.load(lib_name)
     err = getattr(lib, symbol)(
         *pointers, *_shape_args(q), scale, int(causal),
         int(q.dtype == torch.bfloat16), q.device.index, _stream(q))
@@ -303,15 +338,59 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              causal: bool = False, scale: Optional[float] = None) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dQ, dK, dV)`` as :func:`flash_bwd_plain` gives them, from the
+    forward's O and lse and the upstream gradient dO. CPU tensors take
+    :func:`flash_bwd_plain`. CUDA tensors take the route
+    :func:`_bwd_route` names: ``"fused"`` launches the one-kernel backward
+    (counted in ``flash_bwd.launches``), after copying any operand whose
+    pointer or strides are not 16-byte aligned; ``"split"`` calls
+    :func:`flash_dq` and then :func:`flash_dkv` (counted in theirs)."""
+    _check(q, k, v, o, do)
+    _check_rows(q, lse)
+    if not _on_card(q, "flash_bwd"):
+        return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                               scale=scale)
+    if _bwd_route(q.shape, q.dtype) == "split":
+        dq, delta = flash_dq(q, k, v, o, lse, do, causal=causal, scale=scale)
+        dk, dv = flash_dkv(q, k, v, lse, delta, do, causal=causal,
+                           scale=scale)
+        return dq, dk, dv
+    q, k, v = _views(q, k, v)
+    if not _aligned(q, k, v):
+        q, k, v = (x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    o, do = (x if x.is_contiguous() and _aligned(x)
+             else x.clone(memory_format=torch.contiguous_format)
+             for x in (o, do))
+    lse = lse.contiguous()
+    b, t, h, d = q.shape
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    _launch("flash_bwd_launch", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr()], _scale(q, scale), causal, "flash_bwd")
+    with _count_lock:
+        flash_bwd.launches += 1
+    return dq, dk, dv
+
+
 flash_fwd.launches = 0
+flash_bwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """O from the forward kernel; the backward runs the dQ kernel, then the
-    dK/dV kernel. Saves q, k, v, O and lse (the reference's custom_vjp
-    residuals, here unpadded)."""
+    """O from the forward kernel; the backward is :func:`flash_bwd` (the
+    fused kernel, or the dQ kernel then the dK/dV kernel). Saves q, k, v,
+    O and lse (the reference's custom_vjp residuals, here unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -323,11 +402,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        dq, delta = flash_dq(q, k, v, o, lse, do, causal=ctx.causal,
-                             scale=ctx.scale)
-        dk, dv = flash_dkv(q, k, v, lse, delta, do, causal=ctx.causal,
-                           scale=ctx.scale)
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
+                               causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -341,8 +417,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     exactly there).
 
     ``block`` is checked as the reference checks it (a multiple of 8, at
-    most 512) and then ignored: the CUDA kernels tile by 64 rows whatever
-    it says."""
+    most 512) and then ignored: the CUDA kernels tile by 64 rows (the
+    fused backward by 16) whatever it says."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(
             f"flash_attention requires Tq == Tk (self-attention); got "

@@ -164,3 +164,97 @@ def test_flash_attention_trains_through_the_kernels(card):
     for got, want in ((q.grad, qd.grad), (k.grad, kd.grad),
                       (v.grad, vd.grad)):
         _flash_close(got, want, torch.float32)
+
+
+FLASH_BWD_SHAPES = FLASH_SHAPES + [(2, 128, 2, 128), (3, 100, 3, 48)]
+
+
+def _bwd_counts(flash):
+    return (flash.flash_bwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches)
+
+
+def _flash_bwd_inputs(card, shape, dtype, seed, offset=0, causal=False):
+    """q, k, v as slices of one (B, T, 3, H, D) qkv product that starts
+    ``offset`` elements into its buffer, dO, and the plain forward's O and
+    lse."""
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    b, t, h, d = shape
+    gen = torch.Generator(device=card).manual_seed(seed)
+    buf = torch.randn(offset + b * t * 3 * h * d, device=card, generator=gen)
+    qkv = buf.to(dtype)[offset:].view(b, t, 3, h, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(b, t, h, d, device=card, generator=gen).to(dtype)
+    o, lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_matches_plain_on_its_route(card, shape, dtype, causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    b, t, h, d = shape
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, dtype,
+                                            b * t * h * d + causal,
+                                            causal=causal)
+    before = _bwd_counts(flash)
+    got = flash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
+    # Only the route's own counters move.
+    fused = flash._bwd_route(shape, dtype) == "fused"
+    assert moved == ((1, 0, 0) if fused else (0, 1, 1))
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.is_contiguous()
+        _flash_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_fused_gives_the_same_bits_twice(card, causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, (256, 49, 4, 16),
+                                            torch.bfloat16, 21,
+                                            causal=causal)
+    first = flash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    second = flash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_copies_a_misaligned_view(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    # The qkv product starts 3 elements (6 bytes) into its buffer.
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, (8, 49, 4, 16),
+                                            torch.bfloat16, 22, offset=3)
+    assert not flash._aligned(q)
+    before = flash.flash_bwd.launches
+    got = flash.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert flash.flash_bwd.launches == before + 1
+    for a, w in zip(got, flash.flash_bwd_plain(q, k, v, o, lse, do)):
+        _flash_close(a, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,dtype", [((32, 196, 4, 16), torch.bfloat16),
+                                         ((4, 49, 4, 16), torch.bfloat16),
+                                         ((4, 49, 4, 16), torch.float32)])
+def test_flash_attention_backward_takes_its_route(card, shape, dtype):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=card).manual_seed(23)
+    q, k, v = (torch.randn(shape, device=card, generator=gen).to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(shape, device=card, generator=gen).to(dtype)
+    before = _bwd_counts(flash)
+    flash.flash_attention(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
+    fused = flash._bwd_route(shape, dtype) == "fused"
+    assert moved == ((1, 0, 0) if fused else (0, 1, 1))
