@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
    ``sm_90a``, one process per source, all at once);
 2. kernel against plain: ``matmul_i8`` against ``matmul_i8_plain`` on the
    card at every shape of the int8 serving path plus ragged ones (exactly
-   equal); the cross-entropy kernels against ``xent_fwd_plain`` /
+   equal, and the same bits on a second call), with the split-K plan of
+   each shape; the cross-entropy kernels against ``xent_fwd_plain`` /
    ``xent_bwd_plain`` at B in {1, 7, 256, 300} and C in {10, 128} with
    saturated tie rows (``rtol=atol=1e-6``: the sum of exp is taken in
    another order); the Adam kernel against ``adam_leaf_plain`` at every
@@ -20,7 +21,7 @@ Phases, each printing one JSON line:
    call computing the same function (``torch._int_mm``,
    ``F.cross_entropy`` and its backward, ``torch.optim.Adam(fused=True)``;
    timed here as yardsticks only, the port never calls them), beside the
-   least time the card could take;
+   least time the card could take; Adam also over the ViT's 31 leaves;
 4. server: the port's server (``--model cnn --serve-precision int8``,
    fused plane, default buckets) boots in-process over a seeded checkpoint,
    answers concurrent and sequential ``/predict`` requests, ``/healthz`` and
@@ -47,17 +48,22 @@ Phases, each printing one JSON line:
    bits, at the ViT's shape (256, 49, 4, 16) and at T in {1, 16, 70, 100,
    128, 130, 196, 200}, D in {8, 16, 32, 48, 64, 128}, float32 and
    bfloat16, causal and not (``flash_tolerance`` states each tolerance
-   and why), with the route each took;
-9. flash timings: device ms per call of the four kernels at the ViT's
-   shape in bf16, their plain versions, ``F.scaled_dot_product_attention``
-   forward and backward as the yardstick, and each kernel's bound;
+   and why), with the route each forward and backward took and the share
+   of its tolerance each used; in bf16 also the CUDA-core forward;
+9. flash timings: device ms per call of the kernels at the ViT's shape in
+   bf16 (the tensor-core forward beside the CUDA-core one, which is also
+   timed in float32, its route's dtype), their plain versions,
+   ``F.scaled_dot_product_attention`` forward and backward as the
+   yardstick, and each kernel's bound;
 10. the split backward route on the attention path: ``flash_attention``
    forward and backward at (32, 196, 4, 16) bf16 and at the ViT's shape in
    float32 launch the dQ and dK/dV kernels (and not the fused one), with
-   gradients held against ``flash_bwd_plain``;
+   gradients held against ``flash_bwd_plain`` (the float32 case's forward
+   takes the CUDA-core route);
 11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
-   160, flash_bwd 128, flash_dq and flash_dkv 0, xent 80/64, adam 1984),
+   160, all on the tensor-core route, flash_bwd 128, flash_dq and flash_dkv
+   0, xent 80/64, adam 1984),
    101-leaf checkpoints, resume and ``-e``;
 12. ViT train profile: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies);
@@ -108,6 +114,7 @@ TPU_XENT_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:154"
 TPU_ADAM = "pytorch_distributed_mnist_tpu/ops/pallas/adam.py:64"
 TPU_FLASH_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:147"
 TPU_FLASH_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:274"
+ADAM_BYTES = 28  # per param: p, g, m, v read; p, m, v written (float32)
 CSRC = "pytorch_distributed_mnist_tpu_torch/csrc"
 # The training path: batch 256 of cnn's 10 classes; the smoke's run.
 TRAIN_BATCH = 256
@@ -264,15 +271,19 @@ def phase_kernel_vs_plain(device) -> float:
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        _sm_count,
         matmul_i8,
         matmul_i8_plain,
+        split_k,
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst = 0
+    plans = {}
     for m, k, n in CHECK_SHAPES:
         a, b = random_i8((m, k), gen, device), random_i8((k, n), gen, device)
         got = matmul_i8(a, b)
+        again = matmul_i8(a, b)
         want = matmul_i8_plain(a, b)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
@@ -280,6 +291,10 @@ def phase_kernel_vs_plain(device) -> float:
         if got.dtype != torch.int32 or not torch.equal(got, want):
             raise AssertionError(f"matmul_i8 disagrees with its plain "
                                  f"version at {m}x{k}x{n}: max |err| {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"matmul_i8 gave other bits on a second "
+                                 f"call at {m}x{k}x{n}")
+        plans[f"{m}x{k}x{n}"] = split_k(m, n, k, _sm_count(device.index))
     # Extremes: the largest sum fc1 can reach, and a strided view of A.
     a = torch.full((4, FC1[0]), -128, dtype=torch.int8, device=device)
     b = torch.full(FC1, -128, dtype=torch.int8, device=device)
@@ -293,7 +308,9 @@ def phase_kernel_vs_plain(device) -> float:
     torch.cuda.synchronize()
     emit("kernel_vs_plain", kernel="matmul_i8",
          shapes=[list(s) for s in CHECK_SHAPES], exact=True,
-         max_abs_err=worst)
+         same_bits_twice=True, max_abs_err=worst,
+         split_k_plans={key: {"splits": sp, "cluster": cl}
+                        for key, (sp, cl) in plans.items()})
     return float(worst)
 
 
@@ -615,14 +632,15 @@ def adam_hyper_scalars(device):
             for k, v in {"learning_rate": 1e-3, **ADAM_DEFAULTS}.items()}
 
 
-def cnn_leaf_shapes():
-    """The 8 cnn param shapes, in the order the optimizer walks them."""
+def leaf_shapes(model: str = "cnn"):
+    """The model's param shapes (cnn: 8, vit: 31), in the order the
+    optimizer walks them."""
     from pytorch_distributed_mnist_tpu_torch.models import get_model
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
         jax_param_order,
     )
 
-    params = dict(get_model("cnn").named_parameters())
+    params = dict(get_model(model).named_parameters())
     return [(n, tuple(params[n].shape)) for n in jax_param_order(params)]
 
 
@@ -654,7 +672,7 @@ def phase_train_kernels_vs_plain(device) -> dict:
             worst["xent_bwd"] = max(worst["xent_bwd"],
                                     float((dl - want_dl).abs().max()))
     hyper = adam_hyper_scalars(device)
-    sizes = [s for _, s in cnn_leaf_shapes()] + [(1,), (1000003,)]
+    sizes = [s for _, s in leaf_shapes()] + [(1,), (1000003,)]
     adam_err, adam_ulps = 0.0, 0
     for shape in sizes:
         for t in (1, 2, 10):
@@ -736,7 +754,7 @@ def phase_train_timings(device, peaks) -> dict:
     hyper = adam_hyper_scalars(device)
     h = adam.adam_hypers(hyper, torch.tensor(3.0, device=device))
     leaves = []
-    for name, shape in cnn_leaf_shapes():
+    for name, shape in leaf_shapes():
         p = torch.randn(shape, device=device, generator=gen)
         p.grad = torch.randn(shape, device=device, generator=gen) * 1e-3
         leaves.append((name, p))
@@ -745,7 +763,8 @@ def phase_train_timings(device, peaks) -> dict:
     for name, p in leaves:
         m, v = torch.zeros_like(p), torch.zeros_like(p)
         n = p.numel()
-        t_bytes, t_ops = 28 * n / bw * 1e3, 15 * n / f32_rate * 1e3
+        t_bytes = ADAM_BYTES * n / bw * 1e3
+        t_ops = 15 * n / f32_rate * 1e3
         kper = device_ms(lambda: adam.adam_leaf(p, p.grad, m, v, h))
         row = {"leaf": name, "numel": n, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -766,9 +785,49 @@ def phase_train_timings(device, peaks) -> dict:
                  step_call_ms=call_ms(fused.step),
                  library_ms=sum(device_ms(library.step).values()),
                  library_call_ms=call_ms(library.step))
-    rows["adam"] = {"leaves": per_leaf, "all_8": total}
-    emit("timing", kernel="adam", leaves=per_leaf, all_8=total)
+    rows["adam"] = {"leaves": per_leaf, "all_8": total,
+                    "vit_31": _adam_vit_timing(device, gen, h, bw, f32_rate)}
+    emit("timing", kernel="adam", leaves=per_leaf, all_8=total,
+         vit_31=rows["adam"]["vit_31"])
     return rows
+
+
+def _adam_vit_timing(device, gen, h, bw, f32_rate) -> dict:
+    """Adam over the ViT's 31 leaves (its ``--optimizer adam_pallas``
+    step): the port's optimizer step (one kernel launch per leaf), the
+    plain version on the same leaves, and ``torch.optim.Adam(fused=True)``
+    (the yardstick, never called by the port), beside the byte bound."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    params = []
+    for _, shape in leaf_shapes("vit"):
+        p = torch.randn(shape, device=device, generator=gen)
+        p.grad = torch.randn(shape, device=device, generator=gen) * 1e-3
+        params.append(p)
+    if len(params) != TRAIN_RUNS["vit"]["params"]:
+        raise AssertionError(f"the ViT has {len(params)} leaves")
+    moments = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
+
+    def plain():
+        for p, (m, v) in zip(params, moments):
+            adam.adam_leaf_plain(p, p.grad, m, v, h)
+
+    fused = adam.FusedAdam(params, lr=1e-3)
+    library = torch.optim.Adam(params, lr=1e-3, fused=True)
+    numel = sum(p.numel() for p in params)
+    t_bytes = ADAM_BYTES * numel / bw * 1e3
+    t_ops = 15 * numel / f32_rate * 1e3
+    per = device_ms(fused.step)
+    return {"leaves": len(params), "numel": numel,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kernel_ms": _kernel_ms(per, "adam_kernel"),
+            "step_ms": sum(per.values()), "step_call_ms": call_ms(fused.step),
+            "plain_ms": sum(device_ms(plain).values()),
+            "library_ms": sum(device_ms(library.step).values()),
+            "library_call_ms": call_ms(library.step)}
 
 
 def flash_tolerance(dtype) -> dict:
@@ -832,26 +891,36 @@ def phase_flash_vs_plain(device) -> dict:
     delta), so each is held against its plain version on the same inputs.
     ``flash_bwd`` runs twice on the same inputs: both calls must give the
     same bits, and only its route's counters may move (the fused kernel's,
-    or the dQ and dK/dV kernels'). Returns each kernel's largest error and
-    the route of every case."""
+    or the dQ and dK/dV kernels'). ``flash_fwd`` takes its route (the
+    tensor-core kernel in bf16, the CUDA-core kernel in float32); in bf16
+    the CUDA-core forward is held to the plain version too. Returns each
+    kernel's largest error (``flash_fwd``: the tensor-core forward,
+    ``flash_fwd_cuda_core``: the CUDA-core one)."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
-    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-             "flash_bwd": 0.0}
-    routes, used = {}, {}
+    worst = {"flash_fwd": 0.0, "flash_fwd_cuda_core": 0.0, "flash_dq": 0.0,
+             "flash_dkv": 0.0, "flash_bwd": 0.0}
+    routes, used, fwd_routes, fwd_used = {}, {}, {}, {}
     f32 = flash_tolerance(torch.float32)
     for shape in FLASH_CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             tol = flash_tolerance(dtype)
             for causal in (False, True):
                 where = f"{shape} {dtype} causal={causal}"
+                key = f"{'x'.join(map(str, shape))} {dtype}".replace(
+                    "torch.", "")
                 q, k, v, do = flash_inputs(shape, dtype, gen, device)
+                fwd_route = flash._fwd_route(shape, dtype)
+                before = dict(flash.flash_fwd.route_launches)
                 o, lse = flash.flash_fwd(q, k, v, causal=causal)
                 want_o, want_lse = flash.flash_fwd_plain(q, k, v,
                                                          causal=causal)
+                if fwd_route == "tensor":
+                    o_cc, lse_cc = flash.flash_fwd(q, k, v, causal=causal,
+                                                   route="cuda_core")
                 dq, delta = flash.flash_dq(q, k, v, want_o, want_lse, do,
                                            causal=causal)
                 want_dq, want_delta = flash.flash_dq_plain(
@@ -864,10 +933,30 @@ def phase_flash_vs_plain(device) -> dict:
                 if o.dtype != dtype or dq.dtype != dtype \
                         or lse.dtype != torch.float32:
                     raise AssertionError(f"flash output dtypes at {where}")
-                worst["flash_fwd"] = max(
-                    worst["flash_fwd"],
-                    _close("O", o, want_o, tol, where),
-                    _close("lse", lse, want_lse, f32, where))
+                moved = {r: n - before[r]
+                         for r, n in flash.flash_fwd.route_launches.items()}
+                want_moved = ({"tensor": 1, "cuda_core": 1}
+                              if fwd_route == "tensor"
+                              else {"tensor": 0, "cuda_core": 1})
+                if moved != want_moved:
+                    raise AssertionError(f"flash_fwd's routes moved by "
+                                         f"{moved} at {where}")
+                fwd_key = ("flash_fwd" if fwd_route == "tensor"
+                           else "flash_fwd_cuda_core")
+                worst[fwd_key] = max(
+                    worst[fwd_key],
+                    _close(f"O ({fwd_route})", o, want_o, tol, where),
+                    _close(f"lse ({fwd_route})", lse, want_lse, f32, where))
+                if fwd_route == "tensor":
+                    worst["flash_fwd_cuda_core"] = max(
+                        worst["flash_fwd_cuda_core"],
+                        _close("O (cuda_core)", o_cc, want_o, tol, where),
+                        _close("lse (cuda_core)", lse_cc, want_lse, f32,
+                               where))
+                fwd_routes[key] = fwd_route
+                fwd_used[key] = max(fwd_used.get(key, 0.0),
+                                    tolerance_used(o, want_o, tol),
+                                    tolerance_used(lse, want_lse, f32))
                 worst["flash_dq"] = max(
                     worst["flash_dq"], _close("dQ", dq, want_dq, tol, where),
                     _close("delta", delta, want_delta, f32, where))
@@ -896,8 +985,6 @@ def phase_flash_vs_plain(device) -> dict:
                     *(_close(f"flash_bwd {name}", a, b, tol, where)
                       for name, a, b in zip(("dQ", "dK", "dV"), got,
                                             (want_dq, want_dk, want_dv))))
-                key = f"{'x'.join(map(str, shape))} {dtype}".replace(
-                    "torch.", "")
                 routes[key] = route
                 used[key] = max(used.get(key, 0.0), *(
                     tolerance_used(a, b, tol) for a, b in zip(
@@ -906,7 +993,8 @@ def phase_flash_vs_plain(device) -> dict:
          dtypes=["float32", "bfloat16"], causal=[False, True],
          tolerance={"float32": flash_tolerance(torch.float32),
                     "bfloat16": flash_tolerance(torch.bfloat16)},
-         max_abs_err=worst, flash_bwd_routes=routes,
+         max_abs_err=worst, flash_fwd_routes=fwd_routes,
+         flash_fwd_tolerance_used=fwd_used, flash_bwd_routes=routes,
          flash_bwd_tolerance_used=used, flash_bwd_same_bits=True)
     return worst
 
@@ -917,13 +1005,15 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
     dQ, dK, dV of ``elem_bytes`` each; lse and delta float32), against the
     products' 2 operations per multiply-add (two products in the forward,
     three in dQ, four in dK/dV, five in the fused backward) at the card's
-    bf16 tensor-core rate."""
+    bf16 tensor-core rate (float32 problems at the card's float32 rate
+    outside the tensor cores)."""
     b, t, h, d = shape
     tensor = b * t * h * d * elem_bytes
     row = b * h * t * 4
     bytes_moved, products = {
         # q, k, v in; O, lse out
         "flash_fwd": (3 * tensor + tensor + row, 2),
+        "flash_fwd_cuda_core": (3 * tensor + tensor + row, 2),
         # q, k, v, O, dO, lse in; dQ, delta out
         "flash_dq": (5 * tensor + row + tensor + row, 3),
         # q, k, v, dO, lse, delta in; dK, dV out
@@ -933,9 +1023,17 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
     }[kernel]
     ops = products * 2 * b * h * t * t * d
     t_bytes = bytes_moved / peaks[0] * 1e3
-    t_ops = ops / peaks[3] * 1e3
+    t_ops = ops / (peaks[3] if elem_bytes == 2 else peaks[2]) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, bytes_moved, ops
+
+
+# Each flash row's own kernel, by the name the profiler gives it.
+FLASH_KERNEL_NAMES = {"flash_fwd": "flash_fwd_mma_kernel",
+                      "flash_fwd_cuda_core": "flash_fwd_kernel",
+                      "flash_dq": "flash_dq_kernel",
+                      "flash_dkv": "flash_dkv_kernel",
+                      "flash_bwd": "flash_bwd_kernel"}
 
 
 def phase_flash_timings(device, peaks) -> dict:
@@ -945,7 +1043,10 @@ def phase_flash_timings(device, peaks) -> dict:
     computes dQ, dK and dV in one call; timed here only, the port never
     calls it). The backward's yardstick is set against the fused kernel,
     and against the split pair (dQ then dK/dV) as one: neither split
-    kernel alone computes what it computes."""
+    kernel alone computes what it computes. The tensor-core forward is
+    timed beside the CUDA-core one at the same inputs (``cuda_core_ms``);
+    the CUDA-core forward also has a row of its own in float32, the dtype
+    its route takes on the attention path."""
     import torch
     import torch.nn.functional as F
 
@@ -961,12 +1062,19 @@ def phase_flash_timings(device, peaks) -> dict:
     lib_do = do.transpose(1, 2)
     lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
                                           retain_graph=True)
+    qf, kf, vf, _ = flash_inputs(VIT_SHAPE, torch.float32, gen, device)
     calls = {
         "flash_fwd": {
             "kernel": lambda: flash.flash_fwd(q, k, v),
+            "cuda_core": lambda: flash.flash_fwd(q, k, v, route="cuda_core"),
             "plain": lambda: flash.flash_fwd_plain(q, k, v),
             "library": lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))},
+        "flash_fwd_cuda_core": {
+            "kernel": lambda: flash.flash_fwd(qf, kf, vf),
+            "plain": lambda: flash.flash_fwd_plain(qf, kf, vf),
+            "library": lambda: F.scaled_dot_product_attention(
+                qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2))},
         "flash_dq": {
             "kernel": lambda: flash.flash_dq(q, k, v, o, lse, do),
             "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do)},
@@ -980,13 +1088,15 @@ def phase_flash_timings(device, peaks) -> dict:
     }
     rows = {}
     for name, fns in calls.items():
-        least, by, bytes_moved, ops = flash_bound_ms(name, VIT_SHAPE, 2,
-                                                     peaks)
-        row = {"shape": list(VIT_SHAPE), "dtype": "bfloat16",
+        dtype = "float32" if name == "flash_fwd_cuda_core" else "bfloat16"
+        least, by, bytes_moved, ops = flash_bound_ms(
+            name, VIT_SHAPE, 4 if dtype == "float32" else 2, peaks)
+        row = {"shape": list(VIT_SHAPE), "dtype": dtype,
                "bytes": bytes_moved, "operations": ops, "bound_ms": least,
                "bound_by": by, "library_ms": None,
                "library_call": {
                    "flash_fwd": "F.scaled_dot_product_attention",
+                   "flash_fwd_cuda_core": "F.scaled_dot_product_attention",
                    "flash_bwd": "its backward (dQ, dK and dV in one call)",
                }.get(name)}
         for what, fn in fns.items():
@@ -994,7 +1104,8 @@ def phase_flash_timings(device, peaks) -> dict:
             row[f"{what}_ms"] = sum(per.values())
             row[f"{what}_call_ms"] = call_ms(fn)
             if what == "kernel":
-                row["kernel_only_ms"] = _kernel_ms(per, f"{name}_kernel")
+                row["kernel_only_ms"] = _kernel_ms(per,
+                                                   FLASH_KERNEL_NAMES[name])
             if what == "library":
                 row["library_kernels"] = sorted(k[:60] for k in per)
         if name == "flash_bwd":
@@ -1010,7 +1121,9 @@ def phase_flash_split_route(device) -> dict:
     """``flash_attention``'s forward and backward on the split route
     (``SPLIT_ROUTE_CASES``): the dQ and dK/dV kernels must each launch once
     per case and the fused kernel never; the gradients are held against
-    ``flash_bwd_plain`` on the forward kernel's O and lse. Returns the
+    ``flash_bwd_plain`` on the forward kernel's O and lse. The forwards
+    take their routes too: the bf16 case the tensor-core kernel, the
+    float32 case the CUDA-core one (``flash_fwd_cuda_core``). Returns the
     launch counts of that run."""
     import torch
 
@@ -1030,15 +1143,23 @@ def phase_flash_split_route(device) -> dict:
     flash.flash_bwd.launches = 0
     flash.flash_dq.launches = 0
     flash.flash_dkv.launches = 0
+    flash.flash_fwd.route_launches.update(tensor=0, cuda_core=0)
     for _, _, leaves, do in cases:
         flash.flash_attention(*leaves).backward(do)
     torch.cuda.synchronize()
     launches = {"flash_bwd": flash.flash_bwd.launches,
                 "flash_dq": flash.flash_dq.launches,
-                "flash_dkv": flash.flash_dkv.launches}
+                "flash_dkv": flash.flash_dkv.launches,
+                "flash_fwd_tensor": flash.flash_fwd.route_launches["tensor"],
+                "flash_fwd_cuda_core":
+                    flash.flash_fwd.route_launches["cuda_core"]}
     # ... and ends here.
+    fwd_routes = [flash._fwd_route(shape, dtype)
+                  for shape, dtype, _, _ in cases]
     want = {"flash_bwd": 0, "flash_dq": len(cases),
-            "flash_dkv": len(cases)}
+            "flash_dkv": len(cases),
+            "flash_fwd_tensor": fwd_routes.count("tensor"),
+            "flash_fwd_cuda_core": fwd_routes.count("cuda_core")}
     if launches != want:
         raise AssertionError(f"split route launch counts {launches}, "
                              f"expected {want}")
@@ -1108,12 +1229,18 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         # The main path's run starts here.
         for wrapper in _launch_counters(model).values():
             wrapper.launches = 0
+            if hasattr(wrapper, "route_launches"):  # flash_fwd
+                wrapper.route_launches.update(
+                    dict.fromkeys(wrapper.route_launches, 0))
         t0 = time.perf_counter()
         summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
                                         "--checkpoint-dir", ckpt])
         wall_s = time.perf_counter() - t0
         launches = {name: wrapper.launches
                     for name, wrapper in _launch_counters(model).items()}
+        if "flash_fwd" in launches:
+            launches["flash_fwd_routes"] = dict(
+                _launch_counters(model)["flash_fwd"].route_launches)
         # ... and ends here.
         lines = _train_lines(out, "Epoch: ")
         hist = summary["history"]
@@ -1132,8 +1259,11 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
                 "adam": run_cfg["params"] * steps}
         depth = run_cfg["depth"]
         if depth:
-            # bf16 at T = 49: every backward takes the fused route.
+            # bf16 at T = 49: every forward takes the tensor-core route,
+            # every backward the fused one.
             want.update(flash_fwd=depth * (steps + evals),
+                        flash_fwd_routes={"tensor": depth * (steps + evals),
+                                          "cuda_core": 0},
                         flash_bwd=depth * steps, flash_dq=0, flash_dkv=0)
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -1177,7 +1307,7 @@ def _train_kind(kernel: str) -> str:
     name = kernel.lower()
     for ours in ("xent_fwd", "xent_bwd", "adam", "flash_fwd", "flash_bwd",
                  "flash_dq", "flash_dkv"):
-        if f"{ours}_kernel" in name:
+        if f"{ours}_kernel" in name or f"{ours}_mma_kernel" in name:
             return ours
     if "memcpy" in name or "memset" in name:
         return "copy"
@@ -1355,11 +1485,17 @@ def main() -> int:
         "call_ms": all_8["kernel_call_ms"], "step_ms": all_8["step_ms"],
         "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
         "bound_by": "bytes", "library_ms": all_8["library_ms"],
-        "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each"})
-    # flash_fwd and flash_bwd run on the bf16 ViT path (train_vit); the
-    # split pair on the split route's path (flash_split_route).
+        "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each",
+        "vit_31": train_rows["adam"]["vit_31"]})
+    # flash_fwd (the tensor-core forward) and flash_bwd run on the bf16 ViT
+    # path (train_vit); the CUDA-core forward (float32) and the split pair
+    # on the split route's path (flash_split_route).
+    vit_launches = {**vit_launches,
+                    "flash_fwd": vit_launches["flash_fwd_routes"]["tensor"]}
     for kname, replaces, source, launched in (
-            ("flash_fwd", TPU_FLASH_FWD, "flash.cu", vit_launches),
+            ("flash_fwd", TPU_FLASH_FWD, "flash_fwd.cu", vit_launches),
+            ("flash_fwd_cuda_core", TPU_FLASH_FWD, "flash.cu",
+             split_launches),
             ("flash_bwd", TPU_FLASH_BWD, "flash_bwd.cu", vit_launches),
             ("flash_dq", TPU_FLASH_BWD, "flash.cu", split_launches),
             ("flash_dkv", TPU_FLASH_BWD, "flash.cu", split_launches)):
@@ -1372,9 +1508,12 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_call": row["library_call"],
-            "at": "x".join(map(str, VIT_SHAPE)) + " (B, T, H, D) bf16"}
+            "at": "x".join(map(str, VIT_SHAPE)) + f" (B, T, H, D) "
+                  f"{row['dtype']}"}
         if kname == "flash_bwd":
             entry["split_pair_ms"] = row["split_pair_ms"]
+        if kname == "flash_fwd":
+            entry["cuda_core_ms"] = row["cuda_core_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -54,27 +54,20 @@
 // rather than wgmma/TMA: at D = 16 wgmma's 64-row tiles and descriptors
 // buy nothing, and the time goes to bytes and latency.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
+                           // b_off, bt_off, kPad, round16, aligned16
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTile = 16;   // rows of a key or query tile: one warp's share
 constexpr int kMaxT = 128;  // longest T taken: 8 tiles, 8 warps
-constexpr int kPad = 8;     // bf16 added to each shared row: ldmatrix's
-                            // eight row addresses land in distinct banks
 
 struct Shape {
   int b, h, t, d;
   long long sb, st, sh;  // element strides of q, k and v
 };
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // Dynamic shared memory for Tp padded rows and DP head dims: lse and
 // delta (float32), q, k, v, O, dO (bf16, Tp x (DP + kPad)) and dS^T (bf16,
@@ -83,71 +76,6 @@ __host__ __device__ inline size_t smem_bytes(int tp, int dp) {
   return (size_t)2 * tp * sizeof(float) +
          (size_t)5 * tp * (dp + kPad) * sizeof(bf16) +
          (size_t)tp * (tp + kPad) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. `ldsm_t` transposes each matrix.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 float32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two float32 values rounded to nearest even as one bf16 pair (lo first).
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Lane offsets (in elements, from a 16 x 16 block's first element, rows
-// `ld` apart) of the three ldmatrix layouts used below:
-//   a_off:  A operand stored row-major (rows = m, cols = k);
-//   b_off:  B operand from a tile stored n-major (rows = n, cols = k):
-//           two n-tiles of 8 rows, 16 k-columns;
-//   bt_off: B operand from a tile stored k-major (rows = k, cols = n),
-//           transposed: 16 k-rows, two n-tiles of 8 columns.
-__device__ __forceinline__ int a_off(int lane, int ld) {
-  return (lane & 15) * ld + ((lane >> 4) << 3);
-}
-__device__ __forceinline__ int b_off(int lane, int ld) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
-}
-__device__ __forceinline__ int bt_off(int lane, int ld) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3);
 }
 
 // Writes a warp's 16 x DP float32 accumulator (2*NP n-tiles of 8 columns,
@@ -342,8 +270,6 @@ void with_dp(int d, F&& f) {
     f(std::integral_constant<int, 128>{});
   }
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 

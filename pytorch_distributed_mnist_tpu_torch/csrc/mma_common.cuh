@@ -1,0 +1,101 @@
+// Tensor-core building blocks shared by the port's Hopper kernels
+// (flash_fwd.cu, flash_bwd.cu, matmul_i8.cu): 16-byte asynchronous copies
+// into shared memory, ldmatrix (plain and transposed), the bf16
+// mma.sync.m16n8k16 with float32 sums, and the lane offsets of the three
+// ldmatrix layouts those kernels read. Each kernel is its own nvcc
+// translation unit; ops/cuda_build.py keys a kernel's build on this file
+// too, so an edit here rebuilds every kernel that includes it.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;  // bf16 added to each shared row: ldmatrix's
+                         // eight row addresses land in distinct banks
+
+__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Four 8x8 16-bit matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. `ldsm_t` transposes each matrix.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 float32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 values rounded to nearest even as one bf16 pair (lo first).
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Lane offsets (in 16-bit elements, from a 16 x 16 block's first element,
+// rows `ld` apart) of the three ldmatrix layouts:
+//   a_off:  A operand stored row-major (rows = m, cols = k);
+//   b_off:  B operand from a tile stored n-major (rows = n, cols = k):
+//           two n-tiles of 8 rows, 16 k-columns;
+//   bt_off: B operand from a tile stored k-major (rows = k, cols = n),
+//           transposed: 16 k-rows, two n-tiles of 8 columns.
+__device__ __forceinline__ int a_off(int lane, int ld) {
+  return (lane & 15) * ld + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int b_off(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+}
+__device__ __forceinline__ int bt_off(int lane, int ld) {
+  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3);
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+}  // namespace

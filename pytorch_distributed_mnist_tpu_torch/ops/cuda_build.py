@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; kernels
+may share headers of ``csrc/`` (``#include "mma_common.cuh"``). At first
 use it is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared
 library under the checkout's ``build/torch_kernels/`` and loaded with
-``ctypes``. The library's directory is keyed on a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+``ctypes``. The library's directory is keyed on a hash of the source, of
+the headers it includes from ``csrc/`` and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 No PyTorch header is compiled: a build takes seconds, not minutes.
 
 Nothing here runs at import: the CPU tests import every module, and the
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,9 +45,9 @@ _FLASH_TAIL = [_I, _I, _I, _I, _L, _L, _L, _F, _I, _I, _I, _P]
 # and cut the pointer.
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "matmul_i8": {
-        # a, b, c, m, n, k, lda, ldb, ldc, splits, device, stream
+        # a, b, c, m, n, k, lda, ldb, ldc, splits, cluster, device, stream
         "matmul_i8_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P], _I),
+                              _I, _P], _I),
     },
     "xent": {
         # logits, labels, loss, lse, b, c, ld, device, stream
@@ -65,6 +68,10 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         # q, k, v, dout, lse, delta, dk, dv, then the tail
         "flash_dkv_launch": ([_P] * 8 + _FLASH_TAIL, _I),
     },
+    "flash_fwd": {
+        # q, k, v, o, lse, then the tail (bf16 must be 1)
+        "flash_fwd_mma_launch": ([_P] * 5 + _FLASH_TAIL, _I),
+    },
     "flash_bwd": {
         # q, k, v, o, dout, lse, dq, dk, dv, then the tail (bf16 must be 1)
         "flash_bwd_launch": ([_P] * 9 + _FLASH_TAIL, _I),
@@ -82,10 +89,24 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: bytes) -> list:
+    """The ``csrc/`` headers a source includes (``#include "x.cuh"``),
+    sorted."""
+    return sorted(m.decode() for m in _INCLUDE.findall(source))
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256()
     with open(source_path(name), "rb") as f:
-        digest.update(f.read())
+        source = f.read()
+    digest.update(source)
+    for header in local_headers(source):
+        with open(os.path.join(os.path.dirname(source_path(name)), header),
+                  "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_ROOT, f"{name}-{digest.hexdigest()[:16]}",
                         f"lib{name}.so")

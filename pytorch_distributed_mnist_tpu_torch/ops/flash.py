@@ -20,10 +20,22 @@ kernels have it. A row with nothing to attend gives O = 0 and
 in the inputs' dtype (float32 or bfloat16).
 
 :func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_dq` and
-:func:`flash_dkv` launch ``csrc/flash.cu`` and ``csrc/flash_bwd.cu`` for
-CUDA tensors (built at first use, ``ops/cuda_build.py``) and take the
-plain versions only for tensors on the CPU. There is no fallback from one
-to the other: a CUDA tensor launches a kernel or raises.
+:func:`flash_dkv` launch ``csrc/flash_fwd.cu``, ``csrc/flash.cu`` and
+``csrc/flash_bwd.cu`` for CUDA tensors (built at first use,
+``ops/cuda_build.py``) and take the plain versions only for tensors on the
+CPU. There is no fallback from one to the other: a CUDA tensor launches a
+kernel or raises.
+
+The forward (:func:`flash_fwd`) takes one of two routes on the card,
+chosen by :func:`_fwd_route` from the shape and dtype alone:
+
+- ``"tensor"``: bfloat16 and D a multiple of 8, any T. ``csrc/flash_fwd.cu``
+  runs both products on the tensor cores (bf16 ``mma.sync``, float32
+  sums), P rounded once to bf16 for P V.
+- ``"cuda_core"``: everything else (float32, whose 1e-4 tolerance rests on
+  float32 products; D not a multiple of 8). ``csrc/flash.cu``'s forward,
+  float32 FMAs on the CUDA cores. A caller may name this route for a
+  bfloat16 problem too (the smoke times both kernels at one shape).
 
 The backward (:func:`flash_bwd`) takes one of two routes on the card,
 chosen by :func:`_bwd_route` from the shape and dtype alone:
@@ -236,6 +248,15 @@ def _aligned(*tensors: torch.Tensor) -> bool:
                for t in tensors)
 
 
+def _fwd_route(shape, dtype) -> str:
+    """``"tensor"`` when :func:`flash_fwd`'s tensor-core kernel takes a
+    ``(B, T, H, D)`` problem of this dtype (bfloat16, D a multiple of 8),
+    else ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and shape[-1] % 8 == 0:
+        return "tensor"
+    return "cuda_core"
+
+
 def _bwd_route(shape, dtype) -> str:
     """``"fused"`` when :func:`flash_bwd`'s one-kernel backward takes a
     ``(B, T, H, D)`` problem of this dtype (bfloat16, T <= 128, D a
@@ -259,25 +280,44 @@ def _launch(symbol: str, q: torch.Tensor, pointers: list, scale: float,
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = False, scale: Optional[float] = None) \
+              causal: bool = False, scale: Optional[float] = None,
+              route: Optional[str] = None) \
         -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(O, lse)`` as :func:`flash_fwd_plain` gives them. CUDA tensors
-    launch the forward kernel (counted in ``flash_fwd.launches``); CPU
-    tensors take :func:`flash_fwd_plain`."""
+    """``(O, lse)`` as :func:`flash_fwd_plain` gives them. CPU tensors take
+    :func:`flash_fwd_plain`. CUDA tensors launch the kernel of ``route``
+    (default :func:`_fwd_route`'s; ``"cuda_core"`` may be named for any
+    problem, ``"tensor"`` only where the route function gives it), counted
+    in ``flash_fwd.launches`` and ``flash_fwd.route_launches[route]``. The
+    tensor-core route copies a view whose pointer or strides are not
+    16-byte aligned."""
     _check(q, k, v)
+    best = _fwd_route(q.shape, q.dtype)
+    route = best if route is None else route
+    if route not in ("tensor", "cuda_core") or (route == "tensor"
+                                                 and best != "tensor"):
+        raise ValueError(f"flash_fwd has no route {route!r} for "
+                         f"{tuple(q.shape)} {q.dtype}")
     if not _on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     q, k, v = _views(q, k, v)
+    if route == "tensor" and not _aligned(q, k, v):
+        q, k, v = (x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    _launch("flash_fwd_launch", q,
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr()], _scale(q, scale), causal)
+    pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr()]
+    if route == "tensor":
+        _launch("flash_fwd_mma_launch", q, pointers, _scale(q, scale),
+                causal, "flash_fwd")
+    else:
+        _launch("flash_fwd_launch", q, pointers, _scale(q, scale), causal)
     with _count_lock:
         flash_fwd.launches += 1
+        flash_fwd.route_launches[route] += 1
     return o, lse
 
 
@@ -382,15 +422,17 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = 0
+flash_fwd.route_launches = {"tensor": 0, "cuda_core": 0}
 flash_bwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """O from the forward kernel; the backward is :func:`flash_bwd` (the
-    fused kernel, or the dQ kernel then the dK/dV kernel). Saves q, k, v,
-    O and lse (the reference's custom_vjp residuals, here unpadded)."""
+    """O from :func:`flash_fwd` (the tensor-core or the CUDA-core forward);
+    the backward is :func:`flash_bwd` (the fused kernel, or the dQ kernel
+    then the dK/dV kernel). Saves q, k, v, O and lse (the reference's
+    custom_vjp residuals, here unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import functools
 import math
 import threading
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -39,7 +40,13 @@ _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 _INV_127_SQ = float(np.float32(np.float32(_INV_127) * np.float32(_INV_127)))
 
 # Output tile of the CUDA kernel (kBlockM x kBlockN) and its K step.
-_BLOCK_M, _BLOCK_N, _BLOCK_K = 32, 64, 64
+_BLOCK_M, _BLOCK_N, _BLOCK_K = 32, 32, 128
+# Most blocks of one thread-block cluster (portable on Hopper), which sum
+# their slices of K on chip before C sees them.
+_MAX_CLUSTER = 8
+# Most int32 atomic adds into C a split may cost: beyond one cluster each
+# further one adds M * N.
+_ATOMIC_BUDGET = 1 << 14
 # CUDA's limit on gridDim.y, which walks the row blocks.
 _MAX_GRID_Y = 65535
 
@@ -60,15 +67,26 @@ def matmul_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b.double()).to(torch.int32)
 
 
-def split_k(m: int, n: int, k: int, sms: int) -> int:
-    """How many slices of K the kernel's grid takes: enough blocks for
-    about two per SM when the output tiles alone cannot fill the card,
-    with every slice walking at least two K steps."""
+def split_k(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """``(splits, cluster)``: how many slices of K the kernel's grid takes,
+    and how many of them share a thread-block cluster (a power of two, at
+    most 8, dividing ``splits``). When the output tiles alone cannot fill
+    the card, K is cut for about two blocks per SM; clusters beyond the
+    first add into C atomically, so their number is held to
+    ``_ATOMIC_BUDGET / (M * N)``. Slices hold whole 128-byte steps of K,
+    as few per slice as the count allows; rounding the count up to whole
+    clusters may leave the last slices empty (they add zeros)."""
     tiles = math.ceil(n / _BLOCK_N) * math.ceil(m / _BLOCK_M)
     k_steps = math.ceil(k / _BLOCK_K)
-    if tiles >= sms or k_steps < 4:
-        return 1
-    return max(1, min(math.ceil(2 * sms / tiles), k_steps // 2))
+    if tiles >= sms or k_steps < 2:
+        return 1, 1
+    splits = min(k_steps, math.ceil(2 * sms / tiles))
+    cluster = min(_MAX_CLUSTER, 1 << (splits.bit_length() - 1))
+    groups = max(1, min(math.ceil(splits / cluster),
+                        _ATOMIC_BUDGET // max(1, m * n)))
+    steps = math.ceil(k_steps / (groups * cluster))
+    splits = math.ceil(math.ceil(k_steps / steps) / cluster) * cluster
+    return splits, cluster
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -107,17 +125,18 @@ def matmul_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"matmul_i8: M={m} needs more than {_MAX_GRID_Y} "
                          f"row blocks of {_BLOCK_M}")
     lib = cuda_build.load("matmul_i8")
-    splits = split_k(m, n, k, _sm_count(a.device.index))
-    # Split-K adds partial tiles atomically into C, which must start at
-    # zero; a single slice writes every element itself.
-    alloc = torch.zeros if splits > 1 else torch.empty
+    splits, cluster = split_k(m, n, k, _sm_count(a.device.index))
+    # More slices than one cluster holds: the clusters add their sums
+    # atomically into C, which must start at zero. Otherwise every element
+    # is stored once.
+    alloc = torch.zeros if splits > cluster else torch.empty
     c = alloc((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return c
     err = lib.matmul_i8_launch(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-        a.stride(0), b.stride(0), c.stride(0), splits, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        a.stride(0), b.stride(0), c.stride(0), splits, cluster,
+        a.device.index, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_i8 kernel launch failed: CUDA error "
                            f"{err} at {m}x{k}x{n}")

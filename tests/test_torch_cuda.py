@@ -258,3 +258,87 @@ def test_flash_attention_backward_takes_its_route(card, shape, dtype):
     moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
     fused = flash._bwd_route(shape, dtype) == "fused"
     assert moved == ((1, 0, 0) if fused else (0, 1, 1))
+
+
+def _routes(flash):
+    return dict(flash.flash_fwd.route_launches)
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_tensor_route_matches_plain_with_the_same_bits(card, shape,
+                                                                 causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    b, t, h, d = shape
+    gen = torch.Generator(device=card).manual_seed(b * t * h * d + 7 * causal)
+    qkv = torch.randn(b, t, 3, h, d, device=card,
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert flash._fwd_route(shape, torch.bfloat16) == "tensor"
+    before = _routes(flash)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    o2, lse2 = flash.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = _routes(flash)
+    assert (after["tensor"] - before["tensor"],
+            after["cuda_core"] - before["cuda_core"]) == (2, 0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want_o, want_lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+    assert o.dtype == torch.bfloat16 and o.is_contiguous()
+    _flash_close(o, want_o, torch.bfloat16)
+    _flash_close(lse, want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(256, 49, 4, 16), (1, 70, 1, 8)])
+def test_flash_fwd_float32_takes_the_cuda_core_route(card, shape):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=card).manual_seed(31)
+    q, k, v = (torch.randn(shape, device=card, generator=gen)
+               for _ in range(3))
+    before = _routes(flash)
+    o, lse = flash.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    after = _routes(flash)
+    assert (after["tensor"] - before["tensor"],
+            after["cuda_core"] - before["cuda_core"]) == (0, 1)
+    want_o, want_lse = flash.flash_fwd_plain(q, k, v)
+    _flash_close(o, want_o, torch.float32)
+    _flash_close(lse, want_lse, torch.float32)
+
+
+def test_flash_fwd_copies_a_misaligned_view(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    # The qkv product starts 3 elements (6 bytes) into its buffer.
+    q, k, v, _, _, _ = _flash_bwd_inputs(card, (8, 49, 4, 16),
+                                         torch.bfloat16, 32, offset=3)
+    assert not flash._aligned(q)
+    before = _routes(flash)["tensor"]
+    o, lse = flash.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert _routes(flash)["tensor"] == before + 1
+    want_o, want_lse = flash.flash_fwd_plain(q, k, v)
+    _flash_close(o, want_o, torch.bfloat16)
+    _flash_close(lse, want_lse, torch.float32)
+
+
+def _check_shapes():
+    import chip_smoke
+
+    return chip_smoke.CHECK_SHAPES
+
+
+@pytest.mark.parametrize("m,k,n", _check_shapes())
+def test_matmul_i8_equals_plain_with_the_same_bits_twice(card, m, k, n):
+    gen = torch.Generator(device=card).manual_seed(3 * m + k + n)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=card,
+                      generator=gen)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=card,
+                      generator=gen)
+    first = matmul_i8(a, b)
+    second = matmul_i8(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, matmul_i8_plain(a, b))

@@ -153,13 +153,31 @@ def test_cuda_operands_launch_the_kernel_or_raise(monkeypatch):
 
 
 def test_split_k_fills_the_card_at_fc1_and_stays_whole_when_wide():
-    # fc1 at M=1: 2 output tiles on 132 SMs -> K split across blocks.
-    assert port.split_k(1, 128, 12544, 132) > 1
-    assert port.split_k(128, 128, 12544, 132) > 1
-    # fc2's K=128 is two steps: never split.
-    assert port.split_k(128, 10, 128, 132) == 1
+    # fc1 at M=1: 4 output tiles on 132 SMs -> K split across blocks, in
+    # whole clusters of 8; a few clusters add atomically (1 x 128 is cheap).
+    splits, cluster = port.split_k(1, 128, 12544, 132)
+    assert splits > cluster == 8 and splits % cluster == 0
+    # fc1 at M=128: 16 tiles; one cluster of 8 covers all of K, so C is
+    # stored once, without atomics or zeroing.
+    assert port.split_k(128, 128, 12544, 132) == (8, 8)
+    # fc2's K=128 is one step: never split.
+    assert port.split_k(128, 10, 128, 132) == (1, 1)
     # Enough output tiles already: one slice.
-    assert port.split_k(4096, 4096, 4096, 132) == 1
+    assert port.split_k(4096, 4096, 4096, 132) == (1, 1)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 12544, 128), (8, 12544, 128), (32, 12544, 128), (33, 12544, 128),
+    (128, 12544, 128), (5, 784, 10), (130, 200, 70), (3, 7, 5)])
+def test_split_k_plans_whole_clusters_within_the_atomic_budget(m, k, n):
+    splits, cluster = port.split_k(m, n, k, 132)
+    assert cluster in (1, 2, 4, 8) and splits % cluster == 0
+    k_steps = -(-k // port._BLOCK_K)
+    # Every cluster but the last holds some of K.
+    per_slice = -(-k_steps // splits)
+    assert (splits - cluster) * per_slice < max(k_steps, 1)
+    groups = splits // cluster
+    assert groups == 1 or groups * m * n <= port._ATOMIC_BUDGET
 
 
 def test_library_path_is_keyed_on_the_source(tmp_path, monkeypatch):
