@@ -13,15 +13,20 @@ Phases, each printing one JSON line:
    each shape; the cross-entropy kernels against ``xent_fwd_plain`` /
    ``xent_bwd_plain`` at B in {1, 7, 256, 300} and C in {10, 128} with
    saturated tie rows (``rtol=atol=1e-6``: the sum of exp is taken in
-   another order); the Adam kernel against ``adam_leaf_plain`` at every
-   cnn leaf shape and two ragged sizes, for steps 1, 2 and 10 (bitwise);
+   another order); the Adam kernel against ``adam_leaf_plain`` one leaf at
+   a time (every cnn leaf shape and two ragged sizes, steps 1, 2 and 10),
+   and as one launch over the cnn's 8 and the ViT's 31 leaves against
+   ``adam_leaves_plain`` for 200 steps, with the hypers it forms in the
+   launch equal to ``adam_hypers`` on the card at t = 1..3000 (all bit for
+   bit);
 3. timings: per path shape, the device time per call (``torch.profiler``'s
    CUDA trace) and the host's time between back-to-back calls (CUDA
    events) of each kernel's wrapper, its plain version and one PyTorch
    call computing the same function (``torch._int_mm``,
    ``F.cross_entropy`` and its backward, ``torch.optim.Adam(fused=True)``;
    timed here as yardsticks only, the port never calls them), beside the
-   least time the card could take; Adam also over the ViT's 31 leaves;
+   least time the card could take; Adam as one ``FusedAdam.step`` over the
+   cnn's 8 and the ViT's 31 leaves, with its launches per step;
 4. server: the port's server (``--model cnn --serve-precision int8``,
    fused plane, default buckets) boots in-process over a seeded checkpoint,
    answers concurrent and sequential ``/predict`` requests, ``/healthz`` and
@@ -34,39 +39,48 @@ Phases, each printing one JSON line:
 6. train: the port's CLI ``run()`` in-process, ``--model cnn --loss fused
    --optimizer adam_pallas``, 2 epochs of 8192 synthetic images at batch
    256: both epoch lines, a falling train loss, test accuracy >= 90%,
-   exact launch counts of the three training kernels, 32-leaf
-   checkpoints, a resume from ``checkpoint_0.npz`` that repeats epoch 1's
-   line, and ``-e`` on ``model_best.npz``;
-7. train profile: the device time of one train step by part (convs, the
-   fc products, the cross-entropy kernels, Adam, other elementwise work,
-   copies), beside the host's wall time per step and its time per part
-   (batch copy, forward, loss, backward, optimizer, metrics);
+   exact launch counts of the three training kernels (Adam once per
+   step), 32-leaf checkpoints, a resume from ``checkpoint_0.npz`` that
+   repeats epoch 1's line, and ``-e`` on ``model_best.npz``;
+7. train profile: the kernels' launches over 4 steps, then the device time
+   of one train step by part (convs, the fc products, the cross-entropy
+   kernels, Adam, other elementwise work, copies), beside the host's wall
+   time per step and its time per part (batch copy, forward, loss,
+   backward, optimizer, metrics);
 8. flash against plain: the forward, dQ and dK/dV kernels against
    ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain``, and
-   ``flash_bwd`` (the fused backward kernel, or the dQ and dK/dV kernels,
-   as its route says) against ``flash_bwd_plain``, twice, for the same
-   bits, at the ViT's shape (256, 49, 4, 16) and at T in {1, 16, 70, 100,
-   128, 130, 196, 200}, D in {8, 16, 32, 48, 64, 128}, float32 and
-   bfloat16, causal and not (``flash_tolerance`` states each tolerance
-   and why), with the route each forward and backward took and the share
-   of its tolerance each used; in bf16 also the CUDA-core forward;
+   ``flash_bwd`` (the fused kernel, the tiled pair, or the dQ and dK/dV
+   kernels, as its route says) against ``flash_bwd_plain``, twice, for the
+   same bits, at the ViT's shape (256, 49, 4, 16) and at T in {1, 16, 70,
+   100, 128, 130, 196, 200}, D in {8, 16, 32, 48, 64, 128}, float32 and
+   bfloat16, causal and not, and the tiled pair also at (32, 196, 4, 16)
+   and (256, 196, 4, 16) (``flash_tolerance`` states each tolerance and
+   why), with the route each forward and backward took and the share of
+   its tolerance each used; in bf16 also the CUDA-core forward;
 9. flash timings: device ms per call of the kernels at the ViT's shape in
    bf16 (the tensor-core forward beside the CUDA-core one, which is also
-   timed in float32, its route's dtype), their plain versions,
-   ``F.scaled_dot_product_attention`` forward and backward as the
-   yardstick, and each kernel's bound;
-10. the split backward route on the attention path: ``flash_attention``
-   forward and backward at (32, 196, 4, 16) bf16 and at the ViT's shape in
-   float32 launch the dQ and dK/dV kernels (and not the fused one), with
-   gradients held against ``flash_bwd_plain`` (the float32 case's forward
-   takes the CUDA-core route);
+   timed in float32, its route's dtype; the fused backward beside the
+   split pair), the float32 split pair, the tiled pair at (256, 196, 4,
+   16) and, named, at the ViT's shape beside the bf16 split pair (named),
+   their plain versions, ``F.scaled_dot_product_attention`` forward and
+   backward (in the problem's dtype) as the yardstick, and each kernel's
+   bound;
+10. the other backward routes on the attention path: ``flash_attention``
+   forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair
+   and at the ViT's shape in float32 the dQ and dK/dV kernels (and not the
+   fused one), and ``flash_bwd`` named ``route="split"`` at (32, 196, 4,
+   16) bf16 the dQ and dK/dV kernels, with gradients held against
+   ``flash_bwd_plain`` (the float32 case's forward takes the CUDA-core
+   route);
 11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
-   160, all on the tensor-core route, flash_bwd 128, flash_dq and flash_dkv
-   0, xent 80/64, adam 1984),
-   101-leaf checkpoints, resume and ``-e``;
-12. ViT train profile: as phase 7 for one ViT step (flash kernels, GEMMs,
-   LayerNorm/GELU and other elementwise work, xent, Adam, copies);
+   160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
+   and flash_dkv 0, xent 80/64, adam 64), 101-leaf checkpoints, resume and
+   ``-e``;
+12. ViT train profiles: as phase 7 for one ViT step (flash kernels, GEMMs,
+   LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
+   default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
+   where each step must launch the tiled backward twice and no other;
 13. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -115,6 +129,8 @@ TPU_ADAM = "pytorch_distributed_mnist_tpu/ops/pallas/adam.py:64"
 TPU_FLASH_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:147"
 TPU_FLASH_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/flash.py:274"
 ADAM_BYTES = 28  # per param: p, g, m, v read; p, m, v written (float32)
+ADAM_STEPS = 200  # multi-leaf steps held bit for bit against the plain one
+ADAM_HYPER_STEPS = 3000  # steps whose in-launch hypers are checked
 CSRC = "pytorch_distributed_mnist_tpu_torch/csrc"
 # The training path: batch 256 of cnn's 10 classes; the smoke's run.
 TRAIN_BATCH = 256
@@ -132,6 +148,7 @@ VIT_TRAIN_ARGS = ["--model", "vit", "--attention", "flash", "--loss",
                   "--synthetic-test-size", "2048", "--batch-size",
                   str(TRAIN_BATCH), "--seed", str(SEED)]
 VIT_SHAPE = (TRAIN_BATCH, 49, 4, 16)  # (B, T, H, D) of each attention
+PROFILE_STEPS = 4  # train steps whose kernel launches a profile counts
 VIT_DEPTH = 2
 # What each training run's checks need: its flags, the train state's
 # leaf count, the params the optimizer walks, the attention layers, and
@@ -153,10 +170,18 @@ FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
                       (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
                       (3, 130, 2, 32), (1, 70, 1, 8), (2, 128, 2, 128),
                       (3, 100, 3, 48)]
-# The split backward route's cases on the attention path: a T above the
-# fused kernel's 128 (the ViT at --patch-size 2 has 196 tokens) in bf16,
-# and the ViT's shape in float32.
-SPLIT_ROUTE_CASES = [((32, 196, 4, 16), "bfloat16"), (VIT_SHAPE, "float32")]
+# The backward routes other than the fused one, on the attention path:
+# (shape, dtype, route). A T above the fused kernel's 128 (the ViT at
+# --patch-size 2 has 196 tokens) in bf16 takes the tiled pair, the ViT's
+# shape in float32 the split pair.
+SPLIT_ROUTE_CASES = [((32, 196, 4, 16), "bfloat16", "tiled"),
+                     (VIT_SHAPE, "float32", "split")]
+# The ViT at --patch-size 2: 196 tokens of embed 64 in 4 heads of 16.
+P2_SHAPE = (TRAIN_BATCH, 196, 4, 16)
+# Shapes the tiled backward is also held at, beyond FLASH_CHECK_SHAPES.
+TILED_CHECK_SHAPES = [(32, 196, 4, 16), P2_SHAPE]
+# The CUDA-core split pair in bf16, held by naming route="split".
+FORCED_SPLIT_CASE = ((32, 196, 4, 16), "bfloat16")
 
 
 def emit(phase: str, **fields) -> None:
@@ -674,6 +699,7 @@ def phase_train_kernels_vs_plain(device) -> dict:
     hyper = adam_hyper_scalars(device)
     sizes = [s for _, s in leaf_shapes()] + [(1,), (1000003,)]
     adam_err, adam_ulps = 0.0, 0
+    # The one-leaf case, from a given hypers vector.
     for shape in sizes:
         for t in (1, 2, 10):
             h = adam.adam_hypers(hyper, torch.tensor(float(t),
@@ -690,16 +716,76 @@ def phase_train_kernels_vs_plain(device) -> dict:
             for a, b in zip(got, want):
                 adam_err = max(adam_err, float((a - b).abs().max()))
                 adam_ulps = max(adam_ulps, ulps(a, b))
-    if adam_ulps > 2:
+    # The multi-leaf launch over each model's leaves, its hypers formed in
+    # the launch, for ADAM_STEPS steps (through t = 31 and t = 168, where
+    # torch's vectorized pow rounds apart from its scalar one).
+    for model in ("cnn", "vit"):
+        err, most = _adam_leaves_vs_plain(device, model, hyper, gen)
+        adam_err, adam_ulps = max(adam_err, err), max(adam_ulps, most)
+    # The hypers the launch forms, against adam_hypers on the card.
+    p, m, v, g = (torch.zeros(3, device=device) for _ in range(4))
+    formed = torch.empty(9, device=device)
+    hyper_misses = []
+    for t in range(1, ADAM_HYPER_STEPS + 1):
+        count = torch.tensor(t, dtype=torch.int32, device=device)
+        adam.adam_leaves([p], [g], [m], [v], hyper, count,
+                         hypers_out=formed)
+        if not torch.equal(formed, adam.adam_hypers(hyper, count.float())):
+            hyper_misses.append(t)
+    if hyper_misses:
+        raise AssertionError(f"the adam kernel's hypers differ from "
+                             f"adam_hypers at t = {hyper_misses[:10]} "
+                             f"({len(hyper_misses)} steps)")
+    if adam_ulps:
         raise AssertionError(f"adam kernel is {adam_ulps} ulp from its "
-                             f"plain version (at most 2 allowed)")
+                             f"plain version (bit for bit required)")
     emit("kernel_vs_plain", kernel="xent_fwd+xent_bwd",
          batches=[1, 7, 256, 300], classes=[10, 128], rtol=1e-6, atol=1e-6,
          max_abs_err_fwd=worst["xent_fwd"], max_abs_err_bwd=worst["xent_bwd"])
     emit("kernel_vs_plain", kernel="adam", shapes=[list(s) for s in sizes],
-         steps=[1, 2, 10], bitwise=adam_ulps == 0, max_ulp=adam_ulps,
-         max_abs_err=adam_err)
+         steps=[1, 2, 10], multi_leaf_models=["cnn", "vit"],
+         multi_leaf_steps=ADAM_STEPS, hypers_equal_steps=ADAM_HYPER_STEPS,
+         bitwise=True, max_ulp=adam_ulps, max_abs_err=adam_err)
     return {**worst, "adam": adam_err}
+
+
+def _adam_leaves_vs_plain(device, model, hyper, gen) -> tuple:
+    """``adam_leaves`` over ``model``'s leaf shapes against
+    ``adam_leaves_plain`` on the card for ``ADAM_STEPS`` steps; p, m and v
+    compared after every step. Returns (largest error, largest ulps)."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    shapes = [s for _, s in leaf_shapes(model)]
+    got = [[torch.randn(s, device=device, generator=gen) for _ in range(3)]
+           for s in shapes]
+    for _, m, v in got:
+        m.mul_(0.1)
+        v.abs_().mul_(0.01)
+    want = [[x.clone() for x in leaf] for leaf in got]
+    ps, ms, vs = ([leaf[i] for leaf in got] for i in range(3))
+    wps, wms, wvs = ([leaf[i] for leaf in want] for i in range(3))
+    table = adam.LeafTable(ps, ms, vs)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    err, most = 0.0, 0
+    for step in range(ADAM_STEPS):
+        count.add_(1)
+        grads = [torch.randn(s, device=device, generator=gen) * 1e-2
+                 for s in shapes]
+        adam.adam_leaves(ps, grads, ms, vs, hyper, count, table=table)
+        adam.adam_leaves_plain(wps, grads, wms, wvs, hyper, count)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                if not torch.equal(x, y):
+                    err = max(err, float((x - y).abs().max()))
+                    most = max(most, ulps(x, y))
+        if most:
+            raise AssertionError(f"adam_leaves over the {model}'s leaves is "
+                                 f"{most} ulp from its plain version at "
+                                 f"step {step + 1}")
+    return err, most
 
 
 def _kernel_ms(per: dict, name: str) -> float:
@@ -708,11 +794,12 @@ def _kernel_ms(per: dict, name: str) -> float:
 
 def phase_train_timings(device, peaks) -> dict:
     """Device and host ms of each training kernel at the path's shapes:
-    xent at 256 x 10, Adam per cnn leaf and over all 8."""
+    xent at 256 x 10, Adam's optimizer step over the cnn's 8 leaves and
+    over the ViT's 31."""
     import torch
     import torch.nn.functional as F
 
-    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+    from pytorch_distributed_mnist_tpu_torch.ops import xent
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     bw, _, f32_rate, _ = peaks
@@ -749,81 +836,56 @@ def phase_train_timings(device, peaks) -> dict:
         rows[name] = row
         emit("timing", kernel=name, **row)
 
-    # Adam: one launch per cnn leaf, and one optimizer step over all 8
-    # (the kernels plus the hypers vector's few scalar ops).
-    hyper = adam_hyper_scalars(device)
-    h = adam.adam_hypers(hyper, torch.tensor(3.0, device=device))
-    leaves = []
-    for name, shape in leaf_shapes():
-        p = torch.randn(shape, device=device, generator=gen)
-        p.grad = torch.randn(shape, device=device, generator=gen) * 1e-3
-        leaves.append((name, p))
-    per_leaf, total = [], {"kernel_ms": 0.0, "plain_ms": 0.0,
-                           "kernel_call_ms": 0.0, "bound_ms": 0.0}
-    for name, p in leaves:
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
-        n = p.numel()
-        t_bytes = ADAM_BYTES * n / bw * 1e3
-        t_ops = 15 * n / f32_rate * 1e3
-        kper = device_ms(lambda: adam.adam_leaf(p, p.grad, m, v, h))
-        row = {"leaf": name, "numel": n, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "kernel_ms": _kernel_ms(kper, "adam_kernel"),
-               "kernel_call_ms": call_ms(
-                   lambda: adam.adam_leaf(p, p.grad, m, v, h)),
-               "plain_ms": sum(device_ms(lambda: adam.adam_leaf_plain(
-                   p, p.grad, m, v, h)).values())}
-        per_leaf.append(row)
-        for key in total:
-            total[key] += row[key]
-    params = [p for _, p in leaves]
-    fused = adam.FusedAdam(params, lr=1e-3)
-    library = torch.optim.Adam(params, lr=1e-3, fused=True)
-    step_per = device_ms(fused.step)
-    total.update(numel=sum(r["numel"] for r in per_leaf),
-                 step_ms=sum(step_per.values()),
-                 step_call_ms=call_ms(fused.step),
-                 library_ms=sum(device_ms(library.step).values()),
-                 library_call_ms=call_ms(library.step))
-    rows["adam"] = {"leaves": per_leaf, "all_8": total,
-                    "vit_31": _adam_vit_timing(device, gen, h, bw, f32_rate)}
-    emit("timing", kernel="adam", leaves=per_leaf, all_8=total,
+    rows["adam"] = {"all_8": _adam_step_timing(device, gen, "cnn", peaks),
+                    "vit_31": _adam_step_timing(device, gen, "vit", peaks)}
+    emit("timing", kernel="adam", all_8=rows["adam"]["all_8"],
          vit_31=rows["adam"]["vit_31"])
     return rows
 
 
-def _adam_vit_timing(device, gen, h, bw, f32_rate) -> dict:
-    """Adam over the ViT's 31 leaves (its ``--optimizer adam_pallas``
-    step): the port's optimizer step (one kernel launch per leaf), the
-    plain version on the same leaves, and ``torch.optim.Adam(fused=True)``
-    (the yardstick, never called by the port), beside the byte bound."""
+def _adam_step_timing(device, gen, model, peaks) -> dict:
+    """One ``FusedAdam.step`` over ``model``'s leaves (its ``--optimizer
+    adam_pallas`` step: the two count increments and one kernel launch),
+    beside the plain version on the same leaves,
+    ``torch.optim.Adam(fused=True)`` (the yardstick, never called by the
+    port) and the byte bound. ``kernel_ms`` is the kernel's device time
+    per step, ``step_ms`` everything the step runs on the card, and
+    ``step_call_ms`` the host's time between back-to-back steps."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import adam
 
+    bw, _, f32_rate, _ = peaks
     params = []
-    for _, shape in leaf_shapes("vit"):
+    for _, shape in leaf_shapes(model):
         p = torch.randn(shape, device=device, generator=gen)
         p.grad = torch.randn(shape, device=device, generator=gen) * 1e-3
         params.append(p)
-    if len(params) != TRAIN_RUNS["vit"]["params"]:
-        raise AssertionError(f"the ViT has {len(params)} leaves")
+    if len(params) != TRAIN_RUNS[model]["params"]:
+        raise AssertionError(f"the {model} has {len(params)} leaves")
+    fused = adam.FusedAdam(params, lr=1e-3)
     moments = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
+    count = torch.ones((), dtype=torch.int32, device=device)
 
     def plain():
-        for p, (m, v) in zip(params, moments):
-            adam.adam_leaf_plain(p, p.grad, m, v, h)
+        adam.adam_leaves_plain(params, [p.grad for p in params],
+                               [m for m, _ in moments],
+                               [v for _, v in moments], fused.hyperparams,
+                               count)
 
-    fused = adam.FusedAdam(params, lr=1e-3)
     library = torch.optim.Adam(params, lr=1e-3, fused=True)
     numel = sum(p.numel() for p in params)
     t_bytes = ADAM_BYTES * numel / bw * 1e3
     t_ops = 15 * numel / f32_rate * 1e3
+    before = adam.adam_leaves.launches
+    fused.step()
+    launches_per_step = adam.adam_leaves.launches - before
     per = device_ms(fused.step)
     return {"leaves": len(params), "numel": numel,
+            "launches_per_step": launches_per_step,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "kernel_ms": _kernel_ms(per, "adam_kernel"),
+            "kernel_ms": _kernel_ms(per, "adam_leaves_kernel"),
             "step_ms": sum(per.values()), "step_call_ms": call_ms(fused.step),
             "plain_ms": sum(device_ms(plain).values()),
             "library_ms": sum(device_ms(library.step).values()),
@@ -879,8 +941,14 @@ def flash_inputs(shape, dtype, gen, device):
 
 
 def _bwd_counts(flash) -> tuple:
-    return (flash.flash_bwd.launches, flash.flash_dq.launches,
-            flash.flash_dkv.launches)
+    """(fused kernel, tiled pair, dQ kernel, dK/dV kernel) launches."""
+    return (flash.flash_bwd.launches, flash.flash_bwd.route_launches["tiled"],
+            flash.flash_dq.launches, flash.flash_dkv.launches)
+
+
+# What one flash_bwd call moves in _bwd_counts, per route.
+BWD_MOVES = {"fused": (1, 0, 0, 0), "tiled": (0, 1, 0, 0),
+             "split": (0, 0, 1, 1)}
 
 
 def phase_flash_vs_plain(device) -> dict:
@@ -902,7 +970,7 @@ def phase_flash_vs_plain(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     worst = {"flash_fwd": 0.0, "flash_fwd_cuda_core": 0.0, "flash_dq": 0.0,
-             "flash_dkv": 0.0, "flash_bwd": 0.0}
+             "flash_dkv": 0.0, "flash_bwd": 0.0, "flash_bwd_tiled": 0.0}
     routes, used, fwd_routes, fwd_used = {}, {}, {}, {}
     f32 = flash_tolerance(torch.float32)
     for shape in FLASH_CHECK_SHAPES:
@@ -965,31 +1033,34 @@ def phase_flash_vs_plain(device) -> dict:
                     _close("dV", dv, want_dv, tol, where))
 
                 route = flash._bwd_route(shape, dtype)
-                before = _bwd_counts(flash)
-                got = flash.flash_bwd(q, k, v, want_o, want_lse, do,
-                                      causal=causal)
-                again = flash.flash_bwd(q, k, v, want_o, want_lse, do,
-                                        causal=causal)
-                torch.cuda.synchronize()
-                moved = tuple(b - a for a, b in zip(before,
-                                                    _bwd_counts(flash)))
-                if moved != ((2, 0, 0) if route == "fused" else (0, 2, 2)):
-                    raise AssertionError(f"flash_bwd on the {route} route "
-                                         f"moved (bwd, dq, dkv) by {moved} "
-                                         f"at {where}")
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError(f"flash_bwd gave other bits on a "
-                                         f"second call at {where}")
-                worst["flash_bwd"] = max(
-                    worst["flash_bwd"],
-                    *(_close(f"flash_bwd {name}", a, b, tol, where)
-                      for name, a, b in zip(("dQ", "dK", "dV"), got,
-                                            (want_dq, want_dk, want_dv))))
+                err, share = _bwd_twice(flash, route, (q, k, v, want_o,
+                                                       want_lse, do),
+                                        (want_dq, want_dk, want_dv), causal,
+                                        tol, where)
+                bwd_key = "flash_bwd_tiled" if route == "tiled" \
+                    else "flash_bwd"
+                worst[bwd_key] = max(worst[bwd_key], err)
                 routes[key] = route
-                used[key] = max(used.get(key, 0.0), *(
-                    tolerance_used(a, b, tol) for a, b in zip(
-                        got, (want_dq, want_dk, want_dv))))
+                used[key] = max(used.get(key, 0.0), share)
+    # The tiled route at the ViT's --patch-size 2 shapes, bf16 only.
+    tol = flash_tolerance(torch.bfloat16)
+    for shape in TILED_CHECK_SHAPES:
+        for causal in (False, True):
+            where = f"{shape} bfloat16 causal={causal}"
+            key = f"{'x'.join(map(str, shape))} bfloat16"
+            q, k, v, do = flash_inputs(shape, torch.bfloat16, gen, device)
+            o, lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+            want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+            route = flash._bwd_route(shape, torch.bfloat16)
+            if route != "tiled":
+                raise AssertionError(f"{where} takes the {route} route")
+            err, share = _bwd_twice(flash, route, (q, k, v, o, lse, do),
+                                    want, causal, tol, where)
+            worst["flash_bwd_tiled"] = max(worst["flash_bwd_tiled"], err)
+            routes[key] = route
+            used[key] = max(used.get(key, 0.0), share)
     emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
+         tiled_shapes=[list(s) for s in TILED_CHECK_SHAPES],
          dtypes=["float32", "bfloat16"], causal=[False, True],
          tolerance={"float32": flash_tolerance(torch.float32),
                     "bfloat16": flash_tolerance(torch.bfloat16)},
@@ -997,6 +1068,29 @@ def phase_flash_vs_plain(device) -> dict:
          flash_fwd_tolerance_used=fwd_used, flash_bwd_routes=routes,
          flash_bwd_tolerance_used=used, flash_bwd_same_bits=True)
     return worst
+
+
+def _bwd_twice(flash, route, operands, want, causal, tol, where) -> tuple:
+    """``flash_bwd`` twice on ``operands`` (q, k, v, O, lse, dO): only its
+    route's counters may move, both calls must give the same bits, and dQ,
+    dK and dV must lie within ``tol`` of ``want``. Returns (largest error,
+    largest share of the tolerance used)."""
+    import torch
+
+    before = _bwd_counts(flash)
+    got = flash.flash_bwd(*operands, causal=causal)
+    again = flash.flash_bwd(*operands, causal=causal)
+    torch.cuda.synchronize()
+    moved = tuple(b - a for a, b in zip(before, _bwd_counts(flash)))
+    if moved != tuple(2 * n for n in BWD_MOVES[route]):
+        raise AssertionError(f"flash_bwd on the {route} route moved (fused, "
+                             f"tiled, dq, dkv) by {moved} at {where}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_bwd gave other bits on a second call "
+                             f"at {where}")
+    err = max(_close(f"flash_bwd {name} ({route})", a, b, tol, where)
+              for name, a, b in zip(("dQ", "dK", "dV"), got, want))
+    return err, max(tolerance_used(a, b, tol) for a, b in zip(got, want))
 
 
 def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
@@ -1016,8 +1110,10 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
         "flash_fwd_cuda_core": (3 * tensor + tensor + row, 2),
         # q, k, v, O, dO, lse in; dQ, delta out
         "flash_dq": (5 * tensor + row + tensor + row, 3),
+        "flash_dq_tiled": (5 * tensor + row + tensor + row, 3),
         # q, k, v, dO, lse, delta in; dK, dV out
         "flash_dkv": (4 * tensor + 2 * row + 2 * tensor, 4),
+        "flash_dkv_tiled": (4 * tensor + 2 * row + 2 * tensor, 4),
         # q, k, v, O, dO, lse in; dQ, dK, dV out (delta stays on chip)
         "flash_bwd": (5 * tensor + row + 3 * tensor, 5),
     }[kernel]
@@ -1028,25 +1124,71 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
     return max(t_bytes, t_ops), by, bytes_moved, ops
 
 
+def pair_bound_ms(pair: tuple, shape, elem_bytes: int, peaks) -> tuple:
+    """(least ms, what bounds it) of kernels that run one after the other:
+    the sum of their bounds, bound by bytes when each of them is."""
+    bounds = [flash_bound_ms(k, shape, elem_bytes, peaks) for k in pair]
+    by = "bytes" if all(b[1] == "bytes" for b in bounds) else "operations"
+    return sum(b[0] for b in bounds), by
+
+
 # Each flash row's own kernel, by the name the profiler gives it.
 FLASH_KERNEL_NAMES = {"flash_fwd": "flash_fwd_mma_kernel",
                       "flash_fwd_cuda_core": "flash_fwd_kernel",
                       "flash_dq": "flash_dq_kernel",
                       "flash_dkv": "flash_dkv_kernel",
-                      "flash_bwd": "flash_bwd_kernel"}
+                      "flash_bwd": "flash_bwd_kernel",
+                      "flash_dq_tiled": "flash_dq_tiled_kernel",
+                      "flash_dkv_tiled": "flash_dkv_tiled_kernel"}
+
+
+def _sdpa_backward(q, k, v, do):
+    """A call of ``F.scaled_dot_product_attention``'s backward (dQ, dK and
+    dV in one call) on (B, T, H, D) operands: the library yardstick of the
+    backward routes, timed here only."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    grad = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), grad,
+                                       retain_graph=True)
+
+
+def _timed_row(fns: dict, **fields) -> dict:
+    """Device ms (``<what>_ms``) and host ms between back-to-back calls
+    (``<what>_call_ms``) of each function, with ``<kernel>_only_ms`` for
+    each own kernel named in ``fields["kernels"]`` from the ``kernel``
+    call's trace."""
+    row = {"library_ms": None, **fields}
+    for what, fn in fns.items():
+        per = device_ms(fn)
+        row[f"{what}_ms"] = sum(per.values())
+        row[f"{what}_call_ms"] = call_ms(fn)
+        if what == "kernel":
+            for name in fields.get("kernels", ()):
+                row[f"{name}_only_ms"] = _kernel_ms(
+                    per, FLASH_KERNEL_NAMES[name])
+        if what == "library":
+            row["library_kernels"] = sorted(k[:60] for k in per)
+    return row
 
 
 def phase_flash_timings(device, peaks) -> dict:
-    """Device ms per call of each flash kernel at the ViT's training shape
-    in bf16, beside its plain version, its bound and the library yardstick
-    (``F.scaled_dot_product_attention``'s forward, and its backward, which
-    computes dQ, dK and dV in one call; timed here only, the port never
-    calls it). The backward's yardstick is set against the fused kernel,
-    and against the split pair (dQ then dK/dV) as one: neither split
-    kernel alone computes what it computes. The tensor-core forward is
-    timed beside the CUDA-core one at the same inputs (``cuda_core_ms``);
-    the CUDA-core forward also has a row of its own in float32, the dtype
-    its route takes on the attention path."""
+    """Device ms per call of each flash kernel, beside its plain version,
+    its bound and the library yardstick (``F.scaled_dot_product_attention``'s
+    forward, and its backward, which computes dQ, dK and dV in one call;
+    timed here only, the port never calls it). At the ViT's training shape
+    in bf16: the tensor-core forward beside the CUDA-core one
+    (``cuda_core_ms``), the split pair's dQ and dK/dV kernels, and the
+    fused backward beside the split pair. In float32 (the CUDA-core
+    routes' dtype): the forward and the split pair, each beside SDPA in
+    float32. The tiled pair at the ViT's --patch-size 2 shape and, named,
+    at the ViT's shape, beside the bf16 split pair (named) and SDPA's
+    backward at each. A backward yardstick is set against a whole route:
+    no one kernel of a pair computes what it computes."""
     import torch
     import torch.nn.functional as F
 
@@ -1056,124 +1198,175 @@ def phase_flash_timings(device, peaks) -> dict:
     q, k, v, do = flash_inputs(VIT_SHAPE, torch.bfloat16, gen, device)
     o, lse = flash.flash_fwd(q, k, v)
     _, delta = flash.flash_dq(q, k, v, o, lse, do)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt)
-    lib_do = do.transpose(1, 2)
-    lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
-                                          retain_graph=True)
-    qf, kf, vf, _ = flash_inputs(VIT_SHAPE, torch.float32, gen, device)
-    calls = {
-        "flash_fwd": {
-            "kernel": lambda: flash.flash_fwd(q, k, v),
-            "cuda_core": lambda: flash.flash_fwd(q, k, v, route="cuda_core"),
-            "plain": lambda: flash.flash_fwd_plain(q, k, v),
-            "library": lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))},
-        "flash_fwd_cuda_core": {
-            "kernel": lambda: flash.flash_fwd(qf, kf, vf),
-            "plain": lambda: flash.flash_fwd_plain(qf, kf, vf),
-            "library": lambda: F.scaled_dot_product_attention(
-                qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2))},
-        "flash_dq": {
-            "kernel": lambda: flash.flash_dq(q, k, v, o, lse, do),
-            "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do)},
-        "flash_dkv": {
-            "kernel": lambda: flash.flash_dkv(q, k, v, lse, delta, do),
-            "plain": lambda: flash.flash_dkv_plain(q, k, v, lse, delta, do)},
-        "flash_bwd": {
-            "kernel": lambda: flash.flash_bwd(q, k, v, o, lse, do),
-            "plain": lambda: flash.flash_bwd_plain(q, k, v, o, lse, do),
-            "library": lib_bwd},
-    }
+    qf, kf, vf, dof = flash_inputs(VIT_SHAPE, torch.float32, gen, device)
+    of, lsef = flash.flash_fwd(qf, kf, vf)
+    sdpa = {"flash_fwd": "F.scaled_dot_product_attention",
+            "backward": "its backward (dQ, dK and dV in one call)"}
     rows = {}
-    for name, fns in calls.items():
-        dtype = "float32" if name == "flash_fwd_cuda_core" else "bfloat16"
+
+    def add(name, fns, shape, dtype, bound, by, **fields):
+        rows[name] = _timed_row(fns, shape=list(shape), dtype=dtype,
+                                bound_ms=bound, bound_by=by, **fields)
+        emit("timing", kernel=name, **rows[name])
+
+    for name, fns, dtype in (
+            ("flash_fwd", {
+                "kernel": lambda: flash.flash_fwd(q, k, v),
+                "cuda_core": lambda: flash.flash_fwd(q, k, v,
+                                                     route="cuda_core"),
+                "plain": lambda: flash.flash_fwd_plain(q, k, v),
+                "library": lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2))}, "bfloat16"),
+            ("flash_fwd_cuda_core", {
+                "kernel": lambda: flash.flash_fwd(qf, kf, vf),
+                "plain": lambda: flash.flash_fwd_plain(qf, kf, vf),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qf.transpose(1, 2), kf.transpose(1, 2),
+                    vf.transpose(1, 2))}, "float32"),
+            ("flash_dq", {
+                "kernel": lambda: flash.flash_dq(q, k, v, o, lse, do),
+                "plain": lambda: flash.flash_dq_plain(q, k, v, o, lse, do)},
+             "bfloat16"),
+            ("flash_dkv", {
+                "kernel": lambda: flash.flash_dkv(q, k, v, lse, delta, do),
+                "plain": lambda: flash.flash_dkv_plain(q, k, v, lse, delta,
+                                                       do)}, "bfloat16"),
+            ("flash_bwd", {
+                "kernel": lambda: flash.flash_bwd(q, k, v, o, lse, do),
+                "plain": lambda: flash.flash_bwd_plain(q, k, v, o, lse, do),
+                "library": _sdpa_backward(q, k, v, do)}, "bfloat16")):
         least, by, bytes_moved, ops = flash_bound_ms(
             name, VIT_SHAPE, 4 if dtype == "float32" else 2, peaks)
-        row = {"shape": list(VIT_SHAPE), "dtype": dtype,
-               "bytes": bytes_moved, "operations": ops, "bound_ms": least,
-               "bound_by": by, "library_ms": None,
-               "library_call": {
-                   "flash_fwd": "F.scaled_dot_product_attention",
-                   "flash_fwd_cuda_core": "F.scaled_dot_product_attention",
-                   "flash_bwd": "its backward (dQ, dK and dV in one call)",
-               }.get(name)}
-        for what, fn in fns.items():
-            per = device_ms(fn)
-            row[f"{what}_ms"] = sum(per.values())
-            row[f"{what}_call_ms"] = call_ms(fn)
-            if what == "kernel":
-                row["kernel_only_ms"] = _kernel_ms(per,
-                                                   FLASH_KERNEL_NAMES[name])
-            if what == "library":
-                row["library_kernels"] = sorted(k[:60] for k in per)
-        if name == "flash_bwd":
-            # The split route's pair at the same inputs, in this call.
-            row["split_pair_ms"] = (rows["flash_dq"]["kernel_ms"]
-                                    + rows["flash_dkv"]["kernel_ms"])
-        rows[name] = row
-        emit("timing", kernel=name, **row)
+        add(name, fns, VIT_SHAPE, dtype, least, by, bytes=bytes_moved,
+            operations=ops, kernels=(name,),
+            library_call={"flash_fwd": sdpa["flash_fwd"],
+                          "flash_fwd_cuda_core": sdpa["flash_fwd"],
+                          "flash_bwd": sdpa["backward"]}.get(name))
+    rows["flash_bwd"]["split_pair_ms"] = (rows["flash_dq"]["kernel_ms"]
+                                          + rows["flash_dkv"]["kernel_ms"])
+
+    # The float32 split pair (flash_bwd's route in float32) beside SDPA's
+    # float32 backward.
+    add("flash_split_f32", {
+        "kernel": lambda: flash.flash_bwd(qf, kf, vf, of, lsef, dof),
+        "plain": lambda: flash.flash_bwd_plain(qf, kf, vf, of, lsef, dof),
+        "library": _sdpa_backward(qf, kf, vf, dof)}, VIT_SHAPE, "float32",
+        *pair_bound_ms(("flash_dq", "flash_dkv"), VIT_SHAPE, 4, peaks),
+        kernels=("flash_dq", "flash_dkv"), library_call=sdpa["backward"])
+
+    # The tiled pair at T = 196 (its route) and at T = 49 (named).
+    tiled = ("flash_dq_tiled", "flash_dkv_tiled")
+    q2, k2, v2, do2 = flash_inputs(P2_SHAPE, torch.bfloat16, gen, device)
+    o2, lse2 = flash.flash_fwd(q2, k2, v2)
+    _, delta2 = flash.flash_dq(q2, k2, v2, o2, lse2, do2)
+    for name, shape, ops in (
+            ("flash_bwd_tiled", P2_SHAPE, (q2, k2, v2, o2, lse2, do2)),
+            ("flash_bwd_tiled_t49", VIT_SHAPE, (q, k, v, o, lse, do))):
+        fns = {"kernel": lambda ops=ops: flash.flash_bwd(*ops,
+                                                         route="tiled"),
+               "split": lambda ops=ops: flash.flash_bwd(*ops, route="split"),
+               "plain": lambda ops=ops: flash.flash_bwd_plain(*ops),
+               "library": _sdpa_backward(ops[0], ops[1], ops[2], ops[5])}
+        if shape == VIT_SHAPE:
+            fns["fused"] = lambda: flash.flash_bwd(q, k, v, o, lse, do)
+        add(name, fns, shape, "bfloat16", *pair_bound_ms(tiled, shape, 2,
+                                                          peaks),
+            kernels=tiled, library_call=sdpa["backward"])
+    # Each tiled kernel alone at T = 196: its plain version and bound.
+    for name, plain in (
+            ("flash_dq_tiled",
+             lambda: flash.flash_dq_plain(q2, k2, v2, o2, lse2, do2)),
+            ("flash_dkv_tiled",
+             lambda: flash.flash_dkv_plain(q2, k2, v2, lse2, delta2, do2))):
+        least, by, _, _ = flash_bound_ms(name, P2_SHAPE, 2, peaks)
+        rows[name] = {"shape": list(P2_SHAPE), "dtype": "bfloat16",
+                      "bound_ms": least, "bound_by": by,
+                      "kernel_ms": rows["flash_bwd_tiled"][f"{name}_only_ms"],
+                      "plain_ms": sum(device_ms(plain).values()),
+                      "library_ms": None}
+        emit("timing", kernel=name, **rows[name])
     return rows
 
 
 def phase_flash_split_route(device) -> dict:
-    """``flash_attention``'s forward and backward on the split route
-    (``SPLIT_ROUTE_CASES``): the dQ and dK/dV kernels must each launch once
-    per case and the fused kernel never; the gradients are held against
-    ``flash_bwd_plain`` on the forward kernel's O and lse. The forwards
-    take their routes too: the bf16 case the tensor-core kernel, the
-    float32 case the CUDA-core one (``flash_fwd_cuda_core``). Returns the
-    launch counts of that run."""
+    """The backward routes other than the fused one on the attention path:
+    ``flash_attention``'s forward and backward at each
+    ``SPLIT_ROUTE_CASES`` entry must launch its route's kernels (the tiled
+    pair, or the dQ and dK/dV kernels) once and no other backward, and
+    ``flash_bwd`` named ``route="split"`` at ``FORCED_SPLIT_CASE`` (bf16)
+    keeps the CUDA-core pair held in bf16. The gradients are held against
+    ``flash_bwd_plain`` on the forward kernel's O and lse. The forwards take
+    their routes too: bf16 the tensor-core kernel, float32 the CUDA-core one
+    (``flash_fwd_cuda_core``). Returns the launch counts of that run."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     cases = []
-    for shape, dtype_name in SPLIT_ROUTE_CASES:
+    for shape, dtype_name, route in SPLIT_ROUTE_CASES:
         dtype = getattr(torch, dtype_name)
-        if flash._bwd_route(shape, dtype) != "split":
-            raise AssertionError(f"{shape} {dtype_name} is not on the split "
-                                 f"route")
+        if flash._bwd_route(shape, dtype) != route:
+            raise AssertionError(f"{shape} {dtype_name} is not on the "
+                                 f"{route} route")
         q, k, v, do = flash_inputs(shape, dtype, gen, device)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        cases.append((shape, dtype, leaves, do))
-    # The split route's run starts here.
+        cases.append((shape, dtype, route, leaves, do))
+    shape, dtype_name = FORCED_SPLIT_CASE
+    forced = (shape, getattr(torch, dtype_name),
+              flash_inputs(shape, getattr(torch, dtype_name), gen, device))
+    # The routes' run starts here.
     flash.flash_bwd.launches = 0
+    flash.flash_bwd.route_launches.update(fused=0, tiled=0, split=0)
     flash.flash_dq.launches = 0
     flash.flash_dkv.launches = 0
     flash.flash_fwd.route_launches.update(tensor=0, cuda_core=0)
-    for _, _, leaves, do in cases:
+    for _, _, _, leaves, do in cases:
         flash.flash_attention(*leaves).backward(do)
+    q, k, v, do = forced[2]
+    o, lse = flash.flash_fwd(q, k, v)
+    forced_grads = flash.flash_bwd(q, k, v, o, lse, do, route="split")
     torch.cuda.synchronize()
     launches = {"flash_bwd": flash.flash_bwd.launches,
+                **{f"flash_bwd_{r}": n
+                   for r, n in flash.flash_bwd.route_launches.items()},
                 "flash_dq": flash.flash_dq.launches,
                 "flash_dkv": flash.flash_dkv.launches,
                 "flash_fwd_tensor": flash.flash_fwd.route_launches["tensor"],
                 "flash_fwd_cuda_core":
                     flash.flash_fwd.route_launches["cuda_core"]}
     # ... and ends here.
+    routes = [route for _, _, route, _, _ in cases] + ["split"]
     fwd_routes = [flash._fwd_route(shape, dtype)
-                  for shape, dtype, _, _ in cases]
-    want = {"flash_bwd": 0, "flash_dq": len(cases),
-            "flash_dkv": len(cases),
+                  for shape, dtype, _, _, _ in cases] \
+        + [flash._fwd_route(forced[0], forced[1])]
+    want = {"flash_bwd": 0, "flash_bwd_fused": 0,
+            "flash_bwd_tiled": routes.count("tiled"),
+            "flash_bwd_split": routes.count("split"),
+            "flash_dq": routes.count("split"),
+            "flash_dkv": routes.count("split"),
             "flash_fwd_tensor": fwd_routes.count("tensor"),
             "flash_fwd_cuda_core": fwd_routes.count("cuda_core")}
     if launches != want:
-        raise AssertionError(f"split route launch counts {launches}, "
+        raise AssertionError(f"backward route launch counts {launches}, "
                              f"expected {want}")
     worst = 0.0
-    for shape, dtype, leaves, do in cases:
-        where = f"{shape} {dtype} (split route)"
-        q, k, v = (x.detach() for x in leaves)
+    checks = [(shape, dtype, route, [x.grad for x in leaves],
+               [x.detach() for x in leaves], do)
+              for shape, dtype, route, leaves, do in cases]
+    checks.append((forced[0], forced[1], "split (named)", forced_grads,
+                   [q, k, v], do))
+    for shape, dtype, route, grads, (q, k, v), do in checks:
+        where = f"{shape} {dtype} ({route} route)"
         o, lse = flash.flash_fwd(q, k, v)
         want_grads = flash.flash_bwd_plain(q, k, v, o, lse, do)
-        for name, x, w in zip(("dQ", "dK", "dV"), leaves, want_grads):
-            worst = max(worst, _close(name, x.grad, w,
-                                      flash_tolerance(dtype), where))
+        for name, x, w in zip(("dQ", "dK", "dV"), grads, want_grads):
+            worst = max(worst, _close(name, x, w, flash_tolerance(dtype),
+                                      where))
     emit("flash_split_route",
-         cases=[[list(s), d] for s, d in SPLIT_ROUTE_CASES],
+         cases=[[list(s), d, r] for s, d, r in SPLIT_ROUTE_CASES],
+         forced_split=[list(FORCED_SPLIT_CASE[0]), FORCED_SPLIT_CASE[1]],
          launches=launches, expected_launches=want, max_abs_err=worst)
     return launches
 
@@ -1202,7 +1395,7 @@ def _launch_counters(model: str) -> dict:
     from pytorch_distributed_mnist_tpu_torch.ops import adam, flash, xent
 
     counters = {"xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
-                "adam": adam.adam_leaf}
+                "adam": adam.adam_leaves}
     if TRAIN_RUNS[model]["depth"]:
         counters.update(flash_fwd=flash.flash_fwd, flash_bwd=flash.flash_bwd,
                         flash_dq=flash.flash_dq, flash_dkv=flash.flash_dkv)
@@ -1215,6 +1408,7 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
     import math
     import shutil
 
+    from pytorch_distributed_mnist_tpu_torch.ops.adam import MAX_LEAVES
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         read_checkpoint_arrays,
     )
@@ -1238,9 +1432,10 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         wall_s = time.perf_counter() - t0
         launches = {name: wrapper.launches
                     for name, wrapper in _launch_counters(model).items()}
-        if "flash_fwd" in launches:
-            launches["flash_fwd_routes"] = dict(
-                _launch_counters(model)["flash_fwd"].route_launches)
+        for name in ("flash_fwd", "flash_bwd"):
+            if name in launches:
+                launches[f"{name}_routes"] = dict(
+                    _launch_counters(model)[name].route_launches)
         # ... and ends here.
         lines = _train_lines(out, "Epoch: ")
         hist = summary["history"]
@@ -1255,8 +1450,9 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         test_size = int(args[args.index("--synthetic-test-size") + 1])
         steps = TRAIN_EPOCHS * (train_size // TRAIN_BATCH)
         evals = TRAIN_EPOCHS * math.ceil(test_size / TRAIN_BATCH)
+        # One Adam launch per step (per MAX_LEAVES leaves).
         want = {"xent_fwd": steps + evals, "xent_bwd": steps,
-                "adam": run_cfg["params"] * steps}
+                "adam": steps * -(-run_cfg["params"] // MAX_LEAVES)}
         depth = run_cfg["depth"]
         if depth:
             # bf16 at T = 49: every forward takes the tensor-core route,
@@ -1264,7 +1460,10 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
             want.update(flash_fwd=depth * (steps + evals),
                         flash_fwd_routes={"tensor": depth * (steps + evals),
                                           "cuda_core": 0},
-                        flash_bwd=depth * steps, flash_dq=0, flash_dkv=0)
+                        flash_bwd=depth * steps,
+                        flash_bwd_routes={"fused": depth * steps,
+                                          "tiled": 0, "split": 0},
+                        flash_dq=0, flash_dkv=0)
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
         files = sorted(os.listdir(ckpt))
@@ -1302,13 +1501,26 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The port's kernels by the names the profiler gives them, and the part of
+# a train step each is.
+OWN_KERNELS = (("xent_fwd_kernel", "xent_fwd"),
+               ("xent_bwd_kernel", "xent_bwd"),
+               ("adam_leaves_kernel", "adam"),
+               ("flash_fwd_mma_kernel", "flash_fwd"),
+               ("flash_fwd_kernel", "flash_fwd"),
+               ("flash_bwd_kernel", "flash_bwd"),
+               ("flash_dq_tiled_kernel", "flash_dq_tiled"),
+               ("flash_dkv_tiled_kernel", "flash_dkv_tiled"),
+               ("flash_dq_kernel", "flash_dq"),
+               ("flash_dkv_kernel", "flash_dkv"))
+
+
 def _train_kind(kernel: str) -> str:
     """A device kernel's part of a train step, by its name."""
     name = kernel.lower()
-    for ours in ("xent_fwd", "xent_bwd", "adam", "flash_fwd", "flash_bwd",
-                 "flash_dq", "flash_dkv"):
-        if f"{ours}_kernel" in name or f"{ours}_mma_kernel" in name:
-            return ours
+    for own, kind in OWN_KERNELS:
+        if own in name:
+            return kind
     if "memcpy" in name or "memset" in name:
         return "copy"
     if any(s in name for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -1319,10 +1531,54 @@ def _train_kind(kernel: str) -> str:
     return "other_elementwise"
 
 
-def phase_train_profile(device, model: str = "cnn") -> dict:
+def _step_launches(step, model: str, tokens: int) -> dict:
+    """The launches per step of each training kernel over
+    ``PROFILE_STEPS`` train steps, counted from 0; raises unless they are
+    the path's: one cross-entropy forward and backward and one Adam launch
+    per step and, for the ViT, a forward and a backward per attention
+    layer, the backward on the fused route up to 128 tokens and on the
+    tiled route above."""
+    import torch
+
+    counters = _launch_counters(model)
+    # The counted run starts here.
+    for wrapper in counters.values():
+        wrapper.launches = 0
+        if hasattr(wrapper, "route_launches"):
+            wrapper.route_launches.update(
+                dict.fromkeys(wrapper.route_launches, 0))
+    for _ in range(PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    got = {name: w.launches for name, w in counters.items()}
+    for name in ("flash_fwd", "flash_bwd"):
+        if name in counters:
+            got[f"{name}_routes"] = dict(counters[name].route_launches)
+    # ... and ends here.
+    n = PROFILE_STEPS
+    want = {"xent_fwd": n, "xent_bwd": n, "adam": n}
+    depth = TRAIN_RUNS[model]["depth"]
+    if depth:
+        route = "fused" if tokens <= 128 else "tiled"
+        want.update(flash_fwd=depth * n,
+                    flash_fwd_routes={"tensor": depth * n, "cuda_core": 0},
+                    flash_bwd=depth * n if route == "fused" else 0,
+                    flash_bwd_routes={r: depth * n if r == route else 0
+                                      for r in ("fused", "tiled", "split")},
+                    flash_dq=0, flash_dkv=0)
+    if got != want:
+        raise AssertionError(f"{model} train step launch counts over {n} "
+                             f"steps {got}, expected {want}")
+    return got
+
+
+def phase_train_profile(device, model: str = "cnn",
+                        patch_size: int = 4) -> dict:
     """Where one train step's device time goes (``model`` at batch 256,
-    fused loss and Adam, the ViT with flash attention, the host-to-device
-    copy of the batch included), beside the host's wall time per step."""
+    fused loss and Adam, the ViT with flash attention at ``patch_size``,
+    the host-to-device copy of the batch included), beside the host's wall
+    time per step; first the launches of its kernels over a few steps
+    (``_step_launches``). Returns the phase's row."""
     import numpy as np
     import torch
 
@@ -1348,6 +1604,8 @@ def phase_train_profile(device, model: str = "cnn") -> dict:
 
     set_loss_impl("fused")
     kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
+    if patch_size != 4:
+        kwargs["patch_size"] = patch_size
     state = create_train_state(get_model(model, **kwargs), SEED, device,
                                optimizer="adam_pallas")
     images, labels = synthetic_dataset(TRAIN_BATCH, seed=SEED + 30)
@@ -1358,6 +1616,8 @@ def phase_train_profile(device, model: str = "cnn") -> dict:
     def step():
         return train_step(state, to_device(host, device))
 
+    tokens = (28 // patch_size) ** 2
+    launches = _step_launches(step, model, tokens)
     per = device_ms(step)
     by_kind = {}
     for name, ms in per.items():
@@ -1399,15 +1659,19 @@ def phase_train_profile(device, model: str = "cnn") -> dict:
             host_ms[part] += (b - a) / iters * 1e3
     torch.cuda.synchronize()
     device_total = sum(per.values())
-    row = {"batch": TRAIN_BATCH, "wall_ms": wall_ms, "device_ms": device_total,
+    row = {"batch": TRAIN_BATCH, "tokens": tokens if model == "vit" else None,
+           "wall_ms": wall_ms, "device_ms": device_total,
            "device_busy": device_total / wall_ms, "by_kind_ms": by_kind,
            "host_ms": host_ms,
            "images_per_sec_steady": TRAIN_BATCH / wall_ms * 1e3,
-           "distinct_kernels": len(per),
+           "distinct_kernels": len(per), "counted_steps": PROFILE_STEPS,
+           "launches": launches,
            "top": sorted(((ms, name[:90]) for name, ms in per.items()),
                          reverse=True)[:10]}
-    emit("train_profile" if model == "cnn" else f"train_{model}_profile",
-         model=model, **row)
+    phase = "train_profile" if model == "cnn" else f"train_{model}_profile"
+    if patch_size != 4:
+        phase = f"train_{model}_p{patch_size}_profile"
+    emit(phase, model=model, patch_size=patch_size, **row)
     return row
 
 
@@ -1447,6 +1711,7 @@ def main() -> int:
     split_launches = phase_flash_split_route(device)
     vit_launches = phase_train(model="vit")
     phase_train_profile(device, model="vit")
+    p2 = phase_train_profile(device, model="vit", patch_size=2)
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -1481,11 +1746,13 @@ def main() -> int:
     kernels.append({
         "name": "adam", "route": "cuda", "source": f"{CSRC}/adam.cu",
         "replaces": TPU_ADAM, "launches": train_launches["adam"],
+        "launches_per_step": all_8["launches_per_step"],
         "max_abs_err": train_err["adam"], "ms": all_8["kernel_ms"],
-        "call_ms": all_8["kernel_call_ms"], "step_ms": all_8["step_ms"],
+        "call_ms": all_8["step_call_ms"], "step_ms": all_8["step_ms"],
         "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
-        "bound_by": "bytes", "library_ms": all_8["library_ms"],
-        "at": f"the 8 cnn leaves, {all_8['numel']} params, one launch each",
+        "bound_by": all_8["bound_by"], "library_ms": all_8["library_ms"],
+        "at": f"one FusedAdam.step over the 8 cnn leaves, "
+              f"{all_8['numel']} params",
         "vit_31": train_rows["adam"]["vit_31"]})
     # flash_fwd (the tensor-core forward) and flash_bwd run on the bf16 ViT
     # path (train_vit); the CUDA-core forward (float32) and the split pair
@@ -1514,7 +1781,31 @@ def main() -> int:
             entry["split_pair_ms"] = row["split_pair_ms"]
         if kname == "flash_fwd":
             entry["cuda_core_ms"] = row["cuda_core_ms"]
+        if kname in ("flash_dq", "flash_dkv"):
+            f32 = flash_rows["flash_split_f32"]
+            entry["pair_float32"] = {k: f32[k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append(entry)
+    # The tiled pair runs on the ViT's --patch-size 2 path
+    # (train_vit_p2_profile's counted steps).
+    pair = flash_rows["flash_bwd_tiled"]
+    for kname in ("flash_dq_tiled", "flash_dkv_tiled"):
+        row = flash_rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{CSRC}/flash_bwd_tiled.cu", "replaces": TPU_FLASH_BWD,
+            "launches": p2["launches"]["flash_bwd_routes"]["tiled"],
+            "max_abs_err": flash_err["flash_bwd_tiled"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "pair": {k: pair[k] for k in (
+                "kernel_ms", "split_ms", "plain_ms", "library_ms",
+                "bound_ms")},
+            "pair_t49": {k: flash_rows["flash_bwd_tiled_t49"][k] for k in (
+                "kernel_ms", "split_ms", "fused_ms", "library_ms",
+                "bound_ms")},
+            "at": "x".join(map(str, P2_SHAPE)) + " (B, T, H, D) bfloat16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,17 +57,13 @@
 #include <type_traits>
 
 #include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
-                           // b_off, bt_off, kPad, round16, aligned16
+                           // b_off, bt_off, kPad, round16, aligned16,
+                           // Shape, store_rows
 
 namespace {
 
 constexpr int kTile = 16;   // rows of a key or query tile: one warp's share
 constexpr int kMaxT = 128;  // longest T taken: 8 tiles, 8 warps
-
-struct Shape {
-  int b, h, t, d;
-  long long sb, st, sh;  // element strides of q, k and v
-};
 
 // Dynamic shared memory for Tp padded rows and DP head dims: lse and
 // delta (float32), q, k, v, O, dO (bf16, Tp x (DP + kPad)) and dS^T (bf16,
@@ -76,35 +72,6 @@ __host__ __device__ inline size_t smem_bytes(int tp, int dp) {
   return (size_t)2 * tp * sizeof(float) +
          (size_t)5 * tp * (dp + kPad) * sizeof(bf16) +
          (size_t)tp * (tp + kPad) * sizeof(bf16);
-}
-
-// Writes a warp's 16 x DP float32 accumulator (2*NP n-tiles of 8 columns,
-// mma's C layout) as bf16 rows row0.. of a contiguous (B, T, H, D) tensor,
-// times `scale` when `scaled`; rows >= T and columns >= D are dropped.
-template <int NP>
-__device__ __forceinline__ void store_rows(bf16* out,
-                                           const float (&acc)[2 * NP][4],
-                                           const Shape& s, int bi, int hi,
-                                           int row0, float scale,
-                                           bool scaled, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n) {
-    if (n * 8 >= s.d) break;  // D is a multiple of 8
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + g + 8 * half;
-      if (row >= s.t) continue;
-      float x0 = acc[n][2 * half], x1 = acc[n][2 * half + 1];
-      if (scaled) {
-        x0 = __fmul_rn(scale, x0);
-        x1 = __fmul_rn(scale, x1);
-      }
-      const long long at =
-          (((long long)bi * s.t + row) * s.h + hi) * s.d + n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
-    }
-  }
 }
 
 template <int DP>
@@ -229,8 +196,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dka[2 * np + 1], da, b[2], b[3]);
       }
     }
-    store_rows<NP>(dk, dka, s, bi, hi, k0, scale, true, lane);
-    store_rows<NP>(dv, dva, s, bi, hi, k0, scale, false, lane);
+    store_rows<NP>(dk, dka, s, bi, hi, k0, scale, true);
+    store_rows<NP>(dv, dva, s, bi, hi, k0, scale, false);
   }
   __syncthreads();  // every tile of dS^T is written
 
@@ -252,7 +219,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dqa[2 * np + 1], a, b[2], b[3]);
       }
     }
-    store_rows<NP>(dq, dqa, s, bi, hi, q0, scale, true, lane);
+    store_rows<NP>(dq, dqa, s, bi, hi, q0, scale, true);
   }
 }
 

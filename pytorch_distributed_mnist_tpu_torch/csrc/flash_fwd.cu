@@ -52,7 +52,7 @@
 #include <math.h>
 
 #include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
-                           // b_off, bt_off, kPad, aligned16
+                           // b_off, bt_off, kPad, aligned16, Shape
 
 namespace {
 
@@ -61,11 +61,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;           // warps of one block
 constexpr int kRows = 16 * kWarps;  // query rows of one block
 constexpr int kKeys = 64;           // keys per shared K/V tile
-
-struct Shape {
-  int b, h, t, d;
-  long long sb, st, sh;  // element strides of q, k and v
-};
 
 // Shared memory of one block: q, then two buffers each of k and v, every
 // tile kRows x (DP + kPad) bf16.

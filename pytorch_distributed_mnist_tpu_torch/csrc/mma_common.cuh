@@ -1,8 +1,9 @@
 // Tensor-core building blocks shared by the port's Hopper kernels
-// (flash_fwd.cu, flash_bwd.cu, matmul_i8.cu): 16-byte asynchronous copies
-// into shared memory, ldmatrix (plain and transposed), the bf16
-// mma.sync.m16n8k16 with float32 sums, and the lane offsets of the three
-// ldmatrix layouts those kernels read. Each kernel is its own nvcc
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_tiled.cu, matmul_i8.cu): 16-byte
+// asynchronous copies into shared memory, ldmatrix (plain and transposed),
+// the bf16 mma.sync.m16n8k16 with float32 sums, the lane offsets of the
+// three ldmatrix layouts those kernels read, and the flash kernels' shape
+// and store of an accumulator's rows. Each kernel is its own nvcc
 // translation unit; ops/cuda_build.py keys a kernel's build on this file
 // too, so an edit here rebuilds every kernel that includes it.
 
@@ -97,5 +98,41 @@ __device__ __forceinline__ int bt_off(int lane, int ld) {
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// A flash-attention problem: (B, T, H, D) with the element strides of
+// its q, k and v views (unit stride along D).
+struct Shape {
+  int b, h, t, d;
+  long long sb, st, sh;  // element strides of q, k and v
+};
+
+// Writes a warp's 16 x DP float32 accumulator (2*NP n-tiles of 8 columns,
+// mma's C layout) as bf16 rows row0.. of a contiguous (B, T, H, D) tensor,
+// times `scale` when `scaled`; rows >= T and columns >= D are dropped.
+template <int NP>
+__device__ __forceinline__ void store_rows(bf16* out,
+                                           const float (&acc)[2 * NP][4],
+                                           const Shape& s, int bi, int hi,
+                                           int row0, float scale,
+                                           bool scaled) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) {
+    if (n * 8 >= s.d) break;  // D is a multiple of 8
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (row >= s.t) continue;
+      float x0 = acc[n][2 * half], x1 = acc[n][2 * half + 1];
+      if (scaled) {
+        x0 = __fmul_rn(scale, x0);
+        x1 = __fmul_rn(scale, x1);
+      }
+      const long long at =
+          (((long long)bi * s.t + row) * s.h + hi) * s.d + n * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
+    }
+  }
+}
 
 }  // namespace

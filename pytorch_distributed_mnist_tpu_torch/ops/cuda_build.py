@@ -57,8 +57,9 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
                             _I),
     },
     "adam": {
-        # p, g, m, v, hypers, n, device, stream
-        "adam_launch": ([_P, _P, _P, _P, _P, _L, _I, _P], _I),
+        # rows, n_leaves, first, hypers, lr, b1, b2, eps, eps_root, count,
+        # hypers_out, device, stream
+        "adam_leaves_launch": ([_P, _I, _P] + [_P] * 8 + [_I, _P], _I),
     },
     "flash": {
         # q, k, v, o, lse, then the tail
@@ -75,6 +76,11 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     "flash_bwd": {
         # q, k, v, o, dout, lse, dq, dk, dv, then the tail (bf16 must be 1)
         "flash_bwd_launch": ([_P] * 9 + _FLASH_TAIL, _I),
+    },
+    "flash_bwd_tiled": {
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, then the tail (bf16
+        # must be 1)
+        "flash_bwd_tiled_launch": ([_P] * 10 + _FLASH_TAIL, _I),
     },
 }
 

@@ -20,11 +20,11 @@ kernels have it. A row with nothing to attend gives O = 0 and
 in the inputs' dtype (float32 or bfloat16).
 
 :func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_dq` and
-:func:`flash_dkv` launch ``csrc/flash_fwd.cu``, ``csrc/flash.cu`` and
-``csrc/flash_bwd.cu`` for CUDA tensors (built at first use,
-``ops/cuda_build.py``) and take the plain versions only for tensors on the
-CPU. There is no fallback from one to the other: a CUDA tensor launches a
-kernel or raises.
+:func:`flash_dkv` launch ``csrc/flash_fwd.cu``, ``csrc/flash.cu``,
+``csrc/flash_bwd.cu`` and ``csrc/flash_bwd_tiled.cu`` for CUDA tensors
+(built at first use, ``ops/cuda_build.py``) and take the plain versions
+only for tensors on the CPU. There is no fallback from one to the other:
+a CUDA tensor launches a kernel or raises.
 
 The forward (:func:`flash_fwd`) takes one of two routes on the card,
 chosen by :func:`_fwd_route` from the shape and dtype alone:
@@ -37,16 +37,21 @@ chosen by :func:`_fwd_route` from the shape and dtype alone:
   float32 FMAs on the CUDA cores. A caller may name this route for a
   bfloat16 problem too (the smoke times both kernels at one shape).
 
-The backward (:func:`flash_bwd`) takes one of two routes on the card,
-chosen by :func:`_bwd_route` from the shape and dtype alone:
+The backward (:func:`flash_bwd`) takes one of three routes on the card,
+chosen by :func:`_bwd_route` from the shape and dtype alone (or named
+with ``route=``):
 
 - ``"fused"``: bfloat16, T <= 128 and D a multiple of 8 (D <= 128 holds
-  for every route). One kernel per call computes delta, dQ, dK and dV for
-  a whole (batch, head) on the tensor cores.
+  for every route). One kernel per call (``csrc/flash_bwd.cu``) computes
+  delta, dQ, dK and dV for a whole (batch, head) on the tensor cores.
+- ``"tiled"``: bfloat16, T > 128 and D a multiple of 8, such as the ViT at
+  ``--patch-size 2`` (T = 196). ``csrc/flash_bwd_tiled.cu``: a dQ kernel
+  (which also writes delta) and then a dK/dV kernel, each tiling T by 64
+  rows, on the tensor cores. A caller may name it at any T.
 - ``"split"``: everything else (float32, whose 1e-4 tolerance rests on
-  exact float32 products; T > 128, such as the ViT at ``--patch-size 2``;
-  D not a multiple of 8). :func:`flash_dq`, which also computes delta, and
-  then :func:`flash_dkv`, both with float32 FMAs on the CUDA cores.
+  exact float32 products; D not a multiple of 8). :func:`flash_dq`, which
+  also computes delta, and then :func:`flash_dkv`, both with float32 FMAs
+  on the CUDA cores. A caller may name it for any problem.
 """
 
 from __future__ import annotations
@@ -258,14 +263,21 @@ def _fwd_route(shape, dtype) -> str:
 
 
 def _bwd_route(shape, dtype) -> str:
-    """``"fused"`` when :func:`flash_bwd`'s one-kernel backward takes a
-    ``(B, T, H, D)`` problem of this dtype (bfloat16, T <= 128, D a
-    multiple of 8), else ``"split"`` (the dQ kernel, then the dK/dV
-    kernel)."""
+    """:func:`flash_bwd`'s route for a ``(B, T, H, D)`` problem of this
+    dtype: ``"fused"`` (bfloat16, T <= 128, D a multiple of 8), ``"tiled"``
+    (bfloat16, T > 128, D a multiple of 8), else ``"split"``."""
     _, t, _, d = shape
-    if dtype == torch.bfloat16 and t <= FUSED_MAX_T and d % 8 == 0:
-        return "fused"
+    if dtype == torch.bfloat16 and d % 8 == 0:
+        return "fused" if t <= FUSED_MAX_T else "tiled"
     return "split"
+
+
+def _bwd_routes(shape, dtype) -> tuple:
+    """The routes a caller may name for this problem: ``"split"`` for any;
+    ``"tiled"`` wherever a tensor-core route is the best; ``"fused"`` only
+    where it is the best."""
+    return {"fused": ("fused", "tiled", "split"), "tiled": ("tiled", "split"),
+            "split": ("split",)}[_bwd_route(shape, dtype)]
 
 
 def _launch(symbol: str, q: torch.Tensor, pointers: list, scale: float,
@@ -380,24 +392,35 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-              causal: bool = False, scale: Optional[float] = None) \
+              causal: bool = False, scale: Optional[float] = None,
+              route: Optional[str] = None) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dQ, dK, dV)`` as :func:`flash_bwd_plain` gives them, from the
     forward's O and lse and the upstream gradient dO. CPU tensors take
-    :func:`flash_bwd_plain`. CUDA tensors take the route
-    :func:`_bwd_route` names: ``"fused"`` launches the one-kernel backward
-    (counted in ``flash_bwd.launches``), after copying any operand whose
-    pointer or strides are not 16-byte aligned; ``"split"`` calls
-    :func:`flash_dq` and then :func:`flash_dkv` (counted in theirs)."""
+    :func:`flash_bwd_plain`. CUDA tensors take ``route`` (default
+    :func:`_bwd_route`'s; :func:`_bwd_routes` says which may be named),
+    counted in ``flash_bwd.route_launches[route]``: ``"fused"`` launches
+    the one-kernel backward (also counted in ``flash_bwd.launches``),
+    ``"tiled"`` the tiled dQ and dK/dV kernels, each after copying any
+    operand whose pointer or strides are not 16-byte aligned; ``"split"``
+    calls :func:`flash_dq` and then :func:`flash_dkv` (counted in
+    theirs)."""
     _check(q, k, v, o, do)
     _check_rows(q, lse)
+    allowed = _bwd_routes(q.shape, q.dtype)
+    route = allowed[0] if route is None else route
+    if route not in allowed:
+        raise ValueError(f"flash_bwd has no route {route!r} for "
+                         f"{tuple(q.shape)} {q.dtype}")
     if not _on_card(q, "flash_bwd"):
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                scale=scale)
-    if _bwd_route(q.shape, q.dtype) == "split":
+    if route == "split":
         dq, delta = flash_dq(q, k, v, o, lse, do, causal=causal, scale=scale)
         dk, dv = flash_dkv(q, k, v, lse, delta, do, causal=causal,
                            scale=scale)
+        with _count_lock:
+            flash_bwd.route_launches["split"] += 1
         return dq, dk, dv
     q, k, v = _views(q, k, v)
     if not _aligned(q, k, v):
@@ -412,27 +435,38 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   for _ in range(3))
     if dq.numel() == 0:
         return dq, dk, dv
-    _launch("flash_bwd_launch", q,
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr()], _scale(q, scale), causal, "flash_bwd")
+    if route == "fused":
+        _launch("flash_bwd_launch", q,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr()], _scale(q, scale), causal, "flash_bwd")
+    else:
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        _launch("flash_bwd_tiled_launch", q,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+                _scale(q, scale), causal, "flash_bwd_tiled")
     with _count_lock:
-        flash_bwd.launches += 1
+        if route == "fused":
+            flash_bwd.launches += 1
+        flash_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_fwd.launches = 0
 flash_fwd.route_launches = {"tensor": 0, "cuda_core": 0}
 flash_bwd.launches = 0
+flash_bwd.route_launches = {"fused": 0, "tiled": 0, "split": 0}
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """O from :func:`flash_fwd` (the tensor-core or the CUDA-core forward);
-    the backward is :func:`flash_bwd` (the fused kernel, or the dQ kernel
-    then the dK/dV kernel). Saves q, k, v, O and lse (the reference's
-    custom_vjp residuals, here unpadded)."""
+    the backward is :func:`flash_bwd` (the fused kernel, the tiled pair,
+    or the CUDA-core dQ kernel then dK/dV kernel). Saves q, k, v, O and
+    lse (the reference's custom_vjp residuals, here unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

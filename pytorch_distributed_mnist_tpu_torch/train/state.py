@@ -28,7 +28,10 @@ from pytorch_distributed_mnist_tpu_torch.models.convert import (
 from pytorch_distributed_mnist_tpu_torch.models.registry import (
     lecun_normal_init,
 )
-from pytorch_distributed_mnist_tpu_torch.ops.adam import FusedAdam
+from pytorch_distributed_mnist_tpu_torch.ops.adam import (
+    FusedAdam,
+    bias_corrections,
+)
 
 OPTIMIZERS = ("adam", "adam_pallas", "sgd")
 
@@ -37,7 +40,11 @@ class OptaxAdam(FusedAdam):
     """``inject_hyperparams(optax.adam)``: the same state as
     :class:`FusedAdam`, updated with optax's own operations and rounding
     (``scale_by_adam`` then ``scale_by_learning_rate``) in plain torch
-    ops."""
+    ops. Its bias corrections ``1 - b ** t`` come from ``torch.pow``
+    (``ops/adam.py::bias_corrections``), optax's from XLA's ``pow``: they
+    round ``b ** t`` one ulp apart at some steps (first at t = 31 for b1,
+    t = 168 for b2), so a resume across the packages agrees within
+    allclose, not bit for bit."""
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -47,9 +54,7 @@ class OptaxAdam(FusedAdam):
         self.inner_count.add_(1)
         h = self.hyperparams
         b1, b2 = h["b1"], h["b2"]
-        t = self.inner_count.float()
-        bc1 = 1.0 - torch.pow(b1, t)
-        bc2 = 1.0 - torch.pow(b2, t)
+        bc1, bc2 = bias_corrections(h, self.inner_count.float())
         for p in self.params:
             g = p.grad
             mu, nu = self.state[p]["mu"], self.state[p]["nu"]

@@ -82,13 +82,126 @@ def test_adam_kernel_equals_plain_bitwise(card, n, t):
     h = adam.adam_hypers(hyper, torch.tensor(float(t), device=card))
     got = [p.clone(), m.clone(), v.clone()]
     want = [p.clone(), m.clone(), v.clone()]
-    before = adam.adam_leaf.launches
+    before = adam.adam_leaves.launches
     adam.adam_leaf(got[0], g, got[1], got[2], h)
     adam.adam_leaf_plain(want[0], g, want[1], want[2], h)
     torch.cuda.synchronize()
-    assert adam.adam_leaf.launches == before + 1
+    assert adam.adam_leaves.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _adam_hyper(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    return {k: torch.tensor(val, dtype=torch.float32, device=card)
+            for k, val in {"learning_rate": 1e-3,
+                           **adam.ADAM_DEFAULTS}.items()}
+
+
+def _adam_state(card, shapes, seed, offset=0):
+    """p, m, v per shape (views ``offset`` floats into their buffers)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    out = []
+    for shape in shapes:
+        n = 1
+        for s in shape:
+            n *= s
+        bufs = [torch.randn(offset + n, device=card, generator=gen)
+                for _ in range(3)]
+        p, m, v = (b[offset:].view(shape) for b in bufs)
+        m.mul_(0.1)
+        v.abs_().mul_(0.01)
+        out.append([p, m, v])
+    return out
+
+
+@pytest.mark.parametrize("model", ["cnn", "vit"])
+def test_adam_leaves_equals_plain_over_200_steps(card, model):
+    import chip_smoke
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    shapes = [s for _, s in chip_smoke.leaf_shapes(model)]
+    hyper = _adam_hyper(card)
+    got = _adam_state(card, shapes, 5)
+    want = [[x.clone() for x in leaf] for leaf in got]
+    table = adam.LeafTable([x[0] for x in got], [x[1] for x in got],
+                           [x[2] for x in got])
+    count = torch.zeros((), dtype=torch.int32, device=card)
+    gen = torch.Generator(device=card).manual_seed(6)
+    before = adam.adam_leaves.launches
+    for _ in range(200):  # through t = 31 and t = 168
+        count.add_(1)
+        grads = [torch.randn(s, device=card, generator=gen) * 1e-2
+                 for s in shapes]
+        adam.adam_leaves([x[0] for x in got], grads, [x[1] for x in got],
+                         [x[2] for x in got], hyper, count, table=table)
+        adam.adam_leaves_plain([x[0] for x in want], grads,
+                               [x[1] for x in want], [x[2] for x in want],
+                               hyper, count)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    assert adam.adam_leaves.launches == before + 200
+
+
+def test_adam_kernel_forms_the_hypers_of_adam_hypers(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    hyper = _adam_hyper(card)
+    (p, m, v), = _adam_state(card, [(3,)], 7)
+    g = torch.zeros(3, device=card)
+    out = torch.empty(9, device=card)
+    for t in range(1, 3001):
+        count = torch.tensor(t, dtype=torch.int32, device=card)
+        adam.adam_leaves([p], [g], [m], [v], hyper, count, hypers_out=out)
+        want = adam.adam_hypers(hyper, count.float())
+        assert torch.equal(out, want), t
+
+
+def test_adam_leaves_takes_misaligned_leaves_and_two_launches(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    # 70 leaves (two launches), their buffers 1 float (4 bytes) off the
+    # 16-byte grid, with lengths around the 4-wide vectors.
+    shapes = [(n,) for n in range(1, 71)]
+    got = _adam_state(card, shapes, 8, offset=1)
+    want = [[x.clone() for x in leaf] for leaf in got]
+    gen = torch.Generator(device=card).manual_seed(9)
+    bufs = [torch.randn(1 + s[0], device=card, generator=gen)
+            for s in shapes]
+    grads = [b[1:] for b in bufs]
+    hyper = _adam_hyper(card)
+    count = torch.tensor(3, dtype=torch.int32, device=card)
+    before = adam.adam_leaves.launches
+    adam.adam_leaves([x[0] for x in got], grads, [x[1] for x in got],
+                     [x[2] for x in got], hyper, count)
+    adam.adam_leaves_plain([x[0] for x in want], grads, [x[1] for x in want],
+                           [x[2] for x in want], hyper, count)
+    torch.cuda.synchronize()
+    assert adam.adam_leaves.launches == before + 2
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_fused_adam_step_launches_once(card):
+    import chip_smoke
+    from pytorch_distributed_mnist_tpu_torch.ops import adam
+
+    gen = torch.Generator(device=card).manual_seed(10)
+    params = [torch.randn(s, device=card, generator=gen)
+              for _, s in chip_smoke.leaf_shapes("vit")]
+    opt = adam.FusedAdam(params, lr=1e-3)
+    before = adam.adam_leaves.launches
+    for _ in range(3):
+        for p in params:
+            p.grad = torch.randn(p.shape, device=card, generator=gen)
+        opt.step()
+    torch.cuda.synchronize()
+    assert adam.adam_leaves.launches == before + 3
+    assert int(opt.inner_count) == int(opt.count) == 3
 
 
 FLASH_SHAPES = [(256, 49, 4, 16), (2, 1, 2, 16), (2, 16, 2, 16),
@@ -170,8 +283,14 @@ FLASH_BWD_SHAPES = FLASH_SHAPES + [(2, 128, 2, 128), (3, 100, 3, 48)]
 
 
 def _bwd_counts(flash):
-    return (flash.flash_bwd.launches, flash.flash_dq.launches,
-            flash.flash_dkv.launches)
+    """(fused kernel, tiled pair, dQ kernel, dK/dV kernel) launches."""
+    return (flash.flash_bwd.launches, flash.flash_bwd.route_launches["tiled"],
+            flash.flash_dq.launches, flash.flash_dkv.launches)
+
+
+# What one flash_bwd call moves in _bwd_counts, per route.
+BWD_MOVES = {"fused": (1, 0, 0, 0), "tiled": (0, 1, 0, 0),
+             "split": (0, 0, 1, 1)}
 
 
 def _flash_bwd_inputs(card, shape, dtype, seed, offset=0, causal=False):
@@ -205,8 +324,7 @@ def test_flash_bwd_matches_plain_on_its_route(card, shape, dtype, causal):
     torch.cuda.synchronize()
     moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
     # Only the route's own counters move.
-    fused = flash._bwd_route(shape, dtype) == "fused"
-    assert moved == ((1, 0, 0) if fused else (0, 1, 1))
+    assert moved == BWD_MOVES[flash._bwd_route(shape, dtype)]
     want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for a, w in zip(got, want):
         assert a.dtype == dtype and a.is_contiguous()
@@ -256,8 +374,59 @@ def test_flash_attention_backward_takes_its_route(card, shape, dtype):
     flash.flash_attention(q, k, v).backward(g)
     torch.cuda.synchronize()
     moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
-    fused = flash._bwd_route(shape, dtype) == "fused"
-    assert moved == ((1, 0, 0) if fused else (0, 1, 1))
+    assert moved == BWD_MOVES[flash._bwd_route(shape, dtype)]
+
+
+@pytest.mark.parametrize("shape", [(32, 196, 4, 16), (2, 200, 2, 64),
+                                   (1, 200, 2, 128), (3, 130, 2, 32),
+                                   (256, 49, 4, 16), (1, 1, 1, 8)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_tiled_matches_plain_with_the_same_bits(card, shape,
+                                                          causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, torch.bfloat16,
+                                            sum(shape) + causal,
+                                            causal=causal)
+    before = _bwd_counts(flash)
+    first = flash.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                            route="tiled")
+    second = flash.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                             route="tiled")
+    torch.cuda.synchronize()
+    moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
+    assert moved == (0, 2, 0, 0)
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        assert a.dtype == torch.bfloat16 and a.is_contiguous()
+        _flash_close(a, w, torch.bfloat16)
+
+
+def test_flash_bwd_split_named_in_bf16_matches_plain(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, (32, 196, 4, 16),
+                                            torch.bfloat16, 24)
+    before = _bwd_counts(flash)
+    got = flash.flash_bwd(q, k, v, o, lse, do, route="split")
+    torch.cuda.synchronize()
+    moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
+    assert moved == BWD_MOVES["split"]
+    for a, w in zip(got, flash.flash_bwd_plain(q, k, v, o, lse, do)):
+        _flash_close(a, w, torch.bfloat16)
+
+
+def test_flash_bwd_tiled_copies_a_misaligned_view(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, (4, 196, 4, 16),
+                                            torch.bfloat16, 25, offset=3)
+    assert not flash._aligned(q)
+    got = flash.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, w in zip(got, flash.flash_bwd_plain(q, k, v, o, lse, do)):
+        _flash_close(a, w, torch.bfloat16)
 
 
 def _routes(flash):

@@ -24,7 +24,9 @@ from pytorch_distributed_mnist_tpu_torch.ops import cuda_build, flash
 
 torch.set_num_threads(2)
 
-SHAPES = [(2, 49, 4, 16), (1, 16, 2, 8), (1, 1, 1, 8)]
+# The last is a T above the fused kernel's 128, which the tiled route
+# takes on the card.
+SHAPES = [(2, 49, 4, 16), (1, 16, 2, 8), (1, 1, 1, 8), (1, 196, 1, 16)]
 CASES = [(shape, dtype, causal) for shape in SHAPES
          for dtype in ("float32", "bfloat16") for causal in (False, True)]
 ATOL = 1e-5
@@ -116,13 +118,13 @@ def test_flash_bwd_matches_the_pallas_backward(case):
 
 
 # The route each FLASH_CHECK_SHAPES entry takes in bf16: fused up to
-# T = 128 (D is a multiple of 8 in all of them), split above. float32
+# T = 128 (D is a multiple of 8 in all of them), tiled above. float32
 # always takes the split route.
 BF16_ROUTES = {
     (256, 49, 4, 16): "fused", (2, 1, 2, 16): "fused",
-    (2, 16, 2, 16): "fused", (2, 196, 2, 16): "split",
-    (2, 200, 2, 64): "split", (1, 200, 2, 128): "split",
-    (3, 130, 2, 32): "split", (1, 70, 1, 8): "fused",
+    (2, 16, 2, 16): "fused", (2, 196, 2, 16): "tiled",
+    (2, 200, 2, 64): "tiled", (1, 200, 2, 128): "tiled",
+    (3, 130, 2, 32): "tiled", (1, 70, 1, 8): "fused",
     (2, 128, 2, 128): "fused", (3, 100, 3, 48): "fused",
 }
 
@@ -143,14 +145,62 @@ def test_bwd_route_of_every_check_shape(shape, dtype):
 
 @pytest.mark.parametrize("shape,dtype,route", [
     ((1, 128, 1, 16), torch.bfloat16, "fused"),
-    ((1, 129, 1, 16), torch.bfloat16, "split"),
+    ((1, 129, 1, 16), torch.bfloat16, "tiled"),
     ((1, 49, 1, 12), torch.bfloat16, "split"),   # D not a multiple of 8
     ((1, 49, 1, 128), torch.bfloat16, "fused"),
     ((1, 49, 1, 16), torch.float32, "split"),
-] + [(shape, getattr(torch, dtype), "split")  # the smoke's split-route run
-     for shape, dtype in chip_smoke.SPLIT_ROUTE_CASES])
+] + [(shape, getattr(torch, dtype), route)  # the smoke's route run
+     for shape, dtype, route in chip_smoke.SPLIT_ROUTE_CASES])
 def test_bwd_route_edges(shape, dtype, route):
     assert flash._bwd_route(shape, dtype) == route
+
+
+@pytest.mark.parametrize("t", [129, 196, 200, 4096])
+@pytest.mark.parametrize("d", [8, 48, 128])
+def test_bwd_route_is_tiled_above_the_fused_kernel(t, d):
+    assert flash._bwd_route((2, t, 2, d), torch.bfloat16) == "tiled"
+    assert flash._bwd_route((2, t, 2, d), torch.float32) == "split"
+    assert flash._bwd_route((2, t, 2, d + 4), torch.bfloat16) == "split"
+
+
+def test_bwd_routes_a_caller_may_name():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert flash._bwd_routes((2, 49, 4, 16), bf16) == ("fused", "tiled",
+                                                       "split")
+    assert flash._bwd_routes((2, 196, 4, 16), bf16) == ("tiled", "split")
+    assert flash._bwd_routes((2, 49, 4, 16), f32) == ("split",)
+    assert flash._bwd_routes((2, 49, 4, 12), bf16) == ("split",)
+    assert set(flash.flash_bwd.route_launches) == {"fused", "tiled",
+                                                   "split"}
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((1, 196, 1, 16), torch.bfloat16, "fused"),   # T above the fused 128
+    ((1, 49, 1, 16), torch.float32, "tiled"),     # float32: split only
+    ((1, 49, 1, 12), torch.bfloat16, "tiled"),    # D not a multiple of 8
+    ((1, 49, 1, 16), torch.bfloat16, "tensor"),   # no such route
+])
+def test_flash_bwd_refuses_a_route_the_problem_has_not(shape, dtype, route):
+    q = torch.zeros(shape, dtype=dtype)
+    lse = torch.zeros(shape[0], shape[2], shape[1])
+    with pytest.raises(ValueError, match="no route"):
+        flash.flash_bwd(q, q, q, q, lse, q, route=route)
+
+
+@pytest.mark.parametrize("route", ["fused", "tiled", "split"])
+def test_a_named_route_on_the_cpu_is_the_plain_version(route):
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 33, 2, 16))
+                                    .astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    o, lse = flash.flash_fwd_plain(q, k, v, causal=True)
+    before = (chip_smoke._bwd_counts(flash),
+              dict(flash.flash_bwd.route_launches))
+    got = flash.flash_bwd(q, k, v, o, lse, do, causal=True, route=route)
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (chip_smoke._bwd_counts(flash),
+            dict(flash.flash_bwd.route_launches)) == before
 
 
 def test_alignment_check_finds_misaligned_views():
@@ -243,4 +293,75 @@ def test_one_bf16_rounding_of_p_and_ds_fits_the_tolerance():
                 got = _bf16_operands_backward(q, k, v, o, lse, do, causal)
                 worst = max(worst, *(chip_smoke.tolerance_used(a, w, tol)
                                      for a, w in zip(got, want)))
+    assert worst <= 1.0
+
+
+def _tiled_backward_emulation(q, k, v, o, lse, do, causal, rows=64):
+    """``flash_bwd_plain`` with the tiled kernels' arithmetic, tile by tile
+    at 64 rows: delta from the bf16 dO and O in float32; per (query tile,
+    key tile), S and dP as float32 sums of the bf16 products, P and dS in
+    float32, then P rounded once to bf16 for dV and dS for dQ and dK; dQ
+    summed over the key tiles in order, dK and dV over the query tiles.
+    Tiles wholly above the causal diagonal are skipped, as the kernels
+    skip them."""
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    qh, kh, vh, oh, doh = (flash._heads(x) for x in (q, k, v, o, do))
+    delta = (doh * oh).sum(-1)
+    dq, dk, dv = (torch.zeros(b, h, t, d) for _ in range(3))
+    for q0 in range(0, t, rows):
+        qs = slice(q0, min(t, q0 + rows))
+        qi = torch.arange(qs.start, qs.stop)[:, None]
+        for k0 in range(0, t, rows):
+            if causal and k0 > qs.stop - 1:
+                break
+            ks = slice(k0, min(t, k0 + rows))
+            kj = torch.arange(ks.start, ks.stop)[None, :]
+            keep = qi >= kj if causal else torch.ones_like(qi >= kj)
+            s = qh[..., qs, :] @ kh[..., ks, :].transpose(-1, -2)
+            p = torch.where(keep, torch.exp(scale * s - lse[..., qs, None]),
+                            torch.zeros(()))
+            dp = doh[..., qs, :] @ vh[..., ks, :].transpose(-1, -2)
+            ds = p * (dp - delta[..., qs, None])
+            p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+            dq[..., qs, :] += ds16 @ kh[..., ks, :]
+            dk[..., ks, :] += ds16.transpose(-1, -2) @ qh[..., qs, :]
+            dv[..., ks, :] += p16.transpose(-1, -2) @ doh[..., qs, :]
+    return (flash._out(scale * dq, q), flash._out(scale * dk, k),
+            flash._out(dv, v))
+
+
+# The bf16 shapes of chip_smoke.FLASH_CHECK_SHAPES that the tiled route
+# takes, and the smoke's route-phase shape.
+TILED_SHAPES = [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[1] > 128] \
+    + [(32, 196, 4, 16)]
+
+
+def test_the_tiled_shapes_are_the_check_shapes_above_128():
+    assert TILED_SHAPES[:4] == [(2, 196, 2, 16), (2, 200, 2, 64),
+                                (1, 200, 2, 128), (3, 130, 2, 32)]
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TILED_SHAPES])
+def test_tiled_rounding_of_p_and_ds_fits_the_tolerance(shape):
+    # The tiled kernels feed P and dS to bf16 tensor-core products where
+    # the plain version keeps them float32. Emulated here on the CPU tile
+    # by tile (three draws, causal and not), the worst share of
+    # chip_smoke.flash_tolerance's bf16 allowance used must stay within it;
+    # the share each shape used is written in PERF.md.
+    gen = torch.Generator().manual_seed(sum(shape))
+    tol = chip_smoke.flash_tolerance(torch.bfloat16)
+    b, t, h, d = shape
+    worst = 0.0
+    for causal in (False, True):
+        for _ in range(3):
+            qkv = torch.randn(b, t, 3, h, d, generator=gen).bfloat16()
+            do = torch.randn(b, t, h, d, generator=gen).bfloat16()
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            o, lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+            want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+            got = _tiled_backward_emulation(q, k, v, o, lse, do, causal)
+            worst = max(worst, *(chip_smoke.tolerance_used(a, w, tol)
+                                 for a, w in zip(got, want)))
     assert worst <= 1.0

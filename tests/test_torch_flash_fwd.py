@@ -166,7 +166,8 @@ def test_flash_fwd_library_is_registered_with_its_signature():
     assert cuda_build.source_path("flash_fwd").endswith("csrc/flash_fwd.cu")
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "matmul_i8"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_bwd_tiled",
+                                  "matmul_i8"])
 def test_tensor_core_kernels_include_the_shared_header(name):
     with open(cuda_build.source_path(name), "rb") as f:
         assert cuda_build.local_headers(f.read()) == ["mma_common.cuh"]
