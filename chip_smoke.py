@@ -47,31 +47,37 @@ Phases, each printing one JSON line:
    kernels, Adam, other elementwise work, copies), beside the host's wall
    time per step and its time per part (batch copy, forward, loss,
    backward, optimizer, metrics);
-8. flash against plain: the forward, dQ and dK/dV kernels against
-   ``flash_fwd_plain`` / ``flash_dq_plain`` / ``flash_dkv_plain``, and
-   ``flash_bwd`` (the fused kernel, the tiled pair, or the dQ and dK/dV
-   kernels, as its route says) against ``flash_bwd_plain``, twice, for the
-   same bits, at the ViT's shape (256, 49, 4, 16) and at T in {1, 16, 70,
-   100, 128, 130, 196, 200}, D in {8, 16, 32, 48, 64, 128}, float32 and
-   bfloat16, causal and not, and the tiled pair also at (32, 196, 4, 16)
-   and (256, 196, 4, 16) (``flash_tolerance`` states each tolerance and
-   why), with the route each forward and backward took and the share of
-   its tolerance each used; in bf16 also the CUDA-core forward;
+8. flash against plain (first asserting that torch runs float32 products
+   in full float32, the yardstick's precision): the forward, dQ and dK/dV
+   kernels against ``flash_fwd_plain`` / ``flash_dq_plain`` /
+   ``flash_dkv_plain``, and ``flash_bwd`` (the fused kernel, the tiled
+   pair, the 3xTF32 pair, or the dQ and dK/dV kernels, as its route says)
+   against ``flash_bwd_plain``, twice, for the same bits, at the ViT's
+   shape (256, 49, 4, 16) and at T in {1, 16, 33, 70, 100, 128, 130, 196,
+   200}, D in {8, 12, 16, 32, 48, 64, 128}, float32 and bfloat16, causal
+   and not, and the tiled pair also at (32, 196, 4, 16) and (256, 196, 4,
+   16) (``flash_tolerance`` states each tolerance and why), with the route
+   each forward and backward took and the share of its tolerance each
+   used, worst per route; the tensor-core forwards (bf16 and 3xTF32) twice
+   for the same bits, and beside them the CUDA-core forward;
 9. flash timings: device ms per call of the kernels at the ViT's shape in
-   bf16 (the tensor-core forward beside the CUDA-core one, which is also
-   timed in float32, its route's dtype; the fused backward beside the
-   split pair), the float32 split pair, the tiled pair at (256, 196, 4,
-   16) and, named, at the ViT's shape beside the bf16 split pair (named),
-   their plain versions, ``F.scaled_dot_product_attention`` forward and
-   backward (in the problem's dtype) as the yardstick, and each kernel's
-   bound;
+   bf16 (the tensor-core forward beside the CUDA-core one; the fused
+   backward beside the split pair), the CUDA-core forward and split pair
+   in float32 (named), the 3xTF32 forward and pair (float32's route) at
+   (256, 49, 4, 16) and (256, 196, 4, 16) beside the CUDA-core ones named
+   in the same call, each 3xTF32 kernel alone at the ViT's shape, the
+   tiled pair at (256, 196, 4, 16) and, named, at the ViT's shape beside
+   the bf16 split pair (named), the bf16 forward at T = 196, their plain
+   versions, ``F.scaled_dot_product_attention`` forward and backward (in
+   the problem's dtype) as the yardstick, and each kernel's bound (a
+   3xTF32 kernel's operations at a third of the TF32 rate);
 10. the other backward routes on the attention path: ``flash_attention``
-   forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair
-   and at the ViT's shape in float32 the dQ and dK/dV kernels (and not the
-   fused one), and ``flash_bwd`` named ``route="split"`` at (32, 196, 4,
-   16) bf16 the dQ and dK/dV kernels, with gradients held against
-   ``flash_bwd_plain`` (the float32 case's forward takes the CUDA-core
-   route);
+   forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair, at
+   the ViT's shape in float32 the 3xTF32 pair and at (2, 33, 2, 12)
+   float32 the dQ and dK/dV kernels (and not the fused one), and
+   ``flash_fwd`` named ``route="cuda_core"`` with ``flash_bwd`` named
+   ``route="split"`` at (32, 196, 4, 16) bf16 and at the ViT's shape in
+   float32 the CUDA-core kernels, all held against the plain versions;
 11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
    160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
@@ -81,7 +87,10 @@ Phases, each printing one JSON line:
    LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
    default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
    where each step must launch the tiled backward twice and no other;
-13. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+13. the float32 ViT: phase 11 again with ``--dtype f32`` (every flash
+   forward and backward on the 3xTF32 route, no other flash kernel), then
+   its train profile (exactly 2 3xTF32 forwards and 2 pairs per step);
+14. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -115,13 +124,16 @@ CHECK_SHAPES = ([(m,) + FC1 for m in PATH_BUCKETS]
                 + [(5, 784, 10), (33, 12544, 128), (3, 7, 5), (130, 200, 70)])
 # Peak rates of the part nvidia-smi names (data sheets, dense): device
 # memory bytes/s, int8 tensor-core operations/s, float32 operations/s
-# outside the tensor cores, bf16 tensor-core operations/s.
+# outside the tensor cores, bf16 tensor-core operations/s, TF32
+# tensor-core operations/s.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 1513e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 1671e12, 60e12, 835e12),
-    "H100": (3.35e12, 1979e12, 67e12, 989e12),  # SXM
-    "H200": (4.8e12, 1979e12, 67e12, 989e12),
+    "H100 PCIe": (2.0e12, 1513e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 1671e12, 60e12, 835e12, 418e12),
+    "H100": (3.35e12, 1979e12, 67e12, 989e12, 495e12),  # SXM
+    "H200": (4.8e12, 1979e12, 67e12, 989e12, 495e12),
 }
+# TF32 products per float32-accurate product on the 3xTF32 route.
+TF32_PER_PRODUCT = 3
 TPU_KERNEL = "pytorch_distributed_mnist_tpu/ops/pallas/matmul_i8.py:66"
 TPU_XENT_FWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:124"
 TPU_XENT_BWD = "pytorch_distributed_mnist_tpu/ops/pallas/xent.py:154"
@@ -151,37 +163,48 @@ VIT_SHAPE = (TRAIN_BATCH, 49, 4, 16)  # (B, T, H, D) of each attention
 PROFILE_STEPS = 4  # train steps whose kernel launches a profile counts
 VIT_DEPTH = 2
 # What each training run's checks need: its flags, the train state's
-# leaf count, the params the optimizer walks, the attention layers, and
-# the test-accuracy floor after epoch 1. The ViT's floor sits a few
-# points under the CPU rehearsal of the same command (92.68%, plain
-# versions; README).
+# leaf count, the params the optimizer walks, the attention layers, the
+# test-accuracy floor after epoch 1, and its compute dtype. The ViT's
+# floors sit a few points under the CPU rehearsals of the same commands
+# (92.68% in bf16, 92.87% in float32, plain versions; README).
 TRAIN_RUNS = {
     "cnn": {"args": TRAIN_ARGS, "leaves": 32, "params": 8, "depth": 0,
-            "floor": 0.90},
+            "floor": 0.90, "dtype": "bf16"},
     "vit": {"args": VIT_TRAIN_ARGS, "leaves": 101, "params": 31,
-            "depth": VIT_DEPTH, "floor": 0.88},
+            "depth": VIT_DEPTH, "floor": 0.88, "dtype": "bf16"},
+    # The slice's float32 path: the ViT under --dtype f32, both flash
+    # kernels on the 3xTF32 route.
+    "vit_f32": {"args": VIT_TRAIN_ARGS + ["--dtype", "f32"], "leaves": 101,
+                "params": 31, "depth": VIT_DEPTH, "floor": 0.88,
+                "dtype": "f32"},
 }
 # Shapes the flash kernels are held against their plain versions at: the
 # ViT's, then T in {1, 16, 196, 200} and D in {16, 32, 64, 128} at small
-# B*H, D = 8 (below one thread's 16 dims), and for the fused backward
-# (bf16, T <= 128) its widest case T = 128, D = 128 and a D of 48 that its
-# 16-wide tiles pad.
+# B*H, D = 8 (below one thread's 16 dims), for the fused backward (bf16,
+# T <= 128) its widest case T = 128, D = 128 and a D of 48 that its
+# 16-wide tiles pad, and a D of 12 (not a multiple of 8), which keeps the
+# CUDA-core forward and split backward on their own default route.
 FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
                       (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
                       (3, 130, 2, 32), (1, 70, 1, 8), (2, 128, 2, 128),
-                      (3, 100, 3, 48)]
+                      (3, 100, 3, 48), (2, 33, 2, 12)]
 # The backward routes other than the fused one, on the attention path:
 # (shape, dtype, route). A T above the fused kernel's 128 (the ViT at
 # --patch-size 2 has 196 tokens) in bf16 takes the tiled pair, the ViT's
-# shape in float32 the split pair.
+# shape in float32 the 3xTF32 pair, a D that is not a multiple of 8 the
+# split pair.
 SPLIT_ROUTE_CASES = [((32, 196, 4, 16), "bfloat16", "tiled"),
-                     (VIT_SHAPE, "float32", "split")]
+                     (VIT_SHAPE, "float32", "tf32x3"),
+                     ((2, 33, 2, 12), "float32", "split")]
 # The ViT at --patch-size 2: 196 tokens of embed 64 in 4 heads of 16.
 P2_SHAPE = (TRAIN_BATCH, 196, 4, 16)
 # Shapes the tiled backward is also held at, beyond FLASH_CHECK_SHAPES.
 TILED_CHECK_SHAPES = [(32, 196, 4, 16), P2_SHAPE]
-# The CUDA-core split pair in bf16, held by naming route="split".
-FORCED_SPLIT_CASE = ((32, 196, 4, 16), "bfloat16")
+# The CUDA-core kernels named where a tensor-core route is the default:
+# the forward as route="cuda_core" and the backward as route="split", in
+# bf16 and at the ViT's shape in float32.
+FORCED_CUDA_CORE_CASES = [((32, 196, 4, 16), "bfloat16"),
+                          (VIT_SHAPE, "float32")]
 
 
 def emit(phase: str, **fields) -> None:
@@ -249,20 +272,24 @@ def device_ms(fn, iters: int = 20) -> dict:
     """Device time per call of ``fn``: every kernel, fill and copy it runs
     on the card, from the profiler's CUDA trace over ``iters`` calls.
     Returns ``{kernel name: ms per call}``. Now and then a trace comes back
-    without its device events although the calls ran; such a trace is
-    taken again, up to three times in all, then this raises."""
+    without its device events although the calls ran, or without some of
+    them (a name recorded a number of times that is not a multiple of
+    ``iters``); such a trace is taken again, up to three times in all. With
+    no device time then, this raises; a name whose count is still not a
+    multiple of ``iters`` is taken to vary from call to call, and the last
+    trace is used."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per = {}
+        total, count = {}, {}
         for evt in prof.events():
             # A named range (``Optimizer.step#...``) is mirrored onto the
             # device's timeline as an annotation spanning its kernels: it
@@ -270,12 +297,16 @@ def device_ms(fn, iters: int = 20) -> dict:
             if (evt.device_type == torch.autograd.DeviceType.CUDA
                     and not getattr(evt, "is_user_annotation", False)
                     and not evt.name.startswith("Optimizer.")):
-                per[evt.name] = (per.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / iters / 1e3)
-        if per and sum(per.values()) > 0:
+                total[evt.name] = (total.get(evt.name, 0.0)
+                                   + evt.time_range.elapsed_us() / 1e3)
+                count[evt.name] = count.get(evt.name, 0) + 1
+        per = {name: ms / iters for name, ms in total.items()}
+        lost = {name[:60]: n for name, n in count.items() if n % iters}
+        if per and sum(per.values()) > 0 and (not lost or attempt == 2):
             return per
-        print("chip_smoke.py: a profiler trace held no device time; taking "
-              "it again", file=sys.stderr, flush=True)
+        print(f"chip_smoke.py: a profiler trace held no device time, or "
+              f"these counts of {iters} calls' events: {lost}; taking it "
+              f"again", file=sys.stderr, flush=True)
     raise AssertionError("the profiler recorded no device time")
 
 
@@ -802,7 +833,7 @@ def phase_train_timings(device, peaks) -> dict:
     from pytorch_distributed_mnist_tpu_torch.ops import xent
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    bw, _, f32_rate, _ = peaks
+    bw, _, f32_rate = peaks[:3]
     b, c = TRAIN_BATCH, CLASSES
     logits, labels, g = xent_inputs(b, c, gen, device)
     _, lse = xent.xent_fwd(logits, labels)
@@ -855,7 +886,7 @@ def _adam_step_timing(device, gen, model, peaks) -> dict:
 
     from pytorch_distributed_mnist_tpu_torch.ops import adam
 
-    bw, _, f32_rate, _ = peaks
+    bw, _, f32_rate = peaks[:3]
     params = []
     for _, shape in leaf_shapes(model):
         p = torch.randn(shape, device=device, generator=gen)
@@ -941,14 +972,36 @@ def flash_inputs(shape, dtype, gen, device):
 
 
 def _bwd_counts(flash) -> tuple:
-    """(fused kernel, tiled pair, dQ kernel, dK/dV kernel) launches."""
+    """(fused kernel, tiled pair, 3xTF32 pair, dQ kernel, dK/dV kernel)
+    launches."""
     return (flash.flash_bwd.launches, flash.flash_bwd.route_launches["tiled"],
+            flash.flash_bwd.route_launches["tf32x3"],
             flash.flash_dq.launches, flash.flash_dkv.launches)
 
 
 # What one flash_bwd call moves in _bwd_counts, per route.
-BWD_MOVES = {"fused": (1, 0, 0, 0), "tiled": (0, 1, 0, 0),
-             "split": (0, 0, 1, 1)}
+BWD_MOVES = {"fused": (1, 0, 0, 0, 0), "tiled": (0, 1, 0, 0, 0),
+             "tf32x3": (0, 0, 1, 0, 0), "split": (0, 0, 0, 1, 1)}
+# Each route's key in phase_flash_vs_plain's largest errors.
+FWD_KEYS = {"tensor": "flash_fwd", "tf32x3": "flash_fwd_tf32",
+            "cuda_core": "flash_fwd_cuda_core"}
+BWD_KEYS = {"fused": "flash_bwd", "tiled": "flash_bwd_tiled",
+            "tf32x3": "flash_bwd_tf32", "split": "flash_bwd_split"}
+
+
+def require_full_float32() -> None:
+    """Raises unless torch runs float32 matrix products in full float32:
+    the plain versions are the float32 yardstick, and a plain version whose
+    products ran in TF32 would make every float32 comparison meaningless."""
+    import torch
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError(
+            f"float32 products run in TF32 (allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+            f"{torch.get_float32_matmul_precision()!r}): the float32 "
+            f"yardstick would not be float32")
 
 
 def phase_flash_vs_plain(device) -> dict:
@@ -959,19 +1012,25 @@ def phase_flash_vs_plain(device) -> dict:
     delta), so each is held against its plain version on the same inputs.
     ``flash_bwd`` runs twice on the same inputs: both calls must give the
     same bits, and only its route's counters may move (the fused kernel's,
-    or the dQ and dK/dV kernels'). ``flash_fwd`` takes its route (the
-    tensor-core kernel in bf16, the CUDA-core kernel in float32); in bf16
-    the CUDA-core forward is held to the plain version too. Returns each
-    kernel's largest error (``flash_fwd``: the tensor-core forward,
-    ``flash_fwd_cuda_core``: the CUDA-core one)."""
+    the tiled or 3xTF32 pair's, or the dQ and dK/dV kernels'). ``flash_fwd``
+    takes its route (with D a multiple of 8 the bf16 tensor-core kernel or
+    the 3xTF32 one, twice for the same bits; else the CUDA-core kernel);
+    beside a tensor-core route the CUDA-core forward is held to the plain
+    version too. Returns each kernel's largest error, keyed by
+    ``FWD_KEYS`` and ``BWD_KEYS`` (and ``flash_dq``, ``flash_dkv``: the
+    CUDA-core dQ and dK/dV kernels called directly)."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
+    require_full_float32()
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
-    worst = {"flash_fwd": 0.0, "flash_fwd_cuda_core": 0.0, "flash_dq": 0.0,
-             "flash_dkv": 0.0, "flash_bwd": 0.0, "flash_bwd_tiled": 0.0}
+    worst = {**dict.fromkeys(FWD_KEYS.values(), 0.0),
+             **dict.fromkeys(BWD_KEYS.values(), 0.0),
+             "flash_dq": 0.0, "flash_dkv": 0.0}
     routes, used, fwd_routes, fwd_used = {}, {}, {}, {}
+    # The largest share of its tolerance each route used.
+    fwd_route_used, bwd_route_used = {}, {}
     f32 = flash_tolerance(torch.float32)
     for shape in FLASH_CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -986,7 +1045,8 @@ def phase_flash_vs_plain(device) -> dict:
                 o, lse = flash.flash_fwd(q, k, v, causal=causal)
                 want_o, want_lse = flash.flash_fwd_plain(q, k, v,
                                                          causal=causal)
-                if fwd_route == "tensor":
+                if fwd_route != "cuda_core":
+                    o2, lse2 = flash.flash_fwd(q, k, v, causal=causal)
                     o_cc, lse_cc = flash.flash_fwd(q, k, v, causal=causal,
                                                    route="cuda_core")
                 dq, delta = flash.flash_dq(q, k, v, want_o, want_lse, do,
@@ -1003,28 +1063,34 @@ def phase_flash_vs_plain(device) -> dict:
                     raise AssertionError(f"flash output dtypes at {where}")
                 moved = {r: n - before[r]
                          for r, n in flash.flash_fwd.route_launches.items()}
-                want_moved = ({"tensor": 1, "cuda_core": 1}
-                              if fwd_route == "tensor"
-                              else {"tensor": 0, "cuda_core": 1})
+                want_moved = dict.fromkeys(moved, 0)
+                want_moved["cuda_core"] = 1
+                if fwd_route != "cuda_core":
+                    want_moved[fwd_route] = 2
+                    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                        raise AssertionError(f"flash_fwd ({fwd_route}) gave "
+                                             f"other bits on a second call "
+                                             f"at {where}")
                 if moved != want_moved:
                     raise AssertionError(f"flash_fwd's routes moved by "
                                          f"{moved} at {where}")
-                fwd_key = ("flash_fwd" if fwd_route == "tensor"
-                           else "flash_fwd_cuda_core")
+                fwd_key = FWD_KEYS[fwd_route]
                 worst[fwd_key] = max(
                     worst[fwd_key],
                     _close(f"O ({fwd_route})", o, want_o, tol, where),
                     _close(f"lse ({fwd_route})", lse, want_lse, f32, where))
-                if fwd_route == "tensor":
+                if fwd_route != "cuda_core":
                     worst["flash_fwd_cuda_core"] = max(
                         worst["flash_fwd_cuda_core"],
                         _close("O (cuda_core)", o_cc, want_o, tol, where),
                         _close("lse (cuda_core)", lse_cc, want_lse, f32,
                                where))
                 fwd_routes[key] = fwd_route
-                fwd_used[key] = max(fwd_used.get(key, 0.0),
-                                    tolerance_used(o, want_o, tol),
-                                    tolerance_used(lse, want_lse, f32))
+                share = max(tolerance_used(o, want_o, tol),
+                            tolerance_used(lse, want_lse, f32))
+                fwd_used[key] = max(fwd_used.get(key, 0.0), share)
+                fwd_route_used[fwd_route] = max(
+                    fwd_route_used.get(fwd_route, 0.0), share)
                 worst["flash_dq"] = max(
                     worst["flash_dq"], _close("dQ", dq, want_dq, tol, where),
                     _close("delta", delta, want_delta, f32, where))
@@ -1037,11 +1103,11 @@ def phase_flash_vs_plain(device) -> dict:
                                                        want_lse, do),
                                         (want_dq, want_dk, want_dv), causal,
                                         tol, where)
-                bwd_key = "flash_bwd_tiled" if route == "tiled" \
-                    else "flash_bwd"
-                worst[bwd_key] = max(worst[bwd_key], err)
+                worst[BWD_KEYS[route]] = max(worst[BWD_KEYS[route]], err)
                 routes[key] = route
                 used[key] = max(used.get(key, 0.0), share)
+                bwd_route_used[route] = max(bwd_route_used.get(route, 0.0),
+                                            share)
     # The tiled route at the ViT's --patch-size 2 shapes, bf16 only.
     tol = flash_tolerance(torch.bfloat16)
     for shape in TILED_CHECK_SHAPES:
@@ -1059,6 +1125,7 @@ def phase_flash_vs_plain(device) -> dict:
             worst["flash_bwd_tiled"] = max(worst["flash_bwd_tiled"], err)
             routes[key] = route
             used[key] = max(used.get(key, 0.0), share)
+            bwd_route_used[route] = max(bwd_route_used.get(route, 0.0), share)
     emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          tiled_shapes=[list(s) for s in TILED_CHECK_SHAPES],
          dtypes=["float32", "bfloat16"], causal=[False, True],
@@ -1066,7 +1133,10 @@ def phase_flash_vs_plain(device) -> dict:
                     "bfloat16": flash_tolerance(torch.bfloat16)},
          max_abs_err=worst, flash_fwd_routes=fwd_routes,
          flash_fwd_tolerance_used=fwd_used, flash_bwd_routes=routes,
-         flash_bwd_tolerance_used=used, flash_bwd_same_bits=True)
+         flash_bwd_tolerance_used=used,
+         flash_fwd_worst_share_by_route=fwd_route_used,
+         flash_bwd_worst_share_by_route=bwd_route_used,
+         flash_fwd_same_bits=True, flash_bwd_same_bits=True)
     return worst
 
 
@@ -1099,8 +1169,13 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
     dQ, dK, dV of ``elem_bytes`` each; lse and delta float32), against the
     products' 2 operations per multiply-add (two products in the forward,
     three in dQ, four in dK/dV, five in the fused backward) at the card's
-    bf16 tensor-core rate (float32 problems at the card's float32 rate
-    outside the tensor cores)."""
+    bf16 tensor-core rate. Float32 problems: the 3xTF32 kernels (named
+    ``<kernel>_tf32``) at the TF32 tensor-core rate over
+    ``TF32_PER_PRODUCT``, the others at the card's float32 rate outside the
+    tensor cores."""
+    tf32 = kernel.endswith("_tf32")
+    if tf32:
+        kernel = kernel[:-len("_tf32")]
     b, t, h, d = shape
     tensor = b * t * h * d * elem_bytes
     row = b * h * t * 4
@@ -1118,8 +1193,10 @@ def flash_bound_ms(kernel: str, shape, elem_bytes: int, peaks) -> tuple:
         "flash_bwd": (5 * tensor + row + 3 * tensor, 5),
     }[kernel]
     ops = products * 2 * b * h * t * t * d
+    rate = (peaks[3] if elem_bytes == 2
+            else peaks[4] / TF32_PER_PRODUCT if tf32 else peaks[2])
     t_bytes = bytes_moved / peaks[0] * 1e3
-    t_ops = ops / (peaks[3] if elem_bytes == 2 else peaks[2]) * 1e3
+    t_ops = ops / rate * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, bytes_moved, ops
 
@@ -1139,7 +1216,14 @@ FLASH_KERNEL_NAMES = {"flash_fwd": "flash_fwd_mma_kernel",
                       "flash_dkv": "flash_dkv_kernel",
                       "flash_bwd": "flash_bwd_kernel",
                       "flash_dq_tiled": "flash_dq_tiled_kernel",
-                      "flash_dkv_tiled": "flash_dkv_tiled_kernel"}
+                      "flash_dkv_tiled": "flash_dkv_tiled_kernel",
+                      "flash_fwd_tf32": "flash_fwd_tf32_kernel",
+                      "flash_dq_tf32": "flash_dq_tf32_kernel",
+                      "flash_dkv_tf32": "flash_dkv_tf32_kernel"}
+
+
+# The 3xTF32 pair by its kernels' names in FLASH_KERNEL_NAMES.
+TF32_PAIR = ("flash_dq_tf32", "flash_dkv_tf32")
 
 
 def _sdpa_backward(q, k, v, do):
@@ -1183,17 +1267,22 @@ def phase_flash_timings(device, peaks) -> dict:
     timed here only, the port never calls it). At the ViT's training shape
     in bf16: the tensor-core forward beside the CUDA-core one
     (``cuda_core_ms``), the split pair's dQ and dK/dV kernels, and the
-    fused backward beside the split pair. In float32 (the CUDA-core
-    routes' dtype): the forward and the split pair, each beside SDPA in
-    float32. The tiled pair at the ViT's --patch-size 2 shape and, named,
-    at the ViT's shape, beside the bf16 split pair (named) and SDPA's
-    backward at each. A backward yardstick is set against a whole route:
+    fused backward beside the split pair. In float32, at the ViT's shape
+    and at --patch-size 2 (T = 196): the 3xTF32 forward and pair (the
+    route's default) beside the CUDA-core forward and split pair named in
+    the same call, and each beside SDPA in float32; each 3xTF32 kernel
+    alone at the ViT's shape; the CUDA-core forward and split pair (named)
+    at the ViT's shape in rows of their own. The tiled pair at the ViT's
+    --patch-size 2 shape and, named, at the ViT's shape, beside the bf16
+    split pair (named) and SDPA's backward at each; the bf16 forward at
+    T = 196 beside SDPA. A backward yardstick is set against a whole route:
     no one kernel of a pair computes what it computes."""
     import torch
     import torch.nn.functional as F
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
+    require_full_float32()
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     q, k, v, do = flash_inputs(VIT_SHAPE, torch.bfloat16, gen, device)
     o, lse = flash.flash_fwd(q, k, v)
@@ -1219,7 +1308,8 @@ def phase_flash_timings(device, peaks) -> dict:
                     q.transpose(1, 2), k.transpose(1, 2),
                     v.transpose(1, 2))}, "bfloat16"),
             ("flash_fwd_cuda_core", {
-                "kernel": lambda: flash.flash_fwd(qf, kf, vf),
+                "kernel": lambda: flash.flash_fwd(qf, kf, vf,
+                                                  route="cuda_core"),
                 "plain": lambda: flash.flash_fwd_plain(qf, kf, vf),
                 "library": lambda: F.scaled_dot_product_attention(
                     qf.transpose(1, 2), kf.transpose(1, 2),
@@ -1246,14 +1336,57 @@ def phase_flash_timings(device, peaks) -> dict:
     rows["flash_bwd"]["split_pair_ms"] = (rows["flash_dq"]["kernel_ms"]
                                           + rows["flash_dkv"]["kernel_ms"])
 
-    # The float32 split pair (flash_bwd's route in float32) beside SDPA's
-    # float32 backward.
+    # The float32 split pair (named) beside SDPA's float32 backward.
     add("flash_split_f32", {
-        "kernel": lambda: flash.flash_bwd(qf, kf, vf, of, lsef, dof),
+        "kernel": lambda: flash.flash_bwd(qf, kf, vf, of, lsef, dof,
+                                          route="split"),
         "plain": lambda: flash.flash_bwd_plain(qf, kf, vf, of, lsef, dof),
         "library": _sdpa_backward(qf, kf, vf, dof)}, VIT_SHAPE, "float32",
         *pair_bound_ms(("flash_dq", "flash_dkv"), VIT_SHAPE, 4, peaks),
         kernels=("flash_dq", "flash_dkv"), library_call=sdpa["backward"])
+
+    # The 3xTF32 route (float32's default) at T = 49 and T = 196, beside
+    # the CUDA-core kernels named in the same call.
+    def tf32_rows(suffix, shape, ops):
+        fq, fk, fv, _, _, fdo = ops
+        least, by, bytes_moved, n_ops = flash_bound_ms("flash_fwd_tf32",
+                                                       shape, 4, peaks)
+        add(f"flash_fwd_tf32{suffix}", {
+            "kernel": lambda: flash.flash_fwd(fq, fk, fv),
+            "cuda_core": lambda: flash.flash_fwd(fq, fk, fv,
+                                                 route="cuda_core"),
+            "plain": lambda: flash.flash_fwd_plain(fq, fk, fv),
+            "library": lambda: F.scaled_dot_product_attention(
+                fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2))},
+            shape, "float32", least, by, bytes=bytes_moved,
+            operations=n_ops, kernels=("flash_fwd_tf32",),
+            library_call=sdpa["flash_fwd"])
+        add(f"flash_bwd_tf32{suffix}", {
+            "kernel": lambda: flash.flash_bwd(*ops),
+            "split": lambda: flash.flash_bwd(*ops, route="split"),
+            "plain": lambda: flash.flash_bwd_plain(*ops),
+            "library": _sdpa_backward(fq, fk, fv, fdo)}, shape, "float32",
+            *pair_bound_ms(TF32_PAIR, shape, 4, peaks), kernels=TF32_PAIR,
+            library_call=sdpa["backward"])
+
+    q2f, k2f, v2f, do2f = flash_inputs(P2_SHAPE, torch.float32, gen, device)
+    o2f, lse2f = flash.flash_fwd(q2f, k2f, v2f)
+    tf32_rows("", VIT_SHAPE, (qf, kf, vf, of, lsef, dof))
+    tf32_rows("_p2", P2_SHAPE, (q2f, k2f, v2f, o2f, lse2f, do2f))
+    # Each 3xTF32 kernel of the pair alone at the ViT's shape.
+    deltaf = flash._delta_plain(of, dof)
+    for name, plain in (
+            ("flash_dq_tf32",
+             lambda: flash.flash_dq_plain(qf, kf, vf, of, lsef, dof)),
+            ("flash_dkv_tf32",
+             lambda: flash.flash_dkv_plain(qf, kf, vf, lsef, deltaf, dof))):
+        least, by, _, _ = flash_bound_ms(name, VIT_SHAPE, 4, peaks)
+        rows[name] = {"shape": list(VIT_SHAPE), "dtype": "float32",
+                      "bound_ms": least, "bound_by": by,
+                      "kernel_ms": rows["flash_bwd_tf32"][f"{name}_only_ms"],
+                      "plain_ms": sum(device_ms(plain).values()),
+                      "library_ms": None}
+        emit("timing", kernel=name, **rows[name])
 
     # The tiled pair at T = 196 (its route) and at T = 49 (named).
     tiled = ("flash_dq_tiled", "flash_dkv_tiled")
@@ -1286,23 +1419,38 @@ def phase_flash_timings(device, peaks) -> dict:
                       "plain_ms": sum(device_ms(plain).values()),
                       "library_ms": None}
         emit("timing", kernel=name, **rows[name])
+    # The bf16 tensor-core forward at T = 196 beside SDPA.
+    least, by, bytes_moved, n_ops = flash_bound_ms("flash_fwd", P2_SHAPE, 2,
+                                                   peaks)
+    add("flash_fwd_p2", {
+        "kernel": lambda: flash.flash_fwd(q2, k2, v2),
+        "plain": lambda: flash.flash_fwd_plain(q2, k2, v2),
+        "library": lambda: F.scaled_dot_product_attention(
+            q2.transpose(1, 2), k2.transpose(1, 2), v2.transpose(1, 2))},
+        P2_SHAPE, "bfloat16", least, by, bytes=bytes_moved,
+        operations=n_ops, kernels=("flash_fwd",),
+        library_call=sdpa["flash_fwd"])
     return rows
 
 
 def phase_flash_split_route(device) -> dict:
     """The backward routes other than the fused one on the attention path:
     ``flash_attention``'s forward and backward at each
-    ``SPLIT_ROUTE_CASES`` entry must launch its route's kernels (the tiled
-    pair, or the dQ and dK/dV kernels) once and no other backward, and
-    ``flash_bwd`` named ``route="split"`` at ``FORCED_SPLIT_CASE`` (bf16)
-    keeps the CUDA-core pair held in bf16. The gradients are held against
-    ``flash_bwd_plain`` on the forward kernel's O and lse. The forwards take
-    their routes too: bf16 the tensor-core kernel, float32 the CUDA-core one
-    (``flash_fwd_cuda_core``). Returns the launch counts of that run."""
+    ``SPLIT_ROUTE_CASES`` entry must launch its route's kernels once (the
+    tiled pair, the 3xTF32 pair, or the dQ and dK/dV kernels) and no other
+    backward, and at each ``FORCED_CUDA_CORE_CASES`` entry ``flash_fwd``
+    named ``route="cuda_core"`` and ``flash_bwd`` named ``route="split"``
+    launch the CUDA-core kernels. The forwards take their routes too: bf16
+    the tensor-core kernel, float32 the 3xTF32 one, a D that is not a
+    multiple of 8 the CUDA-core one. Gradients are held against
+    ``flash_bwd_plain`` on the forward kernel's O and lse, and the named
+    forwards against ``flash_fwd_plain``. Returns the launch counts of that
+    run."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
+    require_full_float32()
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     cases = []
     for shape, dtype_name, route in SPLIT_ROUTE_CASES:
@@ -1313,61 +1461,68 @@ def phase_flash_split_route(device) -> dict:
         q, k, v, do = flash_inputs(shape, dtype, gen, device)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         cases.append((shape, dtype, route, leaves, do))
-    shape, dtype_name = FORCED_SPLIT_CASE
-    forced = (shape, getattr(torch, dtype_name),
-              flash_inputs(shape, getattr(torch, dtype_name), gen, device))
+    forced = [(shape, getattr(torch, name),
+               flash_inputs(shape, getattr(torch, name), gen, device))
+              for shape, name in FORCED_CUDA_CORE_CASES]
+    fwd_counts = flash.flash_fwd.route_launches
+    bwd_counts = flash.flash_bwd.route_launches
     # The routes' run starts here.
     flash.flash_bwd.launches = 0
-    flash.flash_bwd.route_launches.update(fused=0, tiled=0, split=0)
+    bwd_counts.update(dict.fromkeys(bwd_counts, 0))
     flash.flash_dq.launches = 0
     flash.flash_dkv.launches = 0
-    flash.flash_fwd.route_launches.update(tensor=0, cuda_core=0)
+    fwd_counts.update(dict.fromkeys(fwd_counts, 0))
     for _, _, _, leaves, do in cases:
         flash.flash_attention(*leaves).backward(do)
-    q, k, v, do = forced[2]
-    o, lse = flash.flash_fwd(q, k, v)
-    forced_grads = flash.flash_bwd(q, k, v, o, lse, do, route="split")
+    forced_out = []
+    for _, _, (q, k, v, do) in forced:
+        o, lse = flash.flash_fwd(q, k, v, route="cuda_core")
+        forced_out.append((o, lse, flash.flash_bwd(q, k, v, o, lse, do,
+                                                   route="split")))
     torch.cuda.synchronize()
     launches = {"flash_bwd": flash.flash_bwd.launches,
-                **{f"flash_bwd_{r}": n
-                   for r, n in flash.flash_bwd.route_launches.items()},
+                **{f"flash_bwd_{r}": n for r, n in bwd_counts.items()},
                 "flash_dq": flash.flash_dq.launches,
                 "flash_dkv": flash.flash_dkv.launches,
-                "flash_fwd_tensor": flash.flash_fwd.route_launches["tensor"],
-                "flash_fwd_cuda_core":
-                    flash.flash_fwd.route_launches["cuda_core"]}
+                **{f"flash_fwd_{r}": n for r, n in fwd_counts.items()}}
     # ... and ends here.
-    routes = [route for _, _, route, _, _ in cases] + ["split"]
+    routes = [route for _, _, route, _, _ in cases] + ["split"] * len(forced)
     fwd_routes = [flash._fwd_route(shape, dtype)
                   for shape, dtype, _, _, _ in cases] \
-        + [flash._fwd_route(forced[0], forced[1])]
-    want = {"flash_bwd": 0, "flash_bwd_fused": 0,
-            "flash_bwd_tiled": routes.count("tiled"),
-            "flash_bwd_split": routes.count("split"),
+        + ["cuda_core"] * len(forced)
+    want = {"flash_bwd": routes.count("fused"),
+            **{f"flash_bwd_{r}": routes.count(r) for r in bwd_counts},
             "flash_dq": routes.count("split"),
             "flash_dkv": routes.count("split"),
-            "flash_fwd_tensor": fwd_routes.count("tensor"),
-            "flash_fwd_cuda_core": fwd_routes.count("cuda_core")}
+            **{f"flash_fwd_{r}": fwd_routes.count(r) for r in fwd_counts}}
     if launches != want:
         raise AssertionError(f"backward route launch counts {launches}, "
                              f"expected {want}")
-    worst = 0.0
-    checks = [(shape, dtype, route, [x.grad for x in leaves],
-               [x.detach() for x in leaves], do)
-              for shape, dtype, route, leaves, do in cases]
-    checks.append((forced[0], forced[1], "split (named)", forced_grads,
-                   [q, k, v], do))
-    for shape, dtype, route, grads, (q, k, v), do in checks:
+    errors = {}
+    f32 = flash_tolerance(torch.float32)
+    for shape, dtype, route, leaves, do in cases:
         where = f"{shape} {dtype} ({route} route)"
+        q, k, v = (x.detach() for x in leaves)
         o, lse = flash.flash_fwd(q, k, v)
         want_grads = flash.flash_bwd_plain(q, k, v, o, lse, do)
-        for name, x, w in zip(("dQ", "dK", "dV"), grads, want_grads):
-            worst = max(worst, _close(name, x, w, flash_tolerance(dtype),
-                                      where))
+        errors[where] = max(
+            _close(name, x.grad, w, flash_tolerance(dtype), where)
+            for name, x, w in zip(("dQ", "dK", "dV"), leaves, want_grads))
+    for (shape, dtype, (q, k, v, do)), (o, lse, grads) in zip(forced,
+                                                            forced_out):
+        where = f"{shape} {dtype} (cuda_core and split, named)"
+        tol = flash_tolerance(dtype)
+        want_o, want_lse = flash.flash_fwd_plain(q, k, v)
+        want_grads = flash.flash_bwd_plain(q, k, v, o, lse, do)
+        errors[where] = max(
+            _close("O", o, want_o, tol, where),
+            _close("lse", lse, want_lse, f32, where),
+            *(_close(name, x, w, tol, where)
+              for name, x, w in zip(("dQ", "dK", "dV"), grads, want_grads)))
     emit("flash_split_route",
          cases=[[list(s), d, r] for s, d, r in SPLIT_ROUTE_CASES],
-         forced_split=[list(FORCED_SPLIT_CASE[0]), FORCED_SPLIT_CASE[1]],
-         launches=launches, expected_launches=want, max_abs_err=worst)
+         forced_cuda_core=[[list(s), d] for s, d in FORCED_CUDA_CORE_CASES],
+         launches=launches, expected_launches=want, max_abs_err=errors)
     return launches
 
 
@@ -1402,6 +1557,24 @@ def _launch_counters(model: str) -> dict:
     return counters
 
 
+def _flash_want(dtype: str, tokens: int, fwd: int, bwd: int) -> dict:
+    """The flash wrappers' counts after ``fwd`` forward and ``bwd``
+    backward calls of the ViT at ``tokens`` tokens in ``dtype``: bf16 takes
+    the tensor-core forward and the fused backward up to 128 tokens (the
+    tiled pair above), float32 the 3xTF32 forward and pair; no other route
+    and no CUDA-core kernel launches."""
+    fwd_route = "tf32x3" if dtype == "f32" else "tensor"
+    bwd_route = ("tf32x3" if dtype == "f32"
+                 else "fused" if tokens <= 128 else "tiled")
+    return {"flash_fwd": fwd,
+            "flash_fwd_routes": {r: fwd if r == fwd_route else 0
+                                 for r in FWD_KEYS},
+            "flash_bwd": bwd if bwd_route == "fused" else 0,
+            "flash_bwd_routes": {r: bwd if r == bwd_route else 0
+                                 for r in BWD_KEYS},
+            "flash_dq": 0, "flash_dkv": 0}
+
+
 def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
     """Train ``model`` (``TRAIN_RUNS``) through the CLI, resume and
     evaluate; returns its kernels' launch counts over the training run."""
@@ -1416,6 +1589,8 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
     run_cfg = TRAIN_RUNS[model]
     args = run_cfg["args"]
     phase = "train" if model == "cnn" else f"train_{model}"
+    if run_cfg["dtype"] == "f32":
+        require_full_float32()
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     ckpt = os.path.join(root, "run")
     base = args + ["--device", device_flag]
@@ -1454,16 +1629,9 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         want = {"xent_fwd": steps + evals, "xent_bwd": steps,
                 "adam": steps * -(-run_cfg["params"] // MAX_LEAVES)}
         depth = run_cfg["depth"]
-        if depth:
-            # bf16 at T = 49: every forward takes the tensor-core route,
-            # every backward the fused one.
-            want.update(flash_fwd=depth * (steps + evals),
-                        flash_fwd_routes={"tensor": depth * (steps + evals),
-                                          "cuda_core": 0},
-                        flash_bwd=depth * steps,
-                        flash_bwd_routes={"fused": depth * steps,
-                                          "tiled": 0, "split": 0},
-                        flash_dq=0, flash_dkv=0)
+        if depth:  # the ViT at its default 49 tokens
+            want.update(_flash_want(run_cfg["dtype"], VIT_SHAPE[1],
+                                    depth * (steps + evals), depth * steps))
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
         files = sorted(os.listdir(ckpt))
@@ -1511,6 +1679,9 @@ OWN_KERNELS = (("xent_fwd_kernel", "xent_fwd"),
                ("flash_bwd_kernel", "flash_bwd"),
                ("flash_dq_tiled_kernel", "flash_dq_tiled"),
                ("flash_dkv_tiled_kernel", "flash_dkv_tiled"),
+               ("flash_fwd_tf32_kernel", "flash_fwd_tf32"),
+               ("flash_dq_tf32_kernel", "flash_dq_tf32"),
+               ("flash_dkv_tf32_kernel", "flash_dkv_tf32"),
                ("flash_dq_kernel", "flash_dq"),
                ("flash_dkv_kernel", "flash_dkv"))
 
@@ -1531,13 +1702,12 @@ def _train_kind(kernel: str) -> str:
     return "other_elementwise"
 
 
-def _step_launches(step, model: str, tokens: int) -> dict:
+def _step_launches(step, model: str, tokens: int, dtype: str) -> dict:
     """The launches per step of each training kernel over
     ``PROFILE_STEPS`` train steps, counted from 0; raises unless they are
     the path's: one cross-entropy forward and backward and one Adam launch
     per step and, for the ViT, a forward and a backward per attention
-    layer, the backward on the fused route up to 128 tokens and on the
-    tiled route above."""
+    layer on the routes ``_flash_want`` names."""
     import torch
 
     counters = _launch_counters(model)
@@ -1559,25 +1729,20 @@ def _step_launches(step, model: str, tokens: int) -> dict:
     want = {"xent_fwd": n, "xent_bwd": n, "adam": n}
     depth = TRAIN_RUNS[model]["depth"]
     if depth:
-        route = "fused" if tokens <= 128 else "tiled"
-        want.update(flash_fwd=depth * n,
-                    flash_fwd_routes={"tensor": depth * n, "cuda_core": 0},
-                    flash_bwd=depth * n if route == "fused" else 0,
-                    flash_bwd_routes={r: depth * n if r == route else 0
-                                      for r in ("fused", "tiled", "split")},
-                    flash_dq=0, flash_dkv=0)
+        want.update(_flash_want(dtype, tokens, depth * n, depth * n))
     if got != want:
         raise AssertionError(f"{model} train step launch counts over {n} "
                              f"steps {got}, expected {want}")
     return got
 
 
-def phase_train_profile(device, model: str = "cnn",
-                        patch_size: int = 4) -> dict:
+def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
+                        dtype: str = "bf16") -> dict:
     """Where one train step's device time goes (``model`` at batch 256,
     fused loss and Adam, the ViT with flash attention at ``patch_size``,
-    the host-to-device copy of the batch included), beside the host's wall
-    time per step; first the launches of its kernels over a few steps
+    the host-to-device copy of the batch included, computing in ``dtype``:
+    bf16, or f32 as ``--dtype f32`` trains, TF32 off), beside the host's
+    wall time per step; first the launches of its kernels over a few steps
     (``_step_launches``). Returns the phase's row."""
     import numpy as np
     import torch
@@ -1606,6 +1771,11 @@ def phase_train_profile(device, model: str = "cnn",
     kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
     if patch_size != 4:
         kwargs["patch_size"] = patch_size
+    if dtype == "f32":  # as the trainer sets it for a float32 model
+        kwargs["compute_dtype"] = torch.float32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        require_full_float32()
     state = create_train_state(get_model(model, **kwargs), SEED, device,
                                optimizer="adam_pallas")
     images, labels = synthetic_dataset(TRAIN_BATCH, seed=SEED + 30)
@@ -1617,7 +1787,7 @@ def phase_train_profile(device, model: str = "cnn",
         return train_step(state, to_device(host, device))
 
     tokens = (28 // patch_size) ** 2
-    launches = _step_launches(step, model, tokens)
+    launches = _step_launches(step, model, tokens, dtype)
     per = device_ms(step)
     by_kind = {}
     for name, ms in per.items():
@@ -1668,10 +1838,13 @@ def phase_train_profile(device, model: str = "cnn",
            "launches": launches,
            "top": sorted(((ms, name[:90]) for name, ms in per.items()),
                          reverse=True)[:10]}
-    phase = "train_profile" if model == "cnn" else f"train_{model}_profile"
+    phase = "train" if model == "cnn" else f"train_{model}"
     if patch_size != 4:
-        phase = f"train_{model}_p{patch_size}_profile"
-    emit(phase, model=model, patch_size=patch_size, **row)
+        phase += f"_p{patch_size}"
+    if dtype != "bf16":
+        phase += f"_{dtype}"
+    emit(f"{phase}_profile", model=model, patch_size=patch_size, dtype=dtype,
+         **row)
     return row
 
 
@@ -1712,6 +1885,8 @@ def main() -> int:
     vit_launches = phase_train(model="vit")
     phase_train_profile(device, model="vit")
     p2 = phase_train_profile(device, model="vit", patch_size=2)
+    f32_launches = phase_train(model="vit_f32")
+    phase_train_profile(device, model="vit", dtype="f32")
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -1781,6 +1956,8 @@ def main() -> int:
             entry["split_pair_ms"] = row["split_pair_ms"]
         if kname == "flash_fwd":
             entry["cuda_core_ms"] = row["cuda_core_ms"]
+            entry["p2"] = {k: flash_rows["flash_fwd_p2"][k] for k in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
         if kname in ("flash_dq", "flash_dkv"):
             f32 = flash_rows["flash_split_f32"]
             entry["pair_float32"] = {k: f32[k] for k in (
@@ -1806,6 +1983,39 @@ def main() -> int:
                 "kernel_ms", "split_ms", "fused_ms", "library_ms",
                 "bound_ms")},
             "at": "x".join(map(str, P2_SHAPE)) + " (B, T, H, D) bfloat16"})
+    # The 3xTF32 forward and pair run on the float32 ViT path (train_vit_f32,
+    # the CLI under --dtype f32).
+    at_f32 = "x".join(map(str, VIT_SHAPE)) + " (B, T, H, D) float32"
+    row = flash_rows["flash_fwd_tf32"]
+    kernels.append({
+        "name": "flash_fwd_tf32", "route": "cuda",
+        "source": f"{CSRC}/flash_tf32.cu", "replaces": TPU_FLASH_FWD,
+        "launches": f32_launches["flash_fwd_routes"]["tf32x3"],
+        "max_abs_err": flash_err["flash_fwd_tf32"], "ms": row["kernel_ms"],
+        "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "library_call": row["library_call"],
+        "cuda_core_ms": row["cuda_core_ms"],
+        "p2": {k: flash_rows["flash_fwd_tf32_p2"][k] for k in (
+            "kernel_ms", "cuda_core_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
+        "at": at_f32})
+    for kname in TF32_PAIR:
+        row = flash_rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"{CSRC}/flash_tf32.cu", "replaces": TPU_FLASH_BWD,
+            "launches": f32_launches["flash_bwd_routes"]["tf32x3"],
+            "max_abs_err": flash_err["flash_bwd_tf32"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **{f"pair{suffix}": {k: flash_rows[f"flash_bwd_tf32{suffix}"][k]
+                                 for k in ("kernel_ms", "split_ms",
+                                           "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}
+               for suffix in ("", "_p2")},
+            "at": at_f32})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

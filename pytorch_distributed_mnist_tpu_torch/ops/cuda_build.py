@@ -82,6 +82,13 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         # must be 1)
         "flash_bwd_tiled_launch": ([_P] * 10 + _FLASH_TAIL, _I),
     },
+    "flash_tf32": {
+        # q, k, v, o, lse, then the tail (bf16 must be 0)
+        "flash_fwd_tf32_launch": ([_P] * 5 + _FLASH_TAIL, _I),
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, then the tail (bf16
+        # must be 0)
+        "flash_bwd_tf32_launch": ([_P] * 10 + _FLASH_TAIL, _I),
+    },
 }
 
 _lock = threading.Lock()

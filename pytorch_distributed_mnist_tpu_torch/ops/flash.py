@@ -20,24 +20,27 @@ kernels have it. A row with nothing to attend gives O = 0 and
 in the inputs' dtype (float32 or bfloat16).
 
 :func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_dq` and
-:func:`flash_dkv` launch ``csrc/flash_fwd.cu``, ``csrc/flash.cu``,
-``csrc/flash_bwd.cu`` and ``csrc/flash_bwd_tiled.cu`` for CUDA tensors
-(built at first use, ``ops/cuda_build.py``) and take the plain versions
-only for tensors on the CPU. There is no fallback from one to the other:
-a CUDA tensor launches a kernel or raises.
+:func:`flash_dkv` launch ``csrc/flash_fwd.cu``, ``csrc/flash_tf32.cu``,
+``csrc/flash.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_bwd_tiled.cu``
+for CUDA tensors (built at first use, ``ops/cuda_build.py``) and take the
+plain versions only for tensors on the CPU. There is no fallback from one
+to the other: a CUDA tensor launches a kernel or raises.
 
-The forward (:func:`flash_fwd`) takes one of two routes on the card,
+The forward (:func:`flash_fwd`) takes one of three routes on the card,
 chosen by :func:`_fwd_route` from the shape and dtype alone:
 
 - ``"tensor"``: bfloat16 and D a multiple of 8, any T. ``csrc/flash_fwd.cu``
   runs both products on the tensor cores (bf16 ``mma.sync``, float32
   sums), P rounded once to bf16 for P V.
-- ``"cuda_core"``: everything else (float32, whose 1e-4 tolerance rests on
-  float32 products; D not a multiple of 8). ``csrc/flash.cu``'s forward,
-  float32 FMAs on the CUDA cores. A caller may name this route for a
-  bfloat16 problem too (the smoke times both kernels at one shape).
+- ``"tf32x3"``: float32 and D a multiple of 8, any T. ``csrc/flash_tf32.cu``
+  runs both products on the tensor cores as three TF32 ``mma.sync`` each
+  (every operand split into a high and a low TF32 part, float32 sums),
+  which keeps the float32 route's 1e-4 tolerance.
+- ``"cuda_core"``: D not a multiple of 8. ``csrc/flash.cu``'s forward,
+  float32 FMAs on the CUDA cores. A caller may name this route for any
+  problem (the smoke times it beside the tensor-core kernels).
 
-The backward (:func:`flash_bwd`) takes one of three routes on the card,
+The backward (:func:`flash_bwd`) takes one of four routes on the card,
 chosen by :func:`_bwd_route` from the shape and dtype alone (or named
 with ``route=``):
 
@@ -48,10 +51,13 @@ with ``route=``):
   ``--patch-size 2`` (T = 196). ``csrc/flash_bwd_tiled.cu``: a dQ kernel
   (which also writes delta) and then a dK/dV kernel, each tiling T by 64
   rows, on the tensor cores. A caller may name it at any T.
-- ``"split"``: everything else (float32, whose 1e-4 tolerance rests on
-  exact float32 products; D not a multiple of 8). :func:`flash_dq`, which
-  also computes delta, and then :func:`flash_dkv`, both with float32 FMAs
-  on the CUDA cores. A caller may name it for any problem.
+- ``"tf32x3"``: float32 and D a multiple of 8, any T, such as the ViT
+  under ``--dtype f32``. ``csrc/flash_tf32.cu``: a dQ kernel (which also
+  writes delta) and then a dK/dV kernel as in the tiled pair, every
+  product as three TF32 ``mma.sync`` with float32 sums.
+- ``"split"``: D not a multiple of 8. :func:`flash_dq`, which also
+  computes delta, and then :func:`flash_dkv`, both with float32 FMAs on
+  the CUDA cores. A caller may name it for any problem.
 """
 
 from __future__ import annotations
@@ -246,37 +252,42 @@ def _shape_args(q: torch.Tensor) -> tuple:
 
 def _aligned(*tensors: torch.Tensor) -> bool:
     """Every tensor starts on a 16-byte boundary and every stride but the
-    last is a multiple of 8 elements: the fused kernel's 16-byte loads of
-    bf16 rows need both."""
+    last is a multiple of 16 bytes (8 bf16 or 4 float32 elements): the
+    tensor-core kernels' 16-byte loads of rows need both."""
     return all(t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:-1])
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:-1])
                for t in tensors)
 
 
 def _fwd_route(shape, dtype) -> str:
-    """``"tensor"`` when :func:`flash_fwd`'s tensor-core kernel takes a
-    ``(B, T, H, D)`` problem of this dtype (bfloat16, D a multiple of 8),
-    else ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and shape[-1] % 8 == 0:
-        return "tensor"
-    return "cuda_core"
+    """:func:`flash_fwd`'s route for a ``(B, T, H, D)`` problem of this
+    dtype: with D a multiple of 8 a tensor-core kernel, ``"tensor"``
+    (bfloat16) or ``"tf32x3"`` (float32); else ``"cuda_core"``."""
+    if shape[-1] % 8:
+        return "cuda_core"
+    return "tensor" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _bwd_route(shape, dtype) -> str:
     """:func:`flash_bwd`'s route for a ``(B, T, H, D)`` problem of this
-    dtype: ``"fused"`` (bfloat16, T <= 128, D a multiple of 8), ``"tiled"``
-    (bfloat16, T > 128, D a multiple of 8), else ``"split"``."""
+    dtype: with D a multiple of 8, ``"fused"`` (bfloat16, T <= 128),
+    ``"tiled"`` (bfloat16, T > 128) or ``"tf32x3"`` (float32, any T); else
+    ``"split"``."""
     _, t, _, d = shape
-    if dtype == torch.bfloat16 and d % 8 == 0:
+    if d % 8:
+        return "split"
+    if dtype == torch.bfloat16:
         return "fused" if t <= FUSED_MAX_T else "tiled"
-    return "split"
+    return "tf32x3"
 
 
 def _bwd_routes(shape, dtype) -> tuple:
     """The routes a caller may name for this problem: ``"split"`` for any;
-    ``"tiled"`` wherever a tensor-core route is the best; ``"fused"`` only
-    where it is the best."""
+    ``"tiled"`` wherever a bf16 tensor-core route is the best; ``"fused"``
+    and ``"tf32x3"`` only where they are the best."""
     return {"fused": ("fused", "tiled", "split"), "tiled": ("tiled", "split"),
+            "tf32x3": ("tf32x3", "split"),
             "split": ("split",)}[_bwd_route(shape, dtype)]
 
 
@@ -298,21 +309,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``(O, lse)`` as :func:`flash_fwd_plain` gives them. CPU tensors take
     :func:`flash_fwd_plain`. CUDA tensors launch the kernel of ``route``
     (default :func:`_fwd_route`'s; ``"cuda_core"`` may be named for any
-    problem, ``"tensor"`` only where the route function gives it), counted
-    in ``flash_fwd.launches`` and ``flash_fwd.route_launches[route]``. The
-    tensor-core route copies a view whose pointer or strides are not
-    16-byte aligned."""
+    problem, ``"tensor"`` and ``"tf32x3"`` only where the route function
+    gives them), counted in ``flash_fwd.launches`` and
+    ``flash_fwd.route_launches[route]``. The tensor-core routes copy a view
+    whose pointer or strides are not 16-byte aligned."""
     _check(q, k, v)
     best = _fwd_route(q.shape, q.dtype)
     route = best if route is None else route
-    if route not in ("tensor", "cuda_core") or (route == "tensor"
-                                                 and best != "tensor"):
+    if route not in (best, "cuda_core"):
         raise ValueError(f"flash_fwd has no route {route!r} for "
                          f"{tuple(q.shape)} {q.dtype}")
     if not _on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     q, k, v = _views(q, k, v)
-    if route == "tensor" and not _aligned(q, k, v):
+    if route != "cuda_core" and not _aligned(q, k, v):
         q, k, v = (x.clone(memory_format=torch.contiguous_format)
                    for x in (q, k, v))
     b, t, h, d = q.shape
@@ -325,6 +335,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route == "tensor":
         _launch("flash_fwd_mma_launch", q, pointers, _scale(q, scale),
                 causal, "flash_fwd")
+    elif route == "tf32x3":
+        _launch("flash_fwd_tf32_launch", q, pointers, _scale(q, scale),
+                causal, "flash_tf32")
     else:
         _launch("flash_fwd_launch", q, pointers, _scale(q, scale), causal)
     with _count_lock:
@@ -401,10 +414,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`_bwd_route`'s; :func:`_bwd_routes` says which may be named),
     counted in ``flash_bwd.route_launches[route]``: ``"fused"`` launches
     the one-kernel backward (also counted in ``flash_bwd.launches``),
-    ``"tiled"`` the tiled dQ and dK/dV kernels, each after copying any
-    operand whose pointer or strides are not 16-byte aligned; ``"split"``
-    calls :func:`flash_dq` and then :func:`flash_dkv` (counted in
-    theirs)."""
+    ``"tiled"`` the tiled dQ and dK/dV kernels and ``"tf32x3"`` the float32
+    ones, each after copying any operand whose pointer or strides are not
+    16-byte aligned; ``"split"`` calls :func:`flash_dq` and then
+    :func:`flash_dkv` (counted in theirs)."""
     _check(q, k, v, o, do)
     _check_rows(q, lse)
     allowed = _bwd_routes(q.shape, q.dtype)
@@ -442,11 +455,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dv.data_ptr()], _scale(q, scale), causal, "flash_bwd")
     else:
         delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-        _launch("flash_bwd_tiled_launch", q,
+        symbol, lib = {"tiled": ("flash_bwd_tiled_launch", "flash_bwd_tiled"),
+                       "tf32x3": ("flash_bwd_tf32_launch", "flash_tf32")}[
+                           route]
+        _launch(symbol, q,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-                _scale(q, scale), causal, "flash_bwd_tiled")
+                _scale(q, scale), causal, lib)
     with _count_lock:
         if route == "fused":
             flash_bwd.launches += 1
@@ -455,18 +471,19 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = 0
-flash_fwd.route_launches = {"tensor": 0, "cuda_core": 0}
+flash_fwd.route_launches = {"tensor": 0, "tf32x3": 0, "cuda_core": 0}
 flash_bwd.launches = 0
-flash_bwd.route_launches = {"fused": 0, "tiled": 0, "split": 0}
+flash_bwd.route_launches = {"fused": 0, "tiled": 0, "tf32x3": 0, "split": 0}
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """O from :func:`flash_fwd` (the tensor-core or the CUDA-core forward);
-    the backward is :func:`flash_bwd` (the fused kernel, the tiled pair,
-    or the CUDA-core dQ kernel then dK/dV kernel). Saves q, k, v, O and
-    lse (the reference's custom_vjp residuals, here unpadded)."""
+    """O from :func:`flash_fwd` (the bf16 or the 3xTF32 tensor-core
+    forward, or the CUDA-core one); the backward is :func:`flash_bwd` (the
+    fused kernel, the tiled pair, the 3xTF32 pair, or the CUDA-core dQ
+    kernel then dK/dV kernel). Saves q, k, v, O and lse (the reference's
+    custom_vjp residuals, here unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

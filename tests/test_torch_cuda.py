@@ -262,12 +262,16 @@ def test_flash_attention_trains_through_the_kernels(card):
     q, k, v = (torch.randn(4, 49, 4, 16, device=card, generator=gen)
                .requires_grad_(True) for _ in range(3))
     g = torch.randn(4, 49, 4, 16, device=card, generator=gen)
-    before = (flash.flash_fwd.launches, flash.flash_dq.launches,
-              flash.flash_dkv.launches)
+    # float32 with D = 16: the 3xTF32 forward and pair, once each.
+    before = (flash.flash_fwd.route_launches["tf32x3"],
+              flash.flash_bwd.route_launches["tf32x3"],
+              flash.flash_dq.launches, flash.flash_dkv.launches)
     flash.flash_attention(q, k, v).backward(g)
     torch.cuda.synchronize()
-    assert (flash.flash_fwd.launches, flash.flash_dq.launches,
-            flash.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert (flash.flash_fwd.route_launches["tf32x3"],
+            flash.flash_bwd.route_launches["tf32x3"],
+            flash.flash_dq.launches, flash.flash_dkv.launches) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
     from pytorch_distributed_mnist_tpu_torch.ops.attention import (
         full_attention,
     )
@@ -283,14 +287,16 @@ FLASH_BWD_SHAPES = FLASH_SHAPES + [(2, 128, 2, 128), (3, 100, 3, 48)]
 
 
 def _bwd_counts(flash):
-    """(fused kernel, tiled pair, dQ kernel, dK/dV kernel) launches."""
+    """(fused kernel, tiled pair, 3xTF32 pair, dQ kernel, dK/dV kernel)
+    launches."""
     return (flash.flash_bwd.launches, flash.flash_bwd.route_launches["tiled"],
+            flash.flash_bwd.route_launches["tf32x3"],
             flash.flash_dq.launches, flash.flash_dkv.launches)
 
 
 # What one flash_bwd call moves in _bwd_counts, per route.
-BWD_MOVES = {"fused": (1, 0, 0, 0), "tiled": (0, 1, 0, 0),
-             "split": (0, 0, 1, 1)}
+BWD_MOVES = {"fused": (1, 0, 0, 0, 0), "tiled": (0, 1, 0, 0, 0),
+             "tf32x3": (0, 0, 1, 0, 0), "split": (0, 0, 0, 1, 1)}
 
 
 def _flash_bwd_inputs(card, shape, dtype, seed, offset=0, causal=False):
@@ -395,7 +401,7 @@ def test_flash_bwd_tiled_matches_plain_with_the_same_bits(card, shape,
                              route="tiled")
     torch.cuda.synchronize()
     moved = tuple(n - m for m, n in zip(before, _bwd_counts(flash)))
-    assert moved == (0, 2, 0, 0)
+    assert moved == (0, 2, 0, 0, 0)
     want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for a, b, w in zip(first, second, want):
         assert torch.equal(a, b)
@@ -459,22 +465,99 @@ def test_flash_fwd_tensor_route_matches_plain_with_the_same_bits(card, shape,
     _flash_close(lse, want_lse, torch.float32)
 
 
-@pytest.mark.parametrize("shape", [(256, 49, 4, 16), (1, 70, 1, 8)])
+@pytest.mark.parametrize("shape", [(256, 49, 4, 16), (1, 70, 1, 8),
+                                   (2, 33, 2, 12)])
 def test_flash_fwd_float32_takes_the_cuda_core_route(card, shape):
+    # float32 takes the 3xTF32 kernel with D a multiple of 8 and the
+    # CUDA-core kernel otherwise.
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     gen = torch.Generator(device=card).manual_seed(31)
     q, k, v = (torch.randn(shape, device=card, generator=gen)
                for _ in range(3))
+    route = "cuda_core" if shape[-1] % 8 else "tf32x3"
+    assert flash._fwd_route(shape, torch.float32) == route
     before = _routes(flash)
     o, lse = flash.flash_fwd(q, k, v)
     torch.cuda.synchronize()
     after = _routes(flash)
-    assert (after["tensor"] - before["tensor"],
-            after["cuda_core"] - before["cuda_core"]) == (0, 1)
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == route) for r in after}
     want_o, want_lse = flash.flash_fwd_plain(q, k, v)
     _flash_close(o, want_o, torch.float32)
     _flash_close(lse, want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tf32_matches_plain_with_the_same_bits(card, shape, causal):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, torch.float32,
+                                            2 * sum(shape) + causal,
+                                            causal=causal)
+    fwd_before, bwd_before = _routes(flash), _bwd_counts(flash)
+    first = flash.flash_fwd(q, k, v, causal=causal)
+    second = flash.flash_fwd(q, k, v, causal=causal)
+    grads = flash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    after = _routes(flash)
+    assert {r: after[r] - fwd_before[r] for r in after} == \
+        {r: 2 * int(r == "tf32x3") for r in after}
+    assert tuple(n - m for m, n in zip(bwd_before, _bwd_counts(flash))) == \
+        (0, 0, 2, 0, 0)
+    for a, b, w in zip(first, second, (o, lse)):
+        assert torch.equal(a, b)
+        _flash_close(a, w, torch.float32)
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for a, b, w in zip(grads, again, want):
+        assert torch.equal(a, b)
+        assert a.dtype == torch.float32 and a.is_contiguous()
+        _flash_close(a, w, torch.float32)
+
+
+def test_flash_tf32_copies_a_misaligned_view(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    # The qkv product starts 1 element (4 bytes) into its buffer.
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, (8, 49, 4, 16),
+                                            torch.float32, 33, offset=1)
+    assert not flash._aligned(q)
+    fwd_before, bwd_before = _routes(flash)["tf32x3"], _bwd_counts(flash)
+    got_o, got_lse = flash.flash_fwd(q, k, v)
+    grads = flash.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _routes(flash)["tf32x3"] == fwd_before + 1
+    assert tuple(n - m for m, n in zip(bwd_before, _bwd_counts(flash))) == \
+        BWD_MOVES["tf32x3"]
+    _flash_close(got_o, o, torch.float32)
+    _flash_close(got_lse, lse, torch.float32)
+    for a, w in zip(grads, flash.flash_bwd_plain(q, k, v, o, lse, do)):
+        _flash_close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d12_takes_the_cuda_core_routes(card, dtype):
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    shape = (2, 33, 2, 12)
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, dtype, 34,
+                                            causal=True)
+    fwd_before, bwd_before = _routes(flash), _bwd_counts(flash)
+    got_o, got_lse = flash.flash_fwd(q, k, v, causal=True)
+    grads = flash.flash_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    after = _routes(flash)
+    assert {r: after[r] - fwd_before[r] for r in after} == \
+        {r: int(r == "cuda_core") for r in after}
+    assert tuple(n - m for m, n in zip(bwd_before, _bwd_counts(flash))) == \
+        BWD_MOVES["split"]
+    _flash_close(got_o, o, dtype)
+    _flash_close(got_lse, lse, torch.float32)
+    for a, w in zip(grads, flash.flash_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=True)):
+        _flash_close(a, w, dtype)
 
 
 def test_flash_fwd_copies_a_misaligned_view(card):

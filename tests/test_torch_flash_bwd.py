@@ -117,15 +117,17 @@ def test_flash_bwd_matches_the_pallas_backward(case):
                                    atol=2 * BF16_ATOL, err_msg=name)
 
 
-# The route each FLASH_CHECK_SHAPES entry takes in bf16: fused up to
-# T = 128 (D is a multiple of 8 in all of them), tiled above. float32
-# always takes the split route.
+# The route each FLASH_CHECK_SHAPES entry takes in bf16: with D a
+# multiple of 8 fused up to T = 128, tiled above; split at D = 12.
+# float32 takes the 3xTF32 pair with D a multiple of 8, else the split
+# pair.
 BF16_ROUTES = {
     (256, 49, 4, 16): "fused", (2, 1, 2, 16): "fused",
     (2, 16, 2, 16): "fused", (2, 196, 2, 16): "tiled",
     (2, 200, 2, 64): "tiled", (1, 200, 2, 128): "tiled",
     (3, 130, 2, 32): "tiled", (1, 70, 1, 8): "fused",
     (2, 128, 2, 128): "fused", (3, 100, 3, 48): "fused",
+    (2, 33, 2, 12): "split",
 }
 
 
@@ -139,7 +141,10 @@ def test_the_route_table_covers_every_check_shape():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_bwd_route_of_every_check_shape(shape, dtype):
-    want = BF16_ROUTES[shape] if dtype == torch.bfloat16 else "split"
+    if dtype == torch.bfloat16:
+        want = BF16_ROUTES[shape]
+    else:
+        want = "split" if shape[-1] % 8 else "tf32x3"
     assert flash._bwd_route(shape, dtype) == want
 
 
@@ -148,7 +153,7 @@ def test_bwd_route_of_every_check_shape(shape, dtype):
     ((1, 129, 1, 16), torch.bfloat16, "tiled"),
     ((1, 49, 1, 12), torch.bfloat16, "split"),   # D not a multiple of 8
     ((1, 49, 1, 128), torch.bfloat16, "fused"),
-    ((1, 49, 1, 16), torch.float32, "split"),
+    ((1, 49, 1, 16), torch.float32, "tf32x3"),
 ] + [(shape, getattr(torch, dtype), route)  # the smoke's route run
      for shape, dtype, route in chip_smoke.SPLIT_ROUTE_CASES])
 def test_bwd_route_edges(shape, dtype, route):
@@ -159,8 +164,10 @@ def test_bwd_route_edges(shape, dtype, route):
 @pytest.mark.parametrize("d", [8, 48, 128])
 def test_bwd_route_is_tiled_above_the_fused_kernel(t, d):
     assert flash._bwd_route((2, t, 2, d), torch.bfloat16) == "tiled"
-    assert flash._bwd_route((2, t, 2, d), torch.float32) == "split"
+    # float32 takes the 3xTF32 pair at any T.
+    assert flash._bwd_route((2, t, 2, d), torch.float32) == "tf32x3"
     assert flash._bwd_route((2, t, 2, d + 4), torch.bfloat16) == "split"
+    assert flash._bwd_route((2, t, 2, d + 4), torch.float32) == "split"
 
 
 def test_bwd_routes_a_caller_may_name():
@@ -168,10 +175,12 @@ def test_bwd_routes_a_caller_may_name():
     assert flash._bwd_routes((2, 49, 4, 16), bf16) == ("fused", "tiled",
                                                        "split")
     assert flash._bwd_routes((2, 196, 4, 16), bf16) == ("tiled", "split")
-    assert flash._bwd_routes((2, 49, 4, 16), f32) == ("split",)
+    assert flash._bwd_routes((2, 49, 4, 16), f32) == ("tf32x3", "split")
+    assert flash._bwd_routes((2, 196, 4, 16), f32) == ("tf32x3", "split")
     assert flash._bwd_routes((2, 49, 4, 12), bf16) == ("split",)
+    assert flash._bwd_routes((2, 49, 4, 12), f32) == ("split",)
     assert set(flash.flash_bwd.route_launches) == {"fused", "tiled",
-                                                   "split"}
+                                                   "tf32x3", "split"}
 
 
 @pytest.mark.parametrize("shape,dtype,route", [
@@ -179,6 +188,9 @@ def test_bwd_routes_a_caller_may_name():
     ((1, 49, 1, 16), torch.float32, "tiled"),     # float32: split only
     ((1, 49, 1, 12), torch.bfloat16, "tiled"),    # D not a multiple of 8
     ((1, 49, 1, 16), torch.bfloat16, "tensor"),   # no such route
+    ((1, 49, 1, 16), torch.bfloat16, "tf32x3"),   # float32 only
+    ((1, 49, 1, 12), torch.float32, "tf32x3"),    # D not a multiple of 8
+    ((1, 196, 1, 16), torch.float32, "fused"),    # bf16 only
 ])
 def test_flash_bwd_refuses_a_route_the_problem_has_not(shape, dtype, route):
     q = torch.zeros(shape, dtype=dtype)

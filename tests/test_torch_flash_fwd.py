@@ -48,15 +48,19 @@ def _tensor_route_forward(q, k, v, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_fwd_route_of_every_check_shape(shape, dtype):
-    # Every check shape has D a multiple of 8: bf16 takes the tensor
-    # cores at any T, float32 the CUDA-core kernel.
-    want = "tensor" if dtype == torch.bfloat16 else "cuda_core"
+    # With D a multiple of 8 bf16 takes the bf16 tensor-core kernel and
+    # float32 the 3xTF32 one, at any T; the check shape with D = 12 takes
+    # the CUDA-core kernel in both.
+    if shape[-1] % 8:
+        want = "cuda_core"
+    else:
+        want = "tensor" if dtype == torch.bfloat16 else "tf32x3"
     assert flash._fwd_route(shape, dtype) == want
 
 
 @pytest.mark.parametrize("shape,dtype,route", [
     (chip_smoke.VIT_SHAPE, torch.bfloat16, "tensor"),
-    (chip_smoke.VIT_SHAPE, torch.float32, "cuda_core"),
+    (chip_smoke.VIT_SHAPE, torch.float32, "tf32x3"),
     ((1, 4096, 1, 128), torch.bfloat16, "tensor"),   # no limit on T
     ((1, 49, 1, 12), torch.bfloat16, "cuda_core"),   # D not a multiple of 8
     ((1, 49, 1, 8), torch.bfloat16, "tensor"),
@@ -96,15 +100,20 @@ def test_flash_fwd_refuses_a_route_it_does_not_have():
 
 
 def test_route_launches_name_both_routes():
-    assert set(flash.flash_fwd.route_launches) == {"tensor", "cuda_core"}
+    # Both tensor-core routes (bf16 and 3xTF32) and the CUDA-core one.
+    assert set(flash.flash_fwd.route_launches) == {"tensor", "tf32x3",
+                                                   "cuda_core"}
 
 
 # ----------------------------------------------------------- rounding
 
+# The check shapes the tensor-core forward takes in bf16 (D a multiple
+# of 8).
+TENSOR_SHAPES = [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[-1] % 8 == 0]
 
-@pytest.mark.parametrize("shape", chip_smoke.FLASH_CHECK_SHAPES,
-                         ids=["x".join(map(str, s))
-                              for s in chip_smoke.FLASH_CHECK_SHAPES])
+
+@pytest.mark.parametrize("shape", TENSOR_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TENSOR_SHAPES])
 def test_one_bf16_rounding_of_p_fits_the_tolerance(shape):
     # The tensor-core forward feeds P to a bf16 product where the plain
     # version keeps it float32, and scales the float32 product where the

@@ -1,0 +1,429 @@
+"""The port's float32 flash-attention route ``"tf32x3"``
+(``csrc/flash_tf32.cu``) on the CPU. The kernels run every product as
+three TF32 tensor-core products (each operand split into a high and a low
+TF32 part) with float32 sums. Here that arithmetic is emulated in torch
+ops, tile by tile as the kernels order it: the TF32 rounding itself
+(``cvt.rna.tf32.f32``) pinned bit for bit, then the forward and backward
+held to the tolerance the card holds the kernels to
+(``chip_smoke.flash_tolerance(float32)``) against the plain versions and
+against the JAX package's ``_flash_forward`` / ``_flash_backward`` (Pallas
+kernels in interpret mode, as the JAX package's own tests run them). A
+single TF32 product per multiply is shown to miss that tolerance: it is
+why every product is split. Routes, the CPU path, the build table and the
+bounds the smoke reports are checked too. The kernels themselves are held
+against the plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pytorch_distributed_mnist_tpu.ops.pallas import flash as jax_flash
+from pytorch_distributed_mnist_tpu_torch.ops import cuda_build, flash
+
+torch.set_num_threads(2)
+
+ROWS = 64  # rows of a kernel tile (query rows of a block, keys of a tile)
+KSTEP = 8  # the k-depth of mma.sync m16n8k8
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in torch bit operations, as the kernels' split
+    computes it: a float32 rounded to 10 mantissa bits, to nearest with
+    ties away from zero. Half a unit of the kept last bit is added to the
+    magnitude's bits (a carry may run into the exponent), then the 13
+    dropped bits are cleared; the sign bit is untouched."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor, acc=None, single=False):
+    """``acc + a @ b`` with the kernels' products: per k-step of 8 along the
+    summed axis, a_lo b_hi, a_hi b_lo and a_hi b_hi, each exact in float32
+    (products of TF32 values), summed in float32. The kernels add the same
+    products in another order (by partial sums over independent
+    accumulators), which moves the result by float32 rounding only.
+    ``single`` takes one TF32 product per multiply instead (a_hi b_hi)."""
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    for k0 in range(0, a.shape[-1], KSTEP):
+        ah, al = _split(a[..., k0:k0 + KSTEP])
+        bh, bl = _split(b[..., k0:k0 + KSTEP, :])
+        if not single:
+            out = out + al @ bh
+            out = out + ah @ bl
+        out = out + ah @ bh
+    return out
+
+
+def _keep(rows: slice, cols: slice, causal: bool) -> torch.Tensor:
+    qi = torch.arange(rows.start, rows.stop)[:, None]
+    kj = torch.arange(cols.start, cols.stop)[None, :]
+    return qi >= kj if causal else torch.ones_like(qi >= kj)
+
+
+def tf32x3_forward(q, k, v, causal, single=False):
+    """``flash_fwd_plain`` with the 3xTF32 forward's arithmetic: q scaled
+    and rounded once, then per 64-key tile S = Q K^T, the masked online
+    softmax (running max, P = exp(s - m), the sums rescaled by exp(m_old -
+    m)) and O += P V, both products split 3xTF32. Returns (O, lse)."""
+    b, t, h, d = q.shape
+    qh = flash._heads(q) * d ** -0.5
+    kh, vh = flash._heads(k), flash._heads(v)
+    m = torch.full((b, h, t, 1), flash.NEG_INF)
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, ROWS):
+        ks = slice(k0, min(t, k0 + ROWS))
+        s = _mm3(qh, kh[..., ks, :].transpose(-1, -2), single=single)
+        s = torch.where(_keep(slice(0, t), ks, causal), s,
+                        torch.full((), flash.NEG_INF))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = _mm3(p, vh[..., ks, :], acc=acc * corr, single=single)
+        m = mx
+    o = acc / torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full((), flash.NEG_INF))
+    return o.permute(0, 2, 1, 3).contiguous(), lse[..., 0]
+
+
+def tf32x3_backward(q, k, v, o, lse, do, causal):
+    """``flash_bwd_plain`` with the 3xTF32 pair's arithmetic: delta from O
+    and dO in float32; per (64-row query tile, 64-key tile), in the order
+    the kernels take them, S and dP, P = exp(scale s - lse) and dS = P (dP
+    - delta) in float32, then dQ += dS K, dK += dS^T Q and dV += P^T dO,
+    every product split 3xTF32; tiles wholly above the causal diagonal are
+    skipped."""
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    qh, kh, vh, oh, doh = (flash._heads(x) for x in (q, k, v, o, do))
+    delta = (doh * oh).sum(-1)
+    dq, dk, dv = (torch.zeros(b, h, t, d) for _ in range(3))
+    for q0 in range(0, t, ROWS):
+        qs = slice(q0, min(t, q0 + ROWS))
+        for k0 in range(0, t, ROWS):
+            if causal and k0 > qs.stop - 1:
+                break
+            ks = slice(k0, min(t, k0 + ROWS))
+            s = _mm3(qh[..., qs, :], kh[..., ks, :].transpose(-1, -2))
+            p = torch.where(_keep(qs, ks, causal),
+                            torch.exp(scale * s - lse[..., qs, None]),
+                            torch.zeros(()))
+            dp = _mm3(doh[..., qs, :], vh[..., ks, :].transpose(-1, -2))
+            ds = p * (dp - delta[..., qs, None])
+            dq[..., qs, :] = _mm3(ds, kh[..., ks, :], acc=dq[..., qs, :])
+            dk[..., ks, :] = _mm3(ds.transpose(-1, -2), qh[..., qs, :],
+                                  acc=dk[..., ks, :])
+            dv[..., ks, :] = _mm3(p.transpose(-1, -2), doh[..., qs, :],
+                                  acc=dv[..., ks, :])
+    return (flash._out(scale * dq, q), flash._out(scale * dk, k),
+            flash._out(dv, v))
+
+
+# ------------------------------------------------------- TF32 rounding
+
+
+def _bits(x: float) -> int:
+    return int(torch.tensor([x]).view(torch.int32)[0]) & 0xFFFFFFFF
+
+
+def _from_bits(bits: int) -> float:
+    signed = bits - (1 << 32) if bits >= 1 << 31 else bits
+    return float(torch.tensor([signed], dtype=torch.int32)
+                 .view(torch.float32)[0])
+
+
+@pytest.mark.parametrize("bits,want", [
+    (0x3F800000, 0x3F800000),  # 1.0 is a TF32 value
+    (0x3F800FFF, 0x3F800000),  # just below the tie: down
+    (0x3F801000, 0x3F802000),  # a tie with an even kept bit: away (RNE: down)
+    (0x3F803000, 0x3F804000),  # a tie with an odd kept bit: away
+    (0x3F801001, 0x3F802000),  # just above the tie: up
+    (0xBF801000, 0xBF802000),  # a negative tie: away from zero
+    (0xBF800FFF, 0xBF800000),  # negative, below the tie: toward zero
+    (0x3FFFF000, 0x40000000),  # the carry runs into the exponent: 2.0
+    (0x3FFFFFFF, 0x40000000),  # 2 - 2^-23 rounds to 2.0
+    (0x00000000, 0x00000000),  # +0
+    (0x80000000, 0x80000000),  # -0 keeps its sign
+], ids=lambda x: f"{x:08x}")
+def test_tf32_rounding_is_nearest_ties_away(bits, want):
+    got = _tf32(torch.tensor([_from_bits(bits)]))
+    assert _bits(float(got[0])) == want
+
+
+def test_split_carries_about_21_bits():
+    # hi and lo are TF32 values (13 low bits clear) and hi + lo is within
+    # 2^-21 of x, relatively: what each 3xTF32 product rests on.
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.integers(-3, 4, 4096))
+                         .astype(np.float32))
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
+    assert float(err.max()) <= 2.0 ** -21
+    assert float(((hi.double() - x.double()).abs()
+                  / x.double().abs()).max()) > 2.0 ** -13  # lo matters
+
+
+# --------------------------------------------- 3xTF32 against plain
+
+# The float32 check shapes the route takes (D a multiple of 8).
+TF32_SHAPES = [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[-1] % 8 == 0]
+IDS = ["x".join(map(str, s)) for s in TF32_SHAPES]
+
+
+def _inputs(shape, seed):
+    """q, k, v as slices of one qkv product, and dO, from numpy."""
+    rng = np.random.default_rng(seed)
+    b, t, h, d = shape
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3, h, d))
+                           .astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, t, h, d))
+                          .astype(np.float32))
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
+def test_the_route_takes_every_float32_check_shape_but_d12():
+    assert [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[-1] % 8] == \
+        [(2, 33, 2, 12)]
+    for shape in TF32_SHAPES:
+        assert flash._fwd_route(shape, torch.float32) == "tf32x3"
+        assert flash._bwd_route(shape, torch.float32) == "tf32x3"
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=IDS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tf32x3_forward_fits_the_float32_tolerance(shape, causal):
+    q, k, v, _ = _inputs(shape, sum(shape) + causal)
+    tol = chip_smoke.flash_tolerance(torch.float32)
+    want_o, want_lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+    o, lse = tf32x3_forward(q, k, v, causal)
+    assert chip_smoke.tolerance_used(o, want_o, tol) <= 1.0
+    assert chip_smoke.tolerance_used(lse, want_lse, tol) <= 1.0
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=IDS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tf32x3_backward_fits_the_float32_tolerance(shape, causal):
+    q, k, v, do = _inputs(shape, 3 * sum(shape) + causal)
+    tol = chip_smoke.flash_tolerance(torch.float32)
+    o, lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    got = tf32x3_backward(q, k, v, o, lse, do, causal)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        assert chip_smoke.tolerance_used(a, w, tol) <= 1.0
+
+
+def test_a_single_tf32_product_misses_the_float32_tolerance():
+    # One TF32 product per multiply keeps 10 mantissa bits of each
+    # operand: at a ViT-like shape its forward uses many times the float32
+    # allowance, while the 3xTF32 split stays far inside it. This is why
+    # the route splits every product.
+    q, k, v, _ = _inputs((8, 196, 4, 16), 11)
+    tol = chip_smoke.flash_tolerance(torch.float32)
+    want_o, _ = flash.flash_fwd_plain(q, k, v)
+    single, _ = tf32x3_forward(q, k, v, False, single=True)
+    split, _ = tf32x3_forward(q, k, v, False)
+    assert chip_smoke.tolerance_used(single, want_o, tol) > 4.0
+    assert chip_smoke.tolerance_used(split, want_o, tol) < 0.25
+
+
+# ---------------------------------------------- against the Pallas kernels
+
+PALLAS_SHAPES = [(2, 49, 4, 16), (1, 70, 1, 8), (1, 33, 2, 48),
+                 (1, 130, 1, 32)]
+PALLAS_IDS = ["vit-like", "d8", "d48", "t130"]
+
+
+@pytest.mark.parametrize("shape", PALLAS_SHAPES, ids=PALLAS_IDS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tf32x3_emulation_matches_the_pallas_forward(shape, causal):
+    # Seeded numpy inputs go through JAX's Pallas forward in float32
+    # (interpret mode) and through the emulation, held to the tolerance the
+    # card holds the kernel to; lse is float32 on both sides, summed in
+    # another order.
+    rng = np.random.default_rng(sum(shape) + causal)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(3)]
+    out, _, lse = jax_flash._flash_forward(*(jnp.asarray(x) for x in arrays),
+                                           causal, shape[-1] ** -0.5, True)
+    b, t, h, _ = shape
+    o, got_lse = tf32x3_forward(*(torch.from_numpy(x) for x in arrays),
+                                causal)
+    tol = chip_smoke.flash_tolerance(torch.float32)
+    assert chip_smoke.tolerance_used(o, torch.from_numpy(np.array(out)),
+                                     tol) <= 1.0
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(lse)[:, :t, 0].reshape(b, h, t),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", PALLAS_SHAPES, ids=PALLAS_IDS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tf32x3_emulation_matches_the_pallas_backward(shape, causal):
+    # The JAX forward's O and lse feed both backwards, so each computes
+    # from the same values; dQ, dK and dV held to the float32 tolerance.
+    rng = np.random.default_rng(2 * sum(shape) + causal)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(4)]
+    jq, jk, jv, jg = (jnp.asarray(x) for x in arrays)
+    scale = shape[-1] ** -0.5
+    out, o_heads, lse = jax_flash._flash_forward(jq, jk, jv, causal, scale,
+                                                 True)
+    grads = jax_flash._flash_backward(jq, jk, jv, o_heads, lse, jg, causal,
+                                      scale, True)
+    b, t, h, _ = shape
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    got = tf32x3_backward(q, k, v, torch.from_numpy(np.array(out)),
+                          torch.from_numpy(np.array(lse)[:, :t, 0]
+                                           .reshape(b, h, t)), do, causal)
+    tol = chip_smoke.flash_tolerance(torch.float32)
+    for a, w in zip(got, grads):
+        assert chip_smoke.tolerance_used(
+            a, torch.from_numpy(np.array(w)), tol) <= 1.0
+
+
+# ------------------------------------------------ routes and the CPU path
+
+
+@pytest.mark.parametrize("shape,fwd,bwd", [
+    ((256, 49, 4, 16), "tf32x3", "tf32x3"),   # the ViT under --dtype f32
+    ((256, 196, 4, 16), "tf32x3", "tf32x3"),  # ... at --patch-size 2
+    ((1, 4096, 1, 128), "tf32x3", "tf32x3"),  # no limit on T
+    ((1, 49, 1, 8), "tf32x3", "tf32x3"),
+    ((1, 49, 1, 12), "cuda_core", "split"),   # D not a multiple of 8
+    ((2, 33, 2, 12), "cuda_core", "split"),
+])
+def test_float32_routes(shape, fwd, bwd):
+    assert flash._fwd_route(shape, torch.float32) == fwd
+    assert flash._bwd_route(shape, torch.float32) == bwd
+
+
+def test_bf16_never_takes_the_tf32x3_route():
+    for shape in chip_smoke.FLASH_CHECK_SHAPES:
+        assert flash._fwd_route(shape, torch.bfloat16) != "tf32x3"
+        assert "tf32x3" not in flash._bwd_routes(shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("route", ["tf32x3", "cuda_core"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_float32_forward_on_the_cpu_is_the_plain_version(route, causal):
+    q, k, v, _ = _inputs((2, 21, 2, 16), 5)
+    before = (flash.flash_fwd.launches, dict(flash.flash_fwd.route_launches))
+    got = flash.flash_fwd(q, k, v, causal=causal, route=route)
+    want = flash.flash_fwd_plain(q, k, v, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # CPU tensors launch nothing: no counter moves.
+    assert (flash.flash_fwd.launches,
+            dict(flash.flash_fwd.route_launches)) == before
+
+
+@pytest.mark.parametrize("route", [None, "tf32x3", "split"])
+def test_float32_backward_on_the_cpu_is_the_plain_version(route):
+    q, k, v, do = _inputs((2, 33, 2, 16), 6)
+    o, lse = flash.flash_fwd_plain(q, k, v, causal=True)
+    before = (chip_smoke._bwd_counts(flash),
+              dict(flash.flash_bwd.route_launches))
+    got = flash.flash_bwd(q, k, v, o, lse, do, causal=True, route=route)
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (chip_smoke._bwd_counts(flash),
+            dict(flash.flash_bwd.route_launches)) == before
+
+
+def test_tf32x3_is_refused_where_it_is_not_the_route():
+    x = torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="no route 'tf32x3'"):
+        flash.flash_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(),
+                        route="tf32x3")
+    d12 = torch.zeros((1, 4, 1, 12))
+    with pytest.raises(ValueError, match="no route 'tf32x3'"):
+        flash.flash_fwd(d12, d12, d12, route="tf32x3")
+    with pytest.raises(ValueError, match="no route 'tensor'"):
+        flash.flash_fwd(x, x, x, route="tensor")
+
+
+def test_alignment_counts_bytes_for_float32():
+    # 16-byte rows are 4 float32 elements: the ViT's float32 qkv slices
+    # (strides of 3*H*D and D elements) need no copy.
+    base = torch.zeros(2 * 49 * 3 * 4 * 16 + 1)
+    qkv = base[:-1].view(2, 49, 3, 4, 16)
+    assert flash._aligned(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    assert flash._aligned(torch.zeros(2, 49, 4, 20)[..., :16])  # 80 bytes
+    assert not flash._aligned(torch.zeros(2, 49, 4, 18)[..., :16])
+    shifted = base[1:].view(2, 49, 3, 4, 16)  # 4 bytes off
+    assert not flash._aligned(shifted[:, :, 1])
+
+
+def test_the_library_is_registered_with_both_entries():
+    entries = cuda_build.KERNELS["flash_tf32"]
+    # q, k, v, o, lse and the tail; the backward takes the tiled pair's
+    # pointers (q, k, v, o, dout, lse, delta, dq, dk, dv) and the tail.
+    assert len(entries["flash_fwd_tf32_launch"][0]) == \
+        5 + len(cuda_build._FLASH_TAIL)
+    assert entries["flash_bwd_tf32_launch"][0] == \
+        cuda_build.KERNELS["flash_bwd_tiled"]["flash_bwd_tiled_launch"][0]
+    path = cuda_build.source_path("flash_tf32")
+    assert path.endswith("csrc/flash_tf32.cu")
+    with open(path, "rb") as f:
+        source = f.read()
+    # Its TF32 helpers are its own: an edit to the shared bf16 header does
+    # not rebuild it.
+    assert cuda_build.local_headers(source) == []
+    for instr in (b"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                  b"ex2.approx.ftz.f32"):
+        assert instr in source
+    # The split rounds as _tf32 does: half a unit of the kept last bit
+    # added, the 13 dropped bits cleared, for hi and for lo.
+    assert source.count(b"+ 0x1000u) & 0xffffe000u") == 2
+
+
+# ------------------------------------------------------ the smoke's bounds
+
+
+def test_the_smoke_bounds_the_3xtf32_kernels_at_a_third_of_tf32():
+    peaks = chip_smoke.PEAKS["H100"]
+    assert peaks[4] == 495e12 and chip_smoke.TF32_PER_PRODUCT == 3
+    p2 = chip_smoke.P2_SHAPE
+    least, by, bytes_moved, ops = chip_smoke.flash_bound_ms(
+        "flash_fwd_tf32", p2, 4, peaks)
+    # 52.2 MB (0.0156 ms) against 2.52 GFLOP at 165 TFLOP/s (0.0153 ms).
+    assert bytes_moved == 52_183_040 and ops == 2_517_630_976
+    assert by == "bytes" and least == pytest.approx(0.015577, rel=1e-4)
+    # The pair at T = 196: 157.4 MB against 8.81 GFLOP, the dK/dV kernel
+    # bound by its products (the sum of the two kernels' bounds); at T = 49
+    # both by their bytes.
+    least, by = chip_smoke.pair_bound_ms(chip_smoke.TF32_PAIR, p2, 4, peaks)
+    assert by == "operations" and least == pytest.approx(0.054002, rel=1e-4)
+    least, by = chip_smoke.pair_bound_ms(chip_smoke.TF32_PAIR,
+                                         chip_smoke.VIT_SHAPE, 4, peaks)
+    assert by == "bytes"
+    # The CUDA-core kernels of the same problem stay at the float32 rate.
+    assert chip_smoke.flash_bound_ms("flash_fwd", p2, 4, peaks)[3] == ops
+    assert chip_smoke.flash_bound_ms("flash_fwd", p2, 4, peaks)[0] > least
+
+
+@pytest.mark.parametrize("dtype,tokens,fwd,bwd", [
+    ("f32", 49, "tf32x3", "tf32x3"), ("f32", 196, "tf32x3", "tf32x3"),
+    ("bf16", 49, "tensor", "fused"), ("bf16", 196, "tensor", "tiled")])
+def test_the_smoke_expects_one_route_per_training_run(dtype, tokens, fwd,
+                                                      bwd):
+    want = chip_smoke._flash_want(dtype, tokens, 10, 8)
+    assert want["flash_fwd_routes"] == {r: 10 if r == fwd else 0
+                                        for r in flash.flash_fwd.route_launches}
+    assert want["flash_bwd_routes"] == {r: 8 if r == bwd else 0
+                                        for r in flash.flash_bwd.route_launches}
+    assert want["flash_bwd"] == (8 if bwd == "fused" else 0)
+    assert want["flash_dq"] == want["flash_dkv"] == 0
