@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
 
 1. device and build: the card's name and power limit (``nvidia-smi``) and
    the build of every hand-written kernel from ``csrc/`` (``nvcc``,
-   ``sm_90a``, one process per source, all at once);
+   ``sm_90a``, one process per source, all at once), with each kernel
+   instantiation's registers and spills from ``ptxas -v``;
 2. kernel against plain: ``matmul_i8`` against ``matmul_i8_plain`` on the
    card at every shape of the int8 serving path plus ragged ones (exactly
    equal, and the same bits on a second call), with the split-K plan of
@@ -51,15 +52,17 @@ Phases, each printing one JSON line:
    in full float32, the yardstick's precision): the forward, dQ and dK/dV
    kernels against ``flash_fwd_plain`` / ``flash_dq_plain`` /
    ``flash_dkv_plain``, and ``flash_bwd`` (the fused kernel, the tiled
-   pair, the 3xTF32 pair, or the dQ and dK/dV kernels, as its route says)
-   against ``flash_bwd_plain``, twice, for the same bits, at the ViT's
-   shape (256, 49, 4, 16) and at T in {1, 16, 33, 70, 100, 128, 130, 196,
-   200}, D in {8, 12, 16, 32, 48, 64, 128}, float32 and bfloat16, causal
-   and not, and the tiled pair also at (32, 196, 4, 16) and (256, 196, 4,
-   16) (``flash_tolerance`` states each tolerance and why), with the route
-   each forward and backward took and the share of its tolerance each
-   used, worst per route; the tensor-core forwards (bf16 and 3xTF32) twice
-   for the same bits, and beside them the CUDA-core forward;
+   pair or the 3xTF32 pair, as its route says) against
+   ``flash_bwd_plain``, twice, for the same bits, at the ViT's shape (256,
+   49, 4, 16) and at T in {1, 16, 30, 33, 40, 57, 70, 90, 100, 128, 130,
+   196, 200}, D in {4, 7, 8, 10, 12, 16, 20, 32, 48, 64, 100, 128},
+   float32 and bfloat16, causal and not, and the tiled pair also at (32,
+   196, 4, 16), (256, 196, 4, 16) and (32, 196, 4, 12)
+   (``flash_tolerance`` states each tolerance and why), with the route
+   each forward and backward took, each shape's copy width, and the share
+   of its tolerance each used, worst per route and path (16-byte or
+   narrow); the tensor-core forwards (bf16 and 3xTF32) twice for the same
+   bits, and beside them the CUDA-core forward, named;
 9. flash timings: device ms per call of the kernels at the ViT's shape in
    bf16 (the tensor-core forward beside the CUDA-core one; the fused
    backward beside the split pair), the CUDA-core forward and split pair
@@ -67,17 +70,20 @@ Phases, each printing one JSON line:
    (256, 49, 4, 16) and (256, 196, 4, 16) beside the CUDA-core ones named
    in the same call, each 3xTF32 kernel alone at the ViT's shape, the
    tiled pair at (256, 196, 4, 16) and, named, at the ViT's shape beside
-   the bf16 split pair (named), the bf16 forward at T = 196, their plain
-   versions, ``F.scaled_dot_product_attention`` forward and backward (in
-   the problem's dtype) as the yardstick, and each kernel's bound (a
-   3xTF32 kernel's operations at a third of the TF32 rate);
+   the bf16 split pair (named), the bf16 forward at T = 196, the ViT's
+   D = 12 shapes (256, 49|196, 4, 12) in bf16 and float32 (the default
+   routes beside the CUDA-core forward and split pair named in the same
+   call, and the SDPA backend that served each), their plain versions,
+   ``F.scaled_dot_product_attention`` forward and backward (in the
+   problem's dtype) as the yardstick, and each kernel's bound (a 3xTF32
+   kernel's operations at a third of the TF32 rate);
 10. the other backward routes on the attention path: ``flash_attention``
    forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair, at
-   the ViT's shape in float32 the 3xTF32 pair and at (2, 33, 2, 12)
-   float32 the dQ and dK/dV kernels (and not the fused one), and
-   ``flash_fwd`` named ``route="cuda_core"`` with ``flash_bwd`` named
-   ``route="split"`` at (32, 196, 4, 16) bf16 and at the ViT's shape in
-   float32 the CUDA-core kernels, all held against the plain versions;
+   the ViT's shape and at (2, 33, 2, 12) in float32 the 3xTF32 pair (and
+   not the fused one), and ``flash_fwd`` named ``route="cuda_core"`` with
+   ``flash_bwd`` named ``route="split"`` at (32, 196, 4, 16) bf16, at the
+   ViT's shape in float32 and at (256, 49, 4, 12) in both the CUDA-core
+   kernels, all held against the plain versions;
 11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
    160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
@@ -90,7 +96,10 @@ Phases, each printing one JSON line:
 13. the float32 ViT: phase 11 again with ``--dtype f32`` (every flash
    forward and backward on the 3xTF32 route, no other flash kernel), then
    its train profile (exactly 2 3xTF32 forwards and 2 pairs per step);
-14. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+14. the ViT at D = 12 (``embed_dim=48``, 4 heads, patch 4, bf16): its
+   train profile, exactly 2 tensor-core forwards and 2 fused backwards per
+   step and no CUDA-core or split launch (``train_vit_d12_profile``);
+15. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -182,29 +191,39 @@ TRAIN_RUNS = {
 # ViT's, then T in {1, 16, 196, 200} and D in {16, 32, 64, 128} at small
 # B*H, D = 8 (below one thread's 16 dims), for the fused backward (bf16,
 # T <= 128) its widest case T = 128, D = 128 and a D of 48 that its
-# 16-wide tiles pad, and a D of 12 (not a multiple of 8), which keeps the
-# CUDA-core forward and split backward on their own default route.
+# 16-wide tiles pad; then head dims that are not a multiple of 8, which
+# the tensor-core kernels take in their narrow instantiation (the copy
+# width of flash_inputs' qkv slices in bf16 / float32): D = 12 at T = 33
+# and at T = 196 (8 / 16 bytes, as the ViT's D = 12 slices), D = 4 (8 /
+# 16), D = 7 (2 / 4), D = 10 (4 / 8), D = 20 (8 / 16) and D = 100 (8 / 16).
 FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
                       (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
                       (3, 130, 2, 32), (1, 70, 1, 8), (2, 128, 2, 128),
-                      (3, 100, 3, 48), (2, 33, 2, 12)]
+                      (3, 100, 3, 48), (2, 33, 2, 12), (2, 196, 2, 12),
+                      (2, 40, 2, 4), (2, 57, 3, 7), (1, 30, 2, 10),
+                      (2, 90, 2, 20), (1, 100, 2, 100)]
+# The ViT at D = 12 (embed 48 in 4 heads), patch 4 and patch 2.
+D12_SHAPE = (TRAIN_BATCH, 49, 4, 12)
+D12_P2_SHAPE = (TRAIN_BATCH, 196, 4, 12)
 # The backward routes other than the fused one, on the attention path:
 # (shape, dtype, route). A T above the fused kernel's 128 (the ViT at
-# --patch-size 2 has 196 tokens) in bf16 takes the tiled pair, the ViT's
-# shape in float32 the 3xTF32 pair, a D that is not a multiple of 8 the
-# split pair.
+# --patch-size 2 has 196 tokens) in bf16 takes the tiled pair, float32
+# the 3xTF32 pair, at the ViT's D = 16 and at a D of 12.
 SPLIT_ROUTE_CASES = [((32, 196, 4, 16), "bfloat16", "tiled"),
                      (VIT_SHAPE, "float32", "tf32x3"),
-                     ((2, 33, 2, 12), "float32", "split")]
+                     ((2, 33, 2, 12), "float32", "tf32x3")]
 # The ViT at --patch-size 2: 196 tokens of embed 64 in 4 heads of 16.
 P2_SHAPE = (TRAIN_BATCH, 196, 4, 16)
 # Shapes the tiled backward is also held at, beyond FLASH_CHECK_SHAPES.
-TILED_CHECK_SHAPES = [(32, 196, 4, 16), P2_SHAPE]
-# The CUDA-core kernels named where a tensor-core route is the default:
-# the forward as route="cuda_core" and the backward as route="split", in
-# bf16 and at the ViT's shape in float32.
+TILED_CHECK_SHAPES = [(32, 196, 4, 16), P2_SHAPE, (32, 196, 4, 12)]
+# The CUDA-core kernels, which no problem takes by default, named: the
+# forward as route="cuda_core" and the backward as route="split", in bf16,
+# at the ViT's shape in float32, and at the ViT's D = 12 shape (the one
+# they served by default before the tensor-core kernels took every D) in
+# both dtypes.
 FORCED_CUDA_CORE_CASES = [((32, 196, 4, 16), "bfloat16"),
-                          (VIT_SHAPE, "float32")]
+                          (VIT_SHAPE, "float32"),
+                          (D12_SHAPE, "bfloat16"), (D12_SHAPE, "float32")]
 
 
 def emit(phase: str, **fields) -> None:
@@ -1012,11 +1031,13 @@ def phase_flash_vs_plain(device) -> dict:
     delta), so each is held against its plain version on the same inputs.
     ``flash_bwd`` runs twice on the same inputs: both calls must give the
     same bits, and only its route's counters may move (the fused kernel's,
-    the tiled or 3xTF32 pair's, or the dQ and dK/dV kernels'). ``flash_fwd``
-    takes its route (with D a multiple of 8 the bf16 tensor-core kernel or
-    the 3xTF32 one, twice for the same bits; else the CUDA-core kernel);
-    beside a tensor-core route the CUDA-core forward is held to the plain
-    version too. Returns each kernel's largest error, keyed by
+    the tiled or the 3xTF32 pair's). ``flash_fwd`` takes its route (the
+    bf16 tensor-core kernel or the 3xTF32 one) twice for the same bits,
+    and the CUDA-core forward, named, is held to the plain version beside
+    it. The head dims that are not a multiple of 8 run the tensor-core
+    kernels' narrow instantiation: each shape's copy width
+    (``flash._copy_width``) is printed, and the ViT's D = 12 slices must
+    take 8 bytes in bf16. Returns each kernel's largest error, keyed by
     ``FWD_KEYS`` and ``BWD_KEYS`` (and ``flash_dq``, ``flash_dkv``: the
     CUDA-core dQ and dK/dV kernels called directly)."""
     import torch
@@ -1028,8 +1049,9 @@ def phase_flash_vs_plain(device) -> dict:
     worst = {**dict.fromkeys(FWD_KEYS.values(), 0.0),
              **dict.fromkeys(BWD_KEYS.values(), 0.0),
              "flash_dq": 0.0, "flash_dkv": 0.0}
-    routes, used, fwd_routes, fwd_used = {}, {}, {}, {}
-    # The largest share of its tolerance each route used.
+    routes, used, fwd_routes, fwd_used, widths = {}, {}, {}, {}, {}
+    # The largest share of its tolerance each route used, on the 16-byte
+    # path and the narrow one.
     fwd_route_used, bwd_route_used = {}, {}
     f32 = flash_tolerance(torch.float32)
     for shape in FLASH_CHECK_SHAPES:
@@ -1040,15 +1062,22 @@ def phase_flash_vs_plain(device) -> dict:
                 key = f"{'x'.join(map(str, shape))} {dtype}".replace(
                     "torch.", "")
                 q, k, v, do = flash_inputs(shape, dtype, gen, device)
+                width = flash._copy_width(q, k, v)
+                widths[key] = width
+                if shape[-1] == 12 and dtype == torch.bfloat16 \
+                        and width != 8:
+                    raise AssertionError(f"the ViT's D = 12 slices copy "
+                                         f"{width} bytes at {where}")
+                path = "16-byte" if width == 16 and shape[-1] % 8 == 0 \
+                    else "narrow"
                 fwd_route = flash._fwd_route(shape, dtype)
                 before = dict(flash.flash_fwd.route_launches)
                 o, lse = flash.flash_fwd(q, k, v, causal=causal)
                 want_o, want_lse = flash.flash_fwd_plain(q, k, v,
                                                          causal=causal)
-                if fwd_route != "cuda_core":
-                    o2, lse2 = flash.flash_fwd(q, k, v, causal=causal)
-                    o_cc, lse_cc = flash.flash_fwd(q, k, v, causal=causal,
-                                                   route="cuda_core")
+                o2, lse2 = flash.flash_fwd(q, k, v, causal=causal)
+                o_cc, lse_cc = flash.flash_fwd(q, k, v, causal=causal,
+                                               route="cuda_core")
                 dq, delta = flash.flash_dq(q, k, v, want_o, want_lse, do,
                                            causal=causal)
                 want_dq, want_delta = flash.flash_dq_plain(
@@ -1065,12 +1094,11 @@ def phase_flash_vs_plain(device) -> dict:
                          for r, n in flash.flash_fwd.route_launches.items()}
                 want_moved = dict.fromkeys(moved, 0)
                 want_moved["cuda_core"] = 1
-                if fwd_route != "cuda_core":
-                    want_moved[fwd_route] = 2
-                    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
-                        raise AssertionError(f"flash_fwd ({fwd_route}) gave "
-                                             f"other bits on a second call "
-                                             f"at {where}")
+                want_moved[fwd_route] = 2
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    raise AssertionError(f"flash_fwd ({fwd_route}) gave "
+                                         f"other bits on a second call at "
+                                         f"{where}")
                 if moved != want_moved:
                     raise AssertionError(f"flash_fwd's routes moved by "
                                          f"{moved} at {where}")
@@ -1079,18 +1107,16 @@ def phase_flash_vs_plain(device) -> dict:
                     worst[fwd_key],
                     _close(f"O ({fwd_route})", o, want_o, tol, where),
                     _close(f"lse ({fwd_route})", lse, want_lse, f32, where))
-                if fwd_route != "cuda_core":
-                    worst["flash_fwd_cuda_core"] = max(
-                        worst["flash_fwd_cuda_core"],
-                        _close("O (cuda_core)", o_cc, want_o, tol, where),
-                        _close("lse (cuda_core)", lse_cc, want_lse, f32,
-                               where))
+                worst["flash_fwd_cuda_core"] = max(
+                    worst["flash_fwd_cuda_core"],
+                    _close("O (cuda_core)", o_cc, want_o, tol, where),
+                    _close("lse (cuda_core)", lse_cc, want_lse, f32, where))
                 fwd_routes[key] = fwd_route
                 share = max(tolerance_used(o, want_o, tol),
                             tolerance_used(lse, want_lse, f32))
                 fwd_used[key] = max(fwd_used.get(key, 0.0), share)
-                fwd_route_used[fwd_route] = max(
-                    fwd_route_used.get(fwd_route, 0.0), share)
+                at = f"{fwd_route} {path}"
+                fwd_route_used[at] = max(fwd_route_used.get(at, 0.0), share)
                 worst["flash_dq"] = max(
                     worst["flash_dq"], _close("dQ", dq, want_dq, tol, where),
                     _close("delta", delta, want_delta, f32, where))
@@ -1106,8 +1132,8 @@ def phase_flash_vs_plain(device) -> dict:
                 worst[BWD_KEYS[route]] = max(worst[BWD_KEYS[route]], err)
                 routes[key] = route
                 used[key] = max(used.get(key, 0.0), share)
-                bwd_route_used[route] = max(bwd_route_used.get(route, 0.0),
-                                            share)
+                at = f"{route} {path}"
+                bwd_route_used[at] = max(bwd_route_used.get(at, 0.0), share)
     # The tiled route at the ViT's --patch-size 2 shapes, bf16 only.
     tol = flash_tolerance(torch.bfloat16)
     for shape in TILED_CHECK_SHAPES:
@@ -1115,6 +1141,8 @@ def phase_flash_vs_plain(device) -> dict:
             where = f"{shape} bfloat16 causal={causal}"
             key = f"{'x'.join(map(str, shape))} bfloat16"
             q, k, v, do = flash_inputs(shape, torch.bfloat16, gen, device)
+            widths[key] = flash._copy_width(q, k, v)
+            path = "16-byte" if widths[key] == 16 else "narrow"
             o, lse = flash.flash_fwd_plain(q, k, v, causal=causal)
             want = flash.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
             route = flash._bwd_route(shape, torch.bfloat16)
@@ -1125,7 +1153,8 @@ def phase_flash_vs_plain(device) -> dict:
             worst["flash_bwd_tiled"] = max(worst["flash_bwd_tiled"], err)
             routes[key] = route
             used[key] = max(used.get(key, 0.0), share)
-            bwd_route_used[route] = max(bwd_route_used.get(route, 0.0), share)
+            at = f"{route} {path}"
+            bwd_route_used[at] = max(bwd_route_used.get(at, 0.0), share)
     emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          tiled_shapes=[list(s) for s in TILED_CHECK_SHAPES],
          dtypes=["float32", "bfloat16"], causal=[False, True],
@@ -1133,7 +1162,7 @@ def phase_flash_vs_plain(device) -> dict:
                     "bfloat16": flash_tolerance(torch.bfloat16)},
          max_abs_err=worst, flash_fwd_routes=fwd_routes,
          flash_fwd_tolerance_used=fwd_used, flash_bwd_routes=routes,
-         flash_bwd_tolerance_used=used,
+         flash_bwd_tolerance_used=used, copy_width_bytes=widths,
          flash_fwd_worst_share_by_route=fwd_route_used,
          flash_bwd_worst_share_by_route=bwd_route_used,
          flash_fwd_same_bits=True, flash_bwd_same_bits=True)
@@ -1430,22 +1459,111 @@ def phase_flash_timings(device, peaks) -> dict:
         P2_SHAPE, "bfloat16", least, by, bytes=bytes_moved,
         operations=n_ops, kernels=("flash_fwd",),
         library_call=sdpa["flash_fwd"])
+
+    # The ViT at D = 12 (embed 48 in 4 heads) at T = 49 and 196, bf16 and
+    # float32: the default tensor-core routes (the narrow instantiation)
+    # beside the CUDA-core forward and split pair named in the same call,
+    # which served D = 12 by default before, and SDPA, with the SDPA
+    # backend that served each call and the backends that take the shape.
+    for shape, suffix in ((D12_SHAPE, ""), (D12_P2_SHAPE, "_p2")):
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            elem = dtype.itemsize
+            tag = f"d12{suffix}_{'bf16' if elem == 2 else 'f32'}"
+            dq_, dk_, dv_, ddo = flash_inputs(shape, dtype, gen, device)
+            do_, dlse = flash.flash_fwd(dq_, dk_, dv_)
+            ops = (dq_, dk_, dv_, do_, dlse, ddo)
+            fwd_route = flash._fwd_route(shape, dtype)
+            bwd_route = flash._bwd_route(shape, dtype)
+            fwd_kernel = FWD_KEYS[fwd_route]
+            pair = {"fused": ("flash_bwd",), "tiled": tiled,
+                    "tf32x3": TF32_PAIR}[bwd_route]
+            heads = [x.transpose(1, 2) for x in (dq_, dk_, dv_)]
+            least, by, bytes_moved, n_ops = flash_bound_ms(fwd_kernel, shape,
+                                                           elem, peaks)
+            add(f"flash_fwd_{tag}", {
+                "kernel": lambda ops=ops: flash.flash_fwd(*ops[:3]),
+                "cuda_core": lambda ops=ops: flash.flash_fwd(
+                    *ops[:3], route="cuda_core"),
+                "plain": lambda ops=ops: flash.flash_fwd_plain(*ops[:3]),
+                "library": lambda heads=heads:
+                    F.scaled_dot_product_attention(*heads)},
+                shape, dtype_name, least, by, bytes=bytes_moved,
+                operations=n_ops, kernels=(fwd_kernel,), route=fwd_route,
+                copy_width=flash._copy_width(dq_, dk_, dv_),
+                cuda_core_bound_ms=flash_bound_ms(
+                    "flash_fwd_cuda_core", shape, elem, peaks)[0],
+                library_call=sdpa["flash_fwd"],
+                library_backends_that_take=sdpa_backends_that_take(*heads))
+            add(f"flash_bwd_{tag}", {
+                "kernel": lambda ops=ops: flash.flash_bwd(*ops),
+                "split": lambda ops=ops: flash.flash_bwd(*ops,
+                                                         route="split"),
+                "plain": lambda ops=ops: flash.flash_bwd_plain(*ops),
+                "library": _sdpa_backward(dq_, dk_, dv_, ddo)},
+                shape, dtype_name, *pair_bound_ms(pair, shape, elem, peaks),
+                kernels=pair, route=bwd_route,
+                split_bound_ms=pair_bound_ms(("flash_dq", "flash_dkv"),
+                                             shape, elem, peaks)[0],
+                library_call=sdpa["backward"])
+            for name in (f"flash_fwd_{tag}", f"flash_bwd_{tag}"):
+                rows[name]["library_backend"] = sdpa_backend(
+                    rows[name]["library_kernels"])
     return rows
+
+
+def sdpa_backend(kernels) -> str:
+    """The backend of ``F.scaled_dot_product_attention`` that ran, from its
+    kernels' names in a profiler trace: ``"flash"``, ``"efficient"``
+    (memory-efficient, CUTLASS's fmha), ``"cudnn"`` or ``"math"`` (plain
+    products and a softmax)."""
+    names = " ".join(kernels).lower()
+    if "cudnn" in names:
+        return "cudnn"
+    if "pytorch_flash" in names or "flash_fwd" in names \
+            or "flash_bwd" in names:
+        return "flash"
+    if "fmha" in names or "mem_eff" in names or "attention_kernel" in names:
+        return "efficient"
+    return "math"
+
+
+def sdpa_backends_that_take(q, k, v) -> dict:
+    """Which of SDPA's backends run (B, H, T, D) q, k and v when each is
+    the only one allowed (the flash backend needs D a multiple of 8)."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    takes = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v)
+            takes[name.lower()] = True
+        except RuntimeError:
+            takes[name.lower()] = False
+    return takes
 
 
 def phase_flash_split_route(device) -> dict:
     """The backward routes other than the fused one on the attention path:
     ``flash_attention``'s forward and backward at each
     ``SPLIT_ROUTE_CASES`` entry must launch its route's kernels once (the
-    tiled pair, the 3xTF32 pair, or the dQ and dK/dV kernels) and no other
+    tiled pair or the 3xTF32 pair, at D = 16 and at D = 12) and no other
     backward, and at each ``FORCED_CUDA_CORE_CASES`` entry ``flash_fwd``
     named ``route="cuda_core"`` and ``flash_bwd`` named ``route="split"``
-    launch the CUDA-core kernels. The forwards take their routes too: bf16
-    the tensor-core kernel, float32 the 3xTF32 one, a D that is not a
-    multiple of 8 the CUDA-core one. Gradients are held against
-    ``flash_bwd_plain`` on the forward kernel's O and lse, and the named
-    forwards against ``flash_fwd_plain``. Returns the launch counts of that
-    run."""
+    launch the CUDA-core kernels, which no problem takes unnamed. The
+    forwards take their routes too: bf16 the tensor-core kernel, float32
+    the 3xTF32 one. Gradients are held against ``flash_bwd_plain`` on the
+    forward kernel's O and lse, and the named forwards against
+    ``flash_fwd_plain``. Returns the launch counts of that run."""
     import torch
 
     from pytorch_distributed_mnist_tpu_torch.ops import flash
@@ -1737,13 +1855,16 @@ def _step_launches(step, model: str, tokens: int, dtype: str) -> dict:
 
 
 def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
-                        dtype: str = "bf16") -> dict:
+                        dtype: str = "bf16", embed_dim: int = 64) -> dict:
     """Where one train step's device time goes (``model`` at batch 256,
-    fused loss and Adam, the ViT with flash attention at ``patch_size``,
-    the host-to-device copy of the batch included, computing in ``dtype``:
-    bf16, or f32 as ``--dtype f32`` trains, TF32 off), beside the host's
-    wall time per step; first the launches of its kernels over a few steps
-    (``_step_launches``). Returns the phase's row."""
+    fused loss and Adam, the ViT with flash attention at ``patch_size``
+    and ``embed_dim`` in its 4 heads (48: D = 12, the phase
+    ``train_vit_d12_profile``), the host-to-device copy of the batch
+    included, computing in ``dtype``: bf16, or f32 as ``--dtype f32``
+    trains, TF32 off), beside the host's wall time per step; first the
+    launches of its kernels over a few steps (``_step_launches``: at any
+    head dim the tensor-core routes, no CUDA-core kernel). Returns the
+    phase's row."""
     import numpy as np
     import torch
 
@@ -1771,6 +1892,8 @@ def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
     kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
     if patch_size != 4:
         kwargs["patch_size"] = patch_size
+    if embed_dim != 64:
+        kwargs["embed_dim"] = embed_dim
     if dtype == "f32":  # as the trainer sets it for a float32 model
         kwargs["compute_dtype"] = torch.float32
         torch.backends.cudnn.allow_tf32 = False
@@ -1830,6 +1953,7 @@ def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
     torch.cuda.synchronize()
     device_total = sum(per.values())
     row = {"batch": TRAIN_BATCH, "tokens": tokens if model == "vit" else None,
+           "head_dim": embed_dim // 4 if model == "vit" else None,
            "wall_ms": wall_ms, "device_ms": device_total,
            "device_busy": device_total / wall_ms, "by_kind_ms": by_kind,
            "host_ms": host_ms,
@@ -1841,11 +1965,59 @@ def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
     phase = "train" if model == "cnn" else f"train_{model}"
     if patch_size != 4:
         phase += f"_p{patch_size}"
+    if embed_dim != 64:
+        phase += f"_d{embed_dim // 4}"
     if dtype != "bf16":
         phase += f"_{dtype}"
     emit(f"{phase}_profile", model=model, patch_size=patch_size, dtype=dtype,
-         **row)
+         embed_dim=embed_dim, **row)
     return row
+
+
+def kernel_of(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled name: the identifier
+    that ends in ``_kernel`` (a length-prefixed name whose length digits may
+    follow other digits) and its integer and bool template arguments."""
+    import re
+
+    for run in re.finditer(r"\d+", mangled):
+        for start in range(run.start(), run.end()):
+            size = int(mangled[start:run.end()])
+            name = mangled[run.end():run.end() + size]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                         name):
+                args = re.match(r"I((?:L[ib]\d+E)+)E",
+                                mangled[run.end() + size:])
+                if not args:
+                    return name
+                values = re.findall(r"L([ib])(\d+)E", args.group(1))
+                return name + "<" + ", ".join(
+                    v if t == "i" else str(bool(int(v))).lower()
+                    for t, v in values) + ">"
+    return mangled
+
+
+def ptxas_counts(log: str) -> dict:
+    """Per kernel of a build (``kernel_of``): its registers and spilled
+    bytes, from ``nvcc -Xptxas -v``'s lines."""
+    import re
+
+    counts, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = kernel_of(entry.group(1))
+            counts[current] = {}
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                counts[current]["spill_stores"] = int(spill.group(1))
+                counts[current]["spill_loads"] = int(spill.group(2))
+            if regs:
+                counts[current]["registers"] = int(regs.group(1))
+    return counts
 
 
 def main() -> int:
@@ -1867,8 +2039,7 @@ def main() -> int:
          cuda=torch.version.cuda, peaks_of=part,
          build_s=time.perf_counter() - t0,
          kernels={k: {"build_s": v["seconds"],
-                      "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                      "ptxas": ptxas_counts(v["log"])}
                   for k, v in info.items()})
 
     max_err = phase_kernel_vs_plain(device)
@@ -1887,6 +2058,7 @@ def main() -> int:
     p2 = phase_train_profile(device, model="vit", patch_size=2)
     f32_launches = phase_train(model="vit_f32")
     phase_train_profile(device, model="vit", dtype="f32")
+    d12_profile = phase_train_profile(device, model="vit", embed_dim=48)
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -1930,10 +2102,36 @@ def main() -> int:
               f"{all_8['numel']} params",
         "vit_31": train_rows["adam"]["vit_31"]})
     # flash_fwd (the tensor-core forward) and flash_bwd run on the bf16 ViT
-    # path (train_vit); the CUDA-core forward (float32) and the split pair
-    # on the split route's path (flash_split_route).
+    # path (train_vit), at D = 12 too (train_vit_d12_profile); the
+    # CUDA-core forward and the split pair, which no problem takes unnamed,
+    # on the split route's path (flash_split_route). Each entry carries its
+    # D = 12 rows (d12: T = 49, d12_p2: T = 196).
     vit_launches = {**vit_launches,
                     "flash_fwd": vit_launches["flash_fwd_routes"]["tensor"]}
+
+    def d12_rows(kind, dtype, *keys):
+        return {f"d12{p2}": {k: flash_rows[f"{kind}_d12{p2}_{dtype}"][k]
+                             for k in keys}
+                for p2 in ("", "_p2")}
+
+    row_keys = ("kernel_ms", "plain_ms", "library_ms", "library_backend",
+                "bound_ms", "bound_by", "route")
+    # The CUDA-core kernels' D = 12 rows, named, by dtype.
+    split_d12 = {"d12_named": {
+        dt: d12_rows("flash_bwd", dt, "split_ms", "split_bound_ms",
+                     "library_ms", "library_backend")
+        for dt in ("bf16", "f32")}}
+    d12 = {"flash_fwd": d12_rows("flash_fwd", "bf16", "cuda_core_ms",
+                                 "copy_width", *row_keys),
+           "flash_bwd": d12_rows("flash_bwd", "bf16", "split_ms", *row_keys),
+           "flash_fwd_cuda_core": {"d12_named": {
+               dt: d12_rows("flash_fwd", dt, "cuda_core_ms",
+                            "cuda_core_bound_ms", "library_ms",
+                            "library_backend") for dt in ("bf16", "f32")}},
+           "flash_dq": split_d12, "flash_dkv": split_d12}
+    # The D = 12 profile's launches per route (train_vit_d12_profile).
+    d12_launches = {name: d12_profile["launches"][f"{name}_routes"]
+                    for name in ("flash_fwd", "flash_bwd")}
     for kname, replaces, source, launched in (
             ("flash_fwd", TPU_FLASH_FWD, "flash_fwd.cu", vit_launches),
             ("flash_fwd_cuda_core", TPU_FLASH_FWD, "flash.cu",
@@ -1962,6 +2160,9 @@ def main() -> int:
             f32 = flash_rows["flash_split_f32"]
             entry["pair_float32"] = {k: f32[k] for k in (
                 "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        entry.update(d12[kname])
+        if kname in d12_launches:
+            entry["launches_d12_profile"] = d12_launches[kname]
         kernels.append(entry)
     # The tiled pair runs on the ViT's --patch-size 2 path
     # (train_vit_p2_profile's counted steps).
@@ -1982,6 +2183,8 @@ def main() -> int:
             "pair_t49": {k: flash_rows["flash_bwd_tiled_t49"][k] for k in (
                 "kernel_ms", "split_ms", "fused_ms", "library_ms",
                 "bound_ms")},
+            "pair_d12_p2": d12_rows("flash_bwd", "bf16", "split_ms",
+                                    *row_keys)["d12_p2"],
             "at": "x".join(map(str, P2_SHAPE)) + " (B, T, H, D) bfloat16"})
     # The 3xTF32 forward and pair run on the float32 ViT path (train_vit_f32,
     # the CLI under --dtype f32).
@@ -1999,6 +2202,8 @@ def main() -> int:
         "p2": {k: flash_rows["flash_fwd_tf32_p2"][k] for k in (
             "kernel_ms", "cuda_core_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
+        **d12_rows("flash_fwd", "f32", "cuda_core_ms", "copy_width",
+                   *row_keys),
         "at": at_f32})
     for kname in TF32_PAIR:
         row = flash_rows[kname]
@@ -2015,6 +2220,8 @@ def main() -> int:
                                            "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
                for suffix in ("", "_p2")},
+            **{f"pair_{key}": value for key, value in d12_rows(
+                "flash_bwd", "f32", "split_ms", *row_keys).items()},
             "at": at_f32})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -40,11 +40,13 @@
 // Operands: q, k and v are (B, T, H, D) views sharing the strides (sb,
 // st, sh) with a unit stride along D; O, dO, dQ, dK and dV are contiguous
 // (B, T, H, D); lse is contiguous (B, H, T) float32. bfloat16 only, T <=
-// 128, D <= 128 and a multiple of 8, every pointer 16-byte aligned and
-// every stride a multiple of 8 elements (ops/flash.py copies a view that
-// is not; lse, read a float at a time, only needs to be contiguous).
-// Anything else is refused: the wrapper takes the split kernels of
-// flash.cu for it.
+// 128, any 1 <= D <= 128, every pointer aligned to its elements (lse, read
+// a float at a time, only needs to be contiguous). With D a multiple of 8,
+// every pointer 16-byte aligned and every stride a multiple of 8 elements
+// the kernel takes its 16-byte path; any other view its narrow
+// instantiation, which copies and stores in the call's copy width
+// (stage_common.cuh) at the same DP. delta is summed over the staged O and
+// dO rows, which are zeros past D on both paths. Anything else is refused.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the
 // ViT's training shape (B=256, T=49, H=4, D=16) it moves 13.05 MB (q, k,
@@ -53,12 +55,15 @@
 // each operand once and keeps S, P, dP, dS and delta on chip. mma.sync
 // rather than wgmma/TMA: at D = 16 wgmma's 64-row tiles and descriptors
 // buy nothing, and the time goes to bytes and latency.
-
-#include <type_traits>
+//
+// Registers (ptxas -v, sm_90a, nvcc 12.8; chip_smoke.py's device_build
+// phase prints them per instantiation), the 16-byte path: 62 at DP = 16,
+// 95 at 32, 126 at 64, 225 at 128; the narrow one: 64, 80, 128, 225; none
+// spilled.
 
 #include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
-                           // b_off, bt_off, kPad, round16, aligned16,
-                           // Shape, store_rows
+                           // b_off, bt_off, kPad, round16, Shape,
+                           // copy_width, with_dp, stage_any, store_rows
 
 namespace {
 
@@ -74,7 +79,7 @@ __host__ __device__ inline size_t smem_bytes(int tp, int dp) {
          (size_t)tp * (tp + kPad) * sizeof(bf16);
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kMaxT / kTile * 32)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -101,25 +106,36 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;
 
   // Stage every operand of this (batch, head), zeros in the padding.
-  for (int c = tid; c < tp * CPR; c += blockDim.x) {
-    const int r = c / CPR, x = c % CPR, at = r * LD + x * 8;
-    if (r < s.t && x * 8 < s.d) {
-      const long long view =
-          bi * s.sb + r * s.st + hi * s.sh + (long long)x * 8;
-      const long long dense =
-          (((long long)bi * s.t + r) * s.h + hi) * s.d + x * 8;
-      cp_async16(qs + at, q + view);
-      cp_async16(ks + at, k + view);
-      cp_async16(vs + at, v + view);
-      cp_async16(os + at, o + dense);
-      cp_async16(dos + at, dout + dense);
-    } else {
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(qs + at) = zero;
-      *reinterpret_cast<uint4*>(ks + at) = zero;
-      *reinterpret_cast<uint4*>(vs + at) = zero;
-      *reinterpret_cast<uint4*>(os + at) = zero;
-      *reinterpret_cast<uint4*>(dos + at) = zero;
+  if constexpr (kNarrow) {
+    const long long osb = (long long)s.t * s.h * s.d,  // O's and dO's
+        ost = (long long)s.h * s.d;                     // strides
+    stage_any<DP, LD>(qs, q, s.sb, s.st, s.sh, s, bi, hi, 0, tp, blockDim.x);
+    stage_any<DP, LD>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0, tp, blockDim.x);
+    stage_any<DP, LD>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0, tp, blockDim.x);
+    stage_any<DP, LD>(os, o, osb, ost, s.d, s, bi, hi, 0, tp, blockDim.x);
+    stage_any<DP, LD>(dos, dout, osb, ost, s.d, s, bi, hi, 0, tp,
+                      blockDim.x);
+  } else {
+    for (int c = tid; c < tp * CPR; c += blockDim.x) {
+      const int r = c / CPR, x = c % CPR, at = r * LD + x * 8;
+      if (r < s.t && x * 8 < s.d) {
+        const long long view =
+            bi * s.sb + r * s.st + hi * s.sh + (long long)x * 8;
+        const long long dense =
+            (((long long)bi * s.t + r) * s.h + hi) * s.d + x * 8;
+        cp_async16(qs + at, q + view);
+        cp_async16(ks + at, k + view);
+        cp_async16(vs + at, v + view);
+        cp_async16(os + at, o + dense);
+        cp_async16(dos + at, dout + dense);
+      } else {
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(qs + at) = zero;
+        *reinterpret_cast<uint4*>(ks + at) = zero;
+        *reinterpret_cast<uint4*>(vs + at) = zero;
+        *reinterpret_cast<uint4*>(os + at) = zero;
+        *reinterpret_cast<uint4*>(dos + at) = zero;
+      }
     }
   }
   for (int r = tid; r < tp; r += blockDim.x) {
@@ -196,8 +212,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dka[2 * np + 1], da, b[2], b[3]);
       }
     }
-    store_rows<NP>(dk, dka, s, bi, hi, k0, scale, true);
-    store_rows<NP>(dv, dva, s, bi, hi, k0, scale, false);
+    store_rows<NP, kNarrow>(dk, dka, s, bi, hi, k0, scale, true);
+    store_rows<NP, kNarrow>(dv, dva, s, bi, hi, k0, scale, false);
   }
   __syncthreads();  // every tile of dS^T is written
 
@@ -219,22 +235,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dqa[2 * np + 1], a, b[2], b[3]);
       }
     }
-    store_rows<NP>(dq, dqa, s, bi, hi, q0, scale, true);
-  }
-}
-
-// Calls f with the smallest head-dim capacity DP in {16, 32, 64, 128}
-// that holds d.
-template <typename F>
-void with_dp(int d, F&& f) {
-  if (d <= 16) {
-    f(std::integral_constant<int, 16>{});
-  } else if (d <= 32) {
-    f(std::integral_constant<int, 32>{});
-  } else if (d <= 64) {
-    f(std::integral_constant<int, 64>{});
-  } else {
-    f(std::integral_constant<int, 128>{});
+    store_rows<NP, kNarrow>(dq, dqa, s, bi, hi, q0, scale, true);
   }
 }
 
@@ -257,27 +258,28 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 long long sb, long long st, long long sh,
                                 float scale, int causal, int bf16_in,
                                 int device, void* stream) {
-  const Shape s{b, h, t, d, sb, st, sh};
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};  // lse: float loads
-  bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 && t <= kMaxT &&
-            d >= 8 && d <= 128 && d % 8 == 0 && sb % 8 == 0 &&
-            st % 8 == 0 && sh % 8 == 0 && (long long)b * h <= 0x7fffffffLL;
-  for (const void* p : ptrs) ok = ok && aligned16(p);
+  const Shape s{b, h, t, d, sb, st, sh, copy_width(d, sb, st, sh, 2, ptrs)};
+  const bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 &&
+                  t <= kMaxT && d >= 1 && d <= 128 && s.w > 0 &&
+                  (long long)b * h <= 0x7fffffffLL;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  with_dp(d, [&](auto dp) {
+  with_dp<16>(s, [&](auto dp, auto narrow) {
     constexpr int DP = decltype(dp)::value;
+    constexpr bool kNarrow = decltype(narrow)::value;
     const int tp = round16(t);
     const size_t bytes = smem_bytes(tp, DP);
     if (bytes > 48 * 1024) {
-      err = cudaFuncSetAttribute(flash_bwd_kernel<DP>,
+      err = cudaFuncSetAttribute(flash_bwd_kernel<DP, kNarrow>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)bytes);
       if (err != cudaSuccess) return;
     }
-    flash_bwd_kernel<DP><<<dim3((unsigned)(b * h)), dim3(tp / kTile * 32),
-                           bytes, (cudaStream_t)stream>>>(
+    flash_bwd_kernel<DP, kNarrow><<<dim3((unsigned)(b * h)),
+                                    dim3(tp / kTile * 32), bytes,
+                                    (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
         (const bf16*)dout, (const float*)lse, (bf16*)dq, (bf16*)dk,
         (bf16*)dv, s, scale, causal);

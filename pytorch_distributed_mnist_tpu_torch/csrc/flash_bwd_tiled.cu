@@ -16,8 +16,8 @@
 // path computes in XLA between them (:285-290). The fused kernel
 // (flash_bwd.cu) holds a whole (batch, head) in one block and stops at
 // T = 128; this pair tiles T, so the ViT at --patch-size 2 (T = 196) trains
-// on the tensor cores. The CUDA-core pair of flash.cu stays for float32 and
-// for head dims that are not a multiple of 8.
+// on the tensor cores. The CUDA-core pair of flash.cu stays only as a
+// route a caller may name.
 //
 // dQ kernel. A block of 4 warps owns one (batch, head) and 64 query rows,
 // 16 per warp. It copies its q, dO and O rows and their lse into shared
@@ -62,9 +62,13 @@
 // Operands: q, k and v are (B, T, H, D) bf16 views sharing the strides (sb,
 // st, sh) with a unit stride along D; O, dO, dQ, dK and dV are contiguous
 // (B, T, H, D) bf16; lse and delta are contiguous (B, H, T) float32 (delta
-// written by the dQ kernel). D <= 128 and a multiple of 8; every bf16
-// pointer 16-byte aligned and every stride a multiple of 8 elements
-// (ops/flash.py copies a view that is not). Any T >= 1.
+// written by the dQ kernel). Any T >= 1 and 1 <= D <= 128, every bf16
+// pointer aligned to its elements. With D a multiple of 8, every bf16
+// pointer 16-byte aligned and every stride a multiple of 8 elements both
+// kernels take their 16-byte path; any other view their narrow
+// instantiation, which copies and stores in the call's copy width
+// (stage_common.cuh) at the same DP. delta is summed over the staged O and
+// dO rows, which are zeros past D on both paths.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the
 // ViT's --patch-size 2 shape (B=256, T=196, H=4, D=16) the dQ kernel moves
@@ -78,13 +82,15 @@
 // shape, 0.021 ms at the special-function units' 16 a cycle per SM.
 // Registers (ptxas -v, sm_90a, nvcc 12.8), dQ and dK/dV kernel: 64 and 72
 // at D = 16, 80 and 96 at 32, 124 and 126 at 64, 206 and 244 at 128, none
-// spilled (chip_smoke.py's device_build phase prints them).
+// spilled (chip_smoke.py's device_build phase prints them). The narrow
+// instantiations: 56 and 64 at 16 (the dK/dV kernel spills 8 bytes), 80
+// (20 bytes spilled) and 95 at 32, 125 and 128 at 64, 202 and 242 at 128.
 
 #include <math.h>
 
-#include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
-                           // b_off, bt_off, kPad, aligned16, Shape,
-                           // store_rows
+#include "mma_common.cuh"  // cp_async16, cp_async4, ldsm, ldsm_t, mma,
+                           // pack, a_off, b_off, bt_off, kPad, Shape,
+                           // copy_width, with_dp, stage_any, store_rows
 
 namespace {
 
@@ -92,29 +98,29 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;           // warps of one block
 constexpr int kRows = 16 * kWarps;  // rows a block owns, and of a tile
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
 // Copies rows r0 .. r0+63 of one (batch, head) of a bf16 (B, T, H, D)
 // tensor with element strides (sb, st, sh, 1) into `dst` (64 x (DP +
-// kPad)), zeros past T and past D.
-template <int DP>
+// kPad)), zeros past T and past D: 16-byte chunks, or with kNarrow chunks
+// of the call's copy width.
+template <int DP, bool kNarrow>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
                                       long long sb, long long st,
                                       long long sh, const Shape& s, int bi,
                                       int hi, int r0) {
   constexpr int LD = DP + kPad, CPR = DP / 8;
-  for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
-    const int r = c / CPR, x = c % CPR;
-    bf16* at = dst + r * LD + x * 8;
-    if (r0 + r < s.t && x * 8 < s.d) {
-      cp_async16(at, src + (long long)bi * sb + (long long)(r0 + r) * st +
-                         (long long)hi * sh + x * 8);
-    } else {
-      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kNarrow) {
+    stage_any<DP, LD>(dst, src, sb, st, sh, s, bi, hi, r0, kRows,
+                      kWarps * 32);
+  } else {
+    for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
+      const int r = c / CPR, x = c % CPR;
+      bf16* at = dst + r * LD + x * 8;
+      if (r0 + r < s.t && x * 8 < s.d) {
+        cp_async16(at, src + (long long)bi * sb + (long long)(r0 + r) * st +
+                           (long long)hi * sh + x * 8);
+      } else {
+        *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
 }
@@ -170,7 +176,7 @@ __device__ __forceinline__ void p_ds(const float (&sc)[2][4],
   }
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_dq_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -200,12 +206,12 @@ flash_dq_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = causal ? min(s.t, q0 + kRows) : s.t;
   const int ntiles = (kend + kRows - 1) / kRows;
 
-  stage<DP>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
-  stage<DP>(dos, dout, dsb, dst, s.d, s, bi, hi, q0);
-  stage<DP>(os, o, dsb, dst, s.d, s, bi, hi, q0);
+  stage<DP, kNarrow>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
+  stage<DP, kNarrow>(dos, dout, dsb, dst, s.d, s, bi, hi, q0);
+  stage<DP, kNarrow>(os, o, dsb, dst, s.d, s, bi, hi, q0);
   stage_rows(lse_s, lse, s, bh, q0);
-  stage<DP>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
-  stage<DP>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
   cp_async_commit();
 
   uint32_t qa[NP][4], doa[NP][4];
@@ -222,10 +228,10 @@ flash_dq_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // prefetch the next key tile
-      stage<DP>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
-      stage<DP>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
+      stage<DP, kNarrow>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
+      stage<DP, kNarrow>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the prefetch has landed
@@ -310,10 +316,10 @@ flash_dq_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this buffer
   }
-  store_rows<NP>(dq, dqa, s, bi, hi, wq0, scale, true);
+  store_rows<NP, kNarrow>(dq, dqa, s, bi, hi, wq0, scale, true);
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_dkv_tiled_kernel(const bf16* __restrict__ q,
                        const bf16* __restrict__ k,
@@ -345,10 +351,10 @@ flash_dkv_tiled_kernel(const bf16* __restrict__ q,
   const int first = causal ? blockIdx.y : 0;
   const int ntiles = (s.t + kRows - 1) / kRows;
 
-  stage<DP>(ks, k, s.sb, s.st, s.sh, s, bi, hi, k0);
-  stage<DP>(vs, v, s.sb, s.st, s.sh, s, bi, hi, k0);
-  stage<DP>(qs, q, s.sb, s.st, s.sh, s, bi, hi, first * kRows);
-  stage<DP>(dos, dout, dsb, dst, s.d, s, bi, hi, first * kRows);
+  stage<DP, kNarrow>(ks, k, s.sb, s.st, s.sh, s, bi, hi, k0);
+  stage<DP, kNarrow>(vs, v, s.sb, s.st, s.sh, s, bi, hi, k0);
+  stage<DP, kNarrow>(qs, q, s.sb, s.st, s.sh, s, bi, hi, first * kRows);
+  stage<DP, kNarrow>(dos, dout, dsb, dst, s.d, s, bi, hi, first * kRows);
   stage_rows(lse_s, lse, s, bh, first * kRows);
   stage_rows(delta_s, delta, s, bh, first * kRows);
   cp_async_commit();
@@ -364,8 +370,10 @@ flash_dkv_tiled_kernel(const bf16* __restrict__ q,
     const int buf = (it - first) & 1;
     if (it + 1 < ntiles) {  // prefetch the next query tile
       const int nb = buf ^ 1, r0 = (it + 1) * kRows;
-      stage<DP>(qs + nb * TILE, q, s.sb, s.st, s.sh, s, bi, hi, r0);
-      stage<DP>(dos + nb * TILE, dout, dsb, dst, s.d, s, bi, hi, r0);
+      stage<DP, kNarrow>(qs + nb * TILE, q, s.sb, s.st, s.sh, s, bi, hi,
+                         r0);
+      stage<DP, kNarrow>(dos + nb * TILE, dout, dsb, dst, s.d, s, bi, hi,
+                         r0);
       stage_rows(lse_s + nb * kRows, lse, s, bh, r0);
       stage_rows(delta_s + nb * kRows, delta, s, bh, r0);
     }
@@ -435,8 +443,8 @@ flash_dkv_tiled_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();  // every warp is done with this buffer
   }
-  store_rows<NP>(dk, dka, s, bi, hi, wk0, scale, true);
-  store_rows<NP>(dv, dva, s, bi, hi, wk0, scale, false);
+  store_rows<NP, kNarrow>(dk, dka, s, bi, hi, wk0, scale, true);
+  store_rows<NP, kNarrow>(dv, dva, s, bi, hi, wk0, scale, false);
 }
 
 // Shared memory of one block: the dQ kernel's q, dO, O and two buffers
@@ -460,24 +468,27 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 cudaError_t launch(const Shape& s, const void* q, const void* k,
                    const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, void* dq, void* dk,
                    void* dv, float scale, int causal, cudaStream_t stream) {
   const dim3 grid((unsigned)(s.b * s.h),
                   (unsigned)((s.t + kRows - 1) / kRows));
-  cudaError_t err = allow_smem(flash_dq_tiled_kernel<DP>, dq_smem(DP));
+  cudaError_t err =
+      allow_smem(flash_dq_tiled_kernel<DP, kNarrow>, dq_smem(DP));
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_dkv_tiled_kernel<DP>, dkv_smem(DP));
+  err = allow_smem(flash_dkv_tiled_kernel<DP, kNarrow>, dkv_smem(DP));
   if (err != cudaSuccess) return err;
-  flash_dq_tiled_kernel<DP><<<grid, kWarps * 32, dq_smem(DP), stream>>>(
+  flash_dq_tiled_kernel<DP, kNarrow>
+      <<<grid, kWarps * 32, dq_smem(DP), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
       (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, s,
       scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_dkv_tiled_kernel<DP><<<grid, kWarps * 32, dkv_smem(DP), stream>>>(
+  flash_dkv_tiled_kernel<DP, kNarrow>
+      <<<grid, kWarps * 32, dkv_smem(DP), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, s,
       scale, causal);
@@ -504,29 +515,18 @@ extern "C" int flash_bwd_tiled_launch(const void* q, const void* k,
                                       long long sb, long long st,
                                       long long sh, float scale, int causal,
                                       int bf16_in, int device, void* stream) {
-  const Shape s{b, h, t, d, sb, st, sh};
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};  // lse, delta: floats
-  bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 && d >= 8 &&
-            d <= 128 && d % 8 == 0 && sb % 8 == 0 && st % 8 == 0 &&
-            sh % 8 == 0 && (long long)b * h <= 0x7fffffffLL &&
-            (t + kRows - 1) / kRows <= 65535;
-  for (const void* p : ptrs) ok = ok && aligned16(p);
+  const Shape s{b, h, t, d, sb, st, sh, copy_width(d, sb, st, sh, 2, ptrs)};
+  const bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 && d >= 1 &&
+                  d <= 128 && s.w > 0 && (long long)b * h <= 0x7fffffffLL &&
+                  (t + kRows - 1) / kRows <= 65535;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t strm = (cudaStream_t)stream;
-  if (d <= 16) {
-    err = launch<16>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                     causal, strm);
-  } else if (d <= 32) {
-    err = launch<32>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                     causal, strm);
-  } else if (d <= 64) {
-    err = launch<64>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                     causal, strm);
-  } else {
-    err = launch<128>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                      causal, strm);
-  }
+  with_dp<16>(s, [&](auto dp, auto narrow) {
+    err = launch<decltype(dp)::value, decltype(narrow)::value>(
+        s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale, causal,
+        (cudaStream_t)stream);
+  });
   return (int)err;
 }

@@ -9,9 +9,9 @@
 // Replaces the Pallas TPU kernel of _flash_forward
 // (pytorch_distributed_mnist_tpu/ops/pallas/flash.py:147, body _fwd_kernel
 // :65), which walks the key blocks of one (batch*head, query block) with an
-// online softmax. It also replaces, for bf16, PR 3's CUDA-core forward
-// (flash.cu flash_fwd_kernel), which stays for float32 and for head dims
-// that are not a multiple of 8.
+// online softmax. It also replaces, for bf16 at every head dim, the
+// CUDA-core forward (flash.cu flash_fwd_kernel), which stays only as a
+// route a caller may name.
 //
 // Design, FlashAttention-2 style. A block of 4 warps owns one (batch, head)
 // and 64 query rows, 16 per warp. It copies its q tile and then 64-key
@@ -39,20 +39,30 @@
 //
 // Operands: q, k and v are (B, T, H, D) bf16 views sharing the strides
 // (sb, st, sh) with a unit stride along D; O is contiguous (B, T, H, D)
-// bf16 and lse contiguous (B, H, T) float32. D <= 128 and a multiple of
-// 8; every pointer 16-byte aligned and every stride a multiple of 8
-// elements (ops/flash.py copies a view that is not).
+// bf16 and lse contiguous (B, H, T) float32. Any 1 <= D <= 128, every
+// pointer aligned to its elements. With D a multiple of 8, every pointer
+// 16-byte aligned and every stride a multiple of 8 elements the kernel
+// takes its 16-byte path; any other view (an odd D, the ViT's D = 12
+// slices, a view that starts off a 16-byte boundary) its narrow
+// instantiation, which copies and stores in the call's copy width
+// (stage_common.cuh) and computes the same products at the same DP.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the
 // ViT's shape (B=256, T=49, H=4, D=16) it moves 6.62 MB (q, k, v in; O and
 // lse out), 1.98 us, for 0.157 GFLOP, 0.16 us: bound by bytes. Each
 // operand is read once (K and V once per 64-row query tile: at T = 49 once
 // in all) and S and P never leave registers.
+//
+// Registers (ptxas -v, sm_90a, nvcc 12.8; chip_smoke.py's device_build
+// phase prints them per instantiation), the 16-byte path: 80 at DP = 16,
+// 93 at 32, 128 at 64 (36 bytes spilled), 175 at 128; the narrow one: 80,
+// 96 (4 bytes spilled), 128 (4), 176.
 
 #include <math.h>
 
 #include "mma_common.cuh"  // cp_async16, ldsm, ldsm_t, mma, pack, a_off,
-                           // b_off, bt_off, kPad, aligned16, Shape
+                           // b_off, bt_off, kPad, Shape, copy_width,
+                           // with_dp, stage_any, store_pair
 
 namespace {
 
@@ -69,25 +79,32 @@ __host__ __device__ constexpr size_t smem_bytes(int dp) {
 }
 
 // Copies rows r0 .. r0+63 of one (batch, head) of q, k or v into `dst`
-// (64 x (DP + kPad)), zeros past T and past D.
-template <int DP>
+// (64 x (DP + kPad)), zeros past T and past D: 16-byte chunks, or with
+// kNarrow chunks of the call's copy width.
+template <int DP, bool kNarrow>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
                                       const Shape& s, int bi, int hi,
                                       int r0) {
   constexpr int LD = DP + kPad, CPR = DP / 8;
-  for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
-    const int r = c / CPR, x = c % CPR;
-    bf16* at = dst + r * LD + x * 8;
-    if (r0 + r < s.t && x * 8 < s.d) {
-      cp_async16(at, src + (long long)bi * s.sb + (long long)(r0 + r) * s.st +
-                         (long long)hi * s.sh + x * 8);
-    } else {
-      *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kNarrow) {
+    stage_any<DP, LD>(dst, src, s.sb, s.st, s.sh, s, bi, hi, r0, kRows,
+                      kWarps * 32);
+  } else {
+    for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
+      const int r = c / CPR, x = c % CPR;
+      bf16* at = dst + r * LD + x * 8;
+      if (r0 + r < s.t && x * 8 < s.d) {
+        cp_async16(at, src + (long long)bi * s.sb +
+                           (long long)(r0 + r) * s.st +
+                           (long long)hi * s.sh + x * 8);
+      } else {
+        *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -111,9 +128,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = causal ? min(s.t, q0 + kRows) : s.t;
   const int ntiles = (kend + kKeys - 1) / kKeys;
 
-  stage<DP>(qs, q, s, bi, hi, q0);
-  stage<DP>(ks, k, s, bi, hi, 0);
-  stage<DP>(vs, v, s, bi, hi, 0);
+  stage<DP, kNarrow>(qs, q, s, bi, hi, q0);
+  stage<DP, kNarrow>(ks, k, s, bi, hi, 0);
+  stage<DP, kNarrow>(vs, v, s, bi, hi, 0);
   cp_async_commit();
 
   uint32_t qa[NP][4];
@@ -130,8 +147,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // prefetch the next key tile
-      stage<DP>(ks + (buf ^ 1) * TILE, k, s, bi, hi, (it + 1) * kKeys);
-      stage<DP>(vs + (buf ^ 1) * TILE, v, s, bi, hi, (it + 1) * kKeys);
+      stage<DP, kNarrow>(ks + (buf ^ 1) * TILE, k, s, bi, hi,
+                         (it + 1) * kKeys);
+      stage<DP, kNarrow>(vs + (buf ^ 1) * TILE, v, s, bi, hi,
+                         (it + 1) * kKeys);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the prefetch has landed
@@ -234,9 +253,14 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* out = o + (((long long)bi * s.t + row) * s.h + hi) * s.d;
 #pragma unroll
     for (int n = 0; n < 2 * NP; ++n) {
-      if (n * 8 >= s.d) break;  // D is a multiple of 8
-      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * tq) =
-          pack(acc[n][2 * half] / denom, acc[n][2 * half + 1] / denom);
+      if (n * 8 >= s.d) break;
+      const float x0 = acc[n][2 * half] / denom;
+      const float x1 = acc[n][2 * half + 1] / denom;
+      if constexpr (kNarrow) {
+        store_pair(out, n * 8 + 2 * tq, s, x0, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * tq) = pack(x0, x1);
+      }
     }
     if (tq == 0) {
       lse[(long long)bh * s.t + row] =
@@ -245,20 +269,20 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 cudaError_t launch(const Shape& s, const void* q, const void* k,
                    const void* v, void* o, void* lse, float scale,
                    int causal, cudaStream_t stream) {
   const size_t bytes = smem_bytes(DP);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<DP>,
+        flash_fwd_mma_kernel<DP, kNarrow>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)(s.b * s.h),
                   (unsigned)((s.t + kRows - 1) / kRows));
-  flash_fwd_mma_kernel<DP><<<grid, kWarps * 32, bytes, stream>>>(
+  flash_fwd_mma_kernel<DP, kNarrow><<<grid, kWarps * 32, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
       (float*)lse, s, scale, causal);
   return cudaSuccess;
@@ -281,25 +305,17 @@ extern "C" int flash_fwd_mma_launch(const void* q, const void* k,
                                     long long st, long long sh, float scale,
                                     int causal, int bf16_in, int device,
                                     void* stream) {
-  const Shape s{b, h, t, d, sb, st, sh};
   const void* ptrs[] = {q, k, v, o};  // lse: float stores
-  bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 && d >= 8 &&
-            d <= 128 && d % 8 == 0 && sb % 8 == 0 && st % 8 == 0 &&
-            sh % 8 == 0 && (long long)b * h <= 0x7fffffffLL;
-  for (const void* p : ptrs) ok = ok && aligned16(p);
+  const Shape s{b, h, t, d, sb, st, sh, copy_width(d, sb, st, sh, 2, ptrs)};
+  const bool ok = bf16_in == 1 && b >= 1 && h >= 1 && t >= 1 && d >= 1 &&
+                  d <= 128 && s.w > 0 && (long long)b * h <= 0x7fffffffLL;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t strm = (cudaStream_t)stream;
-  if (d <= 16) {
-    err = launch<16>(s, q, k, v, o, lse, scale, causal, strm);
-  } else if (d <= 32) {
-    err = launch<32>(s, q, k, v, o, lse, scale, causal, strm);
-  } else if (d <= 64) {
-    err = launch<64>(s, q, k, v, o, lse, scale, causal, strm);
-  } else {
-    err = launch<128>(s, q, k, v, o, lse, scale, causal, strm);
-  }
+  with_dp<16>(s, [&](auto dp, auto narrow) {
+    err = launch<decltype(dp)::value, decltype(narrow)::value>(
+        s, q, k, v, o, lse, scale, causal, (cudaStream_t)stream);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

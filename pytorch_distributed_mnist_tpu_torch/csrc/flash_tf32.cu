@@ -10,12 +10,12 @@
 //            dS_ij = P_ij (dO_i . V_j - delta_i),  dQ_i = scale sum_j dS_ij K_j
 //   dK/dV:   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij Q_i
 //
-// Replaces, for float32 problems with D a multiple of 8, the Pallas TPU
+// Replaces, for float32 problems at every head dim, the Pallas TPU
 // kernels of pytorch_distributed_mnist_tpu/ops/pallas/flash.py:
 // _flash_forward (:147, body _fwd_kernel :65) and _flash_backward (:274,
 // bodies _dq_kernel :194 and _dkv_kernel :230, delta in XLA :285-290). It
-// takes over from flash.cu's CUDA-core kernels, which stay for head dims
-// that are not a multiple of 8.
+// takes over from flash.cu's CUDA-core kernels, which stay only as routes
+// a caller may name.
 //
 // Why 3xTF32. The float32 route is held to rtol 1e-4 against the plain
 // float32 version. A TF32 operand keeps 10 mantissa bits: one TF32 product
@@ -91,14 +91,20 @@
 // the 16 x D dK and dV sums in registers at D = 128. Registers (ptxas -v,
 // sm_90a, nvcc 12.8) of the forward, dQ and dK/dV kernels: 70, 80, 85 at
 // DP = 8; 90, 126, 127 at 16; 120, 165, 128 at 32; 119, 124, 162 at 64;
-// 185, 167, 254 at 128; none spilled.
+// 185, 167, 254 at 128; none spilled. The narrow instantiations: 72, 72
+// (48 bytes spilled), 96 at DP = 8; 80, 127, 128 at 16; 117, 165, 154 at
+// 32; 124, 124, 165 at 64; 164, 166, 239 at 128.
 //
 // Operands: q, k and v are (B, T, H, D) float32 views sharing the strides
 // (sb, st, sh) with a unit stride along D; O, dO, dQ, dK and dV are
 // contiguous (B, T, H, D) float32; lse and delta are contiguous (B, H, T)
-// float32. D <= 128 and a multiple of 8; every tensor pointer 16-byte
-// aligned and every stride a multiple of 4 elements (ops/flash.py copies a
-// view that is not). Any T >= 1.
+// float32. Any T >= 1 and 1 <= D <= 128, every pointer aligned to its
+// elements. With D a multiple of 8, every tensor pointer 16-byte aligned
+// and every stride a multiple of 4 elements the kernels take their
+// 16-byte path; any other view their narrow instantiation, which copies
+// and stores in the call's copy width (stage_common.cuh) at the same DP
+// (D = 12 pads to 16, D = 4 and 7 to 8), and sums delta element by element
+// in the same order.
 //
 // What bounds it on an H100 (3.35 TB/s; 495 TFLOP/s TF32 dense, so 165
 // TFLOP/s of float32-accurate products at three TF32 products each): at
@@ -115,6 +121,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "stage_common.cuh"  // cp_async16, cp_async4, Shape, copy_width,
+                             // with_dp, stage_any, store_pair
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -124,39 +133,6 @@ constexpr int kRows = 16 * kWarps;  // rows a block owns, and of a tile
 constexpr int kPad = 4;             // floats added to each shared row
 constexpr int kStep = 32;           // streamed rows per step of a warp
 constexpr int kNT = kStep / 8;      // n-tiles of 8 rows per step
-
-// A flash-attention problem: (B, T, H, D) with the element strides of its
-// q, k and v views (unit stride along D).
-struct Shape {
-  int b, h, t, d;
-  long long sb, st, sh;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 2^x in one instruction: the hardware's ex2 (about 2 ulp; a result below
 // float32's smallest normal is flushed to 0).
@@ -186,21 +162,27 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // Copies rows r0 .. r0+63 of one (batch, head) of a float32 (B, T, H, D)
 // tensor with element strides (sb, st, sh, 1) into `dst` (64 x (DP +
-// kPad)), zeros past T and past D.
-template <int DP>
+// kPad)), zeros past T and past D: 16-byte chunks, or with kNarrow chunks
+// of the call's copy width.
+template <int DP, bool kNarrow>
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       long long sb, long long st,
                                       long long sh, const Shape& s, int bi,
                                       int hi, int r0) {
   constexpr int LD = DP + kPad, CPR = DP / 4;
-  for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
-    const int r = c / CPR, x = c % CPR;
-    float* at = dst + r * LD + x * 4;
-    if (r0 + r < s.t && x * 4 < s.d) {
-      cp_async16(at, src + (long long)bi * sb + (long long)(r0 + r) * st +
-                         (long long)hi * sh + x * 4);
-    } else {
-      *reinterpret_cast<float4*>(at) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kNarrow) {
+    stage_any<DP, LD>(dst, src, sb, st, sh, s, bi, hi, r0, kRows,
+                      kWarps * 32);
+  } else {
+    for (int c = threadIdx.x; c < kRows * CPR; c += kWarps * 32) {
+      const int r = c / CPR, x = c % CPR;
+      float* at = dst + r * LD + x * 4;
+      if (r0 + r < s.t && x * 4 < s.d) {
+        cp_async16(at, src + (long long)bi * sb + (long long)(r0 + r) * st +
+                           (long long)hi * sh + x * 4);
+      } else {
+        *reinterpret_cast<float4*>(at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
 }
@@ -344,8 +326,10 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DP / 8][4],
 
 // Writes a warp's 16 x DP accumulator (mma's C layout) times `scale` as
 // rows row0.. of a contiguous (B, T, H, D) float32 tensor; rows >= T and
-// columns >= D are dropped.
-template <int DP>
+// columns >= D are dropped. The 16-byte path (D a multiple of 8) stores
+// whole 8-column tiles as float2 pairs; the narrow one (kNarrow) exactly
+// D columns (store_pair).
+template <int DP, bool kNarrow>
 __device__ __forceinline__ void store_rows(float* out,
                                            const float (&acc)[DP / 8][4],
                                            const Shape& s, int bi, int hi,
@@ -358,16 +342,22 @@ __device__ __forceinline__ void store_rows(float* out,
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + g + 8 * half;
       if (row >= s.t) continue;
-      const long long at =
-          (((long long)bi * s.t + row) * s.h + hi) * s.d + 8 * j + 2 * tq;
-      *reinterpret_cast<float2*>(out + at) =
-          make_float2(__fmul_rn(scale, acc[j][2 * half]),
-                      __fmul_rn(scale, acc[j][2 * half + 1]));
+      if constexpr (kNarrow) {
+        store_pair(out + (((long long)bi * s.t + row) * s.h + hi) * s.d,
+                   8 * j + 2 * tq, s, __fmul_rn(scale, acc[j][2 * half]),
+                   __fmul_rn(scale, acc[j][2 * half + 1]));
+      } else {
+        const long long at =
+            (((long long)bi * s.t + row) * s.h + hi) * s.d + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(out + at) =
+            make_float2(__fmul_rn(scale, acc[j][2 * half]),
+                        __fmul_rn(scale, acc[j][2 * half + 1]));
+      }
     }
   }
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -392,9 +382,9 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   const int wend = causal ? min(s.t, wq0 + 16) : s.t;
   const int ntiles = (kend + kRows - 1) / kRows;
 
-  stage<DP>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
-  stage<DP>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
-  stage<DP>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
+  stage<DP, kNarrow>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
   cp_async_commit();
 
   float acc[DP / 8][4];
@@ -410,10 +400,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // prefetch the next key tile
-      stage<DP>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
-      stage<DP>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
+      stage<DP, kNarrow>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
+      stage<DP, kNarrow>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the prefetch has landed
@@ -508,8 +498,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       if (8 * j >= s.d) break;
-      *reinterpret_cast<float2*>(out + 8 * j + 2 * tq) = make_float2(
-          acc[j][2 * half] / denom, acc[j][2 * half + 1] / denom);
+      const float x0 = acc[j][2 * half] / denom;
+      const float x1 = acc[j][2 * half + 1] / denom;
+      if constexpr (kNarrow) {
+        store_pair(out, 8 * j + 2 * tq, s, x0, x1);
+      } else {
+        *reinterpret_cast<float2*>(out + 8 * j + 2 * tq) =
+            make_float2(x0, x1);
+      }
     }
     if (tq == 0) {
       lse[(long long)bh * s.t + row] =
@@ -518,7 +514,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ o,
@@ -546,11 +542,11 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wend = causal ? min(s.t, wq0 + 16) : s.t;
   const int ntiles = (kend + kRows - 1) / kRows;
 
-  stage<DP>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
-  stage<DP>(dos, dout, dsb, dst, s.d, s, bi, hi, q0);
+  stage<DP, kNarrow>(qs, q, s.sb, s.st, s.sh, s, bi, hi, q0);
+  stage<DP, kNarrow>(dos, dout, dsb, dst, s.d, s, bi, hi, q0);
   stage_rows(lse_s, lse, s, bh, q0);
-  stage<DP>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
-  stage<DP>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(ks, k, s.sb, s.st, s.sh, s, bi, hi, 0);
+  stage<DP, kNarrow>(vs, v, s.sb, s.st, s.sh, s, bi, hi, 0);
   cp_async_commit();
   // delta = rowsum(dO * O) in float32 from the rows in device memory (O is
   // not staged: see the header), while the tiles above are in flight.
@@ -560,14 +556,21 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row < s.t) {
       const long long at = (long long)bi * dsb + (long long)row * dst +
                            (long long)hi * s.d;
-      const float4* orow = reinterpret_cast<const float4*>(o + at);
-      const float4* drow = reinterpret_cast<const float4*>(dout + at);
-      for (int x = 0; x < s.d / 4; ++x) {
-        const float4 a = __ldg(drow + x), b = __ldg(orow + x);
-        sum = __fadd_rn(sum, __fmul_rn(a.x, b.x));
-        sum = __fadd_rn(sum, __fmul_rn(a.y, b.y));
-        sum = __fadd_rn(sum, __fmul_rn(a.z, b.z));
-        sum = __fadd_rn(sum, __fmul_rn(a.w, b.w));
+      if constexpr (kNarrow) {  // the same order, one element at a time
+        for (int x = 0; x < s.d; ++x) {
+          sum = __fadd_rn(sum, __fmul_rn(__ldg(dout + at + x),
+                                         __ldg(o + at + x)));
+        }
+      } else {
+        const float4* orow = reinterpret_cast<const float4*>(o + at);
+        const float4* drow = reinterpret_cast<const float4*>(dout + at);
+        for (int x = 0; x < s.d / 4; ++x) {
+          const float4 a = __ldg(drow + x), b = __ldg(orow + x);
+          sum = __fadd_rn(sum, __fmul_rn(a.x, b.x));
+          sum = __fadd_rn(sum, __fmul_rn(a.y, b.y));
+          sum = __fadd_rn(sum, __fmul_rn(a.z, b.z));
+          sum = __fadd_rn(sum, __fmul_rn(a.w, b.w));
+        }
       }
       delta[(long long)bh * s.t + row] = sum;
     }
@@ -585,10 +588,10 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // prefetch the next key tile
-      stage<DP>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
-      stage<DP>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi, hi,
-                (it + 1) * kRows);
+      stage<DP, kNarrow>(ks + (buf ^ 1) * TILE, k, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
+      stage<DP, kNarrow>(vs + (buf ^ 1) * TILE, v, s.sb, s.st, s.sh, s, bi,
+                         hi, (it + 1) * kRows);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the prefetch has landed
@@ -632,10 +635,10 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this buffer
   }
-  store_rows<DP>(dq, dqa, s, bi, hi, wq0, scale);
+  store_rows<DP, kNarrow>(dq, dqa, s, bi, hi, wq0, scale);
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_dkv_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -666,10 +669,10 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
   const int first = causal ? blockIdx.y : 0;
   const int ntiles = (s.t + kRows - 1) / kRows;
 
-  stage<DP>(ks, k, s.sb, s.st, s.sh, s, bi, hi, k0);
-  stage<DP>(vs, v, s.sb, s.st, s.sh, s, bi, hi, k0);
-  stage<DP>(qs, q, s.sb, s.st, s.sh, s, bi, hi, first * kRows);
-  stage<DP>(dos, dout, dsb, dst, s.d, s, bi, hi, first * kRows);
+  stage<DP, kNarrow>(ks, k, s.sb, s.st, s.sh, s, bi, hi, k0);
+  stage<DP, kNarrow>(vs, v, s.sb, s.st, s.sh, s, bi, hi, k0);
+  stage<DP, kNarrow>(qs, q, s.sb, s.st, s.sh, s, bi, hi, first * kRows);
+  stage<DP, kNarrow>(dos, dout, dsb, dst, s.d, s, bi, hi, first * kRows);
   stage_rows(lse_s, lse, s, bh, first * kRows);
   stage_rows(delta_s, delta, s, bh, first * kRows);
   cp_async_commit();
@@ -685,8 +688,10 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
     const int buf = (it - first) & 1;
     if (it + 1 < ntiles) {  // prefetch the next query tile
       const int nb = buf ^ 1, r0 = (it + 1) * kRows;
-      stage<DP>(qs + nb * TILE, q, s.sb, s.st, s.sh, s, bi, hi, r0);
-      stage<DP>(dos + nb * TILE, dout, dsb, dst, s.d, s, bi, hi, r0);
+      stage<DP, kNarrow>(qs + nb * TILE, q, s.sb, s.st, s.sh, s, bi, hi,
+                         r0);
+      stage<DP, kNarrow>(dos + nb * TILE, dout, dsb, dst, s.d, s, bi, hi,
+                         r0);
       stage_rows(lse_s + nb * kRows, lse, s, bh, r0);
       stage_rows(delta_s + nb * kRows, delta, s, bh, r0);
     }
@@ -739,8 +744,8 @@ flash_dkv_tf32_kernel(const float* __restrict__ q,
     }
     __syncthreads();  // every warp is done with this buffer
   }
-  store_rows<DP>(dk, dka, s, bi, hi, wk0, scale);
-  store_rows<DP>(dv, dva, s, bi, hi, wk0, 1.f);
+  store_rows<DP, kNarrow>(dk, dka, s, bi, hi, wk0, scale);
+  store_rows<DP, kNarrow>(dv, dva, s, bi, hi, wk0, 1.f);
 }
 
 // Shared memory of one block (see the header).
@@ -768,51 +773,50 @@ dim3 grid_of(const Shape& s) {
   return dim3((unsigned)(s.b * s.h), (unsigned)((s.t + kRows - 1) / kRows));
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 cudaError_t launch_fwd(const Shape& s, const void* q, const void* k,
                        const void* v, void* o, void* lse, float scale,
                        int causal, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_fwd_tf32_kernel<DP>, fwd_smem(DP));
+  const cudaError_t err =
+      allow_smem(flash_fwd_tf32_kernel<DP, kNarrow>, fwd_smem(DP));
   if (err != cudaSuccess) return err;
-  flash_fwd_tf32_kernel<DP><<<grid_of(s), kWarps * 32, fwd_smem(DP),
-                              stream>>>(
+  flash_fwd_tf32_kernel<DP, kNarrow>
+      <<<grid_of(s), kWarps * 32, fwd_smem(DP), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
       (float*)lse, s, scale, causal);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool kNarrow>
 cudaError_t launch_bwd(const Shape& s, const void* q, const void* k,
                        const void* v, const void* o, const void* dout,
                        const void* lse, void* delta, void* dq, void* dk,
                        void* dv, float scale, int causal,
                        cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_dq_tf32_kernel<DP>, dq_smem(DP));
+  cudaError_t err =
+      allow_smem(flash_dq_tf32_kernel<DP, kNarrow>, dq_smem(DP));
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_dkv_tf32_kernel<DP>, dkv_smem(DP));
+  err = allow_smem(flash_dkv_tf32_kernel<DP, kNarrow>, dkv_smem(DP));
   if (err != cudaSuccess) return err;
-  flash_dq_tf32_kernel<DP><<<grid_of(s), kWarps * 32, dq_smem(DP),
-                             stream>>>(
+  flash_dq_tf32_kernel<DP, kNarrow>
+      <<<grid_of(s), kWarps * 32, dq_smem(DP), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o,
       (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, s,
       scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_dkv_tf32_kernel<DP><<<grid_of(s), kWarps * 32, dkv_smem(DP),
-                              stream>>>(
+  flash_dkv_tf32_kernel<DP, kNarrow>
+      <<<grid_of(s), kWarps * 32, dkv_smem(DP), stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
       (const float*)dout, (const float*)lse, (const float*)delta,
       (float*)dk, (float*)dv, s, scale, causal);
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 // What the kernels take (see the header); `bf16` must be 0.
 bool takes(const Shape& s, int bf16_in) {
-  return bf16_in == 0 && s.b >= 1 && s.h >= 1 && s.t >= 1 && s.d >= 8 &&
-         s.d <= 128 && s.d % 8 == 0 && s.sb % 4 == 0 && s.st % 4 == 0 &&
-         s.sh % 4 == 0 && (long long)s.b * s.h <= 0x7fffffffLL &&
+  return bf16_in == 0 && s.b >= 1 && s.h >= 1 && s.t >= 1 && s.d >= 1 &&
+         s.d <= 128 && s.w > 0 && (long long)s.b * s.h <= 0x7fffffffLL &&
          (s.t + kRows - 1) / kRows <= 65535;
 }
 
@@ -833,25 +837,15 @@ extern "C" int flash_fwd_tf32_launch(const void* q, const void* k,
                                      long long sb, long long st,
                                      long long sh, float scale, int causal,
                                      int bf16_in, int device, void* stream) {
-  const Shape s{b, h, t, d, sb, st, sh};
   const void* ptrs[] = {q, k, v, o};  // lse: float stores
-  bool ok = takes(s, bf16_in);
-  for (const void* p : ptrs) ok = ok && aligned16(p);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const Shape s{b, h, t, d, sb, st, sh, copy_width(d, sb, st, sh, 4, ptrs)};
+  if (!takes(s, bf16_in)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t strm = (cudaStream_t)stream;
-  if (d <= 8) {
-    err = launch_fwd<8>(s, q, k, v, o, lse, scale, causal, strm);
-  } else if (d <= 16) {
-    err = launch_fwd<16>(s, q, k, v, o, lse, scale, causal, strm);
-  } else if (d <= 32) {
-    err = launch_fwd<32>(s, q, k, v, o, lse, scale, causal, strm);
-  } else if (d <= 64) {
-    err = launch_fwd<64>(s, q, k, v, o, lse, scale, causal, strm);
-  } else {
-    err = launch_fwd<128>(s, q, k, v, o, lse, scale, causal, strm);
-  }
+  with_dp<8>(s, [&](auto dp, auto narrow) {
+    err = launch_fwd<decltype(dp)::value, decltype(narrow)::value>(
+        s, q, k, v, o, lse, scale, causal, (cudaStream_t)stream);
+  });
   return (int)err;
 }
 
@@ -866,29 +860,15 @@ extern "C" int flash_bwd_tf32_launch(const void* q, const void* k,
                                      long long sb, long long st,
                                      long long sh, float scale, int causal,
                                      int bf16_in, int device, void* stream) {
-  const Shape s{b, h, t, d, sb, st, sh};
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};  // lse, delta: floats
-  bool ok = takes(s, bf16_in);
-  for (const void* p : ptrs) ok = ok && aligned16(p);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const Shape s{b, h, t, d, sb, st, sh, copy_width(d, sb, st, sh, 4, ptrs)};
+  if (!takes(s, bf16_in)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t strm = (cudaStream_t)stream;
-  if (d <= 8) {
-    err = launch_bwd<8>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                        causal, strm);
-  } else if (d <= 16) {
-    err = launch_bwd<16>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                         causal, strm);
-  } else if (d <= 32) {
-    err = launch_bwd<32>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                         causal, strm);
-  } else if (d <= 64) {
-    err = launch_bwd<64>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                         causal, strm);
-  } else {
-    err = launch_bwd<128>(s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale,
-                          causal, strm);
-  }
+  with_dp<8>(s, [&](auto dp, auto narrow) {
+    err = launch_bwd<decltype(dp)::value, decltype(narrow)::value>(
+        s, q, k, v, o, dout, lse, delta, dq, dk, dv, scale, causal,
+        (cudaStream_t)stream);
+  });
   return (int)err;
 }

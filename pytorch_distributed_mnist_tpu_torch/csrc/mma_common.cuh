@@ -1,17 +1,21 @@
 // Tensor-core building blocks shared by the port's Hopper kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_bwd_tiled.cu, matmul_i8.cu): 16-byte
-// asynchronous copies into shared memory, ldmatrix (plain and transposed),
-// the bf16 mma.sync.m16n8k16 with float32 sums, the lane offsets of the
-// three ldmatrix layouts those kernels read, and the flash kernels' shape
-// and store of an accumulator's rows. Each kernel is its own nvcc
-// translation unit; ops/cuda_build.py keys a kernel's build on this file
-// too, so an edit here rebuilds every kernel that includes it.
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_tiled.cu, matmul_i8.cu): ldmatrix
+// (plain and transposed), the bf16 mma.sync.m16n8k16 with float32 sums,
+// the lane offsets of the three ldmatrix layouts those kernels read, and
+// the flash kernels' store of an accumulator's rows. The asynchronous
+// copies, the flash problem's Shape and the copy width come from
+// stage_common.cuh. Each kernel is its own nvcc translation unit;
+// ops/cuda_build.py keys a kernel's build on this file and the headers it
+// includes too, so an edit here rebuilds every kernel that includes it.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "stage_common.cuh"  // cp_async*, Shape, copy_width, with_dp,
+                             // stage_any, store_pair
 
 namespace {
 
@@ -21,31 +25,6 @@ constexpr int kPad = 8;  // bf16 added to each shared row: ldmatrix's
                          // eight row addresses land in distinct banks
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // Four 8x8 16-bit matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8. `ldsm_t` transposes each matrix.
@@ -99,17 +78,12 @@ __device__ __forceinline__ int bt_off(int lane, int ld) {
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// A flash-attention problem: (B, T, H, D) with the element strides of
-// its q, k and v views (unit stride along D).
-struct Shape {
-  int b, h, t, d;
-  long long sb, st, sh;  // element strides of q, k and v
-};
-
 // Writes a warp's 16 x DP float32 accumulator (2*NP n-tiles of 8 columns,
 // mma's C layout) as bf16 rows row0.. of a contiguous (B, T, H, D) tensor,
-// times `scale` when `scaled`; rows >= T and columns >= D are dropped.
-template <int NP>
+// times `scale` when `scaled`; rows >= T and columns >= D are dropped. The
+// 16-byte path (D a multiple of 8) stores whole n-tiles as 32-bit pairs;
+// the narrow one (kNarrow) exactly D columns (store_pair).
+template <int NP, bool kNarrow = false>
 __device__ __forceinline__ void store_rows(bf16* out,
                                            const float (&acc)[2 * NP][4],
                                            const Shape& s, int bi, int hi,
@@ -118,7 +92,7 @@ __device__ __forceinline__ void store_rows(bf16* out,
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int n = 0; n < 2 * NP; ++n) {
-    if (n * 8 >= s.d) break;  // D is a multiple of 8
+    if (n * 8 >= s.d) break;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + g + 8 * half;
@@ -128,9 +102,14 @@ __device__ __forceinline__ void store_rows(bf16* out,
         x0 = __fmul_rn(scale, x0);
         x1 = __fmul_rn(scale, x1);
       }
-      const long long at =
-          (((long long)bi * s.t + row) * s.h + hi) * s.d + n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
+      if constexpr (kNarrow) {
+        store_pair(out + (((long long)bi * s.t + row) * s.h + hi) * s.d,
+                   n * 8 + 2 * tq, s, x0, x1);
+      } else {
+        const long long at =
+            (((long long)bi * s.t + row) * s.h + hi) * s.d + n * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
+      }
     }
   }
 }

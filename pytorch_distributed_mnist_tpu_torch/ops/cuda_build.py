@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface; kernels
-may share headers of ``csrc/`` (``#include "mma_common.cuh"``). At first
-use it is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared
-library under the checkout's ``build/torch_kernels/`` and loaded with
-``ctypes``. The library's directory is keyed on a hash of the source, of
-the headers it includes from ``csrc/`` and of the flags, so an edited
-source or header rebuilds and an unchanged one is reused.
+may share headers of ``csrc/`` (``#include "mma_common.cuh"``, which
+includes ``stage_common.cuh``). At first use it is compiled with ``nvcc``
+for ``sm_90a`` (Hopper) into a shared library under the checkout's
+``build/torch_kernels/`` and loaded with ``ctypes``. The library's
+directory is keyed on a hash of the source, of the headers it includes
+from ``csrc/`` (directly or through another header) and of the flags, so
+an edited source or header rebuilds and an unchanged one is reused.
 No PyTorch header is compiled: a build takes seconds, not minutes.
 
 Nothing here runs at import: the CPU tests import every module, and the
@@ -116,10 +117,19 @@ def library_path(name: str) -> str:
     with open(source_path(name), "rb") as f:
         source = f.read()
     digest.update(source)
-    for header in local_headers(source):
-        with open(os.path.join(os.path.dirname(source_path(name)), header),
-                  "rb") as f:
-            digest.update(f.read())
+    # Every csrc/ header the source includes, directly or through another
+    # header, each once, in the order they are first found.
+    where = os.path.dirname(source_path(name))
+    pending, seen = local_headers(source), []
+    while pending:
+        header = pending.pop(0)
+        if header in seen:
+            continue
+        seen.append(header)
+        with open(os.path.join(where, header), "rb") as f:
+            text = f.read()
+        digest.update(text)
+        pending.extend(local_headers(text))
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_ROOT, f"{name}-{digest.hexdigest()[:16]}",
                         f"lib{name}.so")

@@ -26,38 +26,38 @@ for CUDA tensors (built at first use, ``ops/cuda_build.py``) and take the
 plain versions only for tensors on the CPU. There is no fallback from one
 to the other: a CUDA tensor launches a kernel or raises.
 
-The forward (:func:`flash_fwd`) takes one of three routes on the card,
-chosen by :func:`_fwd_route` from the shape and dtype alone:
+Every default route runs on the tensor cores, at any 1 <= D <= 128 and
+any T; :func:`_fwd_route` and :func:`_bwd_route` pick it from the dtype
+and T alone:
 
-- ``"tensor"``: bfloat16 and D a multiple of 8, any T. ``csrc/flash_fwd.cu``
-  runs both products on the tensor cores (bf16 ``mma.sync``, float32
-  sums), P rounded once to bf16 for P V.
-- ``"tf32x3"``: float32 and D a multiple of 8, any T. ``csrc/flash_tf32.cu``
-  runs both products on the tensor cores as three TF32 ``mma.sync`` each
-  (every operand split into a high and a low TF32 part, float32 sums),
-  which keeps the float32 route's 1e-4 tolerance.
-- ``"cuda_core"``: D not a multiple of 8. ``csrc/flash.cu``'s forward,
-  float32 FMAs on the CUDA cores. A caller may name this route for any
-  problem (the smoke times it beside the tensor-core kernels).
+- ``"tensor"`` (forward, bfloat16): ``csrc/flash_fwd.cu``, both products
+  as bf16 ``mma.sync`` with float32 sums, P rounded once to bf16 for P V.
+- ``"fused"`` (backward, bfloat16, T <= 128): ``csrc/flash_bwd.cu``, one
+  kernel per call computes delta, dQ, dK and dV for a whole (batch, head).
+- ``"tiled"`` (backward, bfloat16, T > 128, such as the ViT at
+  ``--patch-size 2``): ``csrc/flash_bwd_tiled.cu``, a dQ kernel (which
+  also writes delta) and then a dK/dV kernel, each tiling T by 64 rows.
+- ``"tf32x3"`` (forward and backward, float32, such as the ViT under
+  ``--dtype f32``): ``csrc/flash_tf32.cu``, the forward and a dQ then a
+  dK/dV kernel as in the tiled pair, every product as three TF32
+  ``mma.sync`` (each operand split into a high and a low TF32 part) with
+  float32 sums, which keeps the float32 route's 1e-4 tolerance.
 
-The backward (:func:`flash_bwd`) takes one of four routes on the card,
-chosen by :func:`_bwd_route` from the shape and dtype alone (or named
-with ``route=``):
+The tensor-core kernels pad the head dims to DP in {16, 32, 64, 128} (8
+too in float32) with zeros in shared memory. With D a multiple of 8 and
+16-byte aligned views they copy 16 bytes a thread; any other view (an odd
+D, the ViT's D = 12 slices of its qkv product, a view that starts off a
+16-byte boundary) takes their narrow instantiation, which copies and
+stores in the widest of 16, 8, 4 and 2 bytes that the view allows
+(``csrc/stage_common.cuh``, :func:`_copy_width`). No operand is copied
+for its alignment.
 
-- ``"fused"``: bfloat16, T <= 128 and D a multiple of 8 (D <= 128 holds
-  for every route). One kernel per call (``csrc/flash_bwd.cu``) computes
-  delta, dQ, dK and dV for a whole (batch, head) on the tensor cores.
-- ``"tiled"``: bfloat16, T > 128 and D a multiple of 8, such as the ViT at
-  ``--patch-size 2`` (T = 196). ``csrc/flash_bwd_tiled.cu``: a dQ kernel
-  (which also writes delta) and then a dK/dV kernel, each tiling T by 64
-  rows, on the tensor cores. A caller may name it at any T.
-- ``"tf32x3"``: float32 and D a multiple of 8, any T, such as the ViT
-  under ``--dtype f32``. ``csrc/flash_tf32.cu``: a dQ kernel (which also
-  writes delta) and then a dK/dV kernel as in the tiled pair, every
-  product as three TF32 ``mma.sync`` with float32 sums.
-- ``"split"``: D not a multiple of 8. :func:`flash_dq`, which also
-  computes delta, and then :func:`flash_dkv`, both with float32 FMAs on
-  the CUDA cores. A caller may name it for any problem.
+A caller may also name the CUDA-core kernels of ``csrc/flash.cu``, float32
+FMAs, for any problem: ``route="cuda_core"`` for the forward and
+``route="split"`` for the backward (:func:`flash_dq`, which also computes
+delta, then :func:`flash_dkv`). No problem takes them by default; they
+stay so that the smoke can time the tensor-core routes beside them.
+``"tiled"`` may also be named for a bf16 problem of T <= 128.
 """
 
 from __future__ import annotations
@@ -250,45 +250,44 @@ def _shape_args(q: torch.Tensor) -> tuple:
     return (b, h, t, d, q.stride(0), q.stride(1), q.stride(2))
 
 
-def _aligned(*tensors: torch.Tensor) -> bool:
-    """Every tensor starts on a 16-byte boundary and every stride but the
-    last is a multiple of 16 bytes (8 bf16 or 4 float32 elements): the
-    tensor-core kernels' 16-byte loads of rows need both."""
-    return all(t.data_ptr() % 16 == 0
-               and all(st * t.element_size() % 16 == 0
-                       for st in t.stride()[:-1])
-               for t in tensors)
+def _copy_width(*tensors: torch.Tensor) -> int:
+    """The copy width in bytes that the tensor-core kernels' C entries
+    pick for a call on these tensors (``copy_width`` in
+    ``csrc/stage_common.cuh``): the widest of 16, 8, 4 and 2 that divides
+    every pointer and the bytes of every stride and of D. 16 with D a
+    multiple of 8 is their 16-byte path; anything else their narrow one."""
+    bits = 0
+    for t in tensors:
+        size = t.element_size()
+        bits |= t.data_ptr() | t.shape[-1] * size
+        for st in t.stride()[:-1]:
+            bits |= st * size
+    width = 16
+    while width > 1 and bits % width:
+        width //= 2
+    return width
 
 
 def _fwd_route(shape, dtype) -> str:
     """:func:`flash_fwd`'s route for a ``(B, T, H, D)`` problem of this
-    dtype: with D a multiple of 8 a tensor-core kernel, ``"tensor"``
-    (bfloat16) or ``"tf32x3"`` (float32); else ``"cuda_core"``."""
-    if shape[-1] % 8:
-        return "cuda_core"
+    dtype, at any D: ``"tensor"`` (bfloat16) or ``"tf32x3"`` (float32)."""
     return "tensor" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _bwd_route(shape, dtype) -> str:
     """:func:`flash_bwd`'s route for a ``(B, T, H, D)`` problem of this
-    dtype: with D a multiple of 8, ``"fused"`` (bfloat16, T <= 128),
-    ``"tiled"`` (bfloat16, T > 128) or ``"tf32x3"`` (float32, any T); else
-    ``"split"``."""
-    _, t, _, d = shape
-    if d % 8:
-        return "split"
+    dtype, at any D: ``"fused"`` (bfloat16, T <= 128), ``"tiled"``
+    (bfloat16, T > 128) or ``"tf32x3"`` (float32, any T)."""
     if dtype == torch.bfloat16:
-        return "fused" if t <= FUSED_MAX_T else "tiled"
+        return "fused" if shape[1] <= FUSED_MAX_T else "tiled"
     return "tf32x3"
 
 
 def _bwd_routes(shape, dtype) -> tuple:
-    """The routes a caller may name for this problem: ``"split"`` for any;
-    ``"tiled"`` wherever a bf16 tensor-core route is the best; ``"fused"``
-    and ``"tf32x3"`` only where they are the best."""
+    """The routes a caller may name for this problem: the default first,
+    ``"tiled"`` for any bf16 problem, and ``"split"`` for any."""
     return {"fused": ("fused", "tiled", "split"), "tiled": ("tiled", "split"),
-            "tf32x3": ("tf32x3", "split"),
-            "split": ("split",)}[_bwd_route(shape, dtype)]
+            "tf32x3": ("tf32x3", "split")}[_bwd_route(shape, dtype)]
 
 
 def _launch(symbol: str, q: torch.Tensor, pointers: list, scale: float,
@@ -311,8 +310,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (default :func:`_fwd_route`'s; ``"cuda_core"`` may be named for any
     problem, ``"tensor"`` and ``"tf32x3"`` only where the route function
     gives them), counted in ``flash_fwd.launches`` and
-    ``flash_fwd.route_launches[route]``. The tensor-core routes copy a view
-    whose pointer or strides are not 16-byte aligned."""
+    ``flash_fwd.route_launches[route]``. The kernels take q, k and v as
+    strided views at any alignment (:func:`_copy_width`)."""
     _check(q, k, v)
     best = _fwd_route(q.shape, q.dtype)
     route = best if route is None else route
@@ -322,9 +321,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     q, k, v = _views(q, k, v)
-    if route != "cuda_core" and not _aligned(q, k, v):
-        q, k, v = (x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -415,9 +411,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     counted in ``flash_bwd.route_launches[route]``: ``"fused"`` launches
     the one-kernel backward (also counted in ``flash_bwd.launches``),
     ``"tiled"`` the tiled dQ and dK/dV kernels and ``"tf32x3"`` the float32
-    ones, each after copying any operand whose pointer or strides are not
-    16-byte aligned; ``"split"`` calls :func:`flash_dq` and then
-    :func:`flash_dkv` (counted in theirs)."""
+    ones, q, k and v as strided views at any alignment and O and dO made
+    contiguous (the kernels index them densely); ``"split"`` calls
+    :func:`flash_dq` and then :func:`flash_dkv` (counted in theirs)."""
     _check(q, k, v, o, do)
     _check_rows(q, lse)
     allowed = _bwd_routes(q.shape, q.dtype)
@@ -436,13 +432,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             flash_bwd.route_launches["split"] += 1
         return dq, dk, dv
     q, k, v = _views(q, k, v)
-    if not _aligned(q, k, v):
-        q, k, v = (x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
-    o, do = (x if x.is_contiguous() and _aligned(x)
-             else x.clone(memory_format=torch.contiguous_format)
-             for x in (o, do))
-    lse = lse.contiguous()
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
     b, t, h, d = q.shape
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -480,10 +470,9 @@ flash_dkv.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """O from :func:`flash_fwd` (the bf16 or the 3xTF32 tensor-core
-    forward, or the CUDA-core one); the backward is :func:`flash_bwd` (the
-    fused kernel, the tiled pair, the 3xTF32 pair, or the CUDA-core dQ
-    kernel then dK/dV kernel). Saves q, k, v, O and lse (the reference's
-    custom_vjp residuals, here unpadded)."""
+    forward); the backward is :func:`flash_bwd` (the fused kernel, the
+    tiled pair or the 3xTF32 pair), each on its default route. Saves q, k,
+    v, O and lse (the reference's custom_vjp residuals, here unpadded)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

@@ -283,7 +283,13 @@ def test_flash_attention_trains_through_the_kernels(card):
         _flash_close(got, want, torch.float32)
 
 
-FLASH_BWD_SHAPES = FLASH_SHAPES + [(2, 128, 2, 128), (3, 100, 3, 48)]
+# With head dims that are not a multiple of 8 the tensor-core kernels run
+# their narrow instantiation: copy widths of 8 (D = 12, 100), 2 (D = 7,
+# bf16) and 4 (D = 10, bf16) bytes.
+FLASH_BWD_SHAPES = FLASH_SHAPES + [(2, 128, 2, 128), (3, 100, 3, 48),
+                                   (2, 33, 2, 12), (2, 196, 2, 12),
+                                   (2, 57, 3, 7), (1, 30, 2, 10),
+                                   (1, 100, 2, 100)]
 
 
 def _bwd_counts(flash):
@@ -354,10 +360,11 @@ def test_flash_bwd_fused_gives_the_same_bits_twice(card, causal):
 def test_flash_bwd_copies_a_misaligned_view(card):
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
-    # The qkv product starts 3 elements (6 bytes) into its buffer.
+    # The qkv product starts 3 elements (6 bytes) into its buffer: the
+    # kernel takes the views as they are, 2 bytes at a time.
     q, k, v, o, lse, do = _flash_bwd_inputs(card, (8, 49, 4, 16),
                                             torch.bfloat16, 22, offset=3)
-    assert not flash._aligned(q)
+    assert flash._copy_width(q, k, v) == 2
     before = flash.flash_bwd.launches
     got = flash.flash_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -368,7 +375,10 @@ def test_flash_bwd_copies_a_misaligned_view(card):
 
 @pytest.mark.parametrize("shape,dtype", [((32, 196, 4, 16), torch.bfloat16),
                                          ((4, 49, 4, 16), torch.bfloat16),
-                                         ((4, 49, 4, 16), torch.float32)])
+                                         ((4, 49, 4, 16), torch.float32),
+                                         ((4, 49, 4, 12), torch.bfloat16),
+                                         ((4, 49, 4, 12), torch.float32),
+                                         ((4, 196, 4, 12), torch.bfloat16)])
 def test_flash_attention_backward_takes_its_route(card, shape, dtype):
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
@@ -428,7 +438,7 @@ def test_flash_bwd_tiled_copies_a_misaligned_view(card):
 
     q, k, v, o, lse, do = _flash_bwd_inputs(card, (4, 196, 4, 16),
                                             torch.bfloat16, 25, offset=3)
-    assert not flash._aligned(q)
+    assert flash._copy_width(q, k, v) == 2
     got = flash.flash_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     for a, w in zip(got, flash.flash_bwd_plain(q, k, v, o, lse, do)):
@@ -468,14 +478,14 @@ def test_flash_fwd_tensor_route_matches_plain_with_the_same_bits(card, shape,
 @pytest.mark.parametrize("shape", [(256, 49, 4, 16), (1, 70, 1, 8),
                                    (2, 33, 2, 12)])
 def test_flash_fwd_float32_takes_the_cuda_core_route(card, shape):
-    # float32 takes the 3xTF32 kernel with D a multiple of 8 and the
-    # CUDA-core kernel otherwise.
+    # float32 takes the 3xTF32 kernel at every D, D = 12 included; the
+    # CUDA-core kernel only where it is named.
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     gen = torch.Generator(device=card).manual_seed(31)
     q, k, v = (torch.randn(shape, device=card, generator=gen)
                for _ in range(3))
-    route = "cuda_core" if shape[-1] % 8 else "tf32x3"
+    route = "tf32x3"
     assert flash._fwd_route(shape, torch.float32) == route
     before = _routes(flash)
     o, lse = flash.flash_fwd(q, k, v)
@@ -520,10 +530,11 @@ def test_flash_tf32_matches_plain_with_the_same_bits(card, shape, causal):
 def test_flash_tf32_copies_a_misaligned_view(card):
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
-    # The qkv product starts 1 element (4 bytes) into its buffer.
+    # The qkv product starts 1 element (4 bytes) into its buffer: the
+    # kernels take the views as they are, 4 bytes at a time.
     q, k, v, o, lse, do = _flash_bwd_inputs(card, (8, 49, 4, 16),
                                             torch.float32, 33, offset=1)
-    assert not flash._aligned(q)
+    assert flash._copy_width(q, k, v) == 4
     fwd_before, bwd_before = _routes(flash)["tf32x3"], _bwd_counts(flash)
     got_o, got_lse = flash.flash_fwd(q, k, v)
     grads = flash.flash_bwd(q, k, v, o, lse, do)
@@ -538,15 +549,47 @@ def test_flash_tf32_copies_a_misaligned_view(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_d12_takes_the_cuda_core_routes(card, dtype):
+def test_flash_d12_takes_the_tensor_core_routes(card, dtype):
+    # D = 12 (the ViT at embed 48 in 4 heads) takes the tensor-core
+    # kernels' narrow instantiation by default: the bf16 forward and fused
+    # backward, or the 3xTF32 forward and pair.
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
     shape = (2, 33, 2, 12)
     q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, dtype, 34,
                                             causal=True)
+    assert flash._copy_width(q, k, v) == (8 if dtype == torch.bfloat16
+                                          else 16)
+    fwd_route = "tensor" if dtype == torch.bfloat16 else "tf32x3"
+    bwd_route = "fused" if dtype == torch.bfloat16 else "tf32x3"
     fwd_before, bwd_before = _routes(flash), _bwd_counts(flash)
     got_o, got_lse = flash.flash_fwd(q, k, v, causal=True)
     grads = flash.flash_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    after = _routes(flash)
+    assert {r: after[r] - fwd_before[r] for r in after} == \
+        {r: int(r == fwd_route) for r in after}
+    assert tuple(n - m for m, n in zip(bwd_before, _bwd_counts(flash))) == \
+        BWD_MOVES[bwd_route]
+    _flash_close(got_o, o, dtype)
+    _flash_close(got_lse, lse, torch.float32)
+    for a, w in zip(grads, flash.flash_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=True)):
+        _flash_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d12_named_cuda_core_routes_match_plain(card, dtype):
+    # The CUDA-core forward and split pair, which no problem takes unnamed,
+    # named at the D = 12 shape they used to serve by default.
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    shape = (2, 33, 2, 12)
+    q, k, v, o, lse, do = _flash_bwd_inputs(card, shape, dtype, 35,
+                                            causal=True)
+    fwd_before, bwd_before = _routes(flash), _bwd_counts(flash)
+    got_o, got_lse = flash.flash_fwd(q, k, v, causal=True, route="cuda_core")
+    grads = flash.flash_bwd(q, k, v, o, lse, do, causal=True, route="split")
     torch.cuda.synchronize()
     after = _routes(flash)
     assert {r: after[r] - fwd_before[r] for r in after} == \
@@ -563,10 +606,11 @@ def test_flash_d12_takes_the_cuda_core_routes(card, dtype):
 def test_flash_fwd_copies_a_misaligned_view(card):
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
-    # The qkv product starts 3 elements (6 bytes) into its buffer.
+    # The qkv product starts 3 elements (6 bytes) into its buffer: the
+    # kernel takes the views as they are, 2 bytes at a time.
     q, k, v, _, _, _ = _flash_bwd_inputs(card, (8, 49, 4, 16),
                                          torch.bfloat16, 32, offset=3)
-    assert not flash._aligned(q)
+    assert flash._copy_width(q, k, v) == 2
     before = _routes(flash)["tensor"]
     o, lse = flash.flash_fwd(q, k, v)
     torch.cuda.synchronize()

@@ -5,7 +5,10 @@ plain versions; the CUDA kernels are held against those on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Inputs are float32, made with numpy. The two sides sum the same products
-in another order, so outputs of order 1 agree to ``atol 1e-5``."""
+in another order, so outputs of order 1 agree to ``atol 1e-5``. The
+shapes include head dims that are not a multiple of 8 (D in {4, 7, 12,
+20}), which the port's tensor-core kernels take in their narrow
+instantiation on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from pytorch_distributed_mnist_tpu_torch.ops import flash
 
 torch.set_num_threads(2)
 
-SHAPES = [(2, 49, 4, 16), (1, 1, 1, 8), (1, 16, 4, 16), (2, 130, 2, 32)]
+SHAPES = [(2, 49, 4, 16), (1, 1, 1, 8), (1, 16, 4, 16), (2, 130, 2, 32),
+          (1, 40, 2, 4), (1, 57, 3, 7), (2, 49, 4, 12), (1, 90, 2, 20)]
 CASES = [(shape, causal) for shape in SHAPES for causal in (False, True)]
 ATOL = 1e-5
 

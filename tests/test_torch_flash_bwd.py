@@ -117,17 +117,18 @@ def test_flash_bwd_matches_the_pallas_backward(case):
                                    atol=2 * BF16_ATOL, err_msg=name)
 
 
-# The route each FLASH_CHECK_SHAPES entry takes in bf16: with D a
-# multiple of 8 fused up to T = 128, tiled above; split at D = 12.
-# float32 takes the 3xTF32 pair with D a multiple of 8, else the split
-# pair.
+# The route each FLASH_CHECK_SHAPES entry takes in bf16, at any D: fused
+# up to T = 128, tiled above. float32 takes the 3xTF32 pair at any D.
 BF16_ROUTES = {
     (256, 49, 4, 16): "fused", (2, 1, 2, 16): "fused",
     (2, 16, 2, 16): "fused", (2, 196, 2, 16): "tiled",
     (2, 200, 2, 64): "tiled", (1, 200, 2, 128): "tiled",
     (3, 130, 2, 32): "tiled", (1, 70, 1, 8): "fused",
     (2, 128, 2, 128): "fused", (3, 100, 3, 48): "fused",
-    (2, 33, 2, 12): "split",
+    (2, 33, 2, 12): "fused", (2, 196, 2, 12): "tiled",
+    (2, 40, 2, 4): "fused", (2, 57, 3, 7): "fused",
+    (1, 30, 2, 10): "fused", (2, 90, 2, 20): "fused",
+    (1, 100, 2, 100): "fused",
 }
 
 
@@ -144,14 +145,14 @@ def test_bwd_route_of_every_check_shape(shape, dtype):
     if dtype == torch.bfloat16:
         want = BF16_ROUTES[shape]
     else:
-        want = "split" if shape[-1] % 8 else "tf32x3"
+        want = "tf32x3"
     assert flash._bwd_route(shape, dtype) == want
 
 
 @pytest.mark.parametrize("shape,dtype,route", [
     ((1, 128, 1, 16), torch.bfloat16, "fused"),
     ((1, 129, 1, 16), torch.bfloat16, "tiled"),
-    ((1, 49, 1, 12), torch.bfloat16, "split"),   # D not a multiple of 8
+    ((1, 49, 1, 12), torch.bfloat16, "fused"),   # D not a multiple of 8
     ((1, 49, 1, 128), torch.bfloat16, "fused"),
     ((1, 49, 1, 16), torch.float32, "tf32x3"),
 ] + [(shape, getattr(torch, dtype), route)  # the smoke's route run
@@ -166,8 +167,9 @@ def test_bwd_route_is_tiled_above_the_fused_kernel(t, d):
     assert flash._bwd_route((2, t, 2, d), torch.bfloat16) == "tiled"
     # float32 takes the 3xTF32 pair at any T.
     assert flash._bwd_route((2, t, 2, d), torch.float32) == "tf32x3"
-    assert flash._bwd_route((2, t, 2, d + 4), torch.bfloat16) == "split"
-    assert flash._bwd_route((2, t, 2, d + 4), torch.float32) == "split"
+    # So do head dims that are not a multiple of 8.
+    assert flash._bwd_route((2, t, 2, d + 4), torch.bfloat16) == "tiled"
+    assert flash._bwd_route((2, t, 2, d + 4), torch.float32) == "tf32x3"
 
 
 def test_bwd_routes_a_caller_may_name():
@@ -177,19 +179,21 @@ def test_bwd_routes_a_caller_may_name():
     assert flash._bwd_routes((2, 196, 4, 16), bf16) == ("tiled", "split")
     assert flash._bwd_routes((2, 49, 4, 16), f32) == ("tf32x3", "split")
     assert flash._bwd_routes((2, 196, 4, 16), f32) == ("tf32x3", "split")
-    assert flash._bwd_routes((2, 49, 4, 12), bf16) == ("split",)
-    assert flash._bwd_routes((2, 49, 4, 12), f32) == ("split",)
+    # D = 12 has the D = 16 routes: "split" only when named.
+    assert flash._bwd_routes((2, 49, 4, 12), bf16) == ("fused", "tiled",
+                                                       "split")
+    assert flash._bwd_routes((2, 49, 4, 12), f32) == ("tf32x3", "split")
     assert set(flash.flash_bwd.route_launches) == {"fused", "tiled",
                                                    "tf32x3", "split"}
 
 
 @pytest.mark.parametrize("shape,dtype,route", [
     ((1, 196, 1, 16), torch.bfloat16, "fused"),   # T above the fused 128
-    ((1, 49, 1, 16), torch.float32, "tiled"),     # float32: split only
-    ((1, 49, 1, 12), torch.bfloat16, "tiled"),    # D not a multiple of 8
+    ((1, 49, 1, 16), torch.float32, "tiled"),     # bf16 only
+    ((1, 49, 1, 12), torch.float32, "tiled"),     # bf16 only, at any D
     ((1, 49, 1, 16), torch.bfloat16, "tensor"),   # no such route
     ((1, 49, 1, 16), torch.bfloat16, "tf32x3"),   # float32 only
-    ((1, 49, 1, 12), torch.float32, "tf32x3"),    # D not a multiple of 8
+    ((1, 49, 1, 12), torch.bfloat16, "tf32x3"),   # float32 only, at any D
     ((1, 196, 1, 16), torch.float32, "fused"),    # bf16 only
 ])
 def test_flash_bwd_refuses_a_route_the_problem_has_not(shape, dtype, route):
@@ -216,13 +220,16 @@ def test_a_named_route_on_the_cpu_is_the_plain_version(route):
 
 
 def test_alignment_check_finds_misaligned_views():
+    # The copy width the kernels pick: 16 bytes (their 16-byte path) for
+    # the ViT's qkv slices; a view that starts 2 bytes off, or whose
+    # strides are 20 elements, takes the narrow path at 2 or 8 bytes.
     base = torch.zeros(2 * 49 * 3 * 4 * 16 + 1, dtype=torch.bfloat16)
     qkv = base[:-1].view(2, 49, 3, 4, 16)
-    assert flash._aligned(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    assert flash._copy_width(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) == 16
     shifted = base[1:].view(2, 49, 3, 4, 16)  # 2 bytes off
-    assert not flash._aligned(shifted[:, :, 1])
+    assert flash._copy_width(shifted[:, :, 1]) == 2
     odd = torch.zeros(2, 49, 4, 20, dtype=torch.bfloat16)[..., :16]
-    assert not flash._aligned(odd)  # strides of 20 elements
+    assert flash._copy_width(odd) == 8  # strides of 20 elements
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -292,7 +299,8 @@ def test_one_bf16_rounding_of_p_and_ds_fits_the_tolerance():
     worst = 0.0
     for shape in [(256, 49, 4, 16), (2, 1, 2, 16), (2, 16, 2, 16),
                   (1, 70, 1, 8), (2, 128, 2, 128), (3, 100, 3, 48),
-                  (8, 128, 4, 16), (2, 113, 2, 64)]:
+                  (8, 128, 4, 16), (2, 113, 2, 64), (64, 49, 4, 12),
+                  (2, 57, 3, 7), (1, 100, 2, 100)]:
         b, t, h, d = shape
         for causal in (False, True):
             for _ in range(3):
@@ -344,7 +352,8 @@ def _tiled_backward_emulation(q, k, v, o, lse, do, causal, rows=64):
 
 
 # The bf16 shapes of chip_smoke.FLASH_CHECK_SHAPES that the tiled route
-# takes, and the smoke's route-phase shape.
+# takes (D = 12 among them, whose head dims the kernels pad to 16 with
+# zeros: the same sums), and the smoke's route-phase shape.
 TILED_SHAPES = [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[1] > 128] \
     + [(32, 196, 4, 16)]
 

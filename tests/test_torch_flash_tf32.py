@@ -68,17 +68,31 @@ def _keep(rows: slice, cols: slice, causal: bool) -> torch.Tensor:
     return qi >= kj if causal else torch.ones_like(qi >= kj)
 
 
+def pad_to_dp(x: torch.Tensor) -> torch.Tensor:
+    """x with its head dims zero-padded to the float32 kernels' DP, the
+    smallest power of two from 8 that holds D, as they stage rows."""
+    d = x.shape[-1]
+    dp = 8
+    while dp < d:
+        dp *= 2
+    return torch.nn.functional.pad(x, (0, dp - d))
+
+
 def tf32x3_forward(q, k, v, causal, single=False):
-    """``flash_fwd_plain`` with the 3xTF32 forward's arithmetic: q scaled
-    and rounded once, then per 64-key tile S = Q K^T, the masked online
-    softmax (running max, P = exp(s - m), the sums rescaled by exp(m_old -
-    m)) and O += P V, both products split 3xTF32. Returns (O, lse)."""
-    b, t, h, d = q.shape
+    """``flash_fwd_plain`` with the 3xTF32 forward's arithmetic, on head
+    dims zero-padded to DP as the kernel stages them: q scaled by D's
+    scale and rounded once, then per 64-key tile S = Q K^T, the masked
+    online softmax (running max, P = exp(s - m), the sums rescaled by
+    exp(m_old - m)) and O += P V, both products split 3xTF32. Returns (O,
+    lse), O's D columns."""
+    d = q.shape[-1]
+    q, k, v = (pad_to_dp(x) for x in (q, k, v))
+    b, t, h, dp = q.shape
     qh = flash._heads(q) * d ** -0.5
     kh, vh = flash._heads(k), flash._heads(v)
     m = torch.full((b, h, t, 1), flash.NEG_INF)
     l = torch.zeros((b, h, t, 1))
-    acc = torch.zeros((b, h, t, d))
+    acc = torch.zeros((b, h, t, dp))
     for k0 in range(0, t, ROWS):
         ks = slice(k0, min(t, k0 + ROWS))
         s = _mm3(qh, kh[..., ks, :].transpose(-1, -2), single=single)
@@ -93,21 +107,24 @@ def tf32x3_forward(q, k, v, causal, single=False):
     o = acc / torch.clamp(l, min=1e-30)
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full((), flash.NEG_INF))
-    return o.permute(0, 2, 1, 3).contiguous(), lse[..., 0]
+    return o.permute(0, 2, 1, 3)[..., :d].contiguous(), lse[..., 0]
 
 
 def tf32x3_backward(q, k, v, o, lse, do, causal):
-    """``flash_bwd_plain`` with the 3xTF32 pair's arithmetic: delta from O
-    and dO in float32; per (64-row query tile, 64-key tile), in the order
-    the kernels take them, S and dP, P = exp(scale s - lse) and dS = P (dP
-    - delta) in float32, then dQ += dS K, dK += dS^T Q and dV += P^T dO,
+    """``flash_bwd_plain`` with the 3xTF32 pair's arithmetic, on head dims
+    zero-padded to DP as the kernels stage them: delta from O and dO in
+    float32; per (64-row query tile, 64-key tile), in the order the
+    kernels take them, S and dP, P = exp(scale s - lse) and dS = P (dP -
+    delta) in float32, then dQ += dS K, dK += dS^T Q and dV += P^T dO,
     every product split 3xTF32; tiles wholly above the causal diagonal are
-    skipped."""
-    b, t, h, d = q.shape
+    skipped. Returns dQ, dK and dV's D columns."""
+    d = q.shape[-1]
     scale = d ** -0.5
+    q, k, v, o, do = (pad_to_dp(x) for x in (q, k, v, o, do))
+    b, t, h, dp = q.shape
     qh, kh, vh, oh, doh = (flash._heads(x) for x in (q, k, v, o, do))
     delta = (doh * oh).sum(-1)
-    dq, dk, dv = (torch.zeros(b, h, t, d) for _ in range(3))
+    dq, dk, dv = (torch.zeros(b, h, t, dp) for _ in range(3))
     for q0 in range(0, t, ROWS):
         qs = slice(q0, min(t, q0 + ROWS))
         for k0 in range(0, t, ROWS):
@@ -125,8 +142,8 @@ def tf32x3_backward(q, k, v, o, lse, do, causal):
                                   acc=dk[..., ks, :])
             dv[..., ks, :] = _mm3(p.transpose(-1, -2), doh[..., qs, :],
                                   acc=dv[..., ks, :])
-    return (flash._out(scale * dq, q), flash._out(scale * dk, k),
-            flash._out(dv, v))
+    return tuple(flash._out(x, y)[..., :d].contiguous()
+                 for x, y in ((scale * dq, q), (scale * dk, k), (dv, v)))
 
 
 # ------------------------------------------------------- TF32 rounding
@@ -178,8 +195,10 @@ def test_split_carries_about_21_bits():
 
 # --------------------------------------------- 3xTF32 against plain
 
-# The float32 check shapes the route takes (D a multiple of 8).
-TF32_SHAPES = [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[-1] % 8 == 0]
+# The float32 check shapes the route takes: every one, those whose D is
+# not a multiple of 8 in the kernels' narrow instantiation (the same
+# arithmetic on head dims zero-padded to DP).
+TF32_SHAPES = list(chip_smoke.FLASH_CHECK_SHAPES)
 IDS = ["x".join(map(str, s)) for s in TF32_SHAPES]
 
 
@@ -195,11 +214,20 @@ def _inputs(shape, seed):
 
 
 def test_the_route_takes_every_float32_check_shape_but_d12():
+    # Every float32 check shape takes the route; those whose D is not a
+    # multiple of 8 (D = 12 and the others) take its narrow instantiation,
+    # the rest its 16-byte path (chip_smoke.flash_inputs' qkv slices).
     assert [s for s in chip_smoke.FLASH_CHECK_SHAPES if s[-1] % 8] == \
-        [(2, 33, 2, 12)]
+        [(2, 33, 2, 12), (2, 196, 2, 12), (2, 40, 2, 4), (2, 57, 3, 7),
+         (1, 30, 2, 10), (2, 90, 2, 20), (1, 100, 2, 100)]
     for shape in TF32_SHAPES:
         assert flash._fwd_route(shape, torch.float32) == "tf32x3"
         assert flash._bwd_route(shape, torch.float32) == "tf32x3"
+        q, k, v, _ = chip_smoke.flash_inputs(
+            shape, torch.float32, torch.Generator().manual_seed(0),
+            torch.device("cpu"))
+        wide = flash._copy_width(q, k, v) == 16 and shape[-1] % 8 == 0
+        assert wide == (shape[-1] % 8 == 0)
 
 
 @pytest.mark.parametrize("shape", TF32_SHAPES, ids=IDS)
@@ -243,8 +271,8 @@ def test_a_single_tf32_product_misses_the_float32_tolerance():
 # ---------------------------------------------- against the Pallas kernels
 
 PALLAS_SHAPES = [(2, 49, 4, 16), (1, 70, 1, 8), (1, 33, 2, 48),
-                 (1, 130, 1, 32)]
-PALLAS_IDS = ["vit-like", "d8", "d48", "t130"]
+                 (1, 130, 1, 32), (2, 49, 4, 12), (1, 57, 3, 7)]
+PALLAS_IDS = ["vit-like", "d8", "d48", "t130", "d12", "d7"]
 
 
 @pytest.mark.parametrize("shape", PALLAS_SHAPES, ids=PALLAS_IDS)
@@ -303,8 +331,8 @@ def test_tf32x3_emulation_matches_the_pallas_backward(shape, causal):
     ((256, 196, 4, 16), "tf32x3", "tf32x3"),  # ... at --patch-size 2
     ((1, 4096, 1, 128), "tf32x3", "tf32x3"),  # no limit on T
     ((1, 49, 1, 8), "tf32x3", "tf32x3"),
-    ((1, 49, 1, 12), "cuda_core", "split"),   # D not a multiple of 8
-    ((2, 33, 2, 12), "cuda_core", "split"),
+    ((1, 49, 1, 12), "tf32x3", "tf32x3"),   # D not a multiple of 8
+    ((2, 33, 2, 12), "tf32x3", "tf32x3"),
 ])
 def test_float32_routes(shape, fwd, bwd):
     assert flash._fwd_route(shape, torch.float32) == fwd
@@ -348,23 +376,23 @@ def test_tf32x3_is_refused_where_it_is_not_the_route():
     with pytest.raises(ValueError, match="no route 'tf32x3'"):
         flash.flash_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(),
                         route="tf32x3")
-    d12 = torch.zeros((1, 4, 1, 12))
+    d12 = torch.zeros((1, 4, 1, 12), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no route 'tf32x3'"):
-        flash.flash_fwd(d12, d12, d12, route="tf32x3")
+        flash.flash_fwd(d12, d12, d12, route="tf32x3")  # bf16 at D = 12
     with pytest.raises(ValueError, match="no route 'tensor'"):
         flash.flash_fwd(x, x, x, route="tensor")
 
 
 def test_alignment_counts_bytes_for_float32():
     # 16-byte rows are 4 float32 elements: the ViT's float32 qkv slices
-    # (strides of 3*H*D and D elements) need no copy.
+    # (strides of 3*H*D and D elements) take the 16-byte path.
     base = torch.zeros(2 * 49 * 3 * 4 * 16 + 1)
     qkv = base[:-1].view(2, 49, 3, 4, 16)
-    assert flash._aligned(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-    assert flash._aligned(torch.zeros(2, 49, 4, 20)[..., :16])  # 80 bytes
-    assert not flash._aligned(torch.zeros(2, 49, 4, 18)[..., :16])
+    assert flash._copy_width(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) == 16
+    assert flash._copy_width(torch.zeros(2, 49, 4, 20)[..., :16]) == 16
+    assert flash._copy_width(torch.zeros(2, 49, 4, 18)[..., :16]) == 8
     shifted = base[1:].view(2, 49, 3, 4, 16)  # 4 bytes off
-    assert not flash._aligned(shifted[:, :, 1])
+    assert flash._copy_width(shifted[:, :, 1]) == 4
 
 
 def test_the_library_is_registered_with_both_entries():
@@ -379,9 +407,10 @@ def test_the_library_is_registered_with_both_entries():
     assert path.endswith("csrc/flash_tf32.cu")
     with open(path, "rb") as f:
         source = f.read()
-    # Its TF32 helpers are its own: an edit to the shared bf16 header does
-    # not rebuild it.
-    assert cuda_build.local_headers(source) == []
+    # Its TF32 helpers are its own: it shares only the staging header with
+    # the bf16 kernels, so an edit to their tensor-core header
+    # (mma_common.cuh) does not rebuild it.
+    assert cuda_build.local_headers(source) == ["stage_common.cuh"]
     for instr in (b"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                   b"ex2.approx.ftz.f32"):
         assert instr in source

@@ -160,6 +160,48 @@ def test_bf16_argmax_agrees_with_jax(attention):
     assert agree >= 0.95, agree
 
 
+def test_d12_vit_with_flash_matches_jax_forward_and_gradients():
+    # The ViT at embed_dim=48 in 4 heads: D = 12, a head dim that is not a
+    # multiple of 8, which the port's tensor-core kernels take in their
+    # narrow instantiation on the card (here, on the CPU, their plain
+    # versions). The JAX ViT runs its Pallas flash kernels in interpret
+    # mode on the same params, carried across by models/convert.py. float32
+    # on both sides; the products sum in another order, hence atol 1e-5 on
+    # logits of order 1, and on each leaf's gradient rtol 1e-4 with atol
+    # 1e-5 times its largest magnitude.
+    kwargs = {"embed_dim": 48, "num_heads": 4}
+    jmodel = jax_get_model("vit", compute_dtype=jnp.float32,
+                           attention_fn=jax_flash_attention, **kwargs)
+    variables = jax.jit(jmodel.init)(jax.random.key(12),
+                                     jnp.zeros((1, 28, 28, 1), jnp.float32))
+    tmodel = get_model("vit", compute_dtype=torch.float32,
+                       attention_fn=flash_attention, **kwargs)
+    params = params_from_jax("vit", _jax_flat(variables), **kwargs)
+    tmodel.load_state_dict({k: torch.from_numpy(v)
+                            for k, v in params.items()})
+    assert tmodel.block0.attn.qkv.kernel.shape == (48, 144)
+    x = _images(8, seed=12)
+    g = np.random.default_rng(12).standard_normal((8, 10)).astype(np.float32)
+
+    def loss(v):
+        return jnp.sum(jmodel.apply(v, jnp.asarray(x)) * g)
+
+    want_logits = np.asarray(jax.jit(jmodel.apply)(variables,
+                                                   jnp.asarray(x)))
+    want_grads = params_from_jax("vit", _jax_flat(jax.jit(jax.grad(loss))(
+        variables)), **kwargs)
+    logits = tmodel(torch.from_numpy(x))
+    (logits * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, rtol=0,
+                               atol=1e-5)
+    grads = {n: p.grad.numpy() for n, p in tmodel.named_parameters()}
+    assert sorted(grads) == sorted(want_grads) and len(grads) == 31
+    for name, want in want_grads.items():
+        np.testing.assert_allclose(
+            grads[name], want, rtol=1e-4,
+            atol=1e-5 * max(1.0, float(np.abs(want).max())), err_msg=name)
+
+
 def test_training_init_draws_like_flax():
     # LayerNorm scales 1, biases 0, pos_embed normal(0.02), Dense kernels
     # lecun_normal (std sqrt(1/fan_in)) within 4 standard errors of a std
