@@ -38,11 +38,18 @@ Phases, each printing one JSON line:
    by part (convs, pooling, the int8 products, elementwise work,
    reductions, copies), beside the host's wall time per forward;
 6. train: the port's CLI ``run()`` in-process, ``--model cnn --loss fused
-   --optimizer adam_pallas``, 2 epochs of 8192 synthetic images at batch
+   --optimizer adam_pallas`` in its default ``--trainer-mode scan`` (each
+   epoch one captured CUDA graph of the train step, and one of the eval
+   step, replayed per batch), 2 epochs of 8192 synthetic images at batch
    256: both epoch lines, a falling train loss, test accuracy >= 90%,
    exact launch counts of the three training kernels (Adam once per
-   step), 32-leaf checkpoints, a resume from ``checkpoint_0.npz`` that
-   repeats epoch 1's line, and ``-e`` on ``model_best.npz``;
+   step), checked from the wrappers' counters over the run and from a
+   profiler trace of epoch 1 (replays only), 32-leaf checkpoints, a resume
+   from ``checkpoint_0.npz`` that repeats epoch 1's line, and ``-e`` on
+   ``model_best.npz``; then the same run with ``--trainer-mode stepwise``
+   (``train_stepwise``) and with ``--epoch-gather device``
+   (``train_epoch_gather_device``), whose epoch lines must equal the scan
+   run's character for character;
 7. train profile: the kernels' launches over 4 steps, then the device time
    of one train step by part (convs, the fc products, the cross-entropy
    kernels, Adam, other elementwise work, copies), beside the host's wall
@@ -87,8 +94,8 @@ Phases, each printing one JSON line:
 11. train the ViT: as phase 6 with ``--model vit --attention flash``:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
    160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
-   and flash_dkv 0, xent 80/64, adam 64), 101-leaf checkpoints, resume and
-   ``-e``;
+   and flash_dkv 0, xent 80/64, adam 64) from the counters and the trace,
+   101-leaf checkpoints, resume and ``-e``, and its stepwise twin;
 12. ViT train profiles: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
    default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
@@ -99,7 +106,14 @@ Phases, each printing one JSON line:
 14. the ViT at D = 12 (``embed_dim=48``, 4 heads, patch 4, bf16): its
    train profile, exactly 2 tensor-core forwards and 2 fused backwards per
    step and no CUDA-core or split launch (``train_vit_d12_profile``);
-15. the ``{"kernels": [...]}`` line, then the card's name and power limit,
+15. the two trainer modes on one epoch of 32 train steps in one call
+   (``train_scan_profile``, ``_vit``, ``_vit_p2``: the cnn and the bf16
+   ViT at T = 49 and 196): host wall per step, device ms per step, busy
+   share and images/s of stepwise's eager steps against scan's replays,
+   the capture's wall time, the graph pool's and the staged epoch's
+   bytes, and the cross-entropy and Adam kernels' device ms per call
+   inside the replay beside their eager times;
+16. the ``{"kernels": [...]}`` line, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
@@ -1648,7 +1662,7 @@ def _train_lines(text: str, prefix: str) -> list:
     return [ln for ln in text.splitlines() if ln.startswith(prefix)]
 
 
-def _run_cli(argv: list):
+def _run_cli(argv: list, epoch_callback=None):
     """The port's CLI ``run()`` in-process; returns (summary, stdout)."""
     import contextlib
     import io
@@ -1657,7 +1671,8 @@ def _run_cli(argv: list):
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        summary = cli.run(cli.build_parser().parse_args(argv))
+        summary = cli.run(cli.build_parser().parse_args(argv),
+                          epoch_callback=epoch_callback)
     return summary, out.getvalue()
 
 
@@ -1693,13 +1708,137 @@ def _flash_want(dtype: str, tokens: int, fwd: int, bwd: int) -> dict:
             "flash_dq": 0, "flash_dkv": 0}
 
 
-def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
-    """Train ``model`` (``TRAIN_RUNS``) through the CLI, resume and
-    evaluate; returns its kernels' launch counts over the training run."""
+def _zero_counters(model: str) -> None:
+    for wrapper in _launch_counters(model).values():
+        wrapper.launches = 0
+        if hasattr(wrapper, "route_launches"):  # flash_fwd, flash_bwd
+            wrapper.route_launches.update(
+                dict.fromkeys(wrapper.route_launches, 0))
+
+
+def _read_counters(model: str) -> dict:
+    counters = _launch_counters(model)
+    got = {name: wrapper.launches for name, wrapper in counters.items()}
+    for name in ("flash_fwd", "flash_bwd"):
+        if name in counters:
+            got[f"{name}_routes"] = dict(counters[name].route_launches)
+    return got
+
+
+def _counter_delta(after: dict, before: dict) -> dict:
+    return {k: ({r: n - before[k][r] for r, n in v.items()}
+                if isinstance(v, dict) else v - before[k])
+            for k, v in after.items()}
+
+
+def _want_launches(model: str, epochs: int = TRAIN_EPOCHS) -> dict:
+    """The launch counts of ``epochs`` epochs of the ``model`` run: per
+    train step one cross-entropy forward and backward and one Adam launch
+    (per MAX_LEAVES leaves), per eval batch one forward, and for the ViT a
+    forward and a backward per attention layer on ``_flash_want``'s
+    routes."""
     import math
-    import shutil
 
     from pytorch_distributed_mnist_tpu_torch.ops.adam import MAX_LEAVES
+
+    run_cfg = TRAIN_RUNS[model]
+    args = run_cfg["args"]
+    train_size = int(args[args.index("--synthetic-train-size") + 1])
+    test_size = int(args[args.index("--synthetic-test-size") + 1])
+    steps = epochs * (train_size // TRAIN_BATCH)
+    evals = epochs * math.ceil(test_size / TRAIN_BATCH)
+    want = {"xent_fwd": steps + evals, "xent_bwd": steps,
+            "adam": steps * -(-run_cfg["params"] // MAX_LEAVES)}
+    depth = run_cfg["depth"]
+    if depth:  # the ViT at its default 49 tokens
+        want.update(_flash_want(run_cfg["dtype"], VIT_SHAPE[1],
+                                depth * (steps + evals), depth * steps))
+    return want
+
+
+# The counter each of the port's kernels, by its name in a trace, must
+# match: (counter, route) with route None for the wrapper's own count. A
+# tiled or 3xTF32 backward launches a dQ and a dK/dV kernel per call.
+TRACE_OF = {"xent_fwd_kernel": ("xent_fwd", None),
+            "xent_bwd_kernel": ("xent_bwd", None),
+            "adam_leaves_kernel": ("adam", None),
+            "flash_fwd_mma_kernel": ("flash_fwd_routes", "tensor"),
+            "flash_fwd_tf32_kernel": ("flash_fwd_routes", "tf32x3"),
+            "flash_fwd_kernel": ("flash_fwd_routes", "cuda_core"),
+            "flash_bwd_kernel": ("flash_bwd_routes", "fused"),
+            "flash_dq_tiled_kernel": ("flash_bwd_routes", "tiled"),
+            "flash_dkv_tiled_kernel": ("flash_bwd_routes", "tiled"),
+            "flash_dq_tf32_kernel": ("flash_bwd_routes", "tf32x3"),
+            "flash_dkv_tf32_kernel": ("flash_bwd_routes", "tf32x3"),
+            "flash_dq_kernel": ("flash_dq", None),
+            "flash_dkv_kernel": ("flash_dkv", None)}
+
+
+def _trace_want(delta: dict) -> dict:
+    """The port's kernels a trace must show for these counter deltas."""
+    want = {}
+    for kernel, (counter, route) in TRACE_OF.items():
+        if counter in delta:
+            n = delta[counter] if route is None else delta[counter][route]
+            if n:
+                want[kernel] = n
+    return want
+
+
+def _trace_launches(prof) -> dict:
+    """The port's kernels in a profiler trace, counted by name (the first
+    name of ``OWN_KERNELS`` that a device event's name holds)."""
+    import torch
+
+    got = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for own, _ in OWN_KERNELS:
+            if own in evt.name:
+                got[own] = got.get(own, 0) + 1
+                break
+    return got
+
+
+def _traced_run(base: list, model: str, ckpt: str):
+    """The CLI's run of ``base`` with a profiler trace of its epoch 1, in
+    which every tick replays a captured graph; returns (summary, stdout,
+    counter deltas over epoch 1, the trace's kernel counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    box = {}
+
+    def trace_epoch_1(epoch, row):
+        if epoch == 0:
+            box["before"] = _read_counters(model)
+            box["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            box["prof"].start()
+        return False
+
+    try:
+        summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
+                                        "--checkpoint-dir", ckpt],
+                                epoch_callback=trace_epoch_1)
+        torch.cuda.synchronize()
+    finally:
+        if "prof" in box:
+            box["prof"].stop()
+    delta = _counter_delta(_read_counters(model), box["before"])
+    return summary, out, delta, _trace_launches(box["prof"])
+
+
+def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
+    """Train ``model`` (``TRAIN_RUNS``) through the CLI in its default
+    ``--trainer-mode scan``, resume and evaluate; returns its kernels'
+    launch counts over the training run and its epoch lines. The counts
+    are checked twice: from the wrappers' counters over the run, and on
+    the card from a profiler trace of epoch 1 (every tick a replay of the
+    captured graphs), against the counters' deltas over that epoch."""
+    import shutil
+
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         read_checkpoint_arrays,
     )
@@ -1712,23 +1851,18 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     ckpt = os.path.join(root, "run")
     base = args + ["--device", device_flag]
+    traced = None
     try:
         # The main path's run starts here.
-        for wrapper in _launch_counters(model).values():
-            wrapper.launches = 0
-            if hasattr(wrapper, "route_launches"):  # flash_fwd
-                wrapper.route_launches.update(
-                    dict.fromkeys(wrapper.route_launches, 0))
+        _zero_counters(model)
         t0 = time.perf_counter()
-        summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
-                                        "--checkpoint-dir", ckpt])
+        if device_flag == "cpu":  # a rehearsal: no trace of the card
+            summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
+                                            "--checkpoint-dir", ckpt])
+        else:
+            summary, out, delta, traced = _traced_run(base, model, ckpt)
         wall_s = time.perf_counter() - t0
-        launches = {name: wrapper.launches
-                    for name, wrapper in _launch_counters(model).items()}
-        for name in ("flash_fwd", "flash_bwd"):
-            if name in launches:
-                launches[f"{name}_routes"] = dict(
-                    _launch_counters(model)[name].route_launches)
+        launches = _read_counters(model)
         # ... and ends here.
         lines = _train_lines(out, "Epoch: ")
         hist = summary["history"]
@@ -1739,19 +1873,27 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         if hist[1]["test_acc"] < run_cfg["floor"]:
             raise AssertionError(f"test accuracy {hist[1]['test_acc']:.4f} "
                                  f"< {run_cfg['floor']:.2f} after epoch 1")
-        train_size = int(args[args.index("--synthetic-train-size") + 1])
-        test_size = int(args[args.index("--synthetic-test-size") + 1])
-        steps = TRAIN_EPOCHS * (train_size // TRAIN_BATCH)
-        evals = TRAIN_EPOCHS * math.ceil(test_size / TRAIN_BATCH)
-        # One Adam launch per step (per MAX_LEAVES leaves).
-        want = {"xent_fwd": steps + evals, "xent_bwd": steps,
-                "adam": steps * -(-run_cfg["params"] // MAX_LEAVES)}
-        depth = run_cfg["depth"]
-        if depth:  # the ViT at its default 49 tokens
-            want.update(_flash_want(run_cfg["dtype"], VIT_SHAPE[1],
-                                    depth * (steps + evals), depth * steps))
+        want = _want_launches(model)
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
+        if traced is not None:
+            # Now and then a trace loses device events (``device_ms``):
+            # a short trace is taken again from a fresh run, up to three
+            # times in all.
+            for attempt in range(3):
+                trace_want = _trace_want(delta)
+                if delta != _want_launches(model, epochs=1):
+                    raise AssertionError(f"epoch 1's counters {delta}")
+                if traced == trace_want or attempt == 2:
+                    break
+                print(f"chip_smoke.py: epoch 1's trace counted {traced}, "
+                      f"the counters {trace_want}; taking it again",
+                      file=sys.stderr, flush=True)
+                _, _, delta, traced = _traced_run(
+                    base, model, os.path.join(root, f"retrace{attempt}"))
+            if traced != trace_want:
+                raise AssertionError(f"epoch 1's trace counted {traced}, "
+                                     f"the counters {trace_want}")
         files = sorted(os.listdir(ckpt))
         if files != ["checkpoint_0.npz", "checkpoint_1.npz",
                      "model_best.npz"]:
@@ -1775,16 +1917,54 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
         test_lines = _train_lines(eval_out, "Test Loss: ")
         if len(test_lines) != 1 or _train_lines(eval_out, "Epoch: "):
             raise AssertionError(f"-e printed:\n{eval_out}")
-        emit(phase, epoch_lines=lines, resumed_epoch_lines=resumed,
-             eval_line=test_lines[0], launches=launches,
-             expected_launches=want, train_steps=steps, eval_batches=evals,
+        emit(phase, trainer_mode="scan", epoch_lines=lines,
+             resumed_epoch_lines=resumed, eval_line=test_lines[0],
+             launches=launches, expected_launches=want,
+             epoch_1_trace_launches=traced,
              images_per_sec=[r["images_per_sec"] for r in hist],
+             images_per_sec_note="epoch 0 holds the warm-up and capture; "
+                                 "epoch 1 ran under the profiler",
+             staging=summary["staging"],
              test_acc=[r["test_acc"] for r in hist],
              test_acc_floor=run_cfg["floor"], wall_s=wall_s,
              resume_repeats_epoch_1=True)
-        return launches
+        return {"launches": launches, "lines": lines}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_twin(phase: str, model: str, flags: list, want_lines: list,
+                     device_flag: str = "cuda") -> dict:
+    """The ``model`` run of ``phase_train`` again with ``flags`` (another
+    trainer mode or epoch gather): its epoch lines must equal
+    ``want_lines`` character for character, and its launch counts the
+    run's."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_twin_")
+    try:
+        _zero_counters(model)
+        t0 = time.perf_counter()
+        summary, out = _run_cli(TRAIN_RUNS[model]["args"] + flags + [
+            "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+            "--checkpoint-dir", root])
+        wall_s = time.perf_counter() - t0
+        launches = _read_counters(model)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = _train_lines(out, "Epoch: ")
+    if lines != want_lines:
+        raise AssertionError(f"{phase}: {flags} printed\n{lines}\nwhere the "
+                             f"scan run printed\n{want_lines}")
+    if launches != _want_launches(model):
+        raise AssertionError(f"{phase}: launch counts {launches}, expected "
+                             f"{_want_launches(model)}")
+    row = {"model": model, "flags": flags, "epoch_lines": lines,
+           "equal_to_scan": True, "launches": launches, "wall_s": wall_s,
+           "images_per_sec": [r["images_per_sec"]
+                              for r in summary["history"]]}
+    emit(phase, **row)
+    return row
 
 
 # The port's kernels by the names the profiler gives them, and the part of
@@ -1828,20 +2008,12 @@ def _step_launches(step, model: str, tokens: int, dtype: str) -> dict:
     layer on the routes ``_flash_want`` names."""
     import torch
 
-    counters = _launch_counters(model)
     # The counted run starts here.
-    for wrapper in counters.values():
-        wrapper.launches = 0
-        if hasattr(wrapper, "route_launches"):
-            wrapper.route_launches.update(
-                dict.fromkeys(wrapper.route_launches, 0))
+    _zero_counters(model)
     for _ in range(PROFILE_STEPS):
         step()
     torch.cuda.synchronize()
-    got = {name: w.launches for name, w in counters.items()}
-    for name in ("flash_fwd", "flash_bwd"):
-        if name in counters:
-            got[f"{name}_routes"] = dict(counters[name].route_launches)
+    got = _read_counters(model)
     # ... and ends here.
     n = PROFILE_STEPS
     want = {"xent_fwd": n, "xent_bwd": n, "adam": n}
@@ -1974,6 +2146,127 @@ def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
     return row
 
 
+SCAN_STEPS = 32  # one epoch of the smoke's run: 8192 images at batch 256
+
+
+def phase_train_scan_profile(device, model: str = "cnn",
+                             patch_size: int = 4) -> dict:
+    """The two trainer modes on one epoch of ``SCAN_STEPS`` train steps
+    (``model`` at batch 256, bf16, fused loss and Adam, the ViT with flash
+    attention at ``patch_size``), in this one call: the stepwise trainer's
+    steps (each batch copied to the card from pinned host memory, one
+    eager step) against the scan trainer's epoch program (the epoch staged
+    on the card, one captured graph of the step replayed per batch). For
+    each: host wall per step (the epoch's wall over its steps, to the
+    epoch's last device work), device ms per step from the profiler's
+    trace, the device's span per step between CUDA events around the
+    epoch (kernels and the gaps between them), busy share, images/s; the capture's wall time, the graph
+    pool's and the staged epoch's bytes; and the cross-entropy and Adam
+    kernels' device ms per call inside the replay beside their eager
+    times. Returns the phase's row."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.data.loader import to_device
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        normalize_images,
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.flash import flash_attention
+    from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+        train_step,
+    )
+
+    set_loss_impl("fused")
+    torch.backends.cudnn.deterministic = True  # as the trainer sets it
+    torch.backends.cudnn.benchmark = False
+    kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
+    if patch_size != 4:
+        kwargs["patch_size"] = patch_size
+    n, b = SCAN_STEPS, TRAIN_BATCH
+    images, labels = synthetic_dataset(n * b, seed=SEED + 40)
+    host = {"image": normalize_images(images).reshape(n, b, 28, 28, 1),
+            "label": labels.astype(np.int64).reshape(n, b),
+            "mask": np.ones((n, b), np.float32)}
+    staged = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    staged_bytes = sum(t.numel() * t.element_size() for t in staged.values())
+
+    def state():
+        return create_train_state(get_model(model, **kwargs), SEED, device,
+                                  optimizer="adam_pallas")
+
+    eager = state()
+
+    def stepwise():
+        for s in range(n):
+            train_step(eager, to_device({k: v[s] for k, v in host.items()},
+                                        device))
+
+    scanned = state()
+    epoch = make_train_epoch(scanned)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    epoch(staged)  # 2 eager ticks, the capture, 30 replays
+    torch.cuda.synchronize()
+    pool_bytes = torch.cuda.memory_allocated(device) - before
+    program = epoch.program
+
+    def scan():
+        epoch(staged)
+
+    rows = {}
+    for mode, fn in (("stepwise", stepwise), ("scan", scan),
+                     ("scan_again", scan), ("stepwise_again", stepwise)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        rows[mode] = {"wall_ms": wall_ms}
+    for mode, fn in (("stepwise", stepwise), ("scan", scan)):
+        per = device_ms(fn, iters=2)
+        dev_ms = sum(per.values()) / n
+        walls = [rows[mode]["wall_ms"], rows[f"{mode}_again"]["wall_ms"]]
+        wall = min(walls)
+        # The device's span per step, from CUDA events around the epoch:
+        # its kernels and the gaps between them, no profiler.
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        rows[mode].update(
+            wall_ms=wall, wall_ms_both=walls, device_ms=dev_ms,
+            device_span_ms=start.elapsed_time(end) / n,
+            device_busy=dev_ms / wall, images_per_sec=b / wall * 1e3,
+            kernel_ms_per_call={
+                name: _kernel_ms(per, own) / n for own, name in (
+                    ("xent_fwd_kernel", "xent_fwd"),
+                    ("xent_bwd_kernel", "xent_bwd"),
+                    ("adam_leaves_kernel", "adam"))})
+        rows.pop(f"{mode}_again")
+    row = {"model": model, "patch_size": patch_size,
+           "tokens": (28 // patch_size) ** 2 if model == "vit" else None,
+           "batch": b, "steps": n, "capture_s": program.capture_s,
+           "graph_pool_bytes": pool_bytes, "staged_epoch_bytes": staged_bytes,
+           "replays": program.replays, **rows,
+           "host_wall_ratio": rows["stepwise"]["wall_ms"]
+           / rows["scan"]["wall_ms"]}
+    phase = "train_scan_profile" if model == "cnn" else \
+        f"train_scan_profile_{model}" + ("" if patch_size == 4
+                                         else f"_p{patch_size}")
+    emit(phase, **row)
+    return row
+
+
 def kernel_of(mangled: str) -> str:
     """``name<args>`` of a kernel from its mangled name: the identifier
     that ends in ``_kernel`` (a length-prefixed name whose length digits may
@@ -2048,17 +2341,28 @@ def main() -> int:
     train_rows = phase_train_timings(device, peaks)
     launches = phase_server()
     phase_forward_profile(device)
-    train_launches = phase_train()
+    cnn_run = phase_train()
+    train_launches = cnn_run["launches"]
+    phase_train_twin("train_stepwise", "cnn", ["--trainer-mode", "stepwise"],
+                     cnn_run["lines"])
+    phase_train_twin("train_epoch_gather_device", "cnn",
+                     ["--epoch-gather", "device"], cnn_run["lines"])
     phase_train_profile(device)
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
     split_launches = phase_flash_split_route(device)
-    vit_launches = phase_train(model="vit")
+    vit_run = phase_train(model="vit")
+    vit_launches = vit_run["launches"]
+    phase_train_twin("train_stepwise", "vit", ["--trainer-mode", "stepwise"],
+                     vit_run["lines"])
     phase_train_profile(device, model="vit")
     p2 = phase_train_profile(device, model="vit", patch_size=2)
-    f32_launches = phase_train(model="vit_f32")
+    f32_launches = phase_train(model="vit_f32")["launches"]
     phase_train_profile(device, model="vit", dtype="f32")
     d12_profile = phase_train_profile(device, model="vit", embed_dim=48)
+    scan_cnn = phase_train_scan_profile(device)
+    phase_train_scan_profile(device, model="vit")
+    phase_train_scan_profile(device, model="vit", patch_size=2)
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -2088,6 +2392,9 @@ def main() -> int:
             "call_ms": row["kernel_call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "replay_ms": scan_cnn["scan"]["kernel_ms_per_call"][kname],
+            "in_eager_step_ms":
+                scan_cnn["stepwise"]["kernel_ms_per_call"][kname],
             "at": f"{TRAIN_BATCH}x{CLASSES}"})
     all_8 = train_rows["adam"]["all_8"]
     kernels.append({
@@ -2098,6 +2405,8 @@ def main() -> int:
         "call_ms": all_8["step_call_ms"], "step_ms": all_8["step_ms"],
         "plain_ms": all_8["plain_ms"], "bound_ms": all_8["bound_ms"],
         "bound_by": all_8["bound_by"], "library_ms": all_8["library_ms"],
+        "replay_ms": scan_cnn["scan"]["kernel_ms_per_call"]["adam"],
+        "in_eager_step_ms": scan_cnn["stepwise"]["kernel_ms_per_call"]["adam"],
         "at": f"one FusedAdam.step over the 8 cnn leaves, "
               f"{all_8['numel']} params",
         "vit_31": train_rows["adam"]["vit_31"]})

@@ -9,12 +9,17 @@ the card unless ``--device cpu`` is given.
 inference server (``serve/server.py``).
 
 The flags are the single-device main-path subset of the JAX package's
-``build_parser``, with its defaults, except ``--trainer-mode``, which
-defaults to ``stepwise``, the one mode ported (``scan`` and ``explicit``
-exit 2). ``--model vit --attention flash`` trains the ViT through the
-flash-attention kernels (``ops/flash.py``). Flags for several processes,
-meshes, ZeRO, elastic runs, publishing and ``--remat`` are not accepted
-yet.
+``build_parser``, with its defaults. ``--trainer-mode`` defaults to
+``scan``, as the JAX CLI's does: each epoch is one captured CUDA graph of
+the train step replayed per batch (and one of the eval step per eval
+batch), from an epoch staged on the device, with one host read of the
+metrics per pass (``train/steps.py::EpochProgram``; on the CPU the same
+step body in a loop). ``--epoch-gather device`` keeps the dataset on the
+device and gathers each batch there. ``stepwise`` runs one eager step per
+batch; ``explicit`` (a data-parallel mode) exits 2. ``--model vit
+--attention flash`` trains the ViT through the flash-attention kernels
+(``ops/flash.py``). Flags for several processes, meshes, ZeRO, elastic
+runs, publishing, ``--grad-accum`` and ``--remat`` are not accepted yet.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import random
 import sys
+from contextlib import closing
 from typing import Optional
 
 import numpy as np
@@ -57,6 +63,7 @@ from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
+    StagingLog,
     StepTimer,
 )
 
@@ -113,9 +120,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", type=str, default="xla", choices=["xla", "fused"],
                    help="cross-entropy impl: xla (plain torch ops) or fused "
                         "(the CUDA forward and backward kernels)")
-    p.add_argument("--trainer-mode", type=str, default="stepwise",
+    p.add_argument("--trainer-mode", type=str, default="scan",
                    choices=["scan", "stepwise", "explicit"],
-                   help="only stepwise is ported")
+                   help="scan: each epoch replays one captured CUDA graph "
+                        "of the step per batch (a loop on the CPU); "
+                        "stepwise: one eager step per batch; explicit is "
+                        "not ported yet")
+    p.add_argument("--epoch-gather", type=str, default="host",
+                   choices=["host", "device"],
+                   help="scan-mode batch staging: 'host' gathers each "
+                        "epoch's permuted copy on the host (pipelined on "
+                        "a background thread); 'device' keeps the dataset "
+                        "resident on device and gathers inside the "
+                        "epoch program (index_select) — per-epoch upload "
+                        "drops from the full dataset to a ~KB index "
+                        "matrix")
     p.add_argument("--checkpoint-dir", type=str, default="checkpoints")
     p.add_argument("--keep-last", type=int, default=0, metavar="N",
                    help="prune per-epoch checkpoints more than N epochs "
@@ -231,9 +250,13 @@ def run(args, epoch_callback=None) -> dict:
     log0(args)
     if args.trainer_mode not in MODES:
         print(f"--trainer-mode {args.trainer_mode} is not ported yet: the "
-              f"PyTorch port trains in {', '.join(MODES)} mode",
+              f"PyTorch port trains in {' or '.join(MODES)} mode",
               file=sys.stderr)
         raise SystemExit(2)
+    if args.epoch_gather == "device" and args.trainer_mode != "scan":
+        raise SystemExit(
+            "--epoch-gather device requires --trainer-mode scan (the "
+            "gather lives inside the scanned epoch program)")
     model_kwargs = _model_kwargs(args)
     seed = args.seed if args.seed is not None else 0
     if args.seed is not None:
@@ -252,9 +275,19 @@ def run(args, epoch_callback=None) -> dict:
         start_epoch = args.start_epoch
     train_loader, test_loader, synthesized = _build_loaders(args, seed)
     trainer = Trainer(state, train_loader, test_loader, device,
-                      mode=args.trainer_mode)
-    lr_of = step_decay_schedule(args.lr)
+                      mode=args.trainer_mode, epoch_gather=args.epoch_gather,
+                      staging_log=StagingLog())
+    # closing(trainer) joins an in-flight epoch prefetch on every exit.
+    with closing(trainer):
+        return _train_or_evaluate(args, trainer, start_epoch, best_acc,
+                                  synthesized, epoch_callback)
 
+
+def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
+                       synthesized: bool, epoch_callback) -> dict:
+    """The epoch loop of :func:`run` (or, with ``-e``, one eval pass)."""
+    train_loader = trainer.train_loader
+    lr_of = step_decay_schedule(args.lr)
     if args.evaluate:
         test_loss, test_acc = trainer.evaluate()
         log0(f"Test Loss: {test_loss}, Test Acc: {test_acc}")
@@ -267,6 +300,8 @@ def run(args, epoch_callback=None) -> dict:
     history = []
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_sample_epoch(epoch)
+        # No epoch follows the last one: stage no gather nothing will use.
+        trainer.prefetch_enabled = epoch + 1 < args.epochs
         trainer.state.with_learning_rate(lr_of(epoch))
         # The pass reads its metrics back before it returns, so the timed
         # span holds all of the epoch's device work and nothing else.
@@ -304,7 +339,8 @@ def run(args, epoch_callback=None) -> dict:
     return {"best_acc": best_acc, "history": history,
             "images_per_sec": ips,
             "dataset_synthesized": synthesized,
-            "start_epoch": start_epoch, "epochs_run": len(history)}
+            "start_epoch": start_epoch, "epochs_run": len(history),
+            "staging": trainer.staging_log.summary()}
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -3,7 +3,8 @@
 Counterpart of ``pytorch_distributed_mnist_tpu/data/loader.py``'s
 ``MNISTDataLoader`` without its device-array assembly: the loader yields
 numpy batches (``epoch_ticks`` + ``host_batch``, the same index space as
-the reference's), and :func:`to_device` moves one to the card from pinned
+the reference's) or a whole epoch stacked (``stacked_epoch``, the scan
+trainer's), and :func:`to_device` moves one batch to the card from pinned
 host memory. Train batches drop the ragged tail (``drop_last``); eval
 batches pad it by wrapping and mask the padding out.
 """
@@ -69,6 +70,31 @@ class MNISTDataLoader:
         """One batch's host rows for an ``epoch_ticks`` row."""
         return {"image": self.images[row], "label": self.labels[row],
                 "mask": mrow}
+
+    def stacked_epoch(self, epoch: Optional[int] = None,
+                      out: Optional[Dict[str, np.ndarray]] = None) \
+            -> Dict[str, np.ndarray]:
+        """The whole epoch as ``{'image': (S, B, ...), 'label': (S, B),
+        'mask': (S, B)}``, the batches of ``__iter__`` stacked: what the
+        scan trainer stages on the device. ``epoch`` gathers that epoch's
+        shuffle without touching the sampler, so a thread can gather the
+        next epoch while this one trains. ``out`` (arrays of those shapes
+        and dtypes, such as pinned host buffers) receives the gather and
+        is returned."""
+        m, mask = self.epoch_ticks(epoch)
+        flat = m.reshape(-1)
+        if out is None:
+            return {"image": self.images[flat].reshape(
+                        m.shape + self.images.shape[1:]),
+                    "label": self.labels[flat].reshape(m.shape),
+                    "mask": mask}
+        # The sampler's indices are in range; mode="clip" lets np.take
+        # write straight into ``out`` (mode="raise" buffers a copy).
+        np.take(self.images, flat, axis=0, mode="clip",
+                out=out["image"].reshape((-1,) + self.images.shape[1:]))
+        np.take(self.labels, flat, mode="clip", out=out["label"].reshape(-1))
+        out["mask"][...] = mask
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         m, mask = self.epoch_ticks()

@@ -15,6 +15,13 @@ device.
 tensors (built at first use, ``ops/cuda_build.py``) and take
 :func:`adam_leaves_plain` / :func:`adam_leaf_plain` only for tensors on
 the CPU. There is no fallback from one to the other.
+
+The wrappers launch on the current stream and keep no state between
+calls but their launch counts and :class:`FusedAdam`'s table of the
+params' and moments' pointers, which are updated in place and stay
+where they are, so a CUDA graph can capture them
+(``train/steps.py::EpochProgram``); ``ops/launches.py`` keeps the counts
+exact across the graph's replays.
 """
 
 from __future__ import annotations

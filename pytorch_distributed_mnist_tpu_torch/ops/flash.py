@@ -26,6 +26,11 @@ for CUDA tensors (built at first use, ``ops/cuda_build.py``) and take the
 plain versions only for tensors on the CPU. There is no fallback from one
 to the other: a CUDA tensor launches a kernel or raises.
 
+The wrappers launch on the current stream and keep no state between
+calls but their launch counts, so a CUDA graph can capture them
+(``train/steps.py::EpochProgram``); ``ops/launches.py`` keeps the counts
+exact across the graph's replays.
+
 Every default route runs on the tensor cores, at any 1 <= D <= 128 and
 any T; :func:`_fwd_route` and :func:`_bwd_route` pick it from the dtype
 and T alone:

@@ -2,7 +2,9 @@
 
 Counterpart of ``pytorch_distributed_mnist_tpu/ops/metrics.py``. A
 :class:`MetricState` is three float32 scalars on the device, updated per
-batch with no host sync; ``Average``/``Accuracy`` read it once per pass.
+batch with no host sync and folded in place into one accumulator per
+pass (:func:`accumulate_metrics`); ``Average``/``Accuracy`` read it once
+per pass.
 ``Average`` prints 6 decimals, ``Accuracy`` a percentage with 2.
 """
 
@@ -48,10 +50,25 @@ def metrics_update(state: MetricState, loss: torch.Tensor,
                        count=state.count + n)
 
 
-def metrics_merge(a: MetricState, b: MetricState) -> MetricState:
-    """Combine two accumulators."""
-    return MetricState(a.loss_sum + b.loss_sum, a.correct + b.correct,
-                       a.count + b.count)
+@torch.no_grad()
+def accumulate_metrics(acc: MetricState, m: MetricState) -> MetricState:
+    """Fold one step's metrics into the accumulator ``acc`` in place and
+    return it: the reference's ``accumulate_metrics``
+    (``train/steps.py``), the one reduction of every train and eval
+    loop. In place, because a captured CUDA graph must add into the same
+    three device tensors on every replay; zero ``acc``
+    (:func:`metrics_zero_`) once per pass."""
+    for total, part in zip(acc, m):
+        total.add_(part)
+    return acc
+
+
+@torch.no_grad()
+def metrics_zero_(acc: MetricState) -> MetricState:
+    """Reset an accumulator to zero in place, for the next pass."""
+    for total in acc:
+        total.zero_()
+    return acc
 
 
 class Average:

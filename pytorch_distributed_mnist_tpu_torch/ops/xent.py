@@ -14,6 +14,11 @@ tensors (built at first use, ``ops/cuda_build.py``) and take
 :func:`xent_fwd_plain` / :func:`xent_bwd_plain` only for tensors on the
 CPU. There is no fallback from one to the other: a CUDA tensor launches
 the kernel or raises.
+
+The wrappers launch on the current stream and keep no state between
+calls but their launch counts, so a CUDA graph can capture them
+(``train/steps.py::EpochProgram``); ``ops/launches.py`` keeps the counts
+exact across the graph's replays.
 """
 
 from __future__ import annotations

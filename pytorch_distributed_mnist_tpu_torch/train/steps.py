@@ -1,25 +1,45 @@
-"""Train and eval steps.
+"""Train and eval steps, and the epoch programs built on them.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/train/steps.py``'s
 single-device path. The reference's per-batch sequence — forward, mean
 cross-entropy, backward, optimizer step, metric accumulation — runs as
 queued device work with no ``.item()``: the metrics stay on the device
-until the pass ends. Gradient accumulation and whole-epoch programs (the
-reference's ``lax.scan``; a captured CUDA graph here) are later work.
+until the pass ends.
+
+The reference's scanned epoch (``lax.scan`` of the step over an epoch
+staged on the device, one program per epoch) is :class:`EpochProgram`
+here: on the card, one step captured as a CUDA graph and replayed once
+per batch, its batch read from the staged epoch at a tick counter held on
+the device; on the CPU the same step body in a Python loop.
+:func:`make_train_epoch`, :func:`make_train_epoch_indexed` and
+:func:`make_eval_epoch` build it, as the reference's ``_make_epoch``
+builds its three. Gradient accumulation inside the epoch is later work.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from pytorch_distributed_mnist_tpu_torch.models.convert import state_leaves
+from pytorch_distributed_mnist_tpu_torch.ops.launches import CapturedLaunches
 from pytorch_distributed_mnist_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     MetricState,
+    accumulate_metrics,
     metrics_init,
     metrics_update,
+    metrics_zero_,
 )
+
+# Ticks of an epoch program's first passes run eagerly, as real steps,
+# before its graph is captured: every kernel has then launched (and its
+# module loaded) and every lazily built table exists. The train step's
+# first step builds Adam's leaf table; the eval step has no such state.
+TRAIN_WARMUP_TICKS = 2
+EVAL_WARMUP_TICKS = 1
 
 
 def make_forward_program(model: torch.nn.Module):
@@ -63,3 +83,163 @@ def eval_step(state, batch: Dict[str, torch.Tensor]) -> MetricState:
     loss = cross_entropy(logits, batch["label"], mask)
     return metrics_update(metrics_init(logits.device), loss, logits,
                           batch["label"], mask)
+
+
+class EpochProgram:
+    """One epoch of train (or eval) steps over batches staged on the
+    device: the reference's scanned epoch.
+
+    A pass zeroes the device tick and the metric accumulator, then runs
+    one step per tick: the step reads its batch at the tick (``(S, B,
+    ...)`` staged arrays, or rows ``idx[tick]`` of a dataset resident on
+    the device), folds its metrics into the accumulator in place and
+    advances the tick, all on the device. On the card the first
+    ``warmup`` ticks of the first passes run eagerly, on a side stream;
+    the next tick is captured as a CUDA graph (``torch.cuda.graph``,
+    torch's default capture checks) and the graph is replayed for every
+    later tick of this and each later pass. Capture runs nothing, so no
+    batch is trained twice. On the CPU every tick runs the step body
+    eagerly; there is no graph.
+
+    The graph holds the addresses of the train state's tensors, the
+    staged arrays, the tick and the accumulator, recorded at capture:
+    a later pass whose state or arrays were rebound raises, and never
+    replays stale addresses. The state is updated in place (the
+    optimizer's step, the learning rate's ``fill_``, checkpoint loads'
+    ``copy_``), and the caller refills the same staged arrays between
+    passes. A failed capture or replay raises: there is no fallback.
+
+    The kernel wrappers' launch counts stay exact across replays
+    (``ops/launches.py``). ``capture_s`` is the capture's wall time and
+    ``replays`` the replays so far."""
+
+    def __init__(self, state, train: bool, indexed: bool,
+                 warmup: int) -> None:
+        self.state = state
+        self.train = train
+        self.indexed = indexed
+        self.warmup = warmup
+        self.device = state.step.device
+        self._tick = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._acc = metrics_init(self.device)
+        self._source: Dict[str, torch.Tensor] = {}
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._bound: Optional[List[int]] = None
+        self._eager_ticks = 0
+        self.launches = CapturedLaunches()
+        self.capture_s: Optional[float] = None
+        self.replays = 0
+
+    def _batch(self) -> Dict[str, torch.Tensor]:
+        """The batch at the device tick (``_take_batch`` in the
+        reference, for the indexed epoch)."""
+        src, tick = self._source, self._tick.view(1)
+        if self.indexed:
+            idx = src["idx"].index_select(0, tick)[0]
+            return {"image": src["image"].index_select(0, idx),
+                    "label": src["label"].index_select(0, idx),
+                    "mask": src["mask"].index_select(0, tick)[0]}
+        return {key: src[key].index_select(0, tick)[0]
+                for key in ("image", "label", "mask")}
+
+    def _body(self) -> None:
+        step = train_step if self.train else eval_step
+        accumulate_metrics(self._acc, step(self.state, self._batch()))
+        with torch.no_grad():
+            self._tick.add_(1)
+
+    def _pointers(self) -> List[int]:
+        tensors = [t for _, t in state_leaves(self.state)]
+        tensors += [self._source[k] for k in sorted(self._source)]
+        return [t.data_ptr() for t in tensors + [self._tick, *self._acc]]
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with self.launches.capturing(), torch.cuda.graph(graph):
+            self._body()
+        self._graph = graph
+        self._bound = self._pointers()
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, source: Dict[str, torch.Tensor]) -> MetricState:
+        """One pass over ``source`` (on the state's device); returns the
+        pass's metrics, still on the device."""
+        self._source = source
+        steps = int(source["mask"].shape[0])
+        if self._graph is not None and self._pointers() != self._bound:
+            raise RuntimeError(
+                "the train state or the staged epoch was rebound since its "
+                "CUDA graph was captured; update tensors in place (copy_, "
+                "fill_) instead")
+        metrics_zero_(self._acc)
+        with torch.no_grad():
+            self._tick.zero_()
+        if self.device.type != "cuda":
+            for _ in range(steps):
+                self._body()
+            return MetricState(*(t.clone() for t in self._acc))
+        eager = 0
+        if self._graph is None:
+            eager = min(steps, max(0, self.warmup - self._eager_ticks))
+        if eager:
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(eager):
+                    self._body()
+            current.wait_stream(side)
+            self._eager_ticks += eager
+        replays = steps - eager
+        if replays and self._graph is None:
+            self._capture()
+        for _ in range(replays):
+            self._graph.replay()
+        self.launches.credit(replays)
+        self.replays += replays
+        return MetricState(*(t.clone() for t in self._acc))
+
+
+def _make_epoch(state, train: bool, indexed: bool) \
+        -> Callable[..., MetricState]:
+    """The one factory behind the three ``make_*_epoch*`` functions, as
+    the reference's ``_make_epoch``: ``train`` picks the train or the eval
+    step, ``indexed`` where a tick's batch comes from. The returned
+    function carries its :class:`EpochProgram` as ``.program``."""
+    program = EpochProgram(
+        state, train=train, indexed=indexed,
+        warmup=TRAIN_WARMUP_TICKS if train else EVAL_WARMUP_TICKS)
+    if indexed:
+        def epoch(data, ticks):
+            return program.run({**data, **ticks})
+    else:
+        def epoch(batches):
+            return program.run(batches)
+    epoch.program = program
+    return epoch
+
+
+def make_train_epoch(state) -> Callable[..., MetricState]:
+    """``epoch(batches) -> MetricState``: one train step per batch of
+    ``batches`` (``{'image': (S, B, ...), 'label': (S, B), 'mask': (S,
+    B)}`` on the state's device), updating ``state`` in place. Pass the
+    same tensors, refilled, every epoch."""
+    return _make_epoch(state, train=True, indexed=False)
+
+
+def make_train_epoch_indexed(state) -> Callable[..., MetricState]:
+    """``epoch(data, ticks) -> MetricState``: as :func:`make_train_epoch`,
+    each batch gathered on the device from the resident dataset ``data``
+    (``{'image': (N, ...), 'label': (N,)}``) at the rows ``ticks['idx']``
+    (``(S, B)`` int64), with ``ticks['mask']`` (``(S, B)``): the dataset
+    crosses to the device once per run, and an epoch's upload is its
+    index matrix."""
+    return _make_epoch(state, train=True, indexed=True)
+
+
+def make_eval_epoch(state) -> Callable[..., MetricState]:
+    """``epoch(batches) -> MetricState``: one eval step per staged batch,
+    the mask keeping padded rows out of the counts. The eval set never
+    reshuffles, so the caller stages it once and passes it every pass."""
+    return _make_epoch(state, train=False, indexed=False)

@@ -1,21 +1,35 @@
 """Training engine.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/train/trainer.py``'s
-stepwise mode: ``train()`` and ``evaluate()`` each run one pass and return
-``(Average, Accuracy)`` meters. Every step's metrics stay on the device
-and fold into one accumulator; the pass reads it back once, its only host
-sync. The eval batches never reshuffle, so they are moved to the device
-once and reused every pass.
+single-device modes: ``train()`` and ``evaluate()`` each run one pass and
+return ``(Average, Accuracy)`` meters. Every step's metrics stay on the
+device and fold into one accumulator; the pass reads it back once, its
+only host sync.
+
+- ``scan`` (the default, as in the reference): each pass is an epoch
+  program (``train/steps.py::EpochProgram``), on the card one CUDA graph
+  of the step replayed per batch. With ``epoch_gather="host"`` the epoch
+  is gathered on the host into a host buffer (pinned on the card) and
+  copied into one device buffer; the next epoch's gather runs on a
+  background thread, into the other of two host buffers, while this one
+  trains (``prefetch_enabled``; ``close()`` joins it). With
+  ``epoch_gather="device"`` the dataset crosses to the device once per
+  run and each tick gathers its rows there. The eval set is staged on the
+  device once and reused every pass.
+- ``stepwise``: one eager step per batch, each batch copied to the device
+  from pinned host memory.
 
 On the card the trainer makes cuDNN deterministic (no benchmark search),
 so a resumed run repeats the uninterrupted one, and under float32 compute
 it turns TF32 off for convolutions and matrix products, so that float32
-means float32.
+means float32. These settings are fixed before any graph is captured.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -27,14 +41,19 @@ from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     Accuracy,
     Average,
     MetricState,
-    metrics_merge,
+    accumulate_metrics,
+    metrics_init,
 )
 from pytorch_distributed_mnist_tpu_torch.train.steps import (
     eval_step,
+    make_eval_epoch,
+    make_train_epoch,
+    make_train_epoch_indexed,
     train_step,
 )
 
-MODES = ("stepwise",)
+MODES = ("scan", "stepwise")
+EPOCH_GATHERS = ("host", "device")
 
 
 def _meters(ms: Optional[MetricState]) -> Tuple[Average, Accuracy]:
@@ -48,45 +67,208 @@ def _meters(ms: Optional[MetricState]) -> Tuple[Average, Accuracy]:
     return loss, acc
 
 
+def _epoch_buffer(loader: MNISTDataLoader, pin: bool) \
+        -> Dict[str, torch.Tensor]:
+    """Empty host arrays of one stacked epoch (``stacked_epoch``'s shapes),
+    pinned for asynchronous copies to the card when ``pin``."""
+    s, b = loader.steps_per_epoch, loader.batch_size
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+    return {"image": empty((s, b) + loader.images.shape[1:],
+                           torch.from_numpy(loader.images[:0]).dtype),
+            "label": empty((s, b), torch.int64),
+            "mask": empty((s, b), torch.float32)}
+
+
 class Trainer:
-    """Runs train and eval passes of per-batch steps on one device."""
+    """Runs train and eval passes on one device, in ``mode`` (``MODES``)."""
 
     def __init__(self, state, train_loader: MNISTDataLoader,
                  test_loader: MNISTDataLoader, device: torch.device,
-                 mode: str = "stepwise") -> None:
+                 mode: str = "scan", epoch_gather: str = "host",
+                 staging_log=None) -> None:
         if mode not in MODES:
             raise ValueError(f"trainer mode {mode!r} is not ported yet "
                              f"(ported: {', '.join(MODES)})")
+        if epoch_gather not in EPOCH_GATHERS:
+            raise ValueError(f"unknown epoch_gather {epoch_gather!r}")
+        if epoch_gather == "device" and mode != "scan":
+            raise ValueError("epoch_gather='device' is a scan-mode path (the "
+                             "gather runs inside the epoch program)")
         self.state = state
         self.train_loader = train_loader
         self.test_loader = test_loader
         self.device = device
         self.mode = mode
-        self._eval_batches: Optional[List[dict]] = None
+        self.epoch_gather = epoch_gather
+        self.staging_log = staging_log
+        # The next epoch's host gather runs on a thread while this one
+        # trains (scan, host gather); the CLI turns it off for the last.
+        self.prefetch_enabled = True
+        self._prefetch = None  # (epoch, thread, buffer turn, holder)
+        self._eval_batches: Optional[List[dict]] = None  # stepwise
+        self._eval_staged: Optional[Dict[str, torch.Tensor]] = None
+        self._host: List[Dict[str, torch.Tensor]] = []  # two host buffers
+        self._host_ready: List[Optional[torch.cuda.Event]] = []
+        self._host_turn = 0
+        self._device_epoch: Optional[Dict[str, torch.Tensor]] = None
+        self._train_data: Optional[Dict[str, torch.Tensor]] = None
+        self._ticks: Optional[Dict[str, torch.Tensor]] = None
         if device.type == "cuda":
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
             if getattr(state.model, "compute_dtype", None) == torch.float32:
                 torch.backends.cudnn.allow_tf32 = False
                 torch.backends.cuda.matmul.allow_tf32 = False
+        self._train_epoch = None
+        self._eval_epoch = None
+        if mode == "scan":
+            self._train_epoch = (make_train_epoch_indexed(state)
+                                 if epoch_gather == "device"
+                                 else make_train_epoch(state))
+            self._eval_epoch = make_eval_epoch(state)
+
+    # -- host-gather staging (scan) ----------------------------------------
+
+    def _take_host_buffer(self) -> int:
+        """The next of the two host buffers, once its last copy to the
+        device has landed (so a gather never overwrites a copy in
+        flight)."""
+        if not self._host:
+            pin = self.device.type == "cuda"
+            for _ in range(2):
+                self._host.append(_epoch_buffer(self.train_loader, pin))
+                self._host_ready.append(torch.cuda.Event() if pin else None)
+        turn, self._host_turn = self._host_turn, 1 - self._host_turn
+        if self._host_ready[turn] is not None:
+            self._host_ready[turn].synchronize()
+        return turn
+
+    def _gather(self, epoch: int, turn: int) -> None:
+        self.train_loader.stacked_epoch(
+            epoch, out={k: t.numpy() for k, t in self._host[turn].items()})
+
+    def _start_prefetch(self) -> None:
+        """Gather the next epoch into the other host buffer on a thread
+        while the device trains this one. The gather is the pure form
+        (``stacked_epoch(epoch)``), so the sampler is never touched off
+        the main thread; :meth:`_staged_train_epoch` uses it only if the
+        sampler is on that epoch then."""
+        epoch = self.train_loader.sampler.epoch + 1
+        turn = self._take_host_buffer()
+        holder = {}
+
+        def work():
+            t0 = time.perf_counter()
+            try:
+                self._gather(epoch, turn)
+            except Exception as exc:  # re-raised where the epoch is used
+                holder["error"] = exc
+                return
+            holder["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+        thread = threading.Thread(target=work, daemon=True,
+                                  name="epoch-prefetch")
+        thread.start()
+        self._prefetch = (epoch, thread, turn, holder)
+
+    def _staged_train_epoch(self) -> Dict[str, torch.Tensor]:
+        """This epoch's batches in the device buffer: from the prefetch
+        thread's host buffer when it gathered this epoch, else gathered
+        now; then one copy to the device, queued on the stream the epoch
+        program runs on."""
+        epoch = self.train_loader.sampler.epoch
+        t0 = time.perf_counter()
+        turn, host_ms = None, None
+        if self._prefetch is not None:
+            p_epoch, thread, p_turn, holder = self._prefetch
+            self._prefetch = None
+            thread.join()
+            if "error" in holder:
+                raise holder["error"]
+            if p_epoch == epoch:
+                turn, host_ms = p_turn, holder["host_ms"]
+        pipelined = turn is not None
+        if not pipelined:
+            turn = self._take_host_buffer()
+            self._gather(epoch, turn)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        host = self._host[turn]
+        if self._device_epoch is None:
+            self._device_epoch = {k: torch.empty_like(t, device=self.device)
+                                  for k, t in host.items()}
+        for k, t in host.items():
+            self._device_epoch[k].copy_(t, non_blocking=True)
+        if self._host_ready[turn] is not None:
+            self._host_ready[turn].record()
+        t2 = time.perf_counter()
+        if self.staging_log is not None:
+            self.staging_log.record_stage(
+                host_ms=host_ms, h2d_ms=(t2 - t1) * 1e3,
+                images=int(host["label"].numel()), pipelined=pipelined)
+            # The trainer blocked for the join (or the whole gather) and
+            # the copy's queueing.
+            self.staging_log.record_wait((t2 - t0) * 1e3)
+        return self._device_epoch
+
+    def close(self) -> None:
+        """Join and drop an in-flight prefetch (idempotent); the CLI
+        closes the trainer on every exit."""
+        if self._prefetch is not None:
+            _epoch, thread, _turn, _holder = self._prefetch
+            self._prefetch = None
+            thread.join()
+
+    # -- passes ----------------------------------------------------------
 
     def train(self) -> Tuple[Average, Accuracy]:
         """One training epoch over the loader's current shuffle."""
         self.state.model.train()
-        ms = None
-        for batch in self.train_loader:
-            m = train_step(self.state, to_device(batch, self.device))
-            ms = m if ms is None else metrics_merge(ms, m)
+        if self.mode == "stepwise":
+            acc = metrics_init(self.device)
+            for batch in self.train_loader:
+                accumulate_metrics(acc, train_step(
+                    self.state, to_device(batch, self.device)))
+            return _meters(acc)
+        if self.epoch_gather == "device":
+            if self._train_data is None:
+                # The dataset crosses to the device once per run.
+                self._train_data = {
+                    "image": torch.from_numpy(self.train_loader.images).to(
+                        self.device),
+                    "label": torch.from_numpy(self.train_loader.labels).to(
+                        self.device)}
+            idx, mask = self.train_loader.epoch_ticks()
+            ticks = {"idx": torch.from_numpy(idx),
+                     "mask": torch.from_numpy(mask)}
+            if self._ticks is None:
+                self._ticks = {k: torch.empty_like(t, device=self.device)
+                               for k, t in ticks.items()}
+            for k, t in ticks.items():
+                self._ticks[k].copy_(t)
+            return _meters(self._train_epoch(self._train_data, self._ticks))
+        ms = self._train_epoch(self._staged_train_epoch())
+        if self.prefetch_enabled:
+            self._start_prefetch()
         return _meters(ms)
 
     def evaluate(self) -> Tuple[Average, Accuracy]:
         """One evaluation pass: no gradient, no state update."""
         self.state.model.eval()
+        if self.mode == "scan":
+            if self._eval_staged is None:
+                # The eval set never reshuffles: stage it once.
+                self._eval_staged = {
+                    k: torch.from_numpy(v).to(self.device)
+                    for k, v in self.test_loader.stacked_epoch().items()}
+            return _meters(self._eval_epoch(self._eval_staged))
         if self._eval_batches is None:
             self._eval_batches = [to_device(batch, self.device)
                                   for batch in self.test_loader]
-        ms = None
+        acc = metrics_init(self.device)
         for batch in self._eval_batches:
-            m = eval_step(self.state, batch)
-            ms = m if ms is None else metrics_merge(ms, m)
-        return _meters(ms)
+            accumulate_metrics(acc, eval_step(self.state, batch))
+        return _meters(acc)

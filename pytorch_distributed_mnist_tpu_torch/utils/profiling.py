@@ -1,10 +1,11 @@
 """Observability of the port: the training :class:`StepTimer`, the JSONL
-metrics sink, the :class:`ServeLog` behind ``/stats``, and the per-bucket
-warm-up record.
+metrics sink, the scan trainer's :class:`StagingLog`, the
+:class:`ServeLog` behind ``/stats``, and the per-bucket warm-up record.
 
-Counterpart of the serving parts of ``pytorch_distributed_mnist_tpu/
-utils/profiling.py``. The reference's ``CompileLog`` block of ``/stats``
-(the AOT compile of each bucket program) becomes :class:`WarmupLog`:
+Counterpart of the training-input and serving parts of
+``pytorch_distributed_mnist_tpu/utils/profiling.py``. The reference's
+``CompileLog`` block of ``/stats`` (the AOT compile of each bucket
+program) becomes :class:`WarmupLog`:
 PyTorch compiles nothing, so what is recorded per bucket is the wall time
 of its first forward (which, on the int8 plane, includes the one-time
 build of the CUDA kernel library).
@@ -97,6 +98,67 @@ class JsonlSink:
                       f"({exc!r}); further events stay in memory only",
                       file=sys.stderr, flush=True)
             return False
+
+
+class StagingLog:
+    """Where feeding the device spends its time, and how much of it is
+    hidden behind the device's work: the reference's ``StagingLog``.
+
+    The scan trainer records one :meth:`record_stage` per staged epoch:
+    the host gather (the permuted copy into a host buffer) and the
+    host-to-device copy, and whether the prefetch thread ran the gather.
+    The consumer records how long it blocked waiting for the staged
+    epoch (:meth:`record_wait`). ``overlap_fraction`` = 1 - waited /
+    staging time: 0 when every staging millisecond stalls the trainer,
+    near 1 when the prefetch hides it. The host-to-device copy is timed
+    as queued, not as landed, so ``feed_images_per_sec`` is an upper
+    bound. Thread-safe: the prefetch thread and the trainer both
+    record."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._stages = 0
+        self._pipelined_stages = 0
+        self._host_ms = 0.0
+        self._h2d_ms = 0.0
+        self._images = 0
+        self._wait_ms = 0.0
+
+    def record_stage(self, host_ms: float, h2d_ms: float, images: int,
+                     pipelined: bool) -> None:
+        """One staged epoch: host-gather wall, host-to-device wall, the
+        images it carried, and whether the prefetch thread gathered it."""
+        with self._lock:
+            self._stages += 1
+            self._pipelined_stages += int(pipelined)
+            self._host_ms += host_ms
+            self._h2d_ms += h2d_ms
+            self._images += images
+
+    def record_wait(self, wait_ms: float) -> None:
+        """The trainer's blocked time for one staged epoch."""
+        with self._lock:
+            self._wait_ms += wait_ms
+
+    def summary(self) -> Dict:
+        """Totals so far; all zero when nothing was recorded."""
+        with self._lock:
+            staging_ms = self._host_ms + self._h2d_ms
+            overlap = 0.0
+            if staging_ms > 0:
+                overlap = max(0.0, min(1.0, 1.0 - self._wait_ms / staging_ms))
+            return {
+                "stages": self._stages,
+                "pipelined_stages": self._pipelined_stages,
+                "host_ms": round(self._host_ms, 1),
+                "h2d_ms": round(self._h2d_ms, 1),
+                "consumer_wait_ms": round(self._wait_ms, 1),
+                "overlap_fraction": round(overlap, 4),
+                "images": self._images,
+                "feed_images_per_sec": round(
+                    self._images / max(staging_ms / 1e3, 1e-9), 1)
+                if self._images else 0.0,
+            }
 
 
 def _percentile(sorted_vals: list, q: float) -> float:

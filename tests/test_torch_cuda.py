@@ -638,3 +638,178 @@ def test_matmul_i8_equals_plain_with_the_same_bits_twice(card, m, k, n):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(first, matmul_i8_plain(a, b))
+
+
+# -- the scan trainer mode: captured CUDA graphs of the train step ------
+
+
+def test_a_graph_of_xent_and_adam_launches_equals_the_eager_launches(card):
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+
+    gen = torch.Generator(device=card).manual_seed(21)
+    logits = torch.randn(256, 10, device=card, generator=gen) * 3
+    labels = torch.randint(0, 10, (256,), device=card, generator=gen)
+    g = torch.rand(256, device=card, generator=gen)
+    p = torch.randn(1000, device=card, generator=gen)
+    grad = torch.randn(1000, device=card, generator=gen)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    hyper = {k: torch.tensor(x, device=card) for k, x in (
+        ("learning_rate", 1e-3), ("b1", 0.9), ("b2", 0.999), ("eps", 1e-8),
+        ("eps_root", 0.0))}
+    count = torch.zeros((), dtype=torch.int32, device=card)
+    start = (p.clone(), m.clone(), v.clone())
+
+    def body():
+        loss, lse = xent.xent_fwd(logits, labels)
+        dl = xent.xent_bwd(logits, labels, lse, g)
+        count.add_(1)
+        adam.adam_leaves([p], [grad], [m], [v], hyper, count)
+        return loss, dl
+
+    def restart():
+        for t, t0 in zip((p, m, v), start):
+            t.copy_(t0)
+        count.zero_()
+
+    want = []
+    for _ in range(2):
+        loss, dl = body()
+        want.append([x.clone() for x in (loss, dl, p, m, v)])
+    restart()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):  # each kernel has launched above
+        loss, dl = body()
+    got = []
+    for _ in range(2):
+        graph.replay()
+        got.append([x.clone() for x in (loss, dl, p, m, v)])
+    torch.cuda.synchronize()
+    assert int(count) == 2
+    for w, r in zip(want, got):
+        for a, b in zip(w, r):
+            assert torch.equal(a, b)
+
+
+def _scan_case(card, model, seed):
+    """A train state of ``model`` on the card (fused loss, fused Adam, the
+    ViT with flash attention) and 6 batches of 64 synthetic images."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        normalize_images,
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.flash import flash_attention
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    kwargs = {"attention_fn": flash_attention} if model == "vit" else {}
+    state = create_train_state(get_model(model, **kwargs), seed, card,
+                               optimizer="adam_pallas")
+    images, labels = synthetic_dataset(6 * 64, seed=seed + 1)
+    staged = {"image": torch.from_numpy(
+                  normalize_images(images).reshape(6, 64, 28, 28, 1)),
+              "label": torch.from_numpy(
+                  labels.astype(np.int64).reshape(6, 64)),
+              "mask": torch.ones(6, 64)}
+    return state, {k: t.to(card) for k, t in staged.items()}
+
+
+@pytest.fixture
+def scan_settings(monkeypatch):
+    """The trainer's settings on the card (deterministic cuDNN) and the
+    fused loss, put back afterwards."""
+    from pytorch_distributed_mnist_tpu_torch.ops import loss
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    loss.set_loss_impl("fused")
+    try:
+        yield
+    finally:
+        loss.set_loss_impl("xla")
+
+
+@pytest.mark.parametrize("model", ["cnn", "vit"])
+def test_a_replayed_epoch_equals_the_eager_stepwise_epoch(card, model,
+                                                         scan_settings):
+    from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
+        accumulate_metrics,
+        metrics_init,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+        train_step,
+    )
+
+    eager, staged = _scan_case(card, model, seed=0)
+    scanned, _ = _scan_case(card, model, seed=0)
+    epoch = make_train_epoch(scanned)
+    # Pass 1: two eager ticks, the capture, four replays; pass 2: six
+    # replays.
+    for _ in range(2):
+        acc = metrics_init(card)
+        for s in range(6):
+            batch = {k: t[s] for k, t in staged.items()}
+            accumulate_metrics(acc, train_step(eager, batch))
+        got = epoch(staged)
+        for a, b in zip(got, acc):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert epoch.program.replays == 10
+    for (name, a), b in zip(scanned.model.named_parameters(),
+                            eager.model.parameters()):
+        assert torch.equal(a, b), name
+    for a, b in zip(scanned.optimizer.inner_leaves()[1][1],
+                    eager.optimizer.inner_leaves()[1][1]):
+        assert torch.equal(a, b)
+    assert int(scanned.step) == int(eager.step) == 12
+
+
+def test_epoch_counters_equal_captured_launches_times_replays(
+        card, scan_settings):
+    from pytorch_distributed_mnist_tpu_torch.ops import launches
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+    )
+
+    state, staged = _scan_case(card, "vit", seed=4)
+    epoch = make_train_epoch(state)
+    before = launches.read_counts()
+    for _ in range(2):
+        epoch(staged)
+    torch.cuda.synchronize()
+    after = launches.read_counts()
+    delta = {k[1] + "." + k[2]: after[k] - before[k] for k in after
+             if after[k] != before[k]}
+    # Per step: one cross-entropy forward and backward, one Adam launch,
+    # and per attention layer (depth 2) one bf16 tensor-core forward and
+    # one fused backward. 12 steps: 2 eager, 10 replayed.
+    per_step = {"xent_fwd.launches": 1, "xent_bwd.launches": 1,
+                "adam_leaves.launches": 1, "flash_fwd.launches": 2,
+                "flash_fwd.tensor": 2, "flash_bwd.launches": 2,
+                "flash_bwd.fused": 2}
+    assert delta == {k: 12 * n for k, n in per_step.items()}
+    assert {k[1] + "." + k[2]: n
+            for k, n in epoch.program.launches.per_replay.items()} == per_step
+    assert epoch.program.replays == 10
+
+
+def test_a_rebound_param_raises_before_a_replay(card, scan_settings):
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+    )
+
+    state, staged = _scan_case(card, "cnn", seed=5)
+    epoch = make_train_epoch(state)
+    epoch(staged)
+    p = next(state.model.parameters())
+    with torch.no_grad():
+        p.data = p.data.clone()
+    replays = epoch.program.replays
+    with pytest.raises(RuntimeError, match="rebound"):
+        epoch(staged)
+    assert epoch.program.replays == replays

@@ -1,8 +1,10 @@
 """The port's training path (``train/``, ``cli.py``) against the JAX
 package's, on the CPU: one ``cnn`` step and one ``vit --attention flash``
 step from one shared checkpoint, two synthetic epochs of ``linear``
-through both command lines, and the port's own bit-exact resume. (The
-ViT's two CLI epochs are in ``test_torch_vit_cli.py``.)
+through both command lines (stepwise, and both CLIs' default scan mode),
+and the port's own bit-exact resume. (The ViT's two CLI epochs are in
+``test_torch_vit_cli.py``, the scan mode's own tests in
+``test_torch_scan.py``.)
 
 Both sides compute in float32 here (``--dtype f32``); the JAX kernels run
 in Pallas interpret mode. Each tolerance is stated where it is used.
@@ -262,6 +264,36 @@ def test_two_linear_epochs_match_jax_cli_from_one_npz(tmp_path, fused_loss):
     assert epoch == 2
 
 
+def test_two_linear_epochs_in_scan_mode_match_the_jax_cli_default(
+        tmp_path, fused_loss):
+    # Both CLIs' bare command: --trainer-mode scan (the JAX scanned epoch,
+    # the port's epoch program), from one shared npz.
+    common = [a for a in _COMMON if a not in ("--trainer-mode", "stepwise")]
+    state = create_train_state(get_model("linear", compute_dtype=torch.float32),
+                               seed=3, device=CPU, optimizer="adam_pallas")
+    shared = port_ckpt.save_checkpoint(state, epoch=-1, best_acc=0.0,
+                                       is_best=False,
+                                       directory=str(tmp_path / "init"))
+    want = jax_run(jax_parser().parse_args(common + [
+        "--resume", shared, "--checkpoint-dir", str(tmp_path / "jax"),
+        "--no-precompile"]))
+    got = run(build_parser().parse_args(common + [
+        "--resume", shared, "--checkpoint-dir", str(tmp_path / "port"),
+        "--device", "cpu"]))
+    assert got["epochs_run"] == want["epochs_run"] == 2
+    assert got["staging"]["stages"] == 2  # the scan trainer's stages
+    # test_two_linear_epochs_match_jax_cli_from_one_npz's tolerances: the
+    # JAX side shards each batch over 8 virtual CPU devices and sums in
+    # another order.
+    for a, b in zip(got["history"], want["history"]):
+        assert a["epoch"] == b["epoch"]
+        np.testing.assert_allclose(a["train_loss"], b["train_loss"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(a["test_loss"], b["test_loss"], rtol=1e-4)
+        assert abs(a["train_acc"] - b["train_acc"]) <= 1 / 512
+        assert abs(a["test_acc"] - b["test_acc"]) <= 1 / 200
+
+
 def test_port_resume_repeats_the_uninterrupted_run_bit_exactly(tmp_path,
                                                                capsys):
     common = ["--dataset", "synthetic", "--model", "linear",
@@ -314,7 +346,7 @@ def test_eval_only_prints_one_test_line(tmp_path, capsys):
                                             "model_best.npz"]
 
 
-@pytest.mark.parametrize("mode", ["scan", "explicit"])
+@pytest.mark.parametrize("mode", ["explicit"])
 def test_unported_trainer_modes_exit_2(mode, tmp_path):
     with pytest.raises(SystemExit) as info:
         run(build_parser().parse_args(["--trainer-mode", mode, "--device",
