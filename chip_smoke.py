@@ -49,7 +49,18 @@ Phases, each printing one JSON line:
    ``model_best.npz``; then the same run with ``--trainer-mode stepwise``
    (``train_stepwise``) and with ``--epoch-gather device``
    (``train_epoch_gather_device``), whose epoch lines must equal the scan
-   run's character for character;
+   run's character for character; the train run makes no collective call and
+   leaves no process group. Then data parallelism: the same run, resume
+   and ``-e`` through the explicit rendezvous of a world of one
+   (``train_dp_world1``: NCCL, the gradient all-reduce inside the
+   replayed step, 64 gradient and 4 metric all-reduces counted, its
+   epoch lines equal to ``train``'s, checkpoints stamped 1x1, and whether
+   NCCL launched a kernel in epoch 1's trace), ``--trainer-mode
+   explicit`` in that world (``train_explicit``: ``train_stepwise``'s
+   lines), and ``--spawn 2`` (``dp_spawn``: on fewer than 2 cards the
+   exit 2 with the one-card-per-rank message, on 2 or more the 2-rank
+   NCCL world held to one process; then a gloo world of 2 on the CPU,
+   rank 0's lines and one checkpoint per epoch stamped 2x2);
 7. train profile: the kernels' launches over 4 steps, then the device time
    of one train step by part (convs, the fc products, the cross-entropy
    kernels, Adam, other elementwise work, copies), beside the host's wall
@@ -95,7 +106,8 @@ Phases, each printing one JSON line:
    test accuracy >= 88% after epoch 1, exact launch counts (flash_fwd
    160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
    and flash_dkv 0, xent 80/64, adam 64) from the counters and the trace,
-   101-leaf checkpoints, resume and ``-e``, and its stepwise twin;
+   101-leaf checkpoints, resume and ``-e``, its stepwise twin, and the
+   same run in a world of one (``train_dp_vit_world1``);
 12. ViT train profiles: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
    default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
@@ -112,9 +124,13 @@ Phases, each printing one JSON line:
    share and images/s of stepwise's eager steps against scan's replays,
    the capture's wall time, the graph pool's and the staged epoch's
    bytes, and the cross-entropy and Adam kernels' device ms per call
-   inside the replay beside their eager times;
-16. the ``{"kernels": [...]}`` line, then the card's name and power limit,
-   then ``{"ok": true, "device": {...}}`` as the last line.
+   inside the replay beside their eager times; and, in the same turns,
+   the cnn's replay in an NCCL world of one (``train_scan_profile_dp``:
+   what the all-reduce in the graph adds to the host wall and device ms
+   per step);
+16. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
+   then the card's name and power limit, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Any failure raises and exits non-zero. Without a CUDA card, or run from a
 directory that does not hold the port's package beside this file, it exits
@@ -240,8 +256,14 @@ FORCED_CUDA_CORE_CASES = [((32, 196, 4, 16), "bfloat16"),
                           (D12_SHAPE, "bfloat16"), (D12_SHAPE, "float32")]
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _STARTED}), flush=True)
 
 
 def import_port():
@@ -1662,18 +1684,72 @@ def _train_lines(text: str, prefix: str) -> list:
     return [ln for ln in text.splitlines() if ln.startswith(prefix)]
 
 
-def _run_cli(argv: list, epoch_callback=None):
-    """The port's CLI ``run()`` in-process; returns (summary, stdout)."""
+def _rendezvous() -> list:
+    """The flags of the explicit rendezvous of a world of one on a free
+    loopback port: the process joins a process group of its own (NCCL on
+    the card, gloo on the CPU)."""
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        free_port,
+    )
+
+    return ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+            "1", "--process-id", "0"]
+
+
+def _run_cli(argv: list, epoch_callback=None, dp: bool = False):
+    """The port's CLI ``run()`` in-process; returns (summary, stdout).
+    ``dp`` adds the rendezvous of a world of one (``_rendezvous``); the
+    run destroys its process group on its way out, and a run without
+    one must leave none behind."""
     import contextlib
     import io
+
+    import torch.distributed as dist
 
     from pytorch_distributed_mnist_tpu_torch import cli
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        summary = cli.run(cli.build_parser().parse_args(argv),
-                          epoch_callback=epoch_callback)
+        summary = cli.run(cli.build_parser().parse_args(
+            argv + (_rendezvous() if dp else [])),
+            epoch_callback=epoch_callback)
+    if dist.is_initialized():
+        raise AssertionError("the CLI run left a process group behind")
     return summary, out.getvalue()
+
+
+def _collective_counts() -> dict:
+    """The collectives' call counters (``parallel/collectives.py``)."""
+    from pytorch_distributed_mnist_tpu_torch.parallel import collectives
+
+    return {"grad_all_reduce": collectives.grad_all_reduce.launches,
+            "metric_all_reduce": collectives.metric_all_reduce.launches}
+
+
+def _zero_collectives() -> None:
+    from pytorch_distributed_mnist_tpu_torch.parallel import collectives
+
+    collectives.grad_all_reduce.launches = 0
+    collectives.metric_all_reduce.launches = 0
+
+
+def _want_collectives(dp: bool, explicit: bool = False,
+                      epochs: int = TRAIN_EPOCHS) -> dict:
+    """The collectives of ``epochs`` epochs of the smoke's cnn or ViT run:
+    none without a process group; in a world, one gradient all-reduce per
+    train step and one metric all-reduce per pass (per step and eval
+    batch in the explicit mode)."""
+    import math
+
+    if not dp:
+        return {"grad_all_reduce": 0, "metric_all_reduce": 0}
+    args = TRAIN_ARGS
+    steps = epochs * (int(args[args.index("--synthetic-train-size") + 1])
+                      // TRAIN_BATCH)
+    evals = epochs * math.ceil(
+        int(args[args.index("--synthetic-test-size") + 1]) / TRAIN_BATCH)
+    return {"grad_all_reduce": steps,
+            "metric_all_reduce": steps + evals if explicit else 2 * epochs}
 
 
 def _launch_counters(model: str) -> dict:
@@ -1785,26 +1861,35 @@ def _trace_want(delta: dict) -> dict:
     return want
 
 
-def _trace_launches(prof) -> dict:
+def _trace_launches(prof) -> tuple:
     """The port's kernels in a profiler trace, counted by name (the first
-    name of ``OWN_KERNELS`` that a device event's name holds)."""
+    name of ``OWN_KERNELS`` that a device event's name holds), and the
+    collectives' kernels (NCCL's), by name."""
     import torch
 
-    got = {}
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        step_part,
+    )
+
+    got, nccl = {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if step_part(evt.name) == "collective":
+            nccl[evt.name[:80]] = nccl.get(evt.name[:80], 0) + 1
             continue
         for own, _ in OWN_KERNELS:
             if own in evt.name:
                 got[own] = got.get(own, 0) + 1
                 break
-    return got
+    return got, nccl
 
 
-def _traced_run(base: list, model: str, ckpt: str):
-    """The CLI's run of ``base`` with a profiler trace of its epoch 1, in
-    which every tick replays a captured graph; returns (summary, stdout,
-    counter deltas over epoch 1, the trace's kernel counts)."""
+def _traced_run(base: list, model: str, ckpt: str, dp: bool = False):
+    """The CLI's run of ``base`` (in a world of one with ``dp``) with a
+    profiler trace of its epoch 1, in which every tick replays a captured
+    graph; returns (summary, stdout, counter deltas over epoch 1, the
+    trace's kernel counts, its NCCL kernels by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1821,22 +1906,29 @@ def _traced_run(base: list, model: str, ckpt: str):
     try:
         summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
                                         "--checkpoint-dir", ckpt],
-                                epoch_callback=trace_epoch_1)
+                                epoch_callback=trace_epoch_1, dp=dp)
         torch.cuda.synchronize()
     finally:
         if "prof" in box:
             box["prof"].stop()
     delta = _counter_delta(_read_counters(model), box["before"])
-    return summary, out, delta, _trace_launches(box["prof"])
+    return (summary, out, delta) + _trace_launches(box["prof"])
 
 
-def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
+def phase_train(device_flag: str = "cuda", model: str = "cnn",
+                dp: bool = False, want_lines=None) -> dict:
     """Train ``model`` (``TRAIN_RUNS``) through the CLI in its default
     ``--trainer-mode scan``, resume and evaluate; returns its kernels'
     launch counts over the training run and its epoch lines. The counts
     are checked twice: from the wrappers' counters over the run, and on
     the card from a profiler trace of epoch 1 (every tick a replay of the
-    captured graphs), against the counters' deltas over that epoch."""
+    captured graphs), against the counters' deltas over that epoch.
+    Without ``dp`` the run makes no collective call. With ``dp`` every run
+    (train, resume, ``-e``) goes through the explicit rendezvous of a
+    world of one (``train_dp_world1``, ``train_dp_vit_world1``): the
+    gradient all-reduce inside the captured step, the metric all-reduce
+    once per pass, both counted exactly, and its epoch lines must equal
+    ``want_lines`` (the run without a group) character for character."""
     import shutil
 
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
@@ -1846,25 +1938,38 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
     run_cfg = TRAIN_RUNS[model]
     args = run_cfg["args"]
     phase = "train" if model == "cnn" else f"train_{model}"
+    if dp:
+        phase = "train_dp_world1" if model == "cnn" else \
+            f"train_dp_{model}_world1"
     if run_cfg["dtype"] == "f32":
         require_full_float32()
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     ckpt = os.path.join(root, "run")
     base = args + ["--device", device_flag]
-    traced = None
+    traced, nccl = None, None
     try:
         # The main path's run starts here.
         _zero_counters(model)
+        _zero_collectives()
         t0 = time.perf_counter()
         if device_flag == "cpu":  # a rehearsal: no trace of the card
             summary, out = _run_cli(base + ["--epochs", str(TRAIN_EPOCHS),
-                                            "--checkpoint-dir", ckpt])
+                                            "--checkpoint-dir", ckpt],
+                                    dp=dp)
         else:
-            summary, out, delta, traced = _traced_run(base, model, ckpt)
+            summary, out, delta, traced, nccl = _traced_run(base, model,
+                                                            ckpt, dp)
         wall_s = time.perf_counter() - t0
         launches = _read_counters(model)
+        collectives = _collective_counts()
         # ... and ends here.
         lines = _train_lines(out, "Epoch: ")
+        if collectives != _want_collectives(dp):
+            raise AssertionError(f"collectives {collectives}, expected "
+                                 f"{_want_collectives(dp)}")
+        if want_lines is not None and lines != want_lines:
+            raise AssertionError(f"{phase} printed\n{lines}\nwhere the run "
+                                 f"without a group printed\n{want_lines}")
         hist = summary["history"]
         if len(lines) != TRAIN_EPOCHS or len(hist) != TRAIN_EPOCHS:
             raise AssertionError(f"expected {TRAIN_EPOCHS} epoch lines:\n{out}")
@@ -1889,8 +1994,9 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
                 print(f"chip_smoke.py: epoch 1's trace counted {traced}, "
                       f"the counters {trace_want}; taking it again",
                       file=sys.stderr, flush=True)
-                _, _, delta, traced = _traced_run(
-                    base, model, os.path.join(root, f"retrace{attempt}"))
+                _, _, delta, traced, nccl = _traced_run(
+                    base, model, os.path.join(root, f"retrace{attempt}"),
+                    dp)
             if traced != trace_want:
                 raise AssertionError(f"epoch 1's trace counted {traced}, "
                                      f"the counters {trace_want}")
@@ -1899,28 +2005,41 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
                      "model_best.npz"]:
             raise AssertionError(f"checkpoint files: {files}")
         for name in files:
-            _, leaves = read_checkpoint_arrays(os.path.join(ckpt, name))
+            meta, leaves = read_checkpoint_arrays(os.path.join(ckpt, name))
             if len(leaves) != run_cfg["leaves"]:
                 raise AssertionError(f"{name} holds {len(leaves)} leaves")
+            if meta["world"] != {"processes": 1, "devices": 1}:
+                raise AssertionError(f"{name} stamped {meta['world']}")
 
         _, resumed_out = _run_cli(base + [
             "--epochs", str(TRAIN_EPOCHS), "--checkpoint-dir",
             os.path.join(root, "resumed"), "--resume",
-            os.path.join(ckpt, "checkpoint_0.npz")])
+            os.path.join(ckpt, "checkpoint_0.npz")], dp=dp)
         resumed = _train_lines(resumed_out, "Epoch: ")
         if resumed != lines[1:]:
             raise AssertionError(f"resume did not repeat epoch 1:\n"
                                  f"{lines[1:]}\n{resumed}")
         _, eval_out = _run_cli(base + [
             "-e", "--checkpoint-dir", os.path.join(root, "eval"),
-            "--resume", os.path.join(ckpt, "model_best.npz")])
+            "--resume", os.path.join(ckpt, "model_best.npz")], dp=dp)
         test_lines = _train_lines(eval_out, "Test Loss: ")
         if len(test_lines) != 1 or _train_lines(eval_out, "Epoch: "):
             raise AssertionError(f"-e printed:\n{eval_out}")
+        row = {}
+        if dp:
+            row = {"epoch_lines_equal_without_group": True,
+                   "rendezvous": "tcp 127.0.0.1, 1 process, "
+                                 + ("nccl" if device_flag == "cuda"
+                                    else "gloo"),
+                   "epoch_1_nccl_kernels": nccl,
+                   "nccl_note": None if nccl or nccl is None else
+                   "NCCL launched no kernel for the all-reduces of a "
+                   "world of one in epoch 1's trace"}
         emit(phase, trainer_mode="scan", epoch_lines=lines,
              resumed_epoch_lines=resumed, eval_line=test_lines[0],
              launches=launches, expected_launches=want,
-             epoch_1_trace_launches=traced,
+             collectives=collectives, checkpoint_world="1x1",
+             epoch_1_trace_launches=traced, **row,
              images_per_sec=[r["images_per_sec"] for r in hist],
              images_per_sec_note="epoch 0 holds the warm-up and capture; "
                                  "epoch 1 ran under the profiler",
@@ -1928,28 +2047,32 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn") -> dict:
              test_acc=[r["test_acc"] for r in hist],
              test_acc_floor=run_cfg["floor"], wall_s=wall_s,
              resume_repeats_epoch_1=True)
-        return {"launches": launches, "lines": lines}
+        return {"launches": launches, "lines": lines,
+                "collectives": collectives}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_train_twin(phase: str, model: str, flags: list, want_lines: list,
-                     device_flag: str = "cuda") -> dict:
+                     device_flag: str = "cuda", dp: bool = False) -> dict:
     """The ``model`` run of ``phase_train`` again with ``flags`` (another
-    trainer mode or epoch gather): its epoch lines must equal
-    ``want_lines`` character for character, and its launch counts the
-    run's."""
+    trainer mode or epoch gather; in a world of one with ``dp``): its
+    epoch lines must equal ``want_lines`` character for character, and its
+    launch counts and collectives the run's (per step and eval batch in
+    the explicit mode)."""
     import shutil
 
     root = tempfile.mkdtemp(prefix="chip_smoke_twin_")
     try:
         _zero_counters(model)
+        _zero_collectives()
         t0 = time.perf_counter()
         summary, out = _run_cli(TRAIN_RUNS[model]["args"] + flags + [
             "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
-            "--checkpoint-dir", root])
+            "--checkpoint-dir", root], dp=dp)
         wall_s = time.perf_counter() - t0
         launches = _read_counters(model)
+        collectives = _collective_counts()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     lines = _train_lines(out, "Epoch: ")
@@ -1959,8 +2082,14 @@ def phase_train_twin(phase: str, model: str, flags: list, want_lines: list,
     if launches != _want_launches(model):
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
                              f"{_want_launches(model)}")
-    row = {"model": model, "flags": flags, "epoch_lines": lines,
-           "equal_to_scan": True, "launches": launches, "wall_s": wall_s,
+    want_coll = _want_collectives(dp, explicit="explicit" in flags)
+    if collectives != want_coll:
+        raise AssertionError(f"{phase}: collectives {collectives}, "
+                             f"expected {want_coll}")
+    row = {"model": model, "flags": flags, "world_of_one": dp,
+           "epoch_lines": lines, "equal_to_scan": True,
+           "launches": launches, "collectives": collectives,
+           "wall_s": wall_s,
            "images_per_sec": [r["images_per_sec"]
                               for r in summary["history"]]}
     emit(phase, **row)
@@ -1985,19 +2114,14 @@ OWN_KERNELS = (("xent_fwd_kernel", "xent_fwd"),
 
 
 def _train_kind(kernel: str) -> str:
-    """A device kernel's part of a train step, by its name."""
-    name = kernel.lower()
-    for own, kind in OWN_KERNELS:
-        if own in name:
-            return kind
-    if "memcpy" in name or "memset" in name:
-        return "copy"
-    if any(s in name for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
-                               "implicit", "winograd")):
-        return "conv"
-    if any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass", "cublas")):
-        return "fc_gemm"
-    return "other_elementwise"
+    """A device kernel's part of a train step, by its name
+    (``utils/profiling.py::step_part``; NCCL's kernels are
+    ``collective``)."""
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        step_part,
+    )
+
+    return step_part(kernel, OWN_KERNELS)
 
 
 def _step_launches(step, model: str, tokens: int, dtype: str) -> dict:
@@ -2149,25 +2273,14 @@ def phase_train_profile(device, model: str = "cnn", patch_size: int = 4,
 SCAN_STEPS = 32  # one epoch of the smoke's run: 8192 images at batch 256
 
 
-def phase_train_scan_profile(device, model: str = "cnn",
-                             patch_size: int = 4) -> dict:
-    """The two trainer modes on one epoch of ``SCAN_STEPS`` train steps
-    (``model`` at batch 256, bf16, fused loss and Adam, the ViT with flash
-    attention at ``patch_size``), in this one call: the stepwise trainer's
-    steps (each batch copied to the card from pinned host memory, one
-    eager step) against the scan trainer's epoch program (the epoch staged
-    on the card, one captured graph of the step replayed per batch). For
-    each: host wall per step (the epoch's wall over its steps, to the
-    epoch's last device work), device ms per step from the profiler's
-    trace, the device's span per step between CUDA events around the
-    epoch (kernels and the gaps between them), busy share, images/s; the capture's wall time, the graph
-    pool's and the staged epoch's bytes; and the cross-entropy and Adam
-    kernels' device ms per call inside the replay beside their eager
-    times. Returns the phase's row."""
+def _scan_setup(device, model: str, patch_size: int):
+    """The scan profiles' case: ``SCAN_STEPS`` batches of 256 synthetic
+    images (host arrays and the epoch staged on the card) and a factory of
+    fresh train states of ``model`` (bf16, fused loss and Adam, the ViT
+    with flash attention at ``patch_size``)."""
     import numpy as np
     import torch
 
-    from pytorch_distributed_mnist_tpu_torch.data.loader import to_device
     from pytorch_distributed_mnist_tpu_torch.data.mnist import (
         normalize_images,
         synthetic_dataset,
@@ -2177,10 +2290,6 @@ def phase_train_scan_profile(device, model: str = "cnn",
     from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
     from pytorch_distributed_mnist_tpu_torch.train.state import (
         create_train_state,
-    )
-    from pytorch_distributed_mnist_tpu_torch.train.steps import (
-        make_train_epoch,
-        train_step,
     )
 
     set_loss_impl("fused")
@@ -2195,45 +2304,59 @@ def phase_train_scan_profile(device, model: str = "cnn",
             "label": labels.astype(np.int64).reshape(n, b),
             "mask": np.ones((n, b), np.float32)}
     staged = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    staged_bytes = sum(t.numel() * t.element_size() for t in staged.values())
 
-    def state():
+    def make_state():
         return create_train_state(get_model(model, **kwargs), SEED, device,
                                   optimizer="adam_pallas")
 
-    eager = state()
+    return make_state, host, staged
 
-    def stepwise():
-        for s in range(n):
-            train_step(eager, to_device({k: v[s] for k, v in host.items()},
-                                        device))
 
-    scanned = state()
-    epoch = make_train_epoch(scanned)
+def _epoch_program(device, make_state, staged, axis=None) -> dict:
+    """A fresh state's scan epoch program on ``staged``, run once (2 eager
+    ticks, the capture, 30 replays): ``{"run", "program", "pool_bytes",
+    "grad_buffer_bytes"}``, the pool's bytes a ``memory_allocated`` delta
+    net of the flat gradient buffer a world's step allocates."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+    )
+
+    state = make_state()
+    epoch = make_train_epoch(state, axis)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(device)
-    epoch(staged)  # 2 eager ticks, the capture, 30 replays
+    epoch(staged)
     torch.cuda.synchronize()
-    pool_bytes = torch.cuda.memory_allocated(device) - before
-    program = epoch.program
+    grads = state.grad_buffer
+    grad_bytes = 0 if grads is None else grads.flat.numel() * 4
+    return {"run": lambda: epoch(staged), "program": epoch.program,
+            "pool_bytes": torch.cuda.memory_allocated(device) - before
+            - grad_bytes, "grad_buffer_bytes": grad_bytes}
 
-    def scan():
-        epoch(staged)
+
+def _timed_modes(modes: list, n: int, b: int) -> dict:
+    """Each of ``modes`` (name, a function running one epoch of ``n``
+    steps of ``b`` images), timed in turns (each mode, then each again in
+    reverse order): host wall per step (the better turn), device ms per
+    step from the profiler's trace, the device's span per step between
+    CUDA events, busy share, images/s, the collectives' device ms, and the
+    cross-entropy and Adam kernels' device ms per call."""
+    import torch
 
     rows = {}
-    for mode, fn in (("stepwise", stepwise), ("scan", scan),
-                     ("scan_again", scan), ("stepwise_again", stepwise)):
+    for mode, fn in modes + [(f"{m}_again", fn) for m, fn in modes[::-1]]:
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        rows[mode] = {"wall_ms": wall_ms}
-    for mode, fn in (("stepwise", stepwise), ("scan", scan)):
+        rows[mode] = {"wall_ms": (time.perf_counter() - t0) / n * 1e3}
+    for mode, fn in modes:
         per = device_ms(fn, iters=2)
         dev_ms = sum(per.values()) / n
-        walls = [rows[mode]["wall_ms"], rows[f"{mode}_again"]["wall_ms"]]
+        walls = [rows[mode]["wall_ms"], rows.pop(f"{mode}_again")["wall_ms"]]
         wall = min(walls)
         # The device's span per step, from CUDA events around the epoch:
         # its kernels and the gaps between them, no profiler.
@@ -2243,27 +2366,260 @@ def phase_train_scan_profile(device, model: str = "cnn",
         fn()
         end.record()
         end.synchronize()
+        collective = {name[:80]: ms / n for name, ms in per.items()
+                      if _train_kind(name) == "collective"}
         rows[mode].update(
             wall_ms=wall, wall_ms_both=walls, device_ms=dev_ms,
             device_span_ms=start.elapsed_time(end) / n,
             device_busy=dev_ms / wall, images_per_sec=b / wall * 1e3,
+            collective_ms=sum(collective.values()),
+            collective_kernels=collective,
             kernel_ms_per_call={
                 name: _kernel_ms(per, own) / n for own, name in (
                     ("xent_fwd_kernel", "xent_fwd"),
                     ("xent_bwd_kernel", "xent_bwd"),
                     ("adam_leaves_kernel", "adam"))})
-        rows.pop(f"{mode}_again")
+    return rows
+
+
+def phase_train_scan_profile(device, model: str = "cnn",
+                             patch_size: int = 4) -> dict:
+    """The two trainer modes on one epoch of ``SCAN_STEPS`` train steps
+    (``model`` at batch 256, bf16, fused loss and Adam, the ViT with flash
+    attention at ``patch_size``), in this one call: the stepwise trainer's
+    steps (each batch copied to the card from pinned host memory, one
+    eager step) against the scan trainer's epoch program (the epoch staged
+    on the card, one captured graph of the step replayed per batch), as
+    ``_timed_modes`` times them; the capture's wall time, the graph
+    pool's and the staged epoch's bytes; and the cross-entropy and Adam
+    kernels' device ms per call inside the replay beside their eager
+    times. Returns the phase's row."""
+    from pytorch_distributed_mnist_tpu_torch.data.loader import to_device
+    from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
+
+    make_state, host, staged = _scan_setup(device, model, patch_size)
+    n, b = SCAN_STEPS, TRAIN_BATCH
+    eager = make_state()
+
+    def stepwise():
+        for s in range(n):
+            train_step(eager, to_device({k: v[s] for k, v in host.items()},
+                                        device))
+
+    scan = _epoch_program(device, make_state, staged)
+    rows = _timed_modes([("stepwise", stepwise), ("scan", scan["run"])],
+                        n, b)
     row = {"model": model, "patch_size": patch_size,
            "tokens": (28 // patch_size) ** 2 if model == "vit" else None,
-           "batch": b, "steps": n, "capture_s": program.capture_s,
-           "graph_pool_bytes": pool_bytes, "staged_epoch_bytes": staged_bytes,
-           "replays": program.replays, **rows,
+           "batch": b, "steps": n, "capture_s": scan["program"].capture_s,
+           "graph_pool_bytes": scan["pool_bytes"],
+           "staged_epoch_bytes": sum(t.numel() * t.element_size()
+                                     for t in staged.values()),
+           "replays": scan["program"].replays, **rows,
            "host_wall_ratio": rows["stepwise"]["wall_ms"]
            / rows["scan"]["wall_ms"]}
     phase = "train_scan_profile" if model == "cnn" else \
         f"train_scan_profile_{model}" + ("" if patch_size == 4
                                          else f"_p{patch_size}")
     emit(phase, **row)
+    return row
+
+
+def phase_train_scan_profile_dp(device) -> dict:
+    """What the gradient all-reduce in the replayed step costs at world 1:
+    in the same call as ``train_scan_profile``, the cnn's scan epoch
+    program without a process group against the same program in an NCCL
+    world of one (this process joins a group of its own through the
+    explicit rendezvous; the all-reduce captured in the graph), timed in
+    turns by ``_timed_modes``: host wall, device ms, busy share and
+    images/s per step, the NCCL kernels' device ms, and what the world of
+    one adds. Returns the phase's row."""
+    from pytorch_distributed_mnist_tpu_torch.parallel import distributed
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        free_port,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
+
+    make_state, _, staged = _scan_setup(device, "cnn", 4)
+    n, b = SCAN_STEPS, TRAIN_BATCH
+    plain = _epoch_program(device, make_state, staged)
+    t0 = time.perf_counter()
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                       device)
+    try:
+        rendezvous_s = time.perf_counter() - t0
+        dp = _epoch_program(device, make_state, staged,
+                            make_mesh(device=device))
+        rows = _timed_modes([("scan", plain["run"]),
+                             ("scan_dp", dp["run"])], n, b)
+    finally:
+        distributed.teardown()
+    per_replay = {f"{k[1]}.{k[2]}": v for k, v in
+                  dp["program"].launches.per_replay.items()}
+    if per_replay.get("grad_all_reduce.launches") != 1:
+        raise AssertionError(f"the world-of-one replay holds {per_replay}, "
+                             f"not one all-reduce")
+    row = {"model": "cnn", "batch": b, "steps": n, "world": 1,
+           "backend": "nccl", "scan_without_group": rows["scan"],
+           "scan_world_1": rows["scan_dp"],
+           "wall_ms_added": rows["scan_dp"]["wall_ms"]
+           - rows["scan"]["wall_ms"],
+           "device_ms_added": rows["scan_dp"]["device_ms"]
+           - rows["scan"]["device_ms"],
+           "capture_s": dp["program"].capture_s,
+           "capture_s_without_group": plain["program"].capture_s,
+           "graph_pool_bytes": dp["pool_bytes"],
+           "graph_pool_bytes_without_group": plain["pool_bytes"],
+           "grad_buffer_bytes": dp["grad_buffer_bytes"],
+           "rendezvous_s": rendezvous_s, "launches_per_replay": per_replay,
+           "replays": dp["program"].replays}
+    emit("train_scan_profile_dp", **row)
+    return row
+
+
+# ``--spawn 2`` as a user runs it: the cnn run's flags for one epoch on the
+# card, and linear on the CPU over gloo.
+SPAWN_CPU_ARGS = ["--model", "linear", "--dataset", "synthetic",
+                  "--synthetic-train-size", "2048", "--synthetic-test-size",
+                  "500", "--batch-size", "256", "--seed", str(SEED),
+                  "--epochs", "1", "--device", "cpu"]
+
+
+def _epoch_numbers(lines: list) -> list:
+    import re
+
+    return [[float(x) for x in re.findall(r"-?\d+\.?\d*", ln)]
+            for ln in lines]
+
+
+def phase_dp_spawn() -> dict:
+    """``--spawn 2`` as a user's command line runs it (``cli.main``; the
+    ranks are processes of their own). On the card: with fewer than 2 cards
+    it must exit 2 with the one-card-per-rank message (NCCL refuses two
+    ranks on one card, and no rank is moved to the CPU unasked); with 2 or
+    more, the cnn run in float32 in a 2-rank NCCL world, rank 0's epoch
+    line held to one process's within the CPU tests' bounds (the losses
+    within 1e-5, the accuracies within one example). Then ``--device
+    cpu --model linear``: a gloo world on this machine's CPU, which must
+    print rank 0's lines and the devices line and write one checkpoint
+    per epoch (and the best copy) stamped 2x2."""
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        read_checkpoint_arrays,
+    )
+
+    def cli(argv, ckpt):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_mnist_tpu_torch",
+             *argv, "--checkpoint-dir", ckpt], capture_output=True,
+            text=True, timeout=600, cwd=_HERE,
+            env=dict(os.environ, PYTHONPATH=_HERE))
+        return proc, time.perf_counter() - t0
+
+    def spawn_here(argv, ckpt):
+        """``cli.main(argv)`` for ``--spawn`` from this process, as a
+        user's command line runs it, without a process of its own for the
+        spawner; rank 0, which writes to the inherited standard output,
+        writes to a file instead. Returns (exit code, rank 0's output,
+        the ranks' errors, seconds)."""
+        from pytorch_distributed_mnist_tpu_torch import cli as port_cli
+
+        t0 = time.perf_counter()
+        sys.stdout.flush()
+        with tempfile.TemporaryFile(mode="w+") as out, \
+                tempfile.TemporaryFile(mode="w+") as err:
+            saved = os.dup(1), os.dup(2)
+            os.dup2(out.fileno(), 1)
+            os.dup2(err.fileno(), 2)
+            try:
+                port_cli.main([*argv, "--checkpoint-dir", ckpt])
+                code = 0
+            except SystemExit as exit_:
+                code = exit_.code
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os.dup2(saved[0], 1)
+                os.dup2(saved[1], 2)
+                os.close(saved[0])
+                os.close(saved[1])
+            out.seek(0)
+            err.seek(0)
+            return code, out.read(), err.read(), time.perf_counter() - t0
+
+    cards = torch.cuda.device_count()
+    root = tempfile.mkdtemp(prefix="chip_smoke_spawn_")
+    row = {"cards": cards}
+    try:
+        card_args = TRAIN_ARGS + ["--epochs", "1", "--dtype", "f32"]
+        if cards < 2:
+            # The CLI refuses before it starts any process: in-process.
+            import contextlib
+            import io
+
+            from pytorch_distributed_mnist_tpu_torch import cli as port_cli
+
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                try:
+                    port_cli.main(["--spawn", "2", *card_args,
+                                   "--checkpoint-dir", root])
+                    code = 0
+                except SystemExit as exit_:
+                    code = exit_.code
+            if code != 2 or "NCCL needs one card per rank" \
+                    not in err.getvalue():
+                raise AssertionError(f"--spawn 2 on {cards} card: exit "
+                                     f"{code}\n{err.getvalue()}")
+            row["card_world_2"] = {
+                "exit": code, "message": err.getvalue().strip(),
+                "nccl_world_of_2": "not run: needs 2 or more cards"}
+        else:
+            proc, wall = cli(["--spawn", "2", *card_args],
+                             os.path.join(root, "card2"))
+            one, one_wall = cli(card_args, os.path.join(root, "card1"))
+            for p in (proc, one):
+                if p.returncode != 0:
+                    raise AssertionError(f"cnn run rc {p.returncode}\n"
+                                         f"{p.stdout}\n{p.stderr}")
+            two_lines = _train_lines(proc.stdout, "Epoch: ")
+            one_lines = _train_lines(one.stdout, "Epoch: ")
+            for x, y in zip(_epoch_numbers(two_lines),
+                            _epoch_numbers(one_lines), strict=True):
+                if (x[:3] != y[:3] or abs(x[3] - y[3]) > 1e-5
+                        or abs(x[5] - y[5]) > 1e-5
+                        or abs(x[4] - y[4]) > 100 / 8192
+                        or abs(x[6] - y[6]) > 100 / 2048):
+                    raise AssertionError(f"world 2 {two_lines} against "
+                                         f"world 1 {one_lines}")
+            row["card_world_2"] = {"rc": 0, "wall_s": wall,
+                                   "one_process_wall_s": one_wall,
+                                   "epoch_lines": two_lines,
+                                   "one_process_lines": one_lines}
+        ckpt = os.path.join(root, "cpu2")
+        code, out, err, wall = spawn_here(["--spawn", "2", *SPAWN_CPU_ARGS],
+                                          ckpt)
+        lines = _train_lines(out, "Epoch: ")
+        devices = _train_lines(out, "devices: ")
+        files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        if (code != 0 or len(lines) != 1 or devices != [
+                "devices: 2 (cpu), processes: 2, mesh: {'data': 2}"]
+                or files != ["checkpoint_0.npz", "model_best.npz"]):
+            raise AssertionError(f"gloo world: exit {code}, files {files}"
+                                 f"\n{out}\n{err}")
+        meta, _ = read_checkpoint_arrays(os.path.join(ckpt, files[0]))
+        if meta["world"] != {"processes": 2, "devices": 2}:
+            raise AssertionError(f"stamped {meta['world']}")
+        row["cpu_world_2"] = {"exit": 0, "wall_s": wall, "epoch_lines": lines,
+                              "devices_line": devices[0], "files": files,
+                              "world": meta["world"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("dp_spawn", **row)
     return row
 
 
@@ -2363,6 +2719,17 @@ def main() -> int:
     scan_cnn = phase_train_scan_profile(device)
     phase_train_scan_profile(device, model="vit")
     phase_train_scan_profile(device, model="vit", patch_size=2)
+    # Data parallelism, last: once a process has held an NCCL group, its
+    # profiler traces lose device events far more often (175 retaken
+    # traces against 19 in one call, PERF.md), so every phase that times
+    # kernels runs first. The cnn and ViT runs in a world of one, the
+    # explicit mode there, --spawn 2, and the replayed step's cost.
+    phase_train(dp=True, want_lines=cnn_run["lines"])
+    phase_train_twin("train_explicit", "cnn", ["--trainer-mode", "explicit"],
+                     cnn_run["lines"], dp=True)
+    phase_train(model="vit", dp=True, want_lines=vit_run["lines"])
+    phase_train_scan_profile_dp(device)
+    phase_dp_spawn()
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -2532,6 +2899,7 @@ def main() -> int:
             **{f"pair_{key}": value for key, value in d12_rows(
                 "flash_bwd", "f32", "split_ms", *row_keys).items()},
             "at": at_f32})
+    emit("smoke", seconds=time.perf_counter() - _STARTED)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ the card unless ``--device cpu`` is given.
 ``python -m pytorch_distributed_mnist_tpu_torch serve ...`` boots the HTTP
 inference server (``serve/server.py``).
 
-The flags are the single-device main-path subset of the JAX package's
+The flags are the data-parallel main-path subset of the JAX package's
 ``build_parser``, with its defaults. ``--trainer-mode`` defaults to
 ``scan``, as the JAX CLI's does: each epoch is one captured CUDA graph of
 the train step replayed per batch (and one of the eval step per eval
@@ -16,10 +16,21 @@ batch), from an epoch staged on the device, with one host read of the
 metrics per pass (``train/steps.py::EpochProgram``; on the CPU the same
 step body in a loop). ``--epoch-gather device`` keeps the dataset on the
 device and gathers each batch there. ``stepwise`` runs one eager step per
-batch; ``explicit`` (a data-parallel mode) exits 2. ``--model vit
---attention flash`` trains the ViT through the flash-attention kernels
-(``ops/flash.py``). Flags for several processes, meshes, ZeRO, elastic
-runs, publishing, ``--grad-accum`` and ``--remat`` are not accepted yet.
+batch; ``explicit`` does too, through the explicit data-parallel steps of
+``parallel/collectives.py``. ``--model vit --attention flash`` trains the
+ViT through the flash-attention kernels (``ops/flash.py``).
+
+Data parallelism over processes, one device each: ``--spawn N`` starts N
+local ranks (``parallel/launcher.py``; rank r on ``cuda:r`` over NCCL, or
+every rank on the CPU over gloo with ``--device cpu``);
+``--coordinator host:port --num-processes N --process-id r`` joins a world
+rank by rank; a launcher's environment (``MASTER_ADDR`` with
+``WORLD_SIZE``, Slurm, Open MPI) is detected. ``--batch-size`` is global:
+each rank takes its share of every batch, the gradients are averaged over
+the ranks, the metrics summed, and process 0 prints and writes the
+checkpoints. A single process with none of these makes no process group.
+Flags for meshes of more than the data axis, ZeRO, elastic runs,
+publishing, ``--grad-accum`` and ``--remat`` are not accepted yet.
 """
 
 from __future__ import annotations
@@ -44,6 +55,15 @@ from pytorch_distributed_mnist_tpu_torch.models import (
     model_accepts,
 )
 from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
+from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
+    barrier,
+    broadcast_object,
+    initialize_distributed,
+    process_count,
+    process_index,
+    teardown,
+)
+from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
 from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
     is_corrupt_checkpoint_error,
     latest_checkpoint,
@@ -58,7 +78,7 @@ from pytorch_distributed_mnist_tpu_torch.train.state import (
     OPTIMIZERS,
     create_train_state,
 )
-from pytorch_distributed_mnist_tpu_torch.train.trainer import MODES, Trainer
+from pytorch_distributed_mnist_tpu_torch.train.trainer import Trainer
 from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
@@ -73,7 +93,11 @@ _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_distributed_mnist_tpu_torch",
-        description="MNIST training on one NVIDIA card (PyTorch/CUDA port)",
+        description="MNIST training on NVIDIA cards, one process per card "
+                    "(PyTorch/CUDA port)",
+        # No prefix abbreviation: an abbreviated '--spaw 2' would set
+        # args.spawn yet survive the launcher's literal strip, and the
+        # children would re-parse it beside the rendezvous flags.
         allow_abbrev=False,
     )
     p.add_argument("--root", type=str, default="data", help="dataset root dir")
@@ -82,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "gathers batches on the main thread")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--start-epoch", type=int, default=0)
-    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=256,
+                   help="GLOBAL batch size, split across all processes")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--momentum", type=float, default=0.9,
                    help="for --optimizer sgd")
@@ -95,6 +120,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-e", "--evaluate", action="store_true",
                    help="evaluate on the test set and exit")
     p.add_argument("--seed", type=int, default=None)
+    # Rendezvous (the reference's --init-method/--world-size/--rank).
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="rendezvous address host:port (rank 0's) for "
+                        "multi-process runs")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--spawn", type=int, default=0, metavar="N",
+                   help="start N local processes that rendezvous on a free "
+                        "loopback port: the reference's mp.spawn launch "
+                        "mode as a flag. Rank r runs on cuda:r over NCCL "
+                        "(N cards needed), or on the CPU over gloo with "
+                        "--device cpu")
     p.add_argument("--model", type=str, default="cnn", choices=list_models())
     p.add_argument("--attention", type=str, default="dense",
                    choices=["dense", "flash"],
@@ -124,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["scan", "stepwise", "explicit"],
                    help="scan: each epoch replays one captured CUDA graph "
                         "of the step per batch (a loop on the CPU); "
-                        "stepwise: one eager step per batch; explicit is "
-                        "not ported yet")
+                        "stepwise: one eager step per batch; explicit: "
+                        "one eager step per batch through the explicit "
+                        "data-parallel steps (metrics summed every step)")
     p.add_argument("--epoch-gather", type=str, default="host",
                    choices=["host", "device"],
                    help="scan-mode batch staging: 'host' gathers each "
@@ -146,7 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-test-size", type=int, default=10000)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default, raises without a card), cuda:N or "
-                        "cpu")
+                        "cpu; a rank on the card talks NCCL, on the CPU "
+                        "gloo")
     return p
 
 
@@ -178,7 +217,7 @@ def _model_kwargs(args) -> dict:
     return model_kwargs
 
 
-def _build_loaders(args, seed: int):
+def _build_loaders(args, seed: int, axis):
     name = "mnist" if args.dataset == "synthetic" else args.dataset
     synthesize = args.dataset == "synthetic"
     used_synthetic = synthesize
@@ -207,23 +246,31 @@ def _build_loaders(args, seed: int):
 
     train_images, train_labels = load_split(train=True)
     test_images, test_labels = load_split(train=False)
+    # Each rank takes its shard of every global batch; eval shards too in
+    # a world of more than one (padded and masked, the counts summed).
     train_loader = MNISTDataLoader(normalize_images(train_images),
                                    train_labels, batch_size=args.batch_size,
-                                   train=True, seed=seed)
+                                   train=True, num_replicas=axis.size,
+                                   rank=axis.rank, seed=seed)
     test_loader = MNISTDataLoader(normalize_images(test_images), test_labels,
                                   batch_size=args.batch_size, train=False,
-                                  seed=seed)
+                                  num_replicas=axis.size, rank=axis.rank,
+                                  seed=seed, shard=axis.size > 1)
     return train_loader, test_loader, used_synthetic
 
 
 def _resume(args, state):
     """``(state, start_epoch, best_acc, path)``. Under ``--resume auto`` a
     corrupt newest checkpoint is quarantined and the next-older one
-    tried; a mismatch (another model or optimizer) raises."""
+    tried; a mismatch (another model or optimizer) raises. In a world of
+    processes every rank loads the file process 0 resolved: ranks that
+    resumed at different epochs would run different numbers of
+    collectives."""
     auto = args.resume == "auto"
     while True:
         if auto:
-            path = latest_checkpoint(args.checkpoint_dir)
+            path = broadcast_object(latest_checkpoint(args.checkpoint_dir)
+                                    if process_index() == 0 else None)
             if not path:
                 log0(f"=> --resume auto: no checkpoint in "
                      f"'{args.checkpoint_dir}' yet, training fresh")
@@ -234,10 +281,15 @@ def _resume(args, state):
             state, start_epoch, best_acc = try_resume(path, state)
         except Exception as exc:
             if auto and is_corrupt_checkpoint_error(exc):
-                dest = quarantine_checkpoint(path)
-                log0(f"=> quarantined corrupt checkpoint {path!r} -> "
-                     f"{dest!r} ({exc!r}); falling back to the next-older "
-                     f"epoch")
+                # Every rank read the same bytes; process 0 moves the file
+                # once all have.
+                barrier()
+                if process_index() == 0:
+                    dest = quarantine_checkpoint(path)
+                    log0(f"=> quarantined corrupt checkpoint {path!r} -> "
+                         f"{dest!r} ({exc!r}); falling back to the "
+                         f"next-older epoch")
+                barrier()
                 continue
             raise
         return state, start_epoch, best_acc, path
@@ -246,24 +298,36 @@ def _resume(args, state):
 def run(args, epoch_callback=None) -> dict:
     """Train (or, with ``-e``, evaluate) as the flags say; returns a
     summary dict. ``epoch_callback(epoch, history_row) -> bool`` fires
-    after each epoch's checkpoint; True stops the loop."""
-    log0(args)
-    if args.trainer_mode not in MODES:
-        print(f"--trainer-mode {args.trainer_mode} is not ported yet: the "
-              f"PyTorch port trains in {' or '.join(MODES)} mode",
-              file=sys.stderr)
-        raise SystemExit(2)
+    after each epoch's checkpoint, on every rank; True stops the loop.
+    The rendezvous, when the flags or the environment ask for one, comes
+    before the model is built, and the process group it made is
+    destroyed on every exit."""
     if args.epoch_gather == "device" and args.trainer_mode != "scan":
         raise SystemExit(
             "--epoch-gather device requires --trainer-mode scan (the "
             "gather lives inside the scanned epoch program)")
     model_kwargs = _model_kwargs(args)
+    device = resolve_device(args.device)
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, device)
+    try:
+        return _run_in_world(args, model_kwargs, device, epoch_callback)
+    finally:
+        teardown()
+
+
+def _run_in_world(args, model_kwargs: dict, device: torch.device,
+                  epoch_callback) -> dict:
+    """:func:`run` once this process is in its world."""
+    log0(args)
     seed = args.seed if args.seed is not None else 0
     if args.seed is not None:
         random.seed(args.seed)
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
-    device = resolve_device(args.device)
+    axis = make_mesh(device=device)
+    log0(f"devices: {axis.size} ({'gpu' if device.type == 'cuda' else 'cpu'}"
+         f"), processes: {process_count()}, mesh: {axis.shape}")
     set_loss_impl(args.loss)
     state = create_train_state(
         get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
@@ -273,10 +337,10 @@ def run(args, epoch_callback=None) -> dict:
     if not (resume_path and start_epoch > 0):
         # A resumed checkpoint's epoch wins over --start-epoch.
         start_epoch = args.start_epoch
-    train_loader, test_loader, synthesized = _build_loaders(args, seed)
+    train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
     trainer = Trainer(state, train_loader, test_loader, device,
                       mode=args.trainer_mode, epoch_gather=args.epoch_gather,
-                      staging_log=StagingLog())
+                      staging_log=StagingLog(), axis=axis)
     # closing(trainer) joins an in-flight epoch prefetch on every exit.
     with closing(trainer):
         return _train_or_evaluate(args, trainer, start_epoch, best_acc,
@@ -295,7 +359,8 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
                 "test_acc": test_acc.accuracy, "best_acc": best_acc,
                 "start_epoch": start_epoch, "epochs_run": 0}
 
-    sink = JsonlSink(args.metrics_file) if args.metrics_file else None
+    sink = (JsonlSink(args.metrics_file)
+            if args.metrics_file and process_index() == 0 else None)
     timer = StepTimer()
     history = []
     for epoch in range(start_epoch, args.epochs):
@@ -333,14 +398,45 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
         if epoch_callback is not None and epoch_callback(epoch, history[-1]):
             break
     ips = timer.images_per_sec
-    # The reference's line; one device, so the per-chip rate is the rate.
-    log0(f"throughput: {ips:,.0f} images/sec ({ips:,.0f}/chip), "
+    # The reference's line; one device per process.
+    per_chip = ips / trainer.axis.size
+    log0(f"throughput: {ips:,.0f} images/sec ({per_chip:,.0f}/chip), "
          f"best acc: {best_acc * 100:.2f}%")
     return {"best_acc": best_acc, "history": history,
             "images_per_sec": ips,
             "dataset_synthesized": synthesized,
             "start_epoch": start_epoch, "epochs_run": len(history),
             "staging": trainer.staging_log.summary()}
+
+
+def _spawn(args, argv: list) -> int:
+    """``--spawn N``: the JAX CLI's refusals, then one card per rank on the
+    card (never two NCCL ranks on one card, and never a rank moved to the
+    CPU unasked), then the local world; returns its exit code."""
+    if args.spawn < 2:
+        raise SystemExit(
+            f"--spawn {args.spawn}: the local spawner simulates a "
+            "multi-host world and needs at least 2 processes; for a "
+            "single-process run just drop --spawn")
+    if (args.coordinator or args.process_id is not None
+            or args.num_processes is not None):
+        raise SystemExit(
+            "--spawn forks its own local world; it cannot combine with "
+            "--coordinator/--num-processes/--process-id (those join an "
+            "existing one)")
+    if torch.device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        if cards < args.spawn:
+            print(f"--spawn {args.spawn} on {args.device}: NCCL needs one "
+                  f"card per rank and {cards} card(s) are visible; "
+                  f"--device cpu runs a gloo world on the CPU",
+                  file=sys.stderr)
+            return 2
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        spawn_local,
+    )
+
+    return spawn_local(args.spawn, argv, device=args.device)
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -352,4 +448,7 @@ def main(argv: Optional[list] = None) -> None:
 
         serve_main(argv[1:])
         return
-    run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.spawn:
+        raise SystemExit(_spawn(args, argv))
+    run(args)

@@ -1,12 +1,19 @@
-"""Batch loading for one process.
+"""Batch loading for one process's shard.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/data/loader.py``'s
 ``MNISTDataLoader`` without its device-array assembly: the loader yields
-numpy batches (``epoch_ticks`` + ``host_batch``, the same index space as
-the reference's) or a whole epoch stacked (``stacked_epoch``, the scan
-trainer's), and :func:`to_device` moves one batch to the card from pinned
-host memory. Train batches drop the ragged tail (``drop_last``); eval
-batches pad it by wrapping and mask the padding out.
+numpy batches of this process's shard (``epoch_ticks`` + ``host_batch``,
+the same index space as the reference's) or a whole epoch stacked
+(``stacked_epoch``, the scan trainer's), and :func:`to_device` moves one
+batch to the card from pinned host memory. Train batches drop the ragged
+tail (``drop_last``); eval batches pad it by wrapping and mask the padding
+out.
+
+``batch_size`` is the global batch: each of ``num_replicas`` processes
+takes ``batch_size / num_replicas`` rows a step (``local_batch_size``),
+from its disjoint sampler shard. The train loader shards by default; the
+eval loader shards when asked (``shard=True``, the CLI's choice in a world
+of more than one), its wrap padding masked so every example counts once.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from pytorch_distributed_mnist_tpu_torch.data.sampler import (
 
 
 class MNISTDataLoader:
-    """Iterates ``{"image", "label", "mask"}`` numpy batches."""
+    """Iterates ``{"image", "label", "mask"}`` numpy batches over this
+    process's shard."""
 
     def __init__(
         self,
@@ -30,16 +38,30 @@ class MNISTDataLoader:
         labels: np.ndarray,  # int (N,)
         batch_size: int,
         train: bool = True,
+        num_replicas: int = 1,
+        rank: int = 0,
         seed: int = 0,
+        shard: Optional[bool] = None,
         drop_last: Optional[bool] = None,
     ) -> None:
+        if batch_size % num_replicas != 0:
+            raise ValueError(
+                f"global batch_size {batch_size} not divisible by "
+                f"{num_replicas} processes"
+            )
         self.images = images
         self.labels = np.asarray(labels, np.int64)  # torch's index type
-        self.batch_size = batch_size
+        self.global_batch_size = batch_size
+        self.local_batch_size = batch_size // num_replicas
         self.train = train
+        # The JAX loader's default: shard train, replicate eval unless
+        # asked (the CLI shards eval in a world of more than one).
+        shard = train if shard is None else shard
         self.drop_last = train if drop_last is None else drop_last
         self.sampler = DistributedShardSampler(
-            dataset_len=images.shape[0], shuffle=train, seed=seed)
+            dataset_len=images.shape[0],
+            num_replicas=num_replicas if shard else 1,
+            rank=rank if shard else 0, shuffle=train, seed=seed)
 
     def set_sample_epoch(self, epoch: int) -> None:
         """Reseed this epoch's shuffle (the reference's name)."""
@@ -48,21 +70,21 @@ class MNISTDataLoader:
     @property
     def steps_per_epoch(self) -> int:
         n = len(self.sampler)
-        return (n // self.batch_size if self.drop_last
-                else -(-n // self.batch_size))
+        return (n // self.local_batch_size if self.drop_last
+                else -(-n // self.local_batch_size))
 
     def epoch_ticks(self, epoch: Optional[int] = None):
         """``(steps, batch)`` index matrix and 0/1 validity mask of an
         epoch; a ragged tail (eval) wraps from the front and is masked."""
         idx, valid = self.sampler.indices_and_mask(epoch)
         steps = self.steps_per_epoch
-        need = steps * self.batch_size
+        need = steps * self.local_batch_size
         mask = np.ones(need, np.float32)
         mask[: min(idx.size, need)] = valid[:need]
         if need > idx.size:
             mask[idx.size:] = 0.0
             idx = np.concatenate([idx, idx[: need - idx.size]])
-        shape = (steps, self.batch_size)
+        shape = (steps, self.local_batch_size)
         return idx[:need].reshape(shape), mask.reshape(shape)
 
     def host_batch(self, row: np.ndarray, mrow: np.ndarray) \

@@ -1,12 +1,15 @@
-"""The kernels' launch counts across captured CUDA graphs.
+"""The kernels' and the collectives' launch counts across captured CUDA
+graphs.
 
 Each kernel wrapper counts its launches in plain integers on itself
 (``xent_fwd.launches``, ``flash_fwd.route_launches[route]``, ...), added
-where it launches its kernel. A captured graph runs the wrappers once,
-while it is captured, and launches nothing then; each replay launches
-the kernels again without running a wrapper. :class:`CapturedLaunches`
-keeps every count exact: it takes back what a capture added and adds it
-once per replay (:meth:`CapturedLaunches.credit`).
+where it launches its kernel; each collective wrapper of
+``parallel/collectives.py`` counts its calls alike. A captured graph runs
+the wrappers once, while it is captured, and launches nothing then; each
+replay launches the kernels and the collectives again without running a
+wrapper. :class:`CapturedLaunches` keeps every count exact: it takes back
+what a capture added and adds it once per replay
+(:meth:`CapturedLaunches.credit`).
 """
 
 from __future__ import annotations
@@ -15,19 +18,22 @@ import contextlib
 import importlib
 from typing import Dict, Tuple
 
-# The wrappers that count launches: (module under ops/, name). Each is
-# looked up when counted, so a wrapper swapped in for a test counts too.
-WRAPPERS = (("xent", "xent_fwd"), ("xent", "xent_bwd"),
-            ("adam", "adam_leaves"), ("flash", "flash_fwd"),
-            ("flash", "flash_bwd"), ("flash", "flash_dq"),
-            ("flash", "flash_dkv"), ("matmul_i8", "matmul_i8"))
+# The wrappers that count launches: (module in the package, name). Each
+# is looked up when counted, so a wrapper swapped in for a test counts
+# too.
+WRAPPERS = (("ops.xent", "xent_fwd"), ("ops.xent", "xent_bwd"),
+            ("ops.adam", "adam_leaves"), ("ops.flash", "flash_fwd"),
+            ("ops.flash", "flash_bwd"), ("ops.flash", "flash_dq"),
+            ("ops.flash", "flash_dkv"), ("ops.matmul_i8", "matmul_i8"),
+            ("parallel.collectives", "grad_all_reduce"),
+            ("parallel.collectives", "metric_all_reduce"))
 
 Key = Tuple[str, str, str]  # (module, wrapper, "launches" or a route)
 
 
 def _module(name: str):
     return importlib.import_module(
-        f"pytorch_distributed_mnist_tpu_torch.ops.{name}")
+        f"pytorch_distributed_mnist_tpu_torch.{name}")
 
 
 def read_counts() -> Dict[Key, int]:

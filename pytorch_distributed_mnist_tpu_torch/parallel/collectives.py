@@ -1,0 +1,145 @@
+"""Explicit collectives of data parallelism: the gradient mean and the
+metric sum.
+
+Counterpart of ``pytorch_distributed_mnist_tpu/parallel/collectives.py``,
+whose shard_map step ``lax.pmean``-s the gradients of each replica's
+mean loss (DDP's rule) and ``lax.psum``-s ``loss * n``, ``correct`` and
+``count``. Here each rank is a process with one device:
+
+- :class:`GradBuffer` is one flat float32 buffer that every parameter's
+  ``.grad`` views, allocated once per train state. The step zeroes it
+  before the backward pass (autograd then adds each gradient into its
+  view in place), and :func:`grad_all_reduce` sums it over the data axis
+  in one collective and divides by the axis size. The buffer never
+  moves, so a CUDA graph that captured the step replays onto the same
+  addresses (``train/steps.py::EpochProgram`` checks before each pass).
+- :func:`metric_all_reduce` sums a pass's (or, in the explicit mode, a
+  step's) three metric accumulators in one collective.
+- :func:`make_explicit_dp_train_step` and
+  :func:`make_explicit_dp_eval_step` are the ``--trainer-mode explicit``
+  steps: one eager step per batch whose metrics come back summed over the
+  axis, as the JAX explicit step's ``psum`` gives them.
+
+Every collective runs on the calling thread, in the same order on every
+rank. Each wrapper counts its calls in ``.launches``; a captured call is
+credited once per replay (``ops/launches.py``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Sequence
+
+import torch
+import torch.distributed as dist
+
+from pytorch_distributed_mnist_tpu_torch.ops.metrics import MetricState
+
+_count_lock = threading.Lock()
+
+ALIGN = 64  # elements: every gradient view starts on a 256-byte boundary
+
+
+class GradBuffer:
+    """One flat float32 buffer holding every gradient of ``params``; each
+    parameter's ``.grad`` is its view (padded to :data:`ALIGN` elements,
+    the padding zero)."""
+
+    def __init__(self, params: Sequence[torch.Tensor]) -> None:
+        self.params: List[torch.Tensor] = list(params)
+        offsets, total = [], 0
+        for p in self.params:
+            if p.dtype != torch.float32:
+                raise ValueError(f"GradBuffer: a {p.dtype} parameter; the "
+                                 f"train state keeps float32 params")
+            offsets.append(total)
+            total += -(-p.numel() // ALIGN) * ALIGN
+        self.flat = torch.zeros(total, dtype=torch.float32,
+                                device=self.params[0].device)
+        self.views = [self.flat[o:o + p.numel()].view_as(p)
+                      for o, p in zip(offsets, self.params)]
+        self.zero_()
+
+    def zero_(self) -> None:
+        """Zero every gradient, each parameter's ``.grad`` bound to its
+        view (rebinding any that something else replaced)."""
+        for p, view in zip(self.params, self.views):
+            if p.grad is not view:
+                p.grad = view
+        self.flat.zero_()
+
+    def check(self) -> None:
+        """Raise unless every ``.grad`` is still its view: autograd added
+        the backward pass's gradients in place."""
+        for i, (p, view) in enumerate(zip(self.params, self.views)):
+            if p.grad is not view:
+                raise RuntimeError(
+                    f"parameter {i}'s gradient left the flat all-reduce "
+                    f"buffer during backward; the gradient mean would miss "
+                    f"it")
+
+
+def grad_buffer(state) -> GradBuffer:
+    """The train state's :class:`GradBuffer`, made at its first use."""
+    if state.grad_buffer is None:
+        state.grad_buffer = GradBuffer(state.optimizer.params)
+    return state.grad_buffer
+
+
+def grad_all_reduce(grads: GradBuffer, axis) -> None:
+    """Replace every gradient by its mean over ``axis`` (a
+    ``parallel/mesh.py::DataAxis`` that reduces): one all-reduce (sum) of
+    the flat buffer, then a division by the axis size. A world of one
+    sums one rank and divides by 1: exact."""
+    grads.check()
+    dist.all_reduce(grads.flat, group=axis.group)
+    grads.flat.div_(axis.size)
+    with _count_lock:
+        grad_all_reduce.launches += 1
+
+
+grad_all_reduce.launches = 0
+
+
+@torch.no_grad()
+def metric_all_reduce(ms: MetricState, axis) -> MetricState:
+    """``ms`` summed over ``axis``: the three accumulators stacked into
+    one all-reduce. An axis that does not reduce (no process group, or
+    None) returns ``ms`` as it is."""
+    if axis is None or not axis.reduces:
+        return ms
+    packed = torch.stack(list(ms))
+    dist.all_reduce(packed, group=axis.group)
+    with _count_lock:
+        metric_all_reduce.launches += 1
+    return MetricState(*packed.unbind())
+
+
+metric_all_reduce.launches = 0
+
+
+def make_explicit_dp_train_step(state, axis) \
+        -> Callable[[Dict[str, torch.Tensor]], MetricState]:
+    """``step(batch) -> MetricState``: one eager train step of ``state`` on
+    this rank's local ``batch``: forward, mean loss, backward, the
+    gradient mean over ``axis`` (:func:`grad_all_reduce`), the optimizer
+    step; its metrics summed over ``axis`` (:func:`metric_all_reduce`).
+    The parameters move exactly as under the stepwise mode's steps."""
+    from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
+
+    def step(batch):
+        return metric_all_reduce(train_step(state, batch, axis), axis)
+
+    return step
+
+
+def make_explicit_dp_eval_step(state, axis) \
+        -> Callable[[Dict[str, torch.Tensor]], MetricState]:
+    """``step(batch) -> MetricState``: the forward-only sibling, its masked
+    metrics summed over ``axis``."""
+    from pytorch_distributed_mnist_tpu_torch.train.steps import eval_step
+
+    def step(batch):
+        return metric_all_reduce(eval_step(state, batch), axis)
+
+    return step

@@ -1,1 +1,2 @@
-"""Checkpoint IO of the port (training itself is not ported yet)."""
+"""Training of the port: the train state, the steps and epoch programs,
+the trainer and checkpoint IO."""

@@ -3,9 +3,16 @@
 Counterpart of the npz paths of ``pytorch_distributed_mnist_tpu/train/
 checkpoint.py``. A ``checkpoint_{e}.npz`` is a zip of ``leaf_{i}`` arrays
 plus a ``__meta__`` JSON (``epoch`` stored as ``e + 1``, ``best_acc``,
-``leaf_names``, ``format_version``, ``world``). Every write goes to a tmp
+``leaf_names``, ``format_version``, ``world``: the saving world's
+processes and devices, one device per process). Every write goes to a tmp
 name and is published with ``os.replace``, so a reader (the serving
 reload watcher, a resume) never sees half a file.
+
+In a world of processes every rank holds the same train state; only
+process 0 writes (the reference's ``:248-249``), and :func:`save_checkpoint`
+returns on every rank only once the file is published (a barrier), so no
+rank reads a file before process 0 has finished writing it. A checkpoint
+saved by a world of N loads in a world of one and the other way round.
 
 - Training (:func:`save_checkpoint`, :func:`load_checkpoint`) carries the
   full train state: params, optimizer state and step, leaf by leaf in the
@@ -34,6 +41,12 @@ from pytorch_distributed_mnist_tpu_torch.models.convert import (
     load_state_from_jax,
     state_to_jax,
 )
+from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
+    barrier,
+    process_count,
+    process_index,
+)
+from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 
 FORMAT_VERSION = 1
 # Quarantine suffix for corrupt checkpoints; the ``checkpoint_{e}.npz``
@@ -71,6 +84,13 @@ def load_params(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     return params, int(meta["epoch"]) - 1
 
 
+def _world_stamp() -> Dict[str, int]:
+    """The saving world's shape, stamped into the meta as provenance (the
+    JAX package's ``_world_stamp``): every process drives one device."""
+    n = process_count()
+    return {"processes": n, "devices": n}
+
+
 def _write_npz(leaves: List[Tuple[str, np.ndarray]], *, epoch: int,
                best_acc: float, directory: str,
                parallel_layout: Optional[Dict[str, Any]] = None) -> str:
@@ -82,7 +102,7 @@ def _write_npz(leaves: List[Tuple[str, np.ndarray]], *, epoch: int,
         "best_acc": float(best_acc),
         "leaf_names": [name for name, _ in leaves],
         "format_version": FORMAT_VERSION,
-        "world": {"processes": 1, "devices": 1},
+        "world": _world_stamp(),
     }
     if parallel_layout is not None:
         meta["parallel_layout"] = dict(parallel_layout)
@@ -111,19 +131,26 @@ def save_params_checkpoint(flat: Dict[str, np.ndarray], *, epoch: int,
 
 def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
                     directory: str, keep_last: int = 0,
-                    parallel_layout: Optional[Dict[str, Any]] = None) -> str:
+                    parallel_layout: Optional[Dict[str, Any]] = None) \
+        -> Optional[str]:
     """Write the full train state to ``checkpoint_{epoch}.npz`` (meta
     epoch ``epoch + 1``, the epoch a resume continues at), copy it to
     ``model_best.npz`` when ``is_best``, then prune past ``keep_last``;
-    returns the path. The leaves come off the device here: one host sync
-    per save."""
-    path = _write_npz(state_to_jax(state), epoch=epoch, best_acc=best_acc,
-                      directory=directory, parallel_layout=parallel_layout)
-    if is_best:
-        best = os.path.join(directory, "model_best.npz")
-        shutil.copyfile(path, best + ".tmp")
-        os.replace(best + ".tmp", best)
-    prune_checkpoints(directory, keep_last)
+    returns the path. Only process 0 writes (the others return None),
+    and every rank returns once it has (a barrier in a world of
+    processes). The leaves come off the device here: one host sync per
+    save."""
+    path = None
+    if process_index() == 0:
+        path = _write_npz(state_to_jax(state), epoch=epoch,
+                          best_acc=best_acc, directory=directory,
+                          parallel_layout=parallel_layout)
+        if is_best:
+            best = os.path.join(directory, "model_best.npz")
+            shutil.copyfile(path, best + ".tmp")
+            os.replace(best + ".tmp", best)
+        prune_checkpoints(directory, keep_last)
+    barrier()
     return path
 
 
@@ -142,11 +169,10 @@ def try_resume(path: str, state) -> Tuple[Any, int, float]:
     warn and continue fresh with ``(state, 0, 0.0)``."""
     if path and os.path.isfile(path):
         state, start_epoch, best_acc = load_checkpoint(path, state)
-        print(f"=> loaded checkpoint '{path}' (epoch {start_epoch})",
-              flush=True)
+        log0(f"=> loaded checkpoint '{path}' (epoch {start_epoch})")
         return state, start_epoch, best_acc
     if path:
-        print(f"=> no checkpoint found at '{path}'", flush=True)
+        log0(f"=> no checkpoint found at '{path}'")
     return state, 0, 0.0
 
 

@@ -132,6 +132,10 @@ class TrainState:
         self.model = model
         self.optimizer = optimizer
         self.step = step
+        # The flat gradient buffer of a data-parallel step
+        # (``parallel/collectives.py::grad_buffer``), made at its first
+        # use; None for a single process.
+        self.grad_buffer = None
 
     @property
     def learning_rate(self) -> float:

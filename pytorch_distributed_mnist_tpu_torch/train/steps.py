@@ -1,10 +1,14 @@
 """Train and eval steps, and the epoch programs built on them.
 
-Counterpart of ``pytorch_distributed_mnist_tpu/train/steps.py``'s
-single-device path. The reference's per-batch sequence — forward, mean
-cross-entropy, backward, optimizer step, metric accumulation — runs as
-queued device work with no ``.item()``: the metrics stay on the device
-until the pass ends.
+Counterpart of ``pytorch_distributed_mnist_tpu/train/steps.py``. The
+reference's per-batch sequence — forward, mean cross-entropy, backward,
+optimizer step, metric accumulation — runs as queued device work with no
+``.item()``: the metrics stay on the device until the pass ends. Given a
+data axis that reduces (``parallel/mesh.py::DataAxis``, a world of
+processes), the train step averages the gradients over the axis between
+the backward pass and the optimizer step (``parallel/collectives.py``):
+the update the reference's auto data-parallel step gets from the
+all-reduce XLA inserts.
 
 The reference's scanned epoch (``lax.scan`` of the step over an epoch
 staged on the device, one program per epoch) is :class:`EpochProgram`
@@ -13,7 +17,9 @@ per batch, its batch read from the staged epoch at a tick counter held on
 the device; on the CPU the same step body in a Python loop.
 :func:`make_train_epoch`, :func:`make_train_epoch_indexed` and
 :func:`make_eval_epoch` build it, as the reference's ``_make_epoch``
-builds its three. Gradient accumulation inside the epoch is later work.
+builds its three; on a data axis that reduces, the captured step holds
+the gradient all-reduce too. Gradient accumulation inside the epoch is
+later work.
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     metrics_init,
     metrics_update,
     metrics_zero_,
+)
+from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
+    grad_all_reduce,
+    grad_buffer,
 )
 
 # Ticks of an epoch program's first passes run eagerly, as real steps,
@@ -57,16 +67,27 @@ def make_forward_program(model: torch.nn.Module):
     return forward
 
 
-def train_step(state, batch: Dict[str, torch.Tensor]) -> MetricState:
+def train_step(state, batch: Dict[str, torch.Tensor],
+               axis=None) -> MetricState:
     """One optimizer step on one batch (on the state's device); updates
     ``state`` in place and returns this batch's metrics, still on the
-    device."""
+    device. On an ``axis`` that reduces, ``batch`` is this rank's local
+    batch and the optimizer steps on the mean over the axis of each
+    rank's mean-loss gradient (one all-reduce of the state's flat
+    gradient buffer); the metrics stay this rank's."""
     images, labels = batch["image"], batch["label"]
     mask = batch.get("mask")
     logits = state.model(images)
     loss = cross_entropy(logits, labels, mask)
-    state.optimizer.zero_grad(set_to_none=True)
+    reduce = axis is not None and axis.reduces
+    if reduce:
+        grads = grad_buffer(state)
+        grads.zero_()
+    else:
+        state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if reduce:
+        grad_all_reduce(grads, axis)
     state.optimizer.step()
     state.step.add_(1)
     return metrics_update(metrics_init(logits.device), loss.detach(),
@@ -109,16 +130,22 @@ class EpochProgram:
     ``copy_``), and the caller refills the same staged arrays between
     passes. A failed capture or replay raises: there is no fallback.
 
-    The kernel wrappers' launch counts stay exact across replays
-    (``ops/launches.py``). ``capture_s`` is the capture's wall time and
-    ``replays`` the replays so far."""
+    On a data ``axis`` that reduces, the train step's gradient all-reduce
+    runs in the warm-up ticks first (NCCL's communicator exists before
+    the capture) and is captured with the rest of the step; the state's
+    flat gradient buffer is one of the recorded addresses.
+
+    The kernel wrappers' and the collectives' launch counts stay exact
+    across replays (``ops/launches.py``). ``capture_s`` is the capture's
+    wall time and ``replays`` the replays so far."""
 
     def __init__(self, state, train: bool, indexed: bool,
-                 warmup: int) -> None:
+                 warmup: int, axis=None) -> None:
         self.state = state
         self.train = train
         self.indexed = indexed
         self.warmup = warmup
+        self.axis = axis
         self.device = state.step.device
         self._tick = torch.zeros((), dtype=torch.int64, device=self.device)
         self._acc = metrics_init(self.device)
@@ -143,14 +170,19 @@ class EpochProgram:
                 for key in ("image", "label", "mask")}
 
     def _body(self) -> None:
-        step = train_step if self.train else eval_step
-        accumulate_metrics(self._acc, step(self.state, self._batch()))
+        if self.train:
+            metrics = train_step(self.state, self._batch(), self.axis)
+        else:
+            metrics = eval_step(self.state, self._batch())
+        accumulate_metrics(self._acc, metrics)
         with torch.no_grad():
             self._tick.add_(1)
 
     def _pointers(self) -> List[int]:
         tensors = [t for _, t in state_leaves(self.state)]
         tensors += [self._source[k] for k in sorted(self._source)]
+        if self.state.grad_buffer is not None:
+            tensors.append(self.state.grad_buffer.flat)
         return [t.data_ptr() for t in tensors + [self._tick, *self._acc]]
 
     def _capture(self) -> None:
@@ -201,15 +233,17 @@ class EpochProgram:
         return MetricState(*(t.clone() for t in self._acc))
 
 
-def _make_epoch(state, train: bool, indexed: bool) \
+def _make_epoch(state, train: bool, indexed: bool, axis=None) \
         -> Callable[..., MetricState]:
     """The one factory behind the three ``make_*_epoch*`` functions, as
     the reference's ``_make_epoch``: ``train`` picks the train or the eval
-    step, ``indexed`` where a tick's batch comes from. The returned
-    function carries its :class:`EpochProgram` as ``.program``."""
+    step, ``indexed`` where a tick's batch comes from, ``axis`` the data
+    axis of the train step's gradient mean. The returned function carries
+    its :class:`EpochProgram` as ``.program``."""
     program = EpochProgram(
         state, train=train, indexed=indexed,
-        warmup=TRAIN_WARMUP_TICKS if train else EVAL_WARMUP_TICKS)
+        warmup=TRAIN_WARMUP_TICKS if train else EVAL_WARMUP_TICKS,
+        axis=axis)
     if indexed:
         def epoch(data, ticks):
             return program.run({**data, **ticks})
@@ -220,22 +254,24 @@ def _make_epoch(state, train: bool, indexed: bool) \
     return epoch
 
 
-def make_train_epoch(state) -> Callable[..., MetricState]:
+def make_train_epoch(state, axis=None) -> Callable[..., MetricState]:
     """``epoch(batches) -> MetricState``: one train step per batch of
     ``batches`` (``{'image': (S, B, ...), 'label': (S, B), 'mask': (S,
-    B)}`` on the state's device), updating ``state`` in place. Pass the
-    same tensors, refilled, every epoch."""
-    return _make_epoch(state, train=True, indexed=False)
+    B)}`` on the state's device), updating ``state`` in place, with the
+    gradient mean over ``axis`` when it reduces. Pass the same tensors,
+    refilled, every epoch. The metrics are this rank's."""
+    return _make_epoch(state, train=True, indexed=False, axis=axis)
 
 
-def make_train_epoch_indexed(state) -> Callable[..., MetricState]:
+def make_train_epoch_indexed(state, axis=None) \
+        -> Callable[..., MetricState]:
     """``epoch(data, ticks) -> MetricState``: as :func:`make_train_epoch`,
     each batch gathered on the device from the resident dataset ``data``
     (``{'image': (N, ...), 'label': (N,)}``) at the rows ``ticks['idx']``
     (``(S, B)`` int64), with ``ticks['mask']`` (``(S, B)``): the dataset
     crosses to the device once per run, and an epoch's upload is its
     index matrix."""
-    return _make_epoch(state, train=True, indexed=True)
+    return _make_epoch(state, train=True, indexed=True, axis=axis)
 
 
 def make_eval_epoch(state) -> Callable[..., MetricState]:

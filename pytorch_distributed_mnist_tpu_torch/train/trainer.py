@@ -1,10 +1,14 @@
 """Training engine.
 
-Counterpart of ``pytorch_distributed_mnist_tpu/train/trainer.py``'s
-single-device modes: ``train()`` and ``evaluate()`` each run one pass and
-return ``(Average, Accuracy)`` meters. Every step's metrics stay on the
-device and fold into one accumulator; the pass reads it back once, its
-only host sync.
+Counterpart of ``pytorch_distributed_mnist_tpu/train/trainer.py``:
+``train()`` and ``evaluate()`` each run one pass over this process's
+shard and return ``(Average, Accuracy)`` meters. Every step's metrics
+stay on the device and fold into one accumulator; the pass reads it back
+once, its only host sync. On a data axis that reduces (a world of
+processes, ``parallel/mesh.py::DataAxis``), every train step averages
+the gradients over the axis, and the pass's accumulator is summed over
+the axis (one all-reduce) before that read, so every rank prints the
+world's metrics.
 
 - ``scan`` (the default, as in the reference): each pass is an epoch
   program (``train/steps.py::EpochProgram``), on the card one CUDA graph
@@ -18,6 +22,10 @@ only host sync.
   device once and reused every pass.
 - ``stepwise``: one eager step per batch, each batch copied to the device
   from pinned host memory.
+- ``explicit``: as ``stepwise``, through ``parallel/collectives.py``'s
+  explicit data-parallel steps, whose metrics come back summed over the
+  axis every step (the JAX explicit step's ``psum``); the parameters move
+  as under ``stepwise``.
 
 On the card the trainer makes cuDNN deterministic (no benchmark search),
 so a resumed run repeats the uninterrupted one, and under float32 compute
@@ -44,6 +52,11 @@ from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     accumulate_metrics,
     metrics_init,
 )
+from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
+    make_explicit_dp_eval_step,
+    make_explicit_dp_train_step,
+    metric_all_reduce,
+)
 from pytorch_distributed_mnist_tpu_torch.train.steps import (
     eval_step,
     make_eval_epoch,
@@ -52,7 +65,7 @@ from pytorch_distributed_mnist_tpu_torch.train.steps import (
     train_step,
 )
 
-MODES = ("scan", "stepwise")
+MODES = ("scan", "stepwise", "explicit")
 EPOCH_GATHERS = ("host", "device")
 
 
@@ -71,7 +84,7 @@ def _epoch_buffer(loader: MNISTDataLoader, pin: bool) \
         -> Dict[str, torch.Tensor]:
     """Empty host arrays of one stacked epoch (``stacked_epoch``'s shapes),
     pinned for asynchronous copies to the card when ``pin``."""
-    s, b = loader.steps_per_epoch, loader.batch_size
+    s, b = loader.steps_per_epoch, loader.local_batch_size
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, pin_memory=pin)
@@ -83,15 +96,16 @@ def _epoch_buffer(loader: MNISTDataLoader, pin: bool) \
 
 
 class Trainer:
-    """Runs train and eval passes on one device, in ``mode`` (``MODES``)."""
+    """Runs train and eval passes on this process's device, in ``mode``
+    (``MODES``), on the data axis ``axis`` (None: one process)."""
 
     def __init__(self, state, train_loader: MNISTDataLoader,
                  test_loader: MNISTDataLoader, device: torch.device,
                  mode: str = "scan", epoch_gather: str = "host",
-                 staging_log=None) -> None:
+                 staging_log=None, axis=None) -> None:
         if mode not in MODES:
-            raise ValueError(f"trainer mode {mode!r} is not ported yet "
-                             f"(ported: {', '.join(MODES)})")
+            raise ValueError(f"unknown trainer mode {mode!r} "
+                             f"({', '.join(MODES)})")
         if epoch_gather not in EPOCH_GATHERS:
             raise ValueError(f"unknown epoch_gather {epoch_gather!r}")
         if epoch_gather == "device" and mode != "scan":
@@ -104,6 +118,7 @@ class Trainer:
         self.mode = mode
         self.epoch_gather = epoch_gather
         self.staging_log = staging_log
+        self.axis = axis
         # The next epoch's host gather runs on a thread while this one
         # trains (scan, host gather); the CLI turns it off for the last.
         self.prefetch_enabled = True
@@ -125,10 +140,16 @@ class Trainer:
         self._train_epoch = None
         self._eval_epoch = None
         if mode == "scan":
-            self._train_epoch = (make_train_epoch_indexed(state)
+            self._train_epoch = (make_train_epoch_indexed(state, axis)
                                  if epoch_gather == "device"
-                                 else make_train_epoch(state))
+                                 else make_train_epoch(state, axis))
             self._eval_epoch = make_eval_epoch(state)
+        if mode == "explicit":
+            self._train_step = make_explicit_dp_train_step(state, axis)
+            self._eval_step = make_explicit_dp_eval_step(state, axis)
+        else:
+            self._train_step = lambda batch: train_step(state, batch, axis)
+            self._eval_step = lambda batch: eval_step(state, batch)
 
     # -- host-gather staging (scan) ----------------------------------------
 
@@ -224,15 +245,22 @@ class Trainer:
 
     # -- passes ----------------------------------------------------------
 
+    def _read(self, ms: MetricState) -> Tuple[Average, Accuracy]:
+        """The pass's meters: its accumulator summed over the axis (the
+        explicit steps summed theirs already), then read once."""
+        if self.mode != "explicit":
+            ms = metric_all_reduce(ms, self.axis)
+        return _meters(ms)
+
     def train(self) -> Tuple[Average, Accuracy]:
         """One training epoch over the loader's current shuffle."""
         self.state.model.train()
-        if self.mode == "stepwise":
+        if self.mode != "scan":
             acc = metrics_init(self.device)
             for batch in self.train_loader:
-                accumulate_metrics(acc, train_step(
-                    self.state, to_device(batch, self.device)))
-            return _meters(acc)
+                accumulate_metrics(acc, self._train_step(
+                    to_device(batch, self.device)))
+            return self._read(acc)
         if self.epoch_gather == "device":
             if self._train_data is None:
                 # The dataset crosses to the device once per run.
@@ -249,11 +277,12 @@ class Trainer:
                                for k, t in ticks.items()}
             for k, t in ticks.items():
                 self._ticks[k].copy_(t)
-            return _meters(self._train_epoch(self._train_data, self._ticks))
+            return self._read(self._train_epoch(self._train_data,
+                                                self._ticks))
         ms = self._train_epoch(self._staged_train_epoch())
         if self.prefetch_enabled:
             self._start_prefetch()
-        return _meters(ms)
+        return self._read(ms)
 
     def evaluate(self) -> Tuple[Average, Accuracy]:
         """One evaluation pass: no gradient, no state update."""
@@ -264,11 +293,11 @@ class Trainer:
                 self._eval_staged = {
                     k: torch.from_numpy(v).to(self.device)
                     for k, v in self.test_loader.stacked_epoch().items()}
-            return _meters(self._eval_epoch(self._eval_staged))
+            return self._read(self._eval_epoch(self._eval_staged))
         if self._eval_batches is None:
             self._eval_batches = [to_device(batch, self.device)
                                   for batch in self.test_loader]
         acc = metrics_init(self.device)
         for batch in self._eval_batches:
-            accumulate_metrics(acc, eval_step(self.state, batch))
-        return _meters(acc)
+            accumulate_metrics(acc, self._eval_step(batch))
+        return self._read(acc)

@@ -1,6 +1,9 @@
 """Observability of the port: the training :class:`StepTimer`, the JSONL
 metrics sink, the scan trainer's :class:`StagingLog`, the
-:class:`ServeLog` behind ``/stats``, and the per-bucket warm-up record.
+:class:`ServeLog` behind ``/stats``, the per-bucket warm-up record, and
+:func:`step_part`, which names the part of a train step a device kernel
+is (a step profile's breakdown; the collectives' kernels are a part of
+their own).
 
 Counterpart of the training-input and serving parts of
 ``pytorch_distributed_mnist_tpu/utils/profiling.py``. The reference's
@@ -19,7 +22,34 @@ import json
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+
+# Substrings of the collectives' device kernels (NCCL's
+# ``ncclDevKernel_AllReduce_...`` and the like), matched case-blind.
+COLLECTIVE_KERNELS = ("nccl",)
+
+
+def step_part(kernel: str, own: Sequence[Tuple[str, str]] = ()) -> str:
+    """A device kernel's part of a train step, by its name: ``collective``
+    for the collectives' kernels; the part that ``own`` (``(name, part)``
+    pairs: the port's own kernels) gives the first name the kernel's
+    holds; else ``copy``, ``conv``, ``fc_gemm`` or ``other_elementwise``
+    by the library kernels' names."""
+    name = kernel.lower()
+    if any(s in name for s in COLLECTIVE_KERNELS):
+        return "collective"
+    for own_name, part in own:
+        if own_name in name:
+            return part
+    if "memcpy" in name or "memset" in name:
+        return "copy"
+    if any(s in name for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                               "implicit", "winograd")):
+        return "conv"
+    if any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass", "cublas")):
+        return "fc_gemm"
+    return "other_elementwise"
 
 
 class StepTimer:

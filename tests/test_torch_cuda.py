@@ -813,3 +813,65 @@ def test_a_rebound_param_raises_before_a_replay(card, scan_settings):
     with pytest.raises(RuntimeError, match="rebound"):
         epoch(staged)
     assert epoch.program.replays == replays
+
+
+@pytest.fixture
+def nccl_world_of_one(card):
+    """This process as an NCCL world of one on the card (the explicit
+    rendezvous on a free loopback port), torn down afterwards."""
+    from pytorch_distributed_mnist_tpu_torch.parallel import distributed
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        free_port,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                       device)
+    try:
+        yield make_mesh(device=device)
+    finally:
+        distributed.teardown()
+
+
+def test_a_replayed_epoch_with_the_nccl_all_reduce_equals_the_eager_steps(
+        card, nccl_world_of_one, scan_settings):
+    from pytorch_distributed_mnist_tpu_torch.ops import launches
+    from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
+        accumulate_metrics,
+        metrics_init,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+        train_step,
+    )
+
+    axis = nccl_world_of_one
+    assert axis.reduces and axis.size == 1
+    eager, staged = _scan_case(card, "cnn", seed=6)
+    scanned, _ = _scan_case(card, "cnn", seed=6)
+    epoch = make_train_epoch(scanned, axis)
+    before = launches.read_counts()
+    # Pass 1: two eager ticks (the first all-reduces), the capture, four
+    # replays; pass 2: six replays. Each step: the NCCL all-reduce of the
+    # flat gradient buffer, then one Adam launch over it.
+    for _ in range(2):
+        acc = metrics_init(card)
+        for s in range(6):
+            batch = {k: t[s] for k, t in staged.items()}
+            accumulate_metrics(acc, train_step(eager, batch, axis))
+        got = epoch(staged)
+        for a, b in zip(got, acc):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    after = launches.read_counts()
+    for (name, a), b in zip(scanned.model.named_parameters(),
+                            eager.model.parameters()):
+        assert torch.equal(a, b), name
+    delta = {k[1]: after[k] - before[k] for k in after
+             if k[2] == "launches" and after[k] != before[k]}
+    assert delta == {"grad_all_reduce": 24, "adam_leaves": 24,
+                     "xent_fwd": 24, "xent_bwd": 24}
+    assert epoch.program.launches.per_replay[
+        ("parallel.collectives", "grad_all_reduce", "launches")] == 1
+    assert epoch.program.replays == 10

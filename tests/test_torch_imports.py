@@ -55,5 +55,7 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "train.trainer", "train.lr_schedule", "utils.profiling",
                 "utils.logging", "serve.programs", "serve.engine",
                 "serve.control", "serve.economics", "serve.batcher",
-                "serve.reload", "serve.server", "cli", "__main__"):
+                "serve.reload", "serve.server", "parallel.distributed",
+                "parallel.launcher", "parallel.collectives", "parallel.mesh",
+                "cli", "__main__"):
         assert f"{port.__name__}.{rel}" in names, rel

@@ -328,9 +328,10 @@ def test_captured_launches_are_credited_per_replay(monkeypatch):
         flash.flash_fwd.route_launches["tensor"] += 1
     # The capture launched nothing: the counts are as before it.
     assert xent.xent_fwd.launches == 5 and flash.flash_fwd.launches == 0
-    assert captured.per_replay == {("xent", "xent_fwd", "launches"): 2,
-                                   ("flash", "flash_fwd", "launches"): 1,
-                                   ("flash", "flash_fwd", "tensor"): 1}
+    assert captured.per_replay == {
+        ("ops.xent", "xent_fwd", "launches"): 2,
+        ("ops.flash", "flash_fwd", "launches"): 1,
+        ("ops.flash", "flash_fwd", "tensor"): 1}
     captured.credit(3)
     assert xent.xent_fwd.launches == 11 and flash.flash_fwd.launches == 3
     assert flash.flash_fwd.route_launches["tensor"] == 4

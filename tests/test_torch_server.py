@@ -159,13 +159,14 @@ def test_parser_leaves_out_unported_flags_and_defaults_to_cuda():
 
 def test_cli_dispatches_serve_and_refuses_training(capsys, tmp_path):
     # A bare invocation trains (the JAX package's default subcommand);
-    # training modes the port does not have yet (explicit, since scan
-    # came in) exit 2.
+    # training flags the port does not have yet (every trainer mode is
+    # ported since explicit came in; --grad-accum is not) exit 2.
     with pytest.raises(SystemExit) as info:
-        cli.main(["--epochs", "1", "--trainer-mode", "explicit", "--device",
+        cli.main(["--epochs", "1", "--grad-accum", "2", "--device",
                   "cpu", "--checkpoint-dir", str(tmp_path)])
     assert info.value.code == 2
-    assert "explicit is not ported yet" in capsys.readouterr().err
+    assert "unrecognized arguments: --grad-accum 2" \
+        in capsys.readouterr().err
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", "--help"])
     assert info.value.code == 0

@@ -347,15 +347,26 @@ def test_eval_only_prints_one_test_line(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mode", ["explicit"])
-def test_unported_trainer_modes_exit_2(mode, tmp_path):
+def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
+    # Every trainer mode of the JAX CLI is ported now: explicit trains (its
+    # epoch lines against stepwise's: tests/test_torch_distributed.py),
+    # and refuses --epoch-gather device with the JAX CLI's message.
+    summary = run(build_parser().parse_args([
+        "--trainer-mode", mode, "--model", "linear", "--dataset",
+        "synthetic", "--synthetic-train-size", "128",
+        "--synthetic-test-size", "64", "--batch-size", "64", "--epochs", "1",
+        "--device", "cpu", "--checkpoint-dir", str(tmp_path)]))
+    assert summary["epochs_run"] == 1
+    assert "Epoch: 0/1" in capsys.readouterr().out
     with pytest.raises(SystemExit) as info:
-        run(build_parser().parse_args(["--trainer-mode", mode, "--device",
-                                       "cpu", "--checkpoint-dir",
-                                       str(tmp_path)]))
-    assert info.value.code == 2
+        run(build_parser().parse_args([
+            "--trainer-mode", mode, "--epoch-gather", "device", "--device",
+            "cpu", "--checkpoint-dir", str(tmp_path)]))
+    assert str(info.value.code).startswith(
+        "--epoch-gather device requires --trainer-mode scan")
 
 
-@pytest.mark.parametrize("flag", [["--spawn", "2"], ["--zero-overlap"],
+@pytest.mark.parametrize("flag", [["--grad-accum", "2"], ["--zero-overlap"],
                                   ["--optimizer-sharding", "zero1"],
                                   ["--publish", "delta"], ["--remat"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
