@@ -9,10 +9,11 @@ Phases, each printing one JSON line:
    ``sm_90a``, one process per source, all at once), with each kernel
    instantiation's registers and spills from ``ptxas -v``;
 2. kernel against plain: ``matmul_i8`` against ``matmul_i8_plain`` on the
-   card at every shape of the int8 serving path plus ragged ones (exactly
+   card at every shape of the int8 serving paths (the cnn's and the
+   ViT's, M up to 6272 at K = 16, 64 and 256) plus ragged ones (exactly
    equal, and the same bits on a second call), with the split-K plan of
    each shape; the cross-entropy kernels against ``xent_fwd_plain`` /
-   ``xent_bwd_plain`` at B in {1, 7, 256, 300} and C in {10, 128} with
+   ``xent_bwd_plain`` at B in {1, 7, 128, 256, 300} and C in {10, 128} with
    saturated tie rows (``rtol=atol=1e-6``: the sum of exp is taken in
    another order); the Adam kernel against ``adam_leaf_plain`` one leaf at
    a time (every cnn leaf shape and two ragged sizes, steps 1, 2 and 10),
@@ -26,7 +27,8 @@ Phases, each printing one JSON line:
    call computing the same function (``torch._int_mm``,
    ``F.cross_entropy`` and its backward, ``torch.optim.Adam(fused=True)``;
    timed here as yardsticks only, the port never calls them), beside the
-   least time the card could take; Adam as one ``FusedAdam.step`` over the
+   least time the card could take; ``matmul_i8`` also at the int8 ViT's
+   six shapes at bucket 128; Adam as one ``FusedAdam.step`` over the
    cnn's 8 and the ViT's 31 leaves, with its launches per step;
 4. server: the port's server (``--model cnn --serve-precision int8``,
    fused plane, default buckets) boots in-process over a seeded checkpoint,
@@ -36,7 +38,16 @@ Phases, each printing one JSON line:
    the kernel's launch count over this phase must rise;
 5. forward profile: the device time of one int8 fused forward per bucket,
    by part (convs, pooling, the int8 products, elementwise work,
-   reductions, copies), beside the host's wall time per forward;
+   reductions, copies), beside the host's wall time per forward; then
+   the ViT served (``server_vit``): the server on ``--model vit`` at
+   ``f32``, ``bf16``, ``int8w`` and ``int8`` (fused plane, default
+   buckets), each booted over a seeded ViT checkpoint and driven as in
+   phase 4; on ``int8`` every served batch's predictions equal the same
+   engine's with ``matmul_i8_plain``, the kernel launches exactly 10
+   times per forward (from the counter, and from a trace of one forward
+   per bucket) and the server hot-reloads epoch 1; the other precisions
+   run no int8 product; one int8 ViT forward's device ms per bucket
+   beside the host's wall;
 6. train: the port's CLI ``run()`` in-process, ``--model cnn --loss fused
    --optimizer adam_pallas`` in its default ``--trainer-mode scan`` (each
    epoch one captured CUDA graph of the train step, and one of the eval
@@ -49,11 +60,18 @@ Phases, each printing one JSON line:
    ``model_best.npz``; then the same run with ``--trainer-mode stepwise``
    (``train_stepwise``) and with ``--epoch-gather device``
    (``train_epoch_gather_device``), whose epoch lines must equal the scan
-   run's character for character; the train run makes no collective call and
-   leaves no process group. Then data parallelism: the same run, resume
-   and ``-e`` through the explicit rendezvous of a world of one
-   (``train_dp_world1``: NCCL, the gradient all-reduce inside the
-   replayed step, 64 gradient and 4 metric all-reduces counted, its
+   run's character for character; stepwise at ``--feed-window 2`` and 1
+   in 10 back-to-back pairs (``train_feed_window``: the same lines, each
+   window's host ms per step, each pair's difference and the staging
+   log's wait); the run with
+   ``--grad-accum 2`` (``train_grad_accum``: 2 cross-entropy launches
+   each way a step, 1 Adam; the floors, resume and ``-e``) and its
+   stepwise twin, which must print its lines; the train run makes no
+   collective call and leaves no process group. Then data parallelism:
+   the same run, resume and ``-e`` through the explicit rendezvous of a
+   world of one (``train_dp_world1``: NCCL, the count and gradient
+   all-reduces inside the replayed step, 64 of each and 4 metric
+   all-reduces counted, its
    epoch lines equal to ``train``'s, checkpoints stamped 1x1, and whether
    NCCL launched a kernel in epoch 1's trace), ``--trainer-mode
    explicit`` in that world (``train_explicit``: ``train_stepwise``'s
@@ -107,7 +125,13 @@ Phases, each printing one JSON line:
    160, all on the tensor-core route, flash_bwd 128, all fused, flash_dq
    and flash_dkv 0, xent 80/64, adam 64) from the counters and the trace,
    101-leaf checkpoints, resume and ``-e``, its stepwise twin, and the
-   same run in a world of one (``train_dp_vit_world1``);
+   same run in a world of one (``train_dp_vit_world1``); then with
+   ``--grad-accum 2`` (``train_grad_accum_vit``: per step 2 cross-entropy
+   launches each way, 2 flash forwards and backwards a block, 1 Adam)
+   and with ``--remat`` (``train_vit_remat``: ``train_vit``'s epoch lines
+   character for character, one more flash forward a block a step, the
+   same backwards), and the peak device memory of one train step with
+   and without remat at patch 4 and 2 (``train_vit_remat_memory``);
 12. ViT train profiles: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
    default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
@@ -156,10 +180,27 @@ PATH_BUCKETS = (1, 8, 32, 128)  # the server's default buckets
 # The cnn's two Dense layers at the int8 plane: (K, N).
 FC1 = (12544, 128)
 FC2 = (128, 10)
-# Shapes held against the plain version: every path shape plus ragged
-# ones and linear's fc.
+# The ViT's Dense layers at the int8 plane (its registered defaults:
+# patch 4, 49 tokens, embed 64, MLP 256): (K, N), and whether the layer
+# runs on every token (M = 49 b) or on the pooled row (M = b).
+VIT_TOKENS = 49
+VIT_DENSE = {"embed": (16, 64, True), "qkv": (64, 192, True),
+             "proj": (64, 64, True), "mlp1": (64, 256, True),
+             "mlp2": (256, 64, True), "head": (64, 10, False)}
+
+
+def vit_dense_shapes(bucket: int) -> dict:
+    """``{layer: (M, K, N)}`` of the ViT's int8 products at ``bucket``."""
+    return {layer: ((VIT_TOKENS * bucket if tokens else bucket), k, n)
+            for layer, (k, n, tokens) in VIT_DENSE.items()}
+
+
+# Shapes held against the plain version: every path shape (the cnn's and
+# the ViT's) plus ragged ones and linear's fc.
 CHECK_SHAPES = ([(m,) + FC1 for m in PATH_BUCKETS]
                 + [(m,) + FC2 for m in PATH_BUCKETS]
+                + sorted({s for b in PATH_BUCKETS
+                          for s in vit_dense_shapes(b).values()})
                 + [(5, 784, 10), (33, 12544, 128), (3, 7, 5), (130, 200, 70)])
 # Peak rates of the part nvidia-smi names (data sheets, dense): device
 # memory bytes/s, int8 tensor-core operations/s, float32 operations/s
@@ -199,8 +240,17 @@ VIT_TRAIN_ARGS = ["--model", "vit", "--attention", "flash", "--loss",
                   "--synthetic-test-size", "2048", "--batch-size",
                   str(TRAIN_BATCH), "--seed", str(SEED)]
 VIT_SHAPE = (TRAIN_BATCH, 49, 4, 16)  # (B, T, H, D) of each attention
+# --grad-accum 2's micro-batch: the rows each cross-entropy and flash
+# launch of the accumulating runs takes.
+ACCUM_MICRO = TRAIN_BATCH // 2
+# Batch sizes the cross-entropy kernels are held against their plain
+# versions at: the full batch, --grad-accum 2's micro-batch, and sizes
+# around them.
+XENT_CHECK_BATCHES = (1, 7, ACCUM_MICRO, TRAIN_BATCH, 300)
 PROFILE_STEPS = 4  # train steps whose kernel launches a profile counts
 VIT_DEPTH = 2
+# K3 launches per int8 ViT forward: embed and head, and 4 Dense a block.
+VIT_I8_PER_FORWARD = 2 + 4 * VIT_DEPTH
 # What each training run's checks need: its flags, the train state's
 # leaf count, the params the optimizer walks, the attention layers, the
 # test-accuracy floor after epoch 1, and its compute dtype. The ViT's
@@ -216,17 +266,35 @@ TRAIN_RUNS = {
     "vit_f32": {"args": VIT_TRAIN_ARGS + ["--dtype", "f32"], "leaves": 101,
                 "params": 31, "depth": VIT_DEPTH, "floor": 0.88,
                 "dtype": "f32"},
+    # Gradient accumulation: 2 micro-batches of 128 a step (accum: the
+    # cross-entropy and flash kernels' launches a step are per
+    # micro-batch).
+    "cnn_accum": {"args": TRAIN_ARGS + ["--grad-accum", "2"], "leaves": 32,
+                  "params": 8, "depth": 0, "floor": 0.90, "dtype": "bf16",
+                  "accum": 2, "phase": "train_grad_accum"},
+    "vit_accum": {"args": VIT_TRAIN_ARGS + ["--grad-accum", "2"],
+                  "leaves": 101, "params": 31, "depth": VIT_DEPTH,
+                  "floor": 0.88, "dtype": "bf16", "accum": 2,
+                  "phase": "train_grad_accum_vit"},
+    # --remat: each block's forward runs again in the backward pass
+    # (remat: one more flash forward per block a step).
+    "vit_remat": {"args": VIT_TRAIN_ARGS + ["--remat"], "leaves": 101,
+                  "params": 31, "depth": VIT_DEPTH, "floor": 0.88,
+                  "dtype": "bf16", "remat": True,
+                  "phase": "train_vit_remat"},
 }
 # Shapes the flash kernels are held against their plain versions at: the
-# ViT's, then T in {1, 16, 196, 200} and D in {16, 32, 64, 128} at small
-# B*H, D = 8 (below one thread's 16 dims), for the fused backward (bf16,
-# T <= 128) its widest case T = 128, D = 128 and a D of 48 that its
-# 16-wide tiles pad; then head dims that are not a multiple of 8, which
-# the tensor-core kernels take in their narrow instantiation (the copy
-# width of flash_inputs' qkv slices in bf16 / float32): D = 12 at T = 33
-# and at T = 196 (8 / 16 bytes, as the ViT's D = 12 slices), D = 4 (8 /
-# 16), D = 7 (2 / 4), D = 10 (4 / 8), D = 20 (8 / 16) and D = 100 (8 / 16).
-FLASH_CHECK_SHAPES = [VIT_SHAPE, (2, 1, 2, 16), (2, 16, 2, 16),
+# ViT's, its micro-batch under --grad-accum 2, then T in {1, 16, 196,
+# 200} and D in {16, 32, 64, 128} at small B*H, D = 8 (below one
+# thread's 16 dims), for the fused backward (bf16, T <= 128) its widest
+# case T = 128, D = 128 and a D of 48 that its 16-wide tiles pad; then
+# head dims that are not a multiple of 8, which the tensor-core kernels
+# take in their narrow instantiation (the copy width of flash_inputs' qkv
+# slices in bf16 / float32): D = 12 at T = 33 and at T = 196 (8 / 16
+# bytes, as the ViT's D = 12 slices), D = 4 (8 / 16), D = 7 (2 / 4),
+# D = 10 (4 / 8), D = 20 (8 / 16) and D = 100 (8 / 16).
+FLASH_CHECK_SHAPES = [VIT_SHAPE, (ACCUM_MICRO,) + VIT_SHAPE[1:],
+                      (2, 1, 2, 16), (2, 16, 2, 16),
                       (2, 196, 2, 16), (2, 200, 2, 64), (1, 200, 2, 128),
                       (3, 130, 2, 32), (1, 70, 1, 8), (2, 128, 2, 128),
                       (3, 100, 3, 48), (2, 33, 2, 12), (2, 196, 2, 12),
@@ -462,6 +530,46 @@ def phase_timings(device, peaks) -> list:
     return rows
 
 
+def phase_vit_i8_timings(device, peaks) -> list:
+    """K3 alone at the int8 ViT's shapes at bucket 128 (M = 6272 on the
+    token axis): the kernel's device ms beside its bound, its plain
+    version and ``torch._int_mm`` where that takes the shape (B row- and
+    column-major)."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        _sm_count,
+        matmul_i8,
+        matmul_i8_plain,
+        split_k,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rows = []
+    for layer, (m, k, n) in vit_dense_shapes(PATH_BUCKETS[-1]).items():
+        a, b = random_i8((m, k), gen, device), random_i8((k, n), gen, device)
+        calls = {"kernel": lambda: matmul_i8(a, b),
+                 "plain": lambda: matmul_i8_plain(a, b)}
+        if int_mm_takes(m, k, n):
+            calls["library"] = lambda: torch._int_mm(a, b)
+            b_cm = b.t().contiguous().t()
+            calls["library_colmajor"] = lambda: torch._int_mm(a, b_cm)
+        least, by = bound_ms(m, k, n, peaks)
+        splits, cluster = split_k(m, n, k, _sm_count(device.index))
+        row = {"layer": f"vit.{layer}", "m": m, "k": k, "n": n,
+               "bound_ms": least, "bound_by": by, "library_ms": None,
+               "splits": splits, "cluster": cluster}
+        for what, fn in calls.items():
+            per = device_ms(fn)
+            row[f"{what}_ms"] = sum(per.values())
+            if what == "kernel":
+                row["gemm_ms"] = sum(v for name, v in per.items()
+                                     if "matmul_i8_kernel" in name)
+        rows.append(row)
+        emit("timing", kernel="matmul_i8", **row)
+    return rows
+
+
 class _Client:
     def __init__(self, port: int) -> None:
         self.base = f"http://127.0.0.1:{port}"
@@ -496,8 +604,8 @@ def _requests(n_requests: int, seed: int):
     return out
 
 
-def _engine(params, device, matmul):
-    """The server's engine configuration (cnn, int8, fused, default
+def _engine(params, device, matmul, model: str = "cnn"):
+    """The server's engine configuration (``model``, int8, fused, default
     buckets) with ``matmul`` as the int8 product."""
     import functools
 
@@ -507,9 +615,9 @@ def _engine(params, device, matmul):
         InferenceEngine,
     )
 
-    model = get_model("cnn", matmul=functools.partial(int8_linear,
-                                                      matmul=matmul))
-    return InferenceEngine(model, params, precision="int8", fuse=True,
+    net = get_model(model, matmul=functools.partial(int8_linear,
+                                                    matmul=matmul))
+    return InferenceEngine(net, params, precision="int8", fuse=True,
                            device=device)
 
 
@@ -706,6 +814,246 @@ def phase_server(device_flag: str = "cuda") -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+SERVE_PRECISIONS = ("f32", "bf16", "int8w", "int8")
+
+
+def _count_kernel(fn, part: str, iters: int = 5) -> float:
+    """Device launches per call of ``fn`` of the kernels whose names hold
+    ``part``, from a profiler trace of ``iters`` calls (taken again, up to
+    three times, while it holds none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and part in evt.name)
+        if n:
+            return n / iters
+    return 0.0
+
+
+def _serve_vit(ckpt_dir: str, precision: str, device_flag: str,
+               params0) -> dict:
+    """Boot the server on the ViT at ``precision`` (fused plane, default
+    buckets), drive it and check its replies; returns the phase's row.
+    On ``int8`` every served batch's predictions must equal the same
+    engine's with ``matmul_i8_plain``, and the kernel must launch exactly
+    ``VIT_I8_PER_FORWARD`` times per forward the engine ran; the others
+    run no int8 product. The int8 run also hot-reloads epoch 1."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    args = build_parser().parse_args([
+        "--model", "vit", "--serve-precision", precision, "--port", "0",
+        "--device", device_flag, "--checkpoint-dir", ckpt_dir,
+        "--require-checkpoint", "--poll-interval", "0.5"])
+    t_boot = time.perf_counter()
+    httpd = create_server(args)
+    boot_s = time.perf_counter() - t_boot
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    try:
+        client = _Client(httpd.server_address[1])
+        engine = httpd.ctx.engine
+        batches, forwards = [], [0]
+        served = engine.predict_with_epoch
+
+        def recording(images):
+            labels, epoch = served(images)
+            batches.append((np.array(images), labels.copy()))
+            return labels, epoch
+
+        def count_forward(module, inputs, output):
+            forwards[0] += 1
+
+        engine.predict_with_epoch = recording
+        hook = engine.model.register_forward_hook(count_forward)
+        # The main path's run starts here (the warm-up is done).
+        matmul_i8.launches = 0
+        burst = _requests(64, seed=SEED + 30)
+        replies = [None] * len(burst)
+
+        def worker(idx):
+            for i in range(idx, len(burst), 4):
+                replies[i] = client.post(
+                    "/predict", {"images": burst[i].tolist()})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        sequential = _requests(8, seed=SEED + 31)
+        seq_replies = [client.post("/predict", {"images": x.tolist()})
+                       for x in sequential]
+        health = client.get("/healthz")
+        stats = client.get("/stats")
+        launches, served_forwards = matmul_i8.launches, forwards[0]
+        # ... and ends here.
+        hook.remove()
+        engine.predict_with_epoch = served
+        if not health.get("ok") or health.get("model") != "vit" \
+                or health.get("model_epoch") != 0:
+            raise AssertionError(f"/healthz: {health}")
+        if stats.get("serve_precision") != precision:
+            raise AssertionError(f"/stats serve_precision: "
+                                 f"{stats.get('serve_precision')}")
+        for reply, x in zip(replies + seq_replies, burst + sequential):
+            if (reply is None or len(reply["predictions"]) != len(x)
+                    or reply["model_epoch"] != 0):
+                raise AssertionError(f"bad /predict reply: {reply}")
+        rows = sum(len(x) for x in burst + sequential)
+        if sum(len(x) for x, _ in batches) != rows:
+            raise AssertionError("the recorded batches miss requests")
+        want_launches = (VIT_I8_PER_FORWARD * served_forwards
+                         if precision == "int8" else 0)
+        if served_forwards < len(batches) or launches != want_launches:
+            raise AssertionError(
+                f"{precision}: {launches} matmul_i8 launches over "
+                f"{served_forwards} forwards, expected {want_launches}")
+        logits = engine.logits(sequential[0])
+        if logits.shape != (len(sequential[0]), CLASSES) \
+                or not np.all(np.isfinite(logits)):
+            raise AssertionError(f"bad logits {logits.shape}")
+        row = {"precision": precision, "fused": True,
+               "requests": len(burst) + len(sequential), "rows": rows,
+               "batches": len(batches), "forwards": served_forwards,
+               "launches": launches, "launches_per_forward":
+                   launches / served_forwards, "boot_s": boot_s,
+               "burst_s": burst_s, "burst_rows_per_s":
+                   sum(len(x) for x in burst) / burst_s,
+               "p50_ms": stats["latency_ms"]["p50"],
+               "p99_ms": stats["latency_ms"]["p99"],
+               "batch_histogram": stats["batch_histogram"]}
+        if precision != "int8":
+            return row
+        # The plain int8 product on the same batches: equal predictions.
+        ref = _engine(params0, engine.device, matmul_i8_plain, model="vit")
+        for images, labels in batches:
+            want = ref.predict(images)
+            if not np.array_equal(labels, want):
+                raise AssertionError(
+                    f"a served ViT batch of {len(images)} disagrees with "
+                    f"the plain reference on {int(np.sum(labels != want))}"
+                    f" rows")
+        for reply, x in zip(seq_replies, sequential):
+            if reply["predictions"] != ref.predict(x).tolist():
+                raise AssertionError("a sequential ViT reply disagrees "
+                                     "with the plain reference")
+        save_params_checkpoint(params_to_jax(init_params("vit", SEED + 1)),
+                               epoch=1, directory=ckpt_dir)
+        deadline = time.monotonic() + 10.0
+        while client.get("/healthz")["model_epoch"] != 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the ViT's model_epoch did not flip")
+            time.sleep(0.1)
+        after = client.post("/predict", {"images": sequential[1].tolist()})
+        if after["model_epoch"] != 1:
+            raise AssertionError(f"reply after reload: {after}")
+        row.update(replies_exact=True, reload_epoch=1)
+        return row
+    finally:
+        httpd.shutdown()
+        httpd.ctx.close()
+        httpd.server_close()
+        serving.join(timeout=30)
+
+
+def phase_server_vit(device_flag: str = "cuda") -> dict:
+    """The server on ``--model vit`` at every precision (fused plane,
+    default buckets), each over a fresh seeded checkpoint (``_serve_vit``);
+    then, on the card, one int8 forward per bucket profiled: the kernel's
+    launches per forward from the trace (``VIT_I8_PER_FORWARD``), its
+    device ms, the forward's device ms and the host's wall per forward.
+    Returns ``{"launches": int8 run's count, "rows": ...}``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import matmul_i8
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    params0 = init_params("vit", SEED)
+    rows = {}
+    for precision in SERVE_PRECISIONS:
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_vit_ckpt_")
+        try:
+            save_params_checkpoint(params_to_jax(params0), epoch=0,
+                                   directory=ckpt_dir)
+            rows[precision] = _serve_vit(ckpt_dir, precision, device_flag,
+                                         params0)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    profiles = []
+    if device_flag == "cuda":
+        engine = _engine(params0, torch.device("cuda", 0), matmul_i8,
+                         model="vit")
+        engine.warmup()
+        for bucket in PATH_BUCKETS:
+            raw = np.resize(_requests(1, seed=SEED + 32)[0],
+                            (bucket, 28, 28))
+            per_call = _count_kernel(lambda: engine.logits(raw),
+                                     "matmul_i8_kernel")
+            if per_call != VIT_I8_PER_FORWARD:
+                raise AssertionError(
+                    f"a traced int8 ViT forward at bucket {bucket} "
+                    f"launched {per_call} matmul_i8 kernels, expected "
+                    f"{VIT_I8_PER_FORWARD}")
+            per = device_ms(lambda: engine.logits(raw))
+            iters = 50
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                engine.logits(raw)
+            wall_ms = (time.perf_counter() - t0) / iters * 1e3
+            device_total = sum(per.values())
+            profiles.append({
+                "bucket": bucket, "traced_i8_per_forward": per_call,
+                "device_ms": device_total, "wall_ms": wall_ms,
+                "device_busy": device_total / wall_ms,
+                "matmul_i8_ms": sum(v for k, v in per.items()
+                                    if "matmul_i8_kernel" in k),
+                "top": sorted(((ms, name[:90]) for name, ms in per.items()),
+                              reverse=True)[:5]})
+    emit("server_vit", runs=rows, forward_profiles=profiles,
+         i8_per_forward=VIT_I8_PER_FORWARD)
+    return {"launches": rows["int8"]["launches"], "rows": rows,
+            "profiles": profiles}
+
+
 def ulps(a, b) -> int:
     """Largest distance in float32 units in the last place between two
     tensors (their int32 bit patterns; 0 when bitwise equal)."""
@@ -764,7 +1112,7 @@ def phase_train_kernels_vs_plain(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for b in (1, 7, 256, 300):
+    for b in XENT_CHECK_BATCHES:
         for c in (10, 128):
             logits, labels, g = xent_inputs(b, c, gen, device)
             loss, lse = xent.xent_fwd(logits, labels)
@@ -826,7 +1174,8 @@ def phase_train_kernels_vs_plain(device) -> dict:
         raise AssertionError(f"adam kernel is {adam_ulps} ulp from its "
                              f"plain version (bit for bit required)")
     emit("kernel_vs_plain", kernel="xent_fwd+xent_bwd",
-         batches=[1, 7, 256, 300], classes=[10, 128], rtol=1e-6, atol=1e-6,
+         batches=list(XENT_CHECK_BATCHES), classes=[10, 128], rtol=1e-6,
+         atol=1e-6,
          max_abs_err_fwd=worst["xent_fwd"], max_abs_err_bwd=worst["xent_bwd"])
     emit("kernel_vs_plain", kernel="adam", shapes=[list(s) for s in sizes],
          steps=[1, 2, 10], multi_leaf_models=["cnn", "vit"],
@@ -1718,37 +2067,43 @@ def _run_cli(argv: list, epoch_callback=None, dp: bool = False):
     return summary, out.getvalue()
 
 
+COLLECTIVES = ("count_all_reduce", "grad_all_reduce", "metric_all_reduce")
+
+
 def _collective_counts() -> dict:
     """The collectives' call counters (``parallel/collectives.py``)."""
     from pytorch_distributed_mnist_tpu_torch.parallel import collectives
 
-    return {"grad_all_reduce": collectives.grad_all_reduce.launches,
-            "metric_all_reduce": collectives.metric_all_reduce.launches}
+    return {name: getattr(collectives, name).launches
+            for name in COLLECTIVES}
 
 
 def _zero_collectives() -> None:
     from pytorch_distributed_mnist_tpu_torch.parallel import collectives
 
-    collectives.grad_all_reduce.launches = 0
-    collectives.metric_all_reduce.launches = 0
+    for name in COLLECTIVES:
+        getattr(collectives, name).launches = 0
 
 
 def _want_collectives(dp: bool, explicit: bool = False,
                       epochs: int = TRAIN_EPOCHS) -> dict:
     """The collectives of ``epochs`` epochs of the smoke's cnn or ViT run:
-    none without a process group; in a world, one gradient all-reduce per
-    train step and one metric all-reduce per pass (per step and eval
+    none without a process group; in a world, per train step one count
+    all-reduce (the global masked mean's divisor; not in the explicit
+    mode, whose rule is DDP's per-replica mean) and one gradient
+    all-reduce, and one metric all-reduce per pass (per step and eval
     batch in the explicit mode)."""
     import math
 
     if not dp:
-        return {"grad_all_reduce": 0, "metric_all_reduce": 0}
+        return dict.fromkeys(COLLECTIVES, 0)
     args = TRAIN_ARGS
     steps = epochs * (int(args[args.index("--synthetic-train-size") + 1])
                       // TRAIN_BATCH)
     evals = epochs * math.ceil(
         int(args[args.index("--synthetic-test-size") + 1]) / TRAIN_BATCH)
-    return {"grad_all_reduce": steps,
+    return {"count_all_reduce": 0 if explicit else steps,
+            "grad_all_reduce": steps,
             "metric_all_reduce": steps + evals if explicit else 2 * epochs}
 
 
@@ -1809,10 +2164,11 @@ def _counter_delta(after: dict, before: dict) -> dict:
 
 def _want_launches(model: str, epochs: int = TRAIN_EPOCHS) -> dict:
     """The launch counts of ``epochs`` epochs of the ``model`` run: per
-    train step one cross-entropy forward and backward and one Adam launch
-    (per MAX_LEAVES leaves), per eval batch one forward, and for the ViT a
-    forward and a backward per attention layer on ``_flash_want``'s
-    routes."""
+    train step one cross-entropy forward and backward per micro-batch
+    (``accum`` of them) and one Adam launch (per MAX_LEAVES leaves), per
+    eval batch one forward, and for the ViT a forward and a backward per
+    attention layer and micro-batch on ``_flash_want``'s routes, with
+    one more forward under ``remat`` (the block's recompute)."""
     import math
 
     from pytorch_distributed_mnist_tpu_torch.ops.adam import MAX_LEAVES
@@ -1823,12 +2179,14 @@ def _want_launches(model: str, epochs: int = TRAIN_EPOCHS) -> dict:
     test_size = int(args[args.index("--synthetic-test-size") + 1])
     steps = epochs * (train_size // TRAIN_BATCH)
     evals = epochs * math.ceil(test_size / TRAIN_BATCH)
-    want = {"xent_fwd": steps + evals, "xent_bwd": steps,
+    micro = run_cfg.get("accum", 1) * steps
+    want = {"xent_fwd": micro + evals, "xent_bwd": micro,
             "adam": steps * -(-run_cfg["params"] // MAX_LEAVES)}
     depth = run_cfg["depth"]
     if depth:  # the ViT at its default 49 tokens
+        forwards = micro * (2 if run_cfg.get("remat") else 1) + evals
         want.update(_flash_want(run_cfg["dtype"], VIT_SHAPE[1],
-                                depth * (steps + evals), depth * steps))
+                                depth * forwards, depth * micro))
     return want
 
 
@@ -1937,7 +2295,8 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
 
     run_cfg = TRAIN_RUNS[model]
     args = run_cfg["args"]
-    phase = "train" if model == "cnn" else f"train_{model}"
+    phase = run_cfg.get("phase",
+                        "train" if model == "cnn" else f"train_{model}")
     if dp:
         phase = "train_dp_world1" if model == "cnn" else \
             f"train_dp_{model}_world1"
@@ -1969,7 +2328,7 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
                                  f"{_want_collectives(dp)}")
         if want_lines is not None and lines != want_lines:
             raise AssertionError(f"{phase} printed\n{lines}\nwhere the run "
-                                 f"without a group printed\n{want_lines}")
+                                 f"it must repeat printed\n{want_lines}")
         hist = summary["history"]
         if len(lines) != TRAIN_EPOCHS or len(hist) != TRAIN_EPOCHS:
             raise AssertionError(f"expected {TRAIN_EPOCHS} epoch lines:\n{out}")
@@ -2035,7 +2394,7 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
                    "nccl_note": None if nccl or nccl is None else
                    "NCCL launched no kernel for the all-reduces of a "
                    "world of one in epoch 1's trace"}
-        emit(phase, trainer_mode="scan", epoch_lines=lines,
+        emit(phase, run=model, trainer_mode="scan", epoch_lines=lines,
              resumed_epoch_lines=resumed, eval_line=test_lines[0],
              launches=launches, expected_launches=want,
              collectives=collectives, checkpoint_world="1x1",
@@ -2091,9 +2450,132 @@ def phase_train_twin(phase: str, model: str, flags: list, want_lines: list,
            "launches": launches, "collectives": collectives,
            "wall_s": wall_s,
            "images_per_sec": [r["images_per_sec"]
-                              for r in summary["history"]]}
+                              for r in summary["history"]],
+           "staging": summary["staging"]}
     emit(phase, **row)
     return row
+
+
+# Pairs of feed-window runs, each pair one run at --feed-window 2 and one
+# at 1 back to back, in the order 2 1, 1 2, 2 1, ...: enough to tell a
+# step's wall apart between the windows (a run's epoch is 32 steps).
+FEED_WINDOW_PAIRS = 10
+
+
+def phase_train_feed_window(want_lines: list,
+                            device_flag: str = "cuda") -> dict:
+    """The cnn run in ``--trainer-mode stepwise`` at ``--feed-window 2``
+    (the feeder thread stages batch N+1 while batch N's step runs) and at
+    1 (inline), in ``FEED_WINDOW_PAIRS`` pairs of alternating order:
+    every run must print ``want_lines`` (the scan run's) character for
+    character. Reports each window's host ms per train step (epoch 1's
+    timed train pass; epoch 0 holds the first steps' set-up) in each run,
+    their mean and median, each pair's difference (window 2 less window
+    1) and how many pairs read window 2 slower, and the staging log: the
+    consumer's wait per stage, the host gather and the queued copies."""
+    import statistics
+
+    order = [w for k in range(FEED_WINDOW_PAIRS)
+             for w in ((2, 1) if k % 2 == 0 else (1, 2))]
+    turns = {2: [], 1: []}
+    for turn, window in enumerate(order):
+        row = phase_train_twin(
+            f"train_feed_window_{window}_turn{turn}", "cnn",
+            ["--trainer-mode", "stepwise", "--feed-window", str(window)],
+            want_lines, device_flag=device_flag)
+        staging = row["staging"]
+        if staging["pipelined_stages"] != (staging["stages"] if window > 1
+                                           else 0):
+            raise AssertionError(f"--feed-window {window} staged {staging}")
+        turns[window].append({
+            "host_ms_per_step": TRAIN_BATCH / row["images_per_sec"][1] * 1e3,
+            "wait_ms_per_stage": staging["consumer_wait_ms"]
+            / max(staging["stages"], 1),
+            "gather_ms_per_stage": staging["host_ms"]
+            / max(staging["stages"], 1),
+            "h2d_ms_per_stage": staging["h2d_ms"]
+            / max(staging["stages"], 1),
+            "overlap_fraction": staging["overlap_fraction"]})
+    keys = ("host_ms_per_step", "wait_ms_per_stage", "gather_ms_per_stage",
+            "h2d_ms_per_stage")
+    rows = {window: {
+        "turns": runs,
+        **{f"mean_{key}": statistics.mean(r[key] for r in runs)
+           for key in keys},
+        **{f"median_{key}": statistics.median(r[key] for r in runs)
+           for key in keys}}
+        for window, runs in turns.items()}
+    diffs = [a["host_ms_per_step"] - b["host_ms_per_step"]
+             for a, b in zip(turns[2], turns[1])]
+    pairs = {"host_ms_per_step_w2_less_w1": diffs,
+             "median_difference_ms": statistics.median(diffs),
+             "pairs_w2_slower": sum(d > 0 for d in diffs),
+             "pairs": len(diffs)}
+    emit("train_feed_window", windows=rows, order=order, pairs=pairs,
+         epoch_lines_equal=True)
+    return rows
+
+
+def phase_remat_memory(device) -> dict:
+    """Peak device memory of one bf16 flash ViT train step (batch 256,
+    the fused loss, Adam's kernel) with and without ``remat``, at patch 4
+    (49 tokens) and patch 2 (196): ``torch.cuda.max_memory_allocated``
+    over the step less what was allocated before it, after one warm-up
+    step; and whether the two models' params after two steps are the
+    same bits."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.flash import (
+        flash_attention,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.loss import (
+        get_loss_impl,
+        set_loss_impl,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    batch = {"image": torch.randn((TRAIN_BATCH, 28, 28, 1), generator=gen,
+                                  device=device),
+             "label": torch.randint(0, CLASSES, (TRAIN_BATCH,), generator=gen,
+                                    device=device),
+             "mask": torch.ones(TRAIN_BATCH, device=device)}
+    before_impl = get_loss_impl()
+    set_loss_impl("fused")
+    rows = {}
+    try:
+        for patch in (4, 2):
+            params = {}
+            for remat in (False, True):
+                state = create_train_state(
+                    get_model("vit", attention_fn=flash_attention,
+                              patch_size=patch, remat=remat), SEED, device,
+                    optimizer="adam_pallas")
+                train_step(state, batch)
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                train_step(state, batch)
+                torch.cuda.synchronize(device)
+                peak = torch.cuda.max_memory_allocated(device) - base
+                rows[f"p{patch}_remat{int(remat)}_peak_mb"] = peak / 2**20
+                params[remat] = [p.detach().clone()
+                                 for p in state.model.parameters()]
+                del state
+            rows[f"p{patch}_same_params"] = all(
+                torch.equal(a, b) for a, b in zip(params[False],
+                                                  params[True]))
+            rows[f"p{patch}_saved_share"] = 1.0 - (
+                rows[f"p{patch}_remat1_peak_mb"]
+                / rows[f"p{patch}_remat0_peak_mb"])
+    finally:
+        set_loss_impl(before_impl)
+    emit("train_vit_remat_memory", batch=TRAIN_BATCH, **rows)
+    return rows
 
 
 # The port's kernels by the names the profiler gives them, and the part of
@@ -2694,15 +3176,21 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(device)
     train_err = phase_train_kernels_vs_plain(device)
     rows = phase_timings(device, peaks)
+    vit_i8_rows = phase_vit_i8_timings(device, peaks)
     train_rows = phase_train_timings(device, peaks)
     launches = phase_server()
     phase_forward_profile(device)
+    server_vit = phase_server_vit()
     cnn_run = phase_train()
     train_launches = cnn_run["launches"]
     phase_train_twin("train_stepwise", "cnn", ["--trainer-mode", "stepwise"],
                      cnn_run["lines"])
     phase_train_twin("train_epoch_gather_device", "cnn",
                      ["--epoch-gather", "device"], cnn_run["lines"])
+    phase_train_feed_window(cnn_run["lines"])
+    accum_run = phase_train(model="cnn_accum")
+    phase_train_twin("train_grad_accum_stepwise", "cnn_accum",
+                     ["--trainer-mode", "stepwise"], accum_run["lines"])
     phase_train_profile(device)
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
@@ -2711,6 +3199,10 @@ def main() -> int:
     vit_launches = vit_run["launches"]
     phase_train_twin("train_stepwise", "vit", ["--trainer-mode", "stepwise"],
                      vit_run["lines"])
+    vit_accum_launches = phase_train(model="vit_accum")["launches"]
+    remat_launches = phase_train(model="vit_remat",
+                                 want_lines=vit_run["lines"])["launches"]
+    phase_remat_memory(device)
     phase_train_profile(device, model="vit")
     p2 = phase_train_profile(device, model="vit", patch_size=2)
     f32_launches = phase_train(model="vit_f32")["launches"]
@@ -2748,6 +3240,9 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "at": "fc1 128x12544x128",
         "shapes": rows,
+        "launches_vit_server": server_vit["launches"],
+        "vit_shapes": vit_i8_rows,
+        "vit_forward_profiles": server_vit["profiles"],
     }]
     for kname, replaces in (("xent_fwd", TPU_XENT_FWD),
                             ("xent_bwd", TPU_XENT_BWD)):
@@ -2762,6 +3257,8 @@ def main() -> int:
             "replay_ms": scan_cnn["scan"]["kernel_ms_per_call"][kname],
             "in_eager_step_ms":
                 scan_cnn["stepwise"]["kernel_ms_per_call"][kname],
+            "launches_grad_accum": accum_run["launches"][kname],
+            "launches_vit_grad_accum": vit_accum_launches[kname],
             "at": f"{TRAIN_BATCH}x{CLASSES}"})
     all_8 = train_rows["adam"]["all_8"]
     kernels.append({
@@ -2774,6 +3271,7 @@ def main() -> int:
         "bound_by": all_8["bound_by"], "library_ms": all_8["library_ms"],
         "replay_ms": scan_cnn["scan"]["kernel_ms_per_call"]["adam"],
         "in_eager_step_ms": scan_cnn["stepwise"]["kernel_ms_per_call"]["adam"],
+        "launches_grad_accum": accum_run["launches"]["adam"],
         "at": f"one FusedAdam.step over the 8 cnn leaves, "
               f"{all_8['numel']} params",
         "vit_31": train_rows["adam"]["vit_31"]})
@@ -2839,6 +3337,9 @@ def main() -> int:
         entry.update(d12[kname])
         if kname in d12_launches:
             entry["launches_d12_profile"] = d12_launches[kname]
+        if kname in ("flash_fwd", "flash_bwd"):
+            entry["launches_grad_accum"] = vit_accum_launches[kname]
+            entry["launches_remat"] = remat_launches[kname]
         kernels.append(entry)
     # The tiled pair runs on the ViT's --patch-size 2 path
     # (train_vit_p2_profile's counted steps).

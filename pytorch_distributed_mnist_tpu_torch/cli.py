@@ -18,7 +18,11 @@ step body in a loop). ``--epoch-gather device`` keeps the dataset on the
 device and gathers each batch there. ``stepwise`` runs one eager step per
 batch; ``explicit`` does too, through the explicit data-parallel steps of
 ``parallel/collectives.py``. ``--model vit --attention flash`` trains the
-ViT through the flash-attention kernels (``ops/flash.py``).
+ViT through the flash-attention kernels (``ops/flash.py``); ``--remat``
+recomputes each of its blocks in the backward pass. ``--grad-accum N``
+splits each step's batch into N micro-batches before one optimizer step
+(scan and stepwise); ``--feed-window W`` sets how many batches the
+per-batch modes stage ahead on a feeder thread (``data/staging.py``).
 
 Data parallelism over processes, one device each: ``--spawn N`` starts N
 local ranks (``parallel/launcher.py``; rank r on ``cuda:r`` over NCCL, or
@@ -26,11 +30,11 @@ every rank on the CPU over gloo with ``--device cpu``);
 ``--coordinator host:port --num-processes N --process-id r`` joins a world
 rank by rank; a launcher's environment (``MASTER_ADDR`` with
 ``WORLD_SIZE``, Slurm, Open MPI) is detected. ``--batch-size`` is global:
-each rank takes its share of every batch, the gradients are averaged over
-the ranks, the metrics summed, and process 0 prints and writes the
-checkpoints. A single process with none of these makes no process group.
-Flags for meshes of more than the data axis, ZeRO, elastic runs,
-publishing, ``--grad-accum`` and ``--remat`` are not accepted yet.
+each rank takes its share of every batch, the step's loss is one masked
+mean over the global batch, the metrics are summed, and process 0 prints
+and writes the checkpoints. A single process with none of these makes no
+process group. Flags for meshes of more than the data axis, ZeRO, elastic
+runs and publishing are not accepted yet.
 """
 
 from __future__ import annotations
@@ -141,6 +145,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--patch-size", type=int, default=4,
                    help="ViT patch size (28 must divide evenly; tokens = "
                         "(28/patch)^2)")
+    p.add_argument("--remat", action="store_true",
+                   help="torch.utils.checkpoint each transformer block: "
+                        "recompute block activations in backward instead "
+                        "of storing them (~depth x lower activation memory "
+                        "for the token axis; composes with --grad-accum). "
+                        "--model vit only")
     p.add_argument("--dataset", type=str, default="mnist",
                    choices=["mnist", "fashion_mnist", "synthetic"])
     p.add_argument("--allow-synthetic", action="store_true",
@@ -157,6 +167,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", type=str, default="xla", choices=["xla", "fused"],
                    help="cross-entropy impl: xla (plain torch ops) or fused "
                         "(the CUDA forward and backward kernels)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="gradient-accumulation micro-batches per optimizer "
+                        "step: each process's batch splits N ways, grads "
+                        "accumulate in one buffer, one optimizer step "
+                        "applies the exact full-batch gradient (~N x lower "
+                        "activation memory)")
     p.add_argument("--trainer-mode", type=str, default="scan",
                    choices=["scan", "stepwise", "explicit"],
                    help="scan: each epoch replays one captured CUDA graph "
@@ -164,6 +180,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "stepwise: one eager step per batch; explicit: "
                         "one eager step per batch through the explicit "
                         "data-parallel steps (metrics summed every step)")
+    p.add_argument("--feed-window", type=int, default=2,
+                   help="per-batch input-plane depth for stepwise/explicit "
+                        "modes: W counts the batch the step consumes plus "
+                        "at most W-1 staged (host gather + copy to the "
+                        "device) beyond it. 2 (default) is double "
+                        "buffering: batch N+1 stages on a feeder thread "
+                        "while the step for batch N runs; 1 disables the "
+                        "feeder (staging inline on the main thread, "
+                        "bit-identical trajectories). Worlds of more than "
+                        "one process always stage inline. Scan mode "
+                        "ignores this: its epoch prefetch already carries "
+                        "the host gather and the copy")
     p.add_argument("--epoch-gather", type=str, default="host",
                    choices=["host", "device"],
                    help="scan-mode batch staging: 'host' gathers each "
@@ -214,7 +242,30 @@ def _model_kwargs(args) -> dict:
             raise SystemExit(f"--patch-size only applies to models with "
                              f"patches; {args.model!r} does not accept one")
         model_kwargs["patch_size"] = patch
+    if args.remat:
+        if not model_accepts(args.model, "remat"):
+            raise SystemExit(
+                f"--remat only applies to block-structured models; "
+                f"{args.model!r} does not accept it")
+        model_kwargs["remat"] = True
     return model_kwargs
+
+
+def _check_grad_accum(args) -> None:
+    """The JAX CLI's refusals of ``--grad-accum``, before any device or
+    data is touched."""
+    grad_accum = args.grad_accum
+    if grad_accum < 1:
+        raise SystemExit(f"--grad-accum must be >= 1, got {grad_accum}")
+    if grad_accum > 1:
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--grad-accum does not compose with --trainer-mode "
+                "explicit; use scan or stepwise")
+        if args.batch_size % grad_accum:
+            raise SystemExit(
+                f"--grad-accum {grad_accum} must divide --batch-size "
+                f"{args.batch_size}")
 
 
 def _build_loaders(args, seed: int, axis):
@@ -306,6 +357,10 @@ def run(args, epoch_callback=None) -> dict:
         raise SystemExit(
             "--epoch-gather device requires --trainer-mode scan (the "
             "gather lives inside the scanned epoch program)")
+    _check_grad_accum(args)
+    if args.feed_window < 1:
+        raise SystemExit(f"--feed-window must be >= 1, got "
+                         f"{args.feed_window}")
     model_kwargs = _model_kwargs(args)
     device = resolve_device(args.device)
     initialize_distributed(args.coordinator, args.num_processes,
@@ -328,6 +383,16 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     axis = make_mesh(device=device)
     log0(f"devices: {axis.size} ({'gpu' if device.type == 'cuda' else 'cpu'}"
          f"), processes: {process_count()}, mesh: {axis.shape}")
+    local_batch = args.batch_size // axis.size
+    if (args.grad_accum > 1 and args.batch_size % axis.size == 0
+            and local_batch % args.grad_accum):
+        # Each process splits its own rows: the micro-batch must be whole
+        # on every rank, as the JAX step's micro-batch must divide evenly
+        # over its data shards.
+        raise SystemExit(
+            f"--grad-accum {args.grad_accum} must divide the per-process "
+            f"batch ({local_batch}: --batch-size {args.batch_size} over "
+            f"{axis.size} processes)")
     set_loss_impl(args.loss)
     state = create_train_state(
         get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
@@ -340,7 +405,9 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
     trainer = Trainer(state, train_loader, test_loader, device,
                       mode=args.trainer_mode, epoch_gather=args.epoch_gather,
-                      staging_log=StagingLog(), axis=axis)
+                      staging_log=StagingLog(), axis=axis,
+                      grad_accum=args.grad_accum,
+                      feed_window=args.feed_window)
     # closing(trainer) joins an in-flight epoch prefetch on every exit.
     with closing(trainer):
         return _train_or_evaluate(args, trainer, start_epoch, best_acc,

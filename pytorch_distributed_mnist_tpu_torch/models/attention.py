@@ -15,6 +15,14 @@ to the exact erf).
 is dense ``ops.attention.full_attention``, and ``--attention flash`` passes
 ``ops.flash.flash_attention``. ``matmul`` goes to every Dense, as in
 ``cnn``.
+
+``remat`` is the reference's ``nn.remat(TransformerBlock)``: with
+gradients enabled each block runs under ``torch.utils.checkpoint``
+(non-reentrant), which keeps only the block's input and runs its forward
+again in the backward pass. The RNG state is not preserved: the model
+draws no randomness, and reading the CUDA generator would not belong in
+a captured graph. Parameter names do not change, so checkpoints load
+between remat and non-remat models both ways.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pytorch_distributed_mnist_tpu_torch.models.linear import Dense
 from pytorch_distributed_mnist_tpu_torch.models.registry import register_model
@@ -131,7 +140,8 @@ class VisionTransformer(nn.Module):
                  embed_dim: int = 64, depth: int = 2, num_heads: int = 4,
                  mlp_ratio: int = 4, attention_fn: Optional[Callable] = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 matmul: Optional[Callable] = None) -> None:
+                 matmul: Optional[Callable] = None,
+                 remat: bool = False) -> None:
         super().__init__()
         if patch_size < 1 or IMAGE_SIDE % patch_size:
             raise ValueError(f"patch size {patch_size} does not divide "
@@ -139,6 +149,7 @@ class VisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.compute_dtype = compute_dtype
         self.depth = depth
+        self.remat = remat
         tokens = (IMAGE_SIDE // patch_size) ** 2
         self.embed = Dense(patch_size * patch_size, embed_dim, compute_dtype,
                            matmul)
@@ -154,6 +165,11 @@ class VisionTransformer(nn.Module):
         x = self.embed(patchify(x, self.patch_size, self.compute_dtype))
         x = x + self.pos_embed.to(self.compute_dtype)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
         x = self.ln_f(x).mean(dim=1)
         return self.head(x).float()

@@ -25,6 +25,7 @@ WRAPPERS = (("ops.xent", "xent_fwd"), ("ops.xent", "xent_bwd"),
             ("ops.adam", "adam_leaves"), ("ops.flash", "flash_fwd"),
             ("ops.flash", "flash_bwd"), ("ops.flash", "flash_dq"),
             ("ops.flash", "flash_dkv"), ("ops.matmul_i8", "matmul_i8"),
+            ("parallel.collectives", "count_all_reduce"),
             ("parallel.collectives", "grad_all_reduce"),
             ("parallel.collectives", "metric_all_reduce"))
 

@@ -52,16 +52,30 @@ def masked_mean(per_ex: torch.Tensor,
     return (per_ex * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean softmax cross-entropy; with ``mask`` (0/1 per example) a
-    masked mean, so padded eval rows contribute nothing."""
+def example_count(labels: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The batch's real examples as a float32 device scalar: the mask's
+    sum, or every row without one."""
+    if mask is None:
+        return torch.full((), float(labels.shape[0]), dtype=torch.float32,
+                          device=labels.device)
+    return mask.float().sum()
+
+
+def per_example_loss(logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Per-example cross-entropy by the selected impl (``set_loss_impl``)."""
     if _IMPL == "fused":
         from pytorch_distributed_mnist_tpu_torch.ops.xent import (
             fused_cross_entropy_per_example,
         )
 
-        per_ex = fused_cross_entropy_per_example(logits, labels)
-    else:
-        per_ex = cross_entropy_per_example(logits, labels)
-    return masked_mean(per_ex, mask)
+        return fused_cross_entropy_per_example(logits, labels)
+    return cross_entropy_per_example(logits, labels)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy; with ``mask`` (0/1 per example) a
+    masked mean, so padded eval rows contribute nothing."""
+    return masked_mean(per_example_loss(logits, labels), mask)

@@ -1,24 +1,33 @@
-"""Explicit collectives of data parallelism: the gradient mean and the
-metric sum.
+"""Explicit collectives of data parallelism: the example count, the
+gradient sum and the metric sum.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/parallel/collectives.py``,
 whose shard_map step ``lax.pmean``-s the gradients of each replica's
 mean loss (DDP's rule) and ``lax.psum``-s ``loss * n``, ``correct`` and
-``count``. Here each rank is a process with one device:
+``count``, and of the gradient reduction XLA inserts into the
+reference's auto data-parallel step, whose loss is one masked mean over
+the global batch. Here each rank is a process with one device:
 
+- :func:`count_all_reduce` sums the ranks' real-example counts, so each
+  rank's backward pass can run on its masked loss sum over the global
+  count (``train/steps.py::train_step``): the reference's global masked
+  mean, whatever the padding rows of each rank.
 - :class:`GradBuffer` is one flat float32 buffer that every parameter's
   ``.grad`` views, allocated once per train state. The step zeroes it
   before the backward pass (autograd then adds each gradient into its
-  view in place), and :func:`grad_all_reduce` sums it over the data axis
-  in one collective and divides by the axis size. The buffer never
-  moves, so a CUDA graph that captured the step replays onto the same
-  addresses (``train/steps.py::EpochProgram`` checks before each pass).
+  view in place; under gradient accumulation each micro-batch's too),
+  and :func:`grad_all_reduce` sums it over the data axis in one
+  collective. The buffer never moves, so a CUDA graph that captured the
+  step replays onto the same addresses (``train/steps.py::EpochProgram``
+  checks before each pass).
 - :func:`metric_all_reduce` sums a pass's (or, in the explicit mode, a
   step's) three metric accumulators in one collective.
 - :func:`make_explicit_dp_train_step` and
   :func:`make_explicit_dp_eval_step` are the ``--trainer-mode explicit``
-  steps: one eager step per batch whose metrics come back summed over the
-  axis, as the JAX explicit step's ``psum`` gives them.
+  steps: one eager step per batch on DDP's rule (each rank's masked-mean
+  gradient, summed and divided by the axis size), whose metrics come
+  back summed over the axis, as the JAX explicit step's ``pmean`` and
+  ``psum`` give them.
 
 Every collective runs on the calling thread, in the same order on every
 rank. Each wrapper counts its calls in ``.launches``; a captured call is
@@ -86,14 +95,29 @@ def grad_buffer(state) -> GradBuffer:
     return state.grad_buffer
 
 
+@torch.no_grad()
+def count_all_reduce(count: torch.Tensor, axis) -> torch.Tensor:
+    """``count`` (this rank's real examples, a float32 device scalar)
+    summed over ``axis`` (a ``parallel/mesh.py::DataAxis`` that reduces),
+    in place: one all-reduce of 4 bytes. Counts are whole numbers far
+    below 2**24, so the sum is exact in any order."""
+    dist.all_reduce(count, group=axis.group)
+    with _count_lock:
+        count_all_reduce.launches += 1
+    return count
+
+
+count_all_reduce.launches = 0
+
+
 def grad_all_reduce(grads: GradBuffer, axis) -> None:
-    """Replace every gradient by its mean over ``axis`` (a
-    ``parallel/mesh.py::DataAxis`` that reduces): one all-reduce (sum) of
-    the flat buffer, then a division by the axis size. A world of one
-    sums one rank and divides by 1: exact."""
+    """Sum every gradient over ``axis`` (a ``parallel/mesh.py::DataAxis``
+    that reduces): one all-reduce of the flat buffer. The caller chose
+    the loss's divisor so that the sum is the gradient it wants (the
+    global count's, or the axis size's under DDP's rule). A world of one
+    sums one rank: exact."""
     grads.check()
     dist.all_reduce(grads.flat, group=axis.group)
-    grads.flat.div_(axis.size)
     with _count_lock:
         grad_all_reduce.launches += 1
 
@@ -121,14 +145,19 @@ metric_all_reduce.launches = 0
 def make_explicit_dp_train_step(state, axis) \
         -> Callable[[Dict[str, torch.Tensor]], MetricState]:
     """``step(batch) -> MetricState``: one eager train step of ``state`` on
-    this rank's local ``batch``: forward, mean loss, backward, the
-    gradient mean over ``axis`` (:func:`grad_all_reduce`), the optimizer
+    this rank's local ``batch`` on DDP's rule, as the JAX explicit step's
+    ``pmean`` of each replica's mean-loss gradient: forward, this rank's
+    masked mean, backward, the gradient sum over ``axis``
+    (:func:`grad_all_reduce`) divided by the axis size, the optimizer
     step; its metrics summed over ``axis`` (:func:`metric_all_reduce`).
-    The parameters move exactly as under the stepwise mode's steps."""
+    Where every rank's batch holds as many real examples (every train
+    batch but a padded tail's), the parameters move as under the stepwise
+    mode's steps."""
     from pytorch_distributed_mnist_tpu_torch.train.steps import train_step
 
     def step(batch):
-        return metric_all_reduce(train_step(state, batch, axis), axis)
+        return metric_all_reduce(
+            train_step(state, batch, axis, replica_mean=True), axis)
 
     return step
 

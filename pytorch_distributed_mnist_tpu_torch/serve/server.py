@@ -12,7 +12,10 @@ bucket warmed before the socket opens), the
 and the :class:`~pytorch_distributed_mnist_tpu_torch.serve.reload.
 CheckpointWatcher` on the training run's checkpoint directory. On
 ``--serve-precision int8`` the model's Dense layers run the hand-written
-int8 matmul kernel (``ops/matmul_i8.py``).
+int8 matmul kernel (``ops/matmul_i8.py``). Every registered model is
+served (``cnn``, ``linear`` and ``vit``, the ViT at its registered
+defaults with dense attention), at every precision, on the fused and the
+split plane.
 
 Endpoints (one handler thread per connection, all funneling into the
 batcher's worker, which owns device submission):
@@ -27,8 +30,7 @@ batcher's worker, which owns device submission):
 - ``POST /drain`` — ``{"drain": true|false}`` closes/reopens /predict
   admission (503 + Retry-After) while in-flight requests complete.
 
-Not ported yet: serving the ViT (``--model vit`` exits 2 at boot),
-multi-device pools, sharded and pipeline serve modes,
+Not ported yet: multi-device pools, sharded and pipeline serve modes,
 the precision canary, multi-model serving, the autoscaler, delta
 checkpoint distribution and fleet registration. Their flags are absent
 from the parser rather than accepted and ignored.
@@ -38,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -78,11 +79,6 @@ from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
     ServeLog,
 )
-
-
-# Models the port serves. The ViT trains in the port but is not served
-# until its serving path is held against the JAX package's engine.
-SERVED_MODELS = ("cnn", "linear")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -626,12 +622,6 @@ def create_server(args) -> ThreadingHTTPServer:
     if model_name not in list_models():
         raise SystemExit(f"unknown --model {model_name!r}; "
                          f"available: {list_models()}")
-    if model_name not in SERVED_MODELS:
-        print(f"--model {model_name}: the PyTorch port does not serve the "
-              f"ViT yet (served: {', '.join(SERVED_MODELS)}); train it "
-              f"with python -m pytorch_distributed_mnist_tpu_torch --model "
-              f"{model_name}", file=sys.stderr)
-        raise SystemExit(2)
     device = resolve_device(args.device)
     buckets = _parse_buckets(args.buckets)
     shed_policy = _parse_watermarks(args.shed_watermarks)

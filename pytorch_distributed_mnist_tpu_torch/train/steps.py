@@ -5,10 +5,20 @@ reference's per-batch sequence — forward, mean cross-entropy, backward,
 optimizer step, metric accumulation — runs as queued device work with no
 ``.item()``: the metrics stay on the device until the pass ends. Given a
 data axis that reduces (``parallel/mesh.py::DataAxis``, a world of
-processes), the train step averages the gradients over the axis between
-the backward pass and the optimizer step (``parallel/collectives.py``):
-the update the reference's auto data-parallel step gets from the
-all-reduce XLA inserts.
+processes), the train step takes the reference's one masked mean over
+the global batch: each rank backpropagates its masked loss sum over the
+global count of real examples (one all-reduce of the counts, before the
+backward pass), and the gradients are summed over the axis between the
+backward pass and the optimizer step (``parallel/collectives.py``): the
+update the reference's auto data-parallel step gets from the all-reduce
+XLA inserts, for any padding of any rank.
+
+Gradient accumulation (``--grad-accum N``) is the reference's
+``make_accum_train_step_fn``: the local batch splits into N micro-batches
+along dim 0; each backpropagates its per-example loss sum into the one
+flat gradient buffer against the same params; then one gradient sum over
+the axis, one division by the count of real examples over every
+micro-batch and rank, and one optimizer step.
 
 The reference's scanned epoch (``lax.scan`` of the step over an epoch
 staged on the device, one program per epoch) is :class:`EpochProgram`
@@ -18,8 +28,8 @@ the device; on the CPU the same step body in a Python loop.
 :func:`make_train_epoch`, :func:`make_train_epoch_indexed` and
 :func:`make_eval_epoch` build it, as the reference's ``_make_epoch``
 builds its three; on a data axis that reduces, the captured step holds
-the gradient all-reduce too. Gradient accumulation inside the epoch is
-later work.
+the count and gradient all-reduces too, and under accumulation the whole
+accumulated step is what is captured.
 """
 
 from __future__ import annotations
@@ -31,7 +41,12 @@ import torch
 
 from pytorch_distributed_mnist_tpu_torch.models.convert import state_leaves
 from pytorch_distributed_mnist_tpu_torch.ops.launches import CapturedLaunches
-from pytorch_distributed_mnist_tpu_torch.ops.loss import cross_entropy
+from pytorch_distributed_mnist_tpu_torch.ops.loss import (
+    cross_entropy,
+    example_count,
+    masked_mean,
+    per_example_loss,
+)
 from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     MetricState,
     accumulate_metrics,
@@ -40,6 +55,7 @@ from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     metrics_zero_,
 )
 from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
+    count_all_reduce,
     grad_all_reduce,
     grad_buffer,
 )
@@ -67,31 +83,102 @@ def make_forward_program(model: torch.nn.Module):
     return forward
 
 
-def train_step(state, batch: Dict[str, torch.Tensor],
-               axis=None) -> MetricState:
+def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
+               accum: int = 1, replica_mean: bool = False) -> MetricState:
     """One optimizer step on one batch (on the state's device); updates
     ``state`` in place and returns this batch's metrics, still on the
     device. On an ``axis`` that reduces, ``batch`` is this rank's local
-    batch and the optimizer steps on the mean over the axis of each
-    rank's mean-loss gradient (one all-reduce of the state's flat
-    gradient buffer); the metrics stay this rank's."""
+    batch, and the optimizer steps on the gradient of one masked mean
+    over the global batch: this rank's masked loss sum over the global
+    count (:func:`count_all_reduce`), summed over the axis in one
+    all-reduce of the state's flat gradient buffer. ``replica_mean``
+    takes DDP's rule instead (the explicit mode's): each rank's masked
+    mean, summed and divided by the axis size. ``accum > 1`` splits the
+    batch into that many micro-batches (:func:`_accum_train_step`). The
+    metrics stay this rank's."""
+    if accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {accum}")
+    if accum > 1:
+        return _accum_train_step(state, batch, axis, accum)
     images, labels = batch["image"], batch["label"]
     mask = batch.get("mask")
     logits = state.model(images)
-    loss = cross_entropy(logits, labels, mask)
     reduce = axis is not None and axis.reduces
-    if reduce:
+    if not reduce:
+        loss = cross_entropy(logits, labels, mask)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    else:
         grads = grad_buffer(state)
         grads.zero_()
-    else:
-        state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if reduce:
+        per_ex = per_example_loss(logits, labels)
+        if replica_mean:
+            loss = masked_mean(per_ex, mask)
+            loss.backward()
+        else:
+            # The global count is known before the forward: its
+            # all-reduce needs nothing of this step's work. In a world of
+            # one this is ``masked_mean``'s expression, bit for bit.
+            total = count_all_reduce(example_count(labels, mask), axis)
+            if mask is None:
+                num, loss = per_ex.sum(), per_ex.mean()
+            else:
+                # One masked sum: the metrics' loss is masked_mean's
+                # expression from it.
+                live = mask.float()
+                num = (per_ex * live).sum()
+                loss = num / torch.clamp(live.sum(), min=1.0)
+            (num / torch.clamp(total, min=1.0)).backward()
         grad_all_reduce(grads, axis)
+        if replica_mean:
+            grads.flat.div_(axis.size)
     state.optimizer.step()
     state.step.add_(1)
     return metrics_update(metrics_init(logits.device), loss.detach(),
                           logits.detach(), labels, mask)
+
+
+def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
+                      accum: int) -> MetricState:
+    """:func:`train_step` over ``accum`` micro-batches, in the order of
+    the reference's ``make_accum_train_step_fn``: per micro-batch of
+    ``n`` real examples, the backward pass of its masked mean times ``n``
+    (its per-example loss sum) adds into the flat gradient buffer against
+    the same params, and its metrics fold in with ``loss_sum / max(n,
+    1)``; then the sum over the axis, one division by the real examples
+    over every micro-batch and rank, and one optimizer step."""
+    images, labels = batch["image"], batch["label"]
+    mask = batch.get("mask")
+    b = labels.shape[0]
+    if b % accum:
+        raise ValueError(f"global batch {b} not divisible by --grad-accum "
+                         f"{accum}")
+    reduce = axis is not None and axis.reduces
+    total = example_count(labels, mask)
+    if reduce:
+        count_all_reduce(total, axis)
+    grads = grad_buffer(state)
+    grads.zero_()
+    metrics = metrics_init(labels.device)
+    micro = b // accum
+    for k in range(accum):
+        rows = slice(k * micro, (k + 1) * micro)
+        mb_labels = labels[rows]
+        mb_mask = None if mask is None else mask[rows]
+        logits = state.model(images[rows])
+        n = example_count(mb_labels, mb_mask)
+        loss_sum = cross_entropy(logits, mb_labels, mb_mask) * n
+        loss_sum.backward()
+        grads.check()
+        loss_mean = loss_sum.detach() / torch.clamp(n, min=1.0)
+        metrics = metrics_update(metrics, loss_mean, logits.detach(),
+                                 mb_labels, mb_mask)
+    if reduce:
+        grad_all_reduce(grads, axis)
+    grads.flat.div_(torch.clamp(total, min=1.0))
+    state.optimizer.step()
+    state.step.add_(1)
+    return metrics
 
 
 @torch.no_grad()
@@ -130,22 +217,25 @@ class EpochProgram:
     ``copy_``), and the caller refills the same staged arrays between
     passes. A failed capture or replay raises: there is no fallback.
 
-    On a data ``axis`` that reduces, the train step's gradient all-reduce
-    runs in the warm-up ticks first (NCCL's communicator exists before
-    the capture) and is captured with the rest of the step; the state's
-    flat gradient buffer is one of the recorded addresses.
+    On a data ``axis`` that reduces, the train step's count and gradient
+    all-reduces run in the warm-up ticks first (NCCL's communicator
+    exists before the capture) and are captured with the rest of the
+    step; the state's flat gradient buffer (made in a warm-up tick, under
+    accumulation too) is one of the recorded addresses. ``accum`` is the
+    train step's micro-batch count: the graph holds all of them.
 
     The kernel wrappers' and the collectives' launch counts stay exact
     across replays (``ops/launches.py``). ``capture_s`` is the capture's
     wall time and ``replays`` the replays so far."""
 
     def __init__(self, state, train: bool, indexed: bool,
-                 warmup: int, axis=None) -> None:
+                 warmup: int, axis=None, accum: int = 1) -> None:
         self.state = state
         self.train = train
         self.indexed = indexed
         self.warmup = warmup
         self.axis = axis
+        self.accum = accum
         self.device = state.step.device
         self._tick = torch.zeros((), dtype=torch.int64, device=self.device)
         self._acc = metrics_init(self.device)
@@ -171,7 +261,8 @@ class EpochProgram:
 
     def _body(self) -> None:
         if self.train:
-            metrics = train_step(self.state, self._batch(), self.axis)
+            metrics = train_step(self.state, self._batch(), self.axis,
+                                 self.accum)
         else:
             metrics = eval_step(self.state, self._batch())
         accumulate_metrics(self._acc, metrics)
@@ -233,17 +324,18 @@ class EpochProgram:
         return MetricState(*(t.clone() for t in self._acc))
 
 
-def _make_epoch(state, train: bool, indexed: bool, axis=None) \
-        -> Callable[..., MetricState]:
+def _make_epoch(state, train: bool, indexed: bool, axis=None,
+                accum: int = 1) -> Callable[..., MetricState]:
     """The one factory behind the three ``make_*_epoch*`` functions, as
     the reference's ``_make_epoch``: ``train`` picks the train or the eval
     step, ``indexed`` where a tick's batch comes from, ``axis`` the data
-    axis of the train step's gradient mean. The returned function carries
-    its :class:`EpochProgram` as ``.program``."""
+    axis of the train step's gradient reduction, ``accum`` its
+    micro-batches. The returned function carries its
+    :class:`EpochProgram` as ``.program``."""
     program = EpochProgram(
         state, train=train, indexed=indexed,
         warmup=TRAIN_WARMUP_TICKS if train else EVAL_WARMUP_TICKS,
-        axis=axis)
+        axis=axis, accum=accum)
     if indexed:
         def epoch(data, ticks):
             return program.run({**data, **ticks})
@@ -254,16 +346,19 @@ def _make_epoch(state, train: bool, indexed: bool, axis=None) \
     return epoch
 
 
-def make_train_epoch(state, axis=None) -> Callable[..., MetricState]:
+def make_train_epoch(state, axis=None, grad_accum: int = 1) \
+        -> Callable[..., MetricState]:
     """``epoch(batches) -> MetricState``: one train step per batch of
     ``batches`` (``{'image': (S, B, ...), 'label': (S, B), 'mask': (S,
     B)}`` on the state's device), updating ``state`` in place, with the
-    gradient mean over ``axis`` when it reduces. Pass the same tensors,
-    refilled, every epoch. The metrics are this rank's."""
-    return _make_epoch(state, train=True, indexed=False, axis=axis)
+    global masked mean over ``axis`` when it reduces and ``grad_accum``
+    micro-batches a step. Pass the same tensors, refilled, every epoch.
+    The metrics are this rank's."""
+    return _make_epoch(state, train=True, indexed=False, axis=axis,
+                       accum=grad_accum)
 
 
-def make_train_epoch_indexed(state, axis=None) \
+def make_train_epoch_indexed(state, axis=None, grad_accum: int = 1) \
         -> Callable[..., MetricState]:
     """``epoch(data, ticks) -> MetricState``: as :func:`make_train_epoch`,
     each batch gathered on the device from the resident dataset ``data``
@@ -271,7 +366,8 @@ def make_train_epoch_indexed(state, axis=None) \
     (``(S, B)`` int64), with ``ticks['mask']`` (``(S, B)``): the dataset
     crosses to the device once per run, and an epoch's upload is its
     index matrix."""
-    return _make_epoch(state, train=True, indexed=True, axis=axis)
+    return _make_epoch(state, train=True, indexed=True, axis=axis,
+                       accum=grad_accum)
 
 
 def make_eval_epoch(state) -> Callable[..., MetricState]:

@@ -21,11 +21,17 @@ world's metrics.
   run and each tick gathers its rows there. The eval set is staged on the
   device once and reused every pass.
 - ``stepwise``: one eager step per batch, each batch copied to the device
-  from pinned host memory.
+  from pinned host memory by ``data/staging.py::BatchFeeder``: with
+  ``feed_window`` 2 or more (and one process) batch N+1 is gathered and
+  copied on a feeder thread while batch N's step runs; 1 stages inline.
 - ``explicit``: as ``stepwise``, through ``parallel/collectives.py``'s
-  explicit data-parallel steps, whose metrics come back summed over the
-  axis every step (the JAX explicit step's ``psum``); the parameters move
-  as under ``stepwise``.
+  explicit data-parallel steps (DDP's per-replica mean), whose metrics
+  come back summed over the axis every step (the JAX explicit step's
+  ``psum``).
+
+``grad_accum`` splits every train step's batch into that many
+micro-batches (``train/steps.py::train_step``), in ``scan`` and
+``stepwise``; ``explicit`` refuses it, as the reference does.
 
 On the card the trainer makes cuDNN deterministic (no benchmark search),
 so a resumed run repeats the uninterrupted one, and under float32 compute
@@ -44,6 +50,11 @@ import torch
 from pytorch_distributed_mnist_tpu_torch.data.loader import (
     MNISTDataLoader,
     to_device,
+)
+from pytorch_distributed_mnist_tpu_torch.data.staging import (
+    BatchFeeder,
+    PinnedRing,
+    host_buffer,
 )
 from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     Accuracy,
@@ -80,21 +91,6 @@ def _meters(ms: Optional[MetricState]) -> Tuple[Average, Accuracy]:
     return loss, acc
 
 
-def _epoch_buffer(loader: MNISTDataLoader, pin: bool) \
-        -> Dict[str, torch.Tensor]:
-    """Empty host arrays of one stacked epoch (``stacked_epoch``'s shapes),
-    pinned for asynchronous copies to the card when ``pin``."""
-    s, b = loader.steps_per_epoch, loader.local_batch_size
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, pin_memory=pin)
-
-    return {"image": empty((s, b) + loader.images.shape[1:],
-                           torch.from_numpy(loader.images[:0]).dtype),
-            "label": empty((s, b), torch.int64),
-            "mask": empty((s, b), torch.float32)}
-
-
 class Trainer:
     """Runs train and eval passes on this process's device, in ``mode``
     (``MODES``), on the data axis ``axis`` (None: one process)."""
@@ -102,10 +98,14 @@ class Trainer:
     def __init__(self, state, train_loader: MNISTDataLoader,
                  test_loader: MNISTDataLoader, device: torch.device,
                  mode: str = "scan", epoch_gather: str = "host",
-                 staging_log=None, axis=None) -> None:
+                 staging_log=None, axis=None, grad_accum: int = 1,
+                 feed_window: int = 2) -> None:
         if mode not in MODES:
             raise ValueError(f"unknown trainer mode {mode!r} "
                              f"({', '.join(MODES)})")
+        if grad_accum > 1 and mode == "explicit":
+            raise ValueError("grad_accum does not compose with the explicit "
+                             "mode; use scan or stepwise")
         if epoch_gather not in EPOCH_GATHERS:
             raise ValueError(f"unknown epoch_gather {epoch_gather!r}")
         if epoch_gather == "device" and mode != "scan":
@@ -125,9 +125,7 @@ class Trainer:
         self._prefetch = None  # (epoch, thread, buffer turn, holder)
         self._eval_batches: Optional[List[dict]] = None  # stepwise
         self._eval_staged: Optional[Dict[str, torch.Tensor]] = None
-        self._host: List[Dict[str, torch.Tensor]] = []  # two host buffers
-        self._host_ready: List[Optional[torch.cuda.Event]] = []
-        self._host_turn = 0
+        self._host: Optional[PinnedRing] = None  # two epoch buffers
         self._device_epoch: Optional[Dict[str, torch.Tensor]] = None
         self._train_data: Optional[Dict[str, torch.Tensor]] = None
         self._ticks: Optional[Dict[str, torch.Tensor]] = None
@@ -139,37 +137,40 @@ class Trainer:
                 torch.backends.cuda.matmul.allow_tf32 = False
         self._train_epoch = None
         self._eval_epoch = None
+        self._feeder = None
         if mode == "scan":
-            self._train_epoch = (make_train_epoch_indexed(state, axis)
-                                 if epoch_gather == "device"
-                                 else make_train_epoch(state, axis))
+            make = (make_train_epoch_indexed if epoch_gather == "device"
+                    else make_train_epoch)
+            self._train_epoch = make(state, axis, grad_accum=grad_accum)
             self._eval_epoch = make_eval_epoch(state)
+        else:
+            self._feeder = BatchFeeder(train_loader, device,
+                                       window=feed_window,
+                                       staging_log=staging_log)
         if mode == "explicit":
             self._train_step = make_explicit_dp_train_step(state, axis)
             self._eval_step = make_explicit_dp_eval_step(state, axis)
         else:
-            self._train_step = lambda batch: train_step(state, batch, axis)
+            self._train_step = lambda batch: train_step(state, batch, axis,
+                                                        grad_accum)
             self._eval_step = lambda batch: eval_step(state, batch)
 
     # -- host-gather staging (scan) ----------------------------------------
 
     def _take_host_buffer(self) -> int:
-        """The next of the two host buffers, once its last copy to the
-        device has landed (so a gather never overwrites a copy in
-        flight)."""
-        if not self._host:
-            pin = self.device.type == "cuda"
-            for _ in range(2):
-                self._host.append(_epoch_buffer(self.train_loader, pin))
-                self._host_ready.append(torch.cuda.Event() if pin else None)
-        turn, self._host_turn = self._host_turn, 1 - self._host_turn
-        if self._host_ready[turn] is not None:
-            self._host_ready[turn].synchronize()
-        return turn
+        """The next of the two host buffers (pinned on the card), once
+        its last copy to the device has landed."""
+        if self._host is None:
+            loader, pin = self.train_loader, self.device.type == "cuda"
+            lead = (loader.steps_per_epoch, loader.local_batch_size)
+            self._host = PinnedRing(
+                2, lambda: host_buffer(loader, lead, pin), pin)
+        return self._host.take()
 
     def _gather(self, epoch: int, turn: int) -> None:
         self.train_loader.stacked_epoch(
-            epoch, out={k: t.numpy() for k, t in self._host[turn].items()})
+            epoch, out={k: t.numpy()
+                        for k, t in self._host.buffers[turn].items()})
 
     def _start_prefetch(self) -> None:
         """Gather the next epoch into the other host buffer on a thread
@@ -217,14 +218,13 @@ class Trainer:
             self._gather(epoch, turn)
             host_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
-        host = self._host[turn]
+        host = self._host.buffers[turn]
         if self._device_epoch is None:
             self._device_epoch = {k: torch.empty_like(t, device=self.device)
                                   for k, t in host.items()}
         for k, t in host.items():
             self._device_epoch[k].copy_(t, non_blocking=True)
-        if self._host_ready[turn] is not None:
-            self._host_ready[turn].record()
+        self._host.copied(turn)
         t2 = time.perf_counter()
         if self.staging_log is not None:
             self.staging_log.record_stage(
@@ -236,12 +236,15 @@ class Trainer:
         return self._device_epoch
 
     def close(self) -> None:
-        """Join and drop an in-flight prefetch (idempotent); the CLI
-        closes the trainer on every exit."""
+        """Join and drop an in-flight epoch prefetch and the per-batch
+        feeder's thread (idempotent); the CLI closes the trainer on every
+        exit."""
         if self._prefetch is not None:
             _epoch, thread, _turn, _holder = self._prefetch
             self._prefetch = None
             thread.join()
+        if self._feeder is not None:
+            self._feeder.close()
 
     # -- passes ----------------------------------------------------------
 
@@ -257,9 +260,8 @@ class Trainer:
         self.state.model.train()
         if self.mode != "scan":
             acc = metrics_init(self.device)
-            for batch in self.train_loader:
-                accumulate_metrics(acc, self._train_step(
-                    to_device(batch, self.device)))
+            for batch in self._feeder.epoch():
+                accumulate_metrics(acc, self._train_step(batch))
             return self._read(acc)
         if self.epoch_gather == "device":
             if self._train_data is None:

@@ -39,7 +39,7 @@ def test_matmul_i8_kernel_equals_plain(card, m, k, n):
     assert torch.equal(got, matmul_i8_plain(a, b))
 
 
-@pytest.mark.parametrize("b", [1, 7, 256, 300])
+@pytest.mark.parametrize("b", [1, 7, 128, 256, 300])
 @pytest.mark.parametrize("c", [10, 128])
 def test_xent_kernels_match_plain(card, b, c):
     from pytorch_distributed_mnist_tpu_torch.ops import xent
@@ -769,6 +769,77 @@ def test_a_replayed_epoch_equals_the_eager_stepwise_epoch(card, model,
     assert int(scanned.step) == int(eager.step) == 12
 
 
+@pytest.mark.parametrize("model, remat", [("cnn", False), ("vit", False),
+                                          ("vit", True)])
+def test_a_replayed_accumulated_epoch_equals_the_eager_steps(
+        card, model, remat, scan_settings):
+    # --grad-accum 2 (and --remat) inside the captured step: the replayed
+    # epoch equals eager accumulated steps bit for bit, and each replay
+    # counts two cross-entropy launches (and the ViT's two flash
+    # forwards and backwards a block, one forward more under remat).
+    from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
+        accumulate_metrics,
+        metrics_init,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+        train_step,
+    )
+
+    eager, staged = _scan_case(card, model, seed=7)
+    scanned, _ = _scan_case(card, model, seed=7)
+    if remat:
+        scanned.model.remat = True
+    staged["mask"][5, 31:34] = 0.0  # zeros on both sides of a micro-batch
+    epoch = make_train_epoch(scanned, grad_accum=2)
+    for _ in range(2):
+        acc = metrics_init(card)
+        for s in range(6):
+            batch = {k: t[s] for k, t in staged.items()}
+            accumulate_metrics(acc, train_step(eager, batch, accum=2))
+        got = epoch(staged)
+        for a, b in zip(got, acc):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    for (name, a), b in zip(scanned.model.named_parameters(),
+                            eager.model.parameters()):
+        assert torch.equal(a, b), name
+    per_replay = {k[1]: n for k, n in epoch.program.launches.per_replay
+                  .items() if k[2] == "launches"}
+    want = {"xent_fwd": 2, "xent_bwd": 2, "adam_leaves": 1}
+    if model == "vit":
+        want.update(flash_fwd=2 * 2 * (2 if remat else 1), flash_bwd=2 * 2)
+    assert per_replay == want
+
+
+def test_the_feeder_stages_the_inline_batches_on_the_card(card):
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.data.loader import (
+        MNISTDataLoader,
+    )
+    from pytorch_distributed_mnist_tpu_torch.data.staging import BatchFeeder
+
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(300, 28, 28, 1)).astype(np.float32)
+    loader = MNISTDataLoader(images, np.arange(300) % 10, 32, seed=3)
+    inline = [{k: t.clone() for k, t in b.items()}
+              for b in BatchFeeder(loader, card, window=1).epoch()]
+    feeder = BatchFeeder(loader, card, window=3)
+    assert feeder.pipelined
+    piped = []
+    for batch in feeder.epoch():
+        # Work on the consumer's stream between batches, as a step's.
+        torch.cuda._sleep(100_000)
+        piped.append({k: t.clone() for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert len(piped) == len(inline) == 300 // 32
+    for a, b in zip(piped, inline):
+        for key in ("image", "label", "mask"):
+            assert torch.equal(a[key], b[key]), key
+    feeder.close()
+
+
 def test_epoch_counters_equal_captured_launches_times_replays(
         card, scan_settings):
     from pytorch_distributed_mnist_tpu_torch.ops import launches
@@ -870,8 +941,10 @@ def test_a_replayed_epoch_with_the_nccl_all_reduce_equals_the_eager_steps(
         assert torch.equal(a, b), name
     delta = {k[1]: after[k] - before[k] for k in after
              if k[2] == "launches" and after[k] != before[k]}
-    assert delta == {"grad_all_reduce": 24, "adam_leaves": 24,
-                     "xent_fwd": 24, "xent_bwd": 24}
+    # Each step also all-reduces its count of real examples: the global
+    # masked mean's divisor.
+    assert delta == {"count_all_reduce": 24, "grad_all_reduce": 24,
+                     "adam_leaves": 24, "xent_fwd": 24, "xent_bwd": 24}
     assert epoch.program.launches.per_replay[
         ("parallel.collectives", "grad_all_reduce", "launches")] == 1
     assert epoch.program.replays == 10

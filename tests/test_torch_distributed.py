@@ -5,7 +5,11 @@ gloo worlds of 2 and 3 processes.
 
 - The port's 2-rank step against JAX ``make_train_step`` on a 2-device
   ``('data',)`` mesh and ``make_explicit_dp_train_step``, from one npz and
-  one global batch, for ``linear`` and ``cnn``.
+  one global batch, for ``linear`` and ``cnn``: on full masks, and on the
+  padded last batch of an epoch whose rank 1 holds a masked row (the
+  global masked mean against DDP's per-replica mean); and a CLI world of
+  2 over such a batch against one process training on the global
+  batches.
 - A world of 2 against a world of 1: through the CLI for ``linear`` and
   ``cnn``, and four scan steps of the flash ViT at depth 1.
 - Sharded eval at N = 2 and 3 on a test set no N divides.
@@ -80,7 +84,7 @@ from pytorch_distributed_mnist_tpu_torch.ops.flash import flash_attention
 from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
 from pytorch_distributed_mnist_tpu_torch.parallel import distributed
 from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
-    metric_all_reduce)
+    make_explicit_dp_train_step, metric_all_reduce)
 from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
 from pytorch_distributed_mnist_tpu_torch.train import checkpoint as ck
 from pytorch_distributed_mnist_tpu_torch.train.state import (
@@ -124,6 +128,19 @@ if job["kind"] == "step":  # one train step on this rank's rows
         ms = metric_all_reduce(train_step(st, batch, axis), axis)
         save(st, name)
         results[name] = [float(t) for t in ms]
+elif job["kind"] == "masked_step":  # one step on this rank's masked rows
+    b = data["image"].shape[0] // n
+    rows = slice(rank * b, (rank + 1) * b)
+    batch = {k: torch.from_numpy(data[k][rows])
+             for k in ("image", "label", "mask")}
+    for tag, (name, init, optimizer, explicit) in job["models"].items():
+        st = state_of(name, init, optimizer)
+        if explicit:
+            ms = make_explicit_dp_train_step(st, axis)(batch)
+        else:
+            ms = metric_all_reduce(train_step(st, batch, axis), axis)
+        save(st, tag)
+        results[tag] = [float(t) for t in ms]
 elif job["kind"] == "epoch":  # a scan epoch over this rank's columns
     b = data["image"].shape[1] // n
     staged = {"image": torch.from_numpy(data["image"][:, rank * b:(rank + 1) * b]),
@@ -260,6 +277,129 @@ def test_two_rank_step_matches_jax_data_parallel_step(dp_step, model,
     assert (correct, count) == (float(jm.correct), float(jm.count)) \
         == (correct, 64.0)
     np.testing.assert_allclose(loss_sum, float(jm.loss_sum), rtol=1e-5)
+
+
+# -- the global masked mean over a padded batch ------------------------------
+
+# 65 images over 2 ranks: the sampler pads the epoch to 66 with one
+# masked row, the last of rank 1's shard; at a global batch of 22 (11 a
+# rank) it lies in epoch 0's last kept batch.
+F1_IMAGES, F1_SEED, F1_BATCH = 65, 7, 22
+
+
+def _rank_batches(epoch: int = 0):
+    """Each rank's ``(S, 11)`` batches of epoch ``epoch`` from the port's
+    loader (the CLI's shards of ``synthetic_dataset(65, seed=7)``),
+    stacked as the 22-row global batches: rank 0's rows, then rank 1's."""
+    images, labels = synthetic_dataset(F1_IMAGES, seed=F1_SEED)
+    ranks = [MNISTDataLoader(normalize_images(images), labels, F1_BATCH,
+                             train=True, num_replicas=2, rank=r,
+                             seed=F1_SEED).stacked_epoch(epoch)
+             for r in range(2)]
+    return {k: np.concatenate([r[k] for r in ranks], axis=1)
+            for k in ("image", "label", "mask")}
+
+
+@pytest.fixture(scope="module")
+def padded_step(tmp_path_factory):
+    """One sgd step of ``linear`` and ``cnn`` (float32, the plain loss) in a
+    2-rank gloo world on epoch 0's last kept global batch, in the stepwise
+    rule (``train_step``) and the explicit one, from JAX states saved as
+    npz."""
+    root = tmp_path_factory.mktemp("padded_step")
+    staged = _rank_batches()
+    batch = {"image": staged["image"][-1],
+             "label": staged["label"][-1].astype(np.int64),
+             "mask": staged["mask"][-1]}
+    np.savez(root / "batch.npz", **batch)
+    models = {}
+    for name in ("linear", "cnn"):
+        jstate = jax_create_train_state(
+            jax_get_model(name, compute_dtype=jnp.float32), jax.random.key(0),
+            optimizer="sgd")
+        init = jax_ckpt.save_checkpoint(
+            jstate, epoch=-1, best_acc=0.0, is_best=False,
+            directory=str(root / f"init_{name}"))
+        for explicit in (False, True):
+            models[f"{name}_{int(explicit)}"] = (name, init, "sgd", explicit)
+    results = _world({"kind": "masked_step", "models": models,
+                      "data": str(root / "batch.npz")}, 2, root / "world")
+    return root, batch, results
+
+
+def test_the_padded_batch_holds_a_masked_row_of_rank_1(padded_step):
+    _, batch, _ = padded_step
+    assert batch["mask"][:11].all()
+    assert list(batch["mask"][11:]).count(0.0) == 1
+
+
+@pytest.mark.parametrize("model", ["linear", "cnn"])
+@pytest.mark.parametrize("reference, atol", [
+    ("make_train_step", 1e-6), ("make_explicit_dp_train_step", 1e-5)])
+def test_two_rank_step_on_a_padded_batch_matches_jax(padded_step, model,
+                                                     reference, atol):
+    root, batch, results = padded_step
+    explicit = reference == "make_explicit_dp_train_step"
+    tag = f"{model}_{int(explicit)}"
+    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
+    sharded = NamedSharding(mesh, PartitionSpec("data"))
+    gbatch = {k: jax.device_put(v, sharded) for k, v in
+              {**batch, "label": batch["label"].astype(np.int32)}.items()}
+    step = jax_explicit_step(mesh) if explicit else jax_make_train_step(mesh)
+    jstate = jax_create_train_state(
+        jax_get_model(model, compute_dtype=jnp.float32), jax.random.key(0),
+        optimizer="sgd")
+    jstate, jm = step(jstate, gbatch)
+    want = dict(jax_ckpt._leaves_with_names({"params": jstate.params}))
+    rank0 = _leaves(root / "world" / f"{tag}_rank0" / "checkpoint_0.npz")
+    rank1 = _leaves(root / "world" / f"{tag}_rank1" / "checkpoint_0.npz")
+    for name in rank0:
+        np.testing.assert_array_equal(rank0[name], rank1[name], err_msg=name)
+    # The bounds of the full-mask test above: the JAX package's own for
+    # the auto step (1e-6) and the explicit step (1e-5), float32 on both
+    # sides, the gradients summed in another order. sgd's step is linear
+    # in the gradient, so the bound holds the gradient's rule itself: the
+    # global masked mean (21 real rows) for the auto step, the mean of
+    # the ranks' masked means (11 and 10 rows) for the explicit one.
+    got = _params(rank0)
+    assert got.keys() == want.keys()
+    for name, value in got.items():
+        np.testing.assert_allclose(value, np.asarray(want[name]), rtol=0,
+                                   atol=atol, err_msg=name)
+    loss_sum, correct, count = results[0][tag]
+    assert results[1][tag] == results[0][tag]
+    assert (correct, count) == (float(jm.correct), float(jm.count)) \
+        == (correct, 21.0)
+    np.testing.assert_allclose(loss_sum, float(jm.loss_sum), rtol=1e-5)
+
+
+def test_a_cli_world_of_2_over_a_padded_batch_takes_the_global_mean(
+        tmp_path):
+    # --spawn 2 trains one epoch of 3 steps whose last batch holds rank
+    # 1's masked row; one process with no axis trains on the same global
+    # batches (each rank's rows, concatenated, masks and all): the global
+    # masked mean by construction.
+    _cli(["--spawn", "2", "--model", "linear", "--dataset", "synthetic",
+          "--synthetic-train-size", str(F1_IMAGES),
+          "--synthetic-test-size", "32", "--batch-size", str(F1_BATCH),
+          "--seed", str(F1_SEED), "--dtype", "f32", "--optimizer", "sgd",
+          "--epochs", "1", "--device", "cpu", "--checkpoint-dir",
+          str(tmp_path / "two")])
+    staged = _rank_batches()
+    assert staged["mask"].shape == (3, F1_BATCH)
+    assert staged["mask"].sum() == F1_IMAGES  # 66 rows, 1 masked
+    state = create_train_state(
+        get_model("linear", compute_dtype=torch.float32), F1_SEED, CPU,
+        optimizer="sgd")
+    make_train_epoch(state)({k: torch.from_numpy(v)
+                             for k, v in staged.items()})
+    got = _params(_leaves(tmp_path / "two" / "checkpoint_0.npz"))
+    want = dict(port_ckpt.state_to_jax(state))
+    # The bound of make_train_step above: float32, sgd, the same global
+    # masked mean's gradient summed in another order.
+    for name, value in got.items():
+        np.testing.assert_allclose(value, want[name], rtol=0, atol=1e-6,
+                                   err_msg=name)
 
 
 # -- sharded eval ------------------------------------------------------------

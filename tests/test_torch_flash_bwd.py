@@ -120,7 +120,8 @@ def test_flash_bwd_matches_the_pallas_backward(case):
 # The route each FLASH_CHECK_SHAPES entry takes in bf16, at any D: fused
 # up to T = 128, tiled above. float32 takes the 3xTF32 pair at any D.
 BF16_ROUTES = {
-    (256, 49, 4, 16): "fused", (2, 1, 2, 16): "fused",
+    (256, 49, 4, 16): "fused", (128, 49, 4, 16): "fused",
+    (2, 1, 2, 16): "fused",
     (2, 16, 2, 16): "fused", (2, 196, 2, 16): "tiled",
     (2, 200, 2, 64): "tiled", (1, 200, 2, 128): "tiled",
     (3, 130, 2, 32): "tiled", (1, 70, 1, 8): "fused",

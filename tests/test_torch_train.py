@@ -366,9 +366,9 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
         "--epoch-gather device requires --trainer-mode scan")
 
 
-@pytest.mark.parametrize("flag", [["--grad-accum", "2"], ["--zero-overlap"],
+@pytest.mark.parametrize("flag", [["--zero-overlap"],
                                   ["--optimizer-sharding", "zero1"],
-                                  ["--publish", "delta"], ["--remat"]])
+                                  ["--publish", "delta"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as info:
         build_parser().parse_args(flag)
@@ -401,12 +401,3 @@ def test_model_flags_the_model_does_not_take_exit(flags, message, tmp_path):
             "--device", "cpu", "--checkpoint-dir", str(tmp_path)]))
     assert str(info.value.code).startswith(message)
 
-
-def test_serving_the_vit_exits_2(tmp_path, capsys):
-    from pytorch_distributed_mnist_tpu_torch.cli import main
-
-    with pytest.raises(SystemExit) as info:
-        main(["serve", "--model", "vit", "--device", "cpu",
-              "--checkpoint-dir", str(tmp_path), "--port", "0"])
-    assert info.value.code == 2
-    assert "does not serve the ViT yet" in capsys.readouterr().err

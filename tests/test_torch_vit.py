@@ -238,7 +238,8 @@ def test_capability_probes_and_defaults():
     assert model_accepts("vit", "matmul")
     assert not model_accepts("cnn", "attention_fn")
     assert not model_accepts("cnn", "patch_size")
-    assert not model_accepts("vit", "remat")
+    assert model_accepts("vit", "remat")
+    assert not model_accepts("cnn", "remat")
     assert model_field_default("vit", "num_heads") == 4
     assert model_field_default("vit", "patch_size") == 4
     assert model_field_default("vit", "embed_dim") == 64
