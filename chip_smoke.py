@@ -78,7 +78,26 @@ Phases, each printing one JSON line:
    lines), and ``--spawn 2`` (``dp_spawn``: on fewer than 2 cards the
    exit 2 with the one-card-per-rank message, on 2 or more the 2-rank
    NCCL world held to one process; then a gloo world of 2 on the CPU,
-   rank 0's lines and one checkpoint per epoch stamped 2x2);
+   rank 0's lines and one checkpoint per epoch stamped 2x2). Before the
+   data-parallel phases, the weight-distribution path: the cnn run with
+   ``--publish delta --chunk-mb 1 --async-checkpoint --keep-last 1``
+   (``train_publish``: ``train``'s epoch lines and launch counts, a
+   manifest per epoch and exactly the chunks they name, a resume from
+   ``checkpoint_0.manifest`` and ``-e`` on ``model_best.manifest``, the
+   async drains' ms, and one epoch's publish ms full against delta); two
+   int8 servers on it (``server_delta``: A on the trainer's directory, B
+   with ``--chunk-peers`` A and an empty watch directory, into which the
+   manifest is copied: B fetches every params chunk from A and none from
+   a source; both servers' replies equal the plain-product engine's on
+   the params loaded whole; a publish with one moved leaf reloads both
+   with 1 dirty leaf, B from A; the ``--keep-last`` window's prune and
+   chunk GC; the int8 kernel's launches rise, and a trace names it);
+   ``--debug-nans`` in scan, stepwise and explicit (``train_debug_nans``:
+   ``train``'s lines and counts with the flag, its extra wall, a
+   ``FloatingPointError`` naming the aten op on a run resumed from a
+   checkpoint with a NaN weight, and the xent and Adam wrappers' own
+   checks); ``--profile-dir`` (``train_profile_dir``: a trace holding the
+   train, eval and checkpoint spans and the xent and Adam kernels);
 7. train profile: the kernels' launches over 4 steps, then the device time
    of one train step by part (convs, the fc products, the cross-entropy
    kernels, Adam, other elementwise work, copies), beside the host's wall
@@ -163,6 +182,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -391,24 +411,52 @@ def call_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Spin kernels that open every profiler trace (``lead_in``).
+TRACE_LEAD = 32
+LEAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+RETAKEN = {"traces": 0}  # traces taken again, over the whole script
+
+
+def lead_in() -> None:
+    """Open a profiler trace with ``TRACE_LEAD`` spin kernels. Once a
+    process has run long enough (here, after the training phases), the
+    profiler on an H100 with torch 2.11 drops the first device records of
+    every trace it takes, in launch order, the same ones in every retake;
+    the spins take that loss, and the traced calls keep every record.
+    Counts of the traced work skip ``LEAD_KERNEL``."""
+    import torch
+
+    for _ in range(TRACE_LEAD):
+        torch.cuda._sleep(100)
+
+
+@contextlib.contextmanager
+def device_trace():
+    """A profiler trace of the host and the card, opened by ``lead_in``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        yield prof
+
+
 def device_ms(fn, iters: int = 20) -> dict:
     """Device time per call of ``fn``: every kernel, fill and copy it runs
-    on the card, from the profiler's CUDA trace over ``iters`` calls.
-    Returns ``{kernel name: ms per call}``. Now and then a trace comes back
-    without its device events although the calls ran, or without some of
-    them (a name recorded a number of times that is not a multiple of
-    ``iters``); such a trace is taken again, up to three times in all. With
-    no device time then, this raises; a name whose count is still not a
-    multiple of ``iters`` is taken to vary from call to call, and the last
-    trace is used."""
+    on the card, from the profiler's CUDA trace over ``iters`` calls
+    (``device_trace``). Returns ``{kernel name: ms per call}``. Now and
+    then a trace comes back without its device events although the calls
+    ran, or without some of them (a name recorded a number of times that
+    is not a multiple of ``iters``); such a trace is taken again, up to
+    three times in all. With no device time then, this raises; a name
+    whose count is still not a multiple of ``iters`` is taken to vary from
+    call to call, and the last trace is used."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -419,7 +467,8 @@ def device_ms(fn, iters: int = 20) -> dict:
             # is not device work of its own.
             if (evt.device_type == torch.autograd.DeviceType.CUDA
                     and not getattr(evt, "is_user_annotation", False)
-                    and not evt.name.startswith("Optimizer.")):
+                    and not evt.name.startswith("Optimizer.")
+                    and LEAD_KERNEL not in evt.name):
                 total[evt.name] = (total.get(evt.name, 0.0)
                                    + evt.time_range.elapsed_us() / 1e3)
                 count[evt.name] = count.get(evt.name, 0) + 1
@@ -427,6 +476,7 @@ def device_ms(fn, iters: int = 20) -> dict:
         lost = {name[:60]: n for name, n in count.items() if n % iters}
         if per and sum(per.values()) > 0 and (not lost or attempt == 2):
             return per
+        RETAKEN["traces"] += 1
         print(f"chip_smoke.py: a profiler trace held no device time, or "
               f"these counts of {iters} calls' events: {lost}; taking it "
               f"again", file=sys.stderr, flush=True)
@@ -822,13 +872,11 @@ def _count_kernel(fn, part: str, iters: int = 5) -> float:
     ``part``, from a profiler trace of ``iters`` calls (taken again, up to
     three times, while it holds none)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -2259,6 +2307,7 @@ def _traced_run(base: list, model: str, ckpt: str, dp: bool = False):
             box["prof"] = profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA])
             box["prof"].start()
+            lead_in()
         return False
 
     try:
@@ -2350,6 +2399,7 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
                     raise AssertionError(f"epoch 1's counters {delta}")
                 if traced == trace_want or attempt == 2:
                     break
+                RETAKEN["traces"] += 1
                 print(f"chip_smoke.py: epoch 1's trace counted {traced}, "
                       f"the counters {trace_want}; taking it again",
                       file=sys.stderr, flush=True)
@@ -3105,6 +3155,555 @@ def phase_dp_spawn() -> dict:
     return row
 
 
+# The weight-distribution path (--publish delta, the manifest and its
+# chunks, --async-checkpoint) and the servers that fetch it; then
+# --debug-nans and --profile-dir.
+PUBLISH_FLAGS = ["--publish", "delta", "--chunk-mb", "1",
+                 "--async-checkpoint", "--keep-last", "1"]
+PUBLISH_CHUNK_MB = 1.0
+PUBLISH_REPEATS = 3  # each publish time is the median of this many
+
+
+def _median_ms(fn, repeats: int = PUBLISH_REPEATS) -> float:
+    import statistics
+
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _publish_timings(ckpt: str, device_flag: str) -> dict:
+    """Wall ms of one epoch's publish of the cnn's train state on the card
+    (median of ``PUBLISH_REPEATS``), the full npz against the delta
+    manifest: a delta publish into an empty store (every chunk new), of
+    epoch 1's state after epoch 0's (adjacent epochs of the run: every
+    leaf moved), and of an unchanged state (every chunk shared). Each
+    includes the copy off the card."""
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.distrib import publish
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    device = torch.device(device_flag)
+    states = []
+    for epoch in (0, 1):
+        state = create_train_state(get_model("cnn"), SEED, device,
+                                   optimizer="adam_pallas")
+        load_checkpoint(os.path.join(ckpt, f"checkpoint_{epoch}.manifest"),
+                        state)
+        states.append(state)
+    out = os.path.join(os.path.dirname(ckpt), "publish_timing")
+    kw = dict(best_acc=0.0, is_best=False, keep_last=0)
+
+    def fresh(mode, state, epoch):
+        def run():
+            shutil.rmtree(out, ignore_errors=True)
+            save_checkpoint(state, epoch=epoch, directory=out, publish=mode,
+                            chunk_mb=PUBLISH_CHUNK_MB, **kw)
+        return run
+
+    row = {"full_ms": _median_ms(fresh("full", states[1], 1)),
+           "delta_cold_ms": _median_ms(fresh("delta", states[1], 1))}
+    row["delta_cold"] = dict(publish.last_publish)
+
+    def adjacent():
+        shutil.rmtree(out, ignore_errors=True)
+        save_checkpoint(states[0], epoch=0, directory=out, publish="delta",
+                        chunk_mb=PUBLISH_CHUNK_MB, **kw)
+        t0 = time.perf_counter()
+        save_checkpoint(states[1], epoch=1, directory=out, publish="delta",
+                        chunk_mb=PUBLISH_CHUNK_MB, **kw)
+        return (time.perf_counter() - t0) * 1e3
+
+    row["delta_adjacent_ms"] = sorted(adjacent()
+                                      for _ in range(PUBLISH_REPEATS))[
+        PUBLISH_REPEATS // 2]
+    row["delta_adjacent"] = dict(publish.last_publish)
+    row["delta_unchanged_ms"] = _median_ms(
+        lambda: save_checkpoint(states[1], epoch=2, directory=out,
+                                publish="delta", chunk_mb=PUBLISH_CHUNK_MB,
+                                **kw))
+    row["delta_unchanged"] = dict(publish.last_publish)
+    if row["delta_unchanged"]["bytes_new"] != 0:
+        raise AssertionError(f"an unchanged state's publish wrote "
+                             f"{row['delta_unchanged']}")
+    shutil.rmtree(out, ignore_errors=True)
+    return row
+
+
+def phase_train_publish(want_lines: list, device_flag: str = "cuda") -> dict:
+    """The cnn run of ``train`` with ``PUBLISH_FLAGS``: delta publish in
+    1 MiB chunks, the asynchronous saver, a window of one epoch. Its epoch
+    lines must equal ``want_lines`` (``train``'s) character for character
+    and its kernels' launch counts ``train``'s; each epoch is a manifest
+    with the 32 leaves of the state (no npz anywhere), the chunk store
+    holds exactly the chunks the manifests on disk name (the GC ran), a
+    resume from ``checkpoint_0.manifest`` repeats epoch 1's line and
+    ``-e`` on ``model_best.manifest`` prints one test line. Reports the
+    async drains' ms and the publish timings (``_publish_timings``).
+    Returns ``{"launches", "dir", "root"}``: the run's directory stays for
+    ``server_delta``, and the caller removes ``root``."""
+    from pytorch_distributed_mnist_tpu_torch.distrib.cas import (
+        ChunkStore,
+        manifest_digests,
+        read_manifest,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        read_checkpoint_arrays,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_publish_")
+    ckpt = os.path.join(root, "run")
+    base = TRAIN_ARGS + ["--device", device_flag]
+    # The main path's run starts here.
+    _zero_counters("cnn")
+    t0 = time.perf_counter()
+    summary, out = _run_cli(base + PUBLISH_FLAGS + [
+        "--epochs", str(TRAIN_EPOCHS), "--checkpoint-dir", ckpt])
+    wall_s = time.perf_counter() - t0
+    launches = _read_counters("cnn")
+    # ... and ends here.
+    lines = _train_lines(out, "Epoch: ")
+    if lines != want_lines:
+        raise AssertionError(f"train_publish printed\n{lines}\nwhere train "
+                             f"printed\n{want_lines}")
+    if launches != _want_launches("cnn"):
+        raise AssertionError(f"train_publish: launch counts {launches}, "
+                             f"expected {_want_launches('cnn')}")
+    publishes = _train_lines(out, "delta publish: ")
+    if len(publishes) != TRAIN_EPOCHS:
+        raise AssertionError(f"delta publish lines: {publishes}")
+    files = sorted(os.listdir(ckpt))
+    want_files = ["checkpoint_0.manifest", "checkpoint_1.manifest", "chunks",
+                  "model_best.manifest"]
+    if files != want_files:
+        raise AssertionError(f"checkpoint files: {files}")
+    named = set()
+    for name in want_files:
+        if name == "chunks":
+            continue
+        path = os.path.join(ckpt, name)
+        named |= manifest_digests(read_manifest(path))
+        meta, leaves = read_checkpoint_arrays(path)
+        if len(leaves) != TRAIN_RUNS["cnn"]["leaves"]:
+            raise AssertionError(f"{name} holds {len(leaves)} leaves")
+    stored = ChunkStore(ckpt).digests()
+    if stored != named:
+        raise AssertionError(f"{len(stored)} chunks stored, the manifests "
+                             f"name {len(named)}")
+    _, resumed_out = _run_cli(base + [
+        "--epochs", str(TRAIN_EPOCHS), "--checkpoint-dir",
+        os.path.join(root, "resumed"), "--resume",
+        os.path.join(ckpt, "checkpoint_0.manifest")])
+    resumed = _train_lines(resumed_out, "Epoch: ")
+    if resumed != lines[1:]:
+        raise AssertionError(f"resume from the manifest did not repeat "
+                             f"epoch 1:\n{lines[1:]}\n{resumed}")
+    _, eval_out = _run_cli(base + [
+        "-e", "--checkpoint-dir", os.path.join(root, "eval"), "--resume",
+        os.path.join(ckpt, "model_best.manifest")])
+    test_lines = _train_lines(eval_out, "Test Loss: ")
+    if len(test_lines) != 1 or _train_lines(eval_out, "Epoch: "):
+        raise AssertionError(f"-e printed:\n{eval_out}")
+    timings = _publish_timings(ckpt, device_flag)
+    emit("train_publish", flags=PUBLISH_FLAGS, epoch_lines=lines,
+         equal_to_train=True, launches=launches, publish_lines=publishes,
+         files=files, chunks=len(stored),
+         chunk_bytes=sum(os.path.getsize(ChunkStore(ckpt).path(d))
+                         for d in stored),
+         resumed_epoch_lines=resumed, eval_line=test_lines[0],
+         drain_ms=summary["checkpoint_drain_ms"], wall_s=wall_s,
+         images_per_sec=[r["images_per_sec"] for r in summary["history"]],
+         publish_ms=timings)
+    return {"launches": launches, "dir": ckpt, "root": root}
+
+
+def _boot(argv: list):
+    """A port server booted in-process from ``argv`` and serving on a
+    thread: ``(httpd, client, thread)``."""
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+
+    httpd = create_server(build_parser().parse_args(argv))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, _Client(httpd.server_address[1]), thread
+
+
+def _wait_epoch(client, epoch: int, what: str) -> None:
+    deadline = time.monotonic() + 30.0
+    while client.get("/healthz")["model_epoch"] != epoch:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: model_epoch did not reach {epoch}")
+        time.sleep(0.05)
+
+
+def _copy_manifest(src: str, directory: str) -> None:
+    """A manifest placed into a server's watch directory (tmp + rename),
+    as a fleet's rollout places it: the chunks stay behind."""
+    import shutil
+
+    dest = os.path.join(directory, os.path.basename(src))
+    shutil.copyfile(src, dest + ".tmp")
+    os.replace(dest + ".tmp", dest)
+
+
+def _replies_match(client, ref, requests: list, epoch: int,
+                   who: str) -> None:
+    for x in requests:
+        reply = client.post("/predict", {"images": x.tolist()})
+        if reply["model_epoch"] != epoch:
+            raise AssertionError(f"{who}: reply at epoch "
+                                 f"{reply['model_epoch']}, expected {epoch}")
+        if reply["predictions"] != ref.predict(x).tolist():
+            raise AssertionError(f"{who}: a reply disagrees with the plain "
+                                 f"int8 engine at epoch {epoch}")
+
+
+def phase_server_delta(ckpt: str, device_flag: str = "cuda") -> dict:
+    """Two port servers on the trainer's delta publishes (``--serve-precision
+    int8``, fused plane): A boots on ``ckpt`` (``train_publish``'s run, from
+    its newest manifest through the delta fetcher); B has ``--chunk-peers``
+    A and an empty watch directory, into which the manifest is copied:
+    B fetches every params chunk from A (none from a source) and only the
+    params, never the optimizer's moments. Both servers' sequential
+    replies must equal the same engine with ``matmul_i8_plain`` on the
+    params loaded whole from ``ckpt``. Then a publish of epoch 1's state
+    with its smallest params leaf moved (``--keep-last 1``: epoch 0's
+    manifest is pruned and the chunks only it named are collected): A
+    reloads it with 1 dirty leaf, B (the manifest copied again) too, from
+    A, and the replies again equal the plain engine's on the new params.
+    The int8 kernel's launch count rises over the phase and again over
+    the reload, and a trace of one int8 forward names it."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.distrib import publish
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        load_params_for_serving,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        latest_checkpoint,
+        read_checkpoint_arrays,
+    )
+
+    device = torch.device(device_flag)
+    b_dir = tempfile.mkdtemp(prefix="chip_smoke_server_b_")
+    serve = ["--model", "cnn", "--serve-precision", "int8", "--port", "0",
+             "--device", device_flag, "--poll-interval", "0.2"]
+    newest = latest_checkpoint(ckpt)
+    epoch = int(os.path.basename(newest).split("_")[1].split(".")[0])
+    matmul_i8.launches = 0  # the main path's run starts here
+    a, client_a, thread_a = _boot(serve + ["--checkpoint-dir", ckpt,
+                                           "--require-checkpoint"])
+    b = None
+    try:
+        a_url = f"http://127.0.0.1:{a.server_address[1]}"
+        b, client_b, thread_b = _boot(serve + ["--checkpoint-dir", b_dir,
+                                               "--chunk-peers", a_url])
+        t0 = time.perf_counter()
+        _copy_manifest(newest, b_dir)
+        _wait_epoch(client_b, epoch, "B")
+        b_install_s = time.perf_counter() - t0
+        b_first = dict(b.ctx.fetcher.last)
+        a_boot = dict(a.ctx.fetcher.last)
+        params_bytes = sum(v.nbytes for n, v in
+                           read_checkpoint_arrays(newest)[1].items()
+                           if n.startswith("['params']"))
+        if (b_first["bytes_source"] != 0
+                or b_first["dirty_leaves"] != TRAIN_RUNS["cnn"]["params"]
+                or b_first["bytes_peer"] != params_bytes):
+            raise AssertionError(f"B's first fetch: {b_first}")
+        requests = _requests(12, seed=SEED + 30)
+        ref = _engine(load_params_for_serving(newest, "cnn")[0], device,
+                      matmul_i8_plain)
+        _replies_match(client_a, ref, requests, epoch, "A")
+        _replies_match(client_b, ref, requests, epoch, "B")
+        before_reload = matmul_i8.launches
+        if before_reload == 0:
+            raise AssertionError("the int8 servers launched no matmul_i8")
+
+        meta, leaves = read_checkpoint_arrays(newest)
+        params = [n for n in leaves if n.startswith("['params']")]
+        small = min(params, key=lambda n: leaves[n].size)
+        leaves = dict(leaves)
+        leaves[small] = leaves[small].copy()
+        leaves[small].flat[0] += np.float32(0.25)
+        t0 = time.perf_counter()
+        path = publish.publish_arrays(
+            list(leaves.items()), epoch=epoch + 1,
+            best_acc=meta["best_acc"], directory=ckpt,
+            chunk_mb=PUBLISH_CHUNK_MB, keep_last=1, world=meta["world"],
+            parallel_layout=meta.get("parallel_layout"))
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        gc = dict(publish.last_publish)
+        if os.path.exists(os.path.join(ckpt, "checkpoint_0.manifest")) \
+                or gc["bytes_freed"] <= 0:
+            raise AssertionError(f"the keep-last window's prune and GC: "
+                                 f"{os.listdir(ckpt)} {gc}")
+        _wait_epoch(client_a, epoch + 1, "A")
+        _copy_manifest(path, b_dir)
+        _wait_epoch(client_b, epoch + 1, "B")
+        a_delta, b_delta = dict(a.ctx.fetcher.last), dict(b.ctx.fetcher.last)
+        for who, got in (("A", a_delta), ("B", b_delta)):
+            if got["dirty_leaves"] != 1 or got["clean_leaves"] != \
+                    TRAIN_RUNS["cnn"]["params"] - 1:
+                raise AssertionError(f"{who}'s delta install: {got}")
+        if (b_delta["bytes_source"] != 0
+                or b_delta["bytes_peer"] != leaves[small].nbytes):
+            raise AssertionError(f"B's delta fetch: {b_delta}")
+        ref2 = _engine(load_params_for_serving(path, "cnn")[0], device,
+                       matmul_i8_plain)
+        _replies_match(client_a, ref2, requests, epoch + 1, "A")
+        _replies_match(client_b, ref2, requests, epoch + 1, "B")
+        launches = matmul_i8.launches  # the main path's run ends here
+        if launches <= before_reload:
+            raise AssertionError("no matmul_i8 launch after the reload")
+        traced = None
+        if device.type == "cuda":  # a CPU rehearsal traces no card
+            with device_trace() as prof:
+                a.ctx.engine.logits(requests[0])
+                torch.cuda.synchronize()
+            traced = sorted({e.name[:60] for e in prof.events()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA
+                             and "matmul_i8" in e.name})
+            if not traced:
+                raise AssertionError("a traced int8 forward names no "
+                                     "matmul_i8 kernel")
+        emit("server_delta", epoch=epoch, b_first_fetch=b_first,
+             a_boot=a_boot, b_install_s=b_install_s,
+             perturbed_leaf=small, publish_ms=publish_ms, publish=gc,
+             a_delta=a_delta, b_delta=b_delta, replies_exact=True,
+             requests=len(requests), launches=launches,
+             launches_before_reload=before_reload,
+             traced_int8_kernels=traced)
+        return {"launches": launches}
+    finally:
+        for httpd in (a, b):
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.ctx.close()
+                httpd.server_close()
+        shutil.rmtree(b_dir, ignore_errors=True)
+
+
+def _poisoned_checkpoint(ckpt: str, out: str) -> str:
+    """Epoch 0's checkpoint of ``ckpt`` with one element of the first
+    params kernel set to NaN, as ``checkpoint_0.npz`` in ``out``."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        _write_npz,
+        read_checkpoint_arrays,
+    )
+
+    meta, leaves = read_checkpoint_arrays(
+        os.path.join(ckpt, "checkpoint_0.npz"))
+    name = next(n for n in leaves if n.startswith("['params']")
+                and n.endswith("['kernel']"))
+    leaves = dict(leaves)
+    leaves[name] = leaves[name].copy()
+    leaves[name].flat[0] = np.nan
+    return _write_npz(list(leaves.items()), epoch=0,
+                      best_acc=meta["best_acc"], directory=out)
+
+
+def _kernel_checks(device) -> dict:
+    """The hand-written kernels' own checks under ``--debug-nans``'s mode:
+    a NaN logit into the xent forward and backward, and a NaN gradient
+    into Adam, each must raise ``FloatingPointError`` naming the kernel
+    (a dispatch mode cannot see inside a kernel)."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, xent
+    from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
+
+    if device.type != "cuda":
+        return {}  # the plain versions on the CPU are the mode's to check
+    logits = torch.randn(TRAIN_BATCH, CLASSES, device=device)
+    logits[3, 4] = float("nan")
+    labels = torch.randint(0, CLASSES, (TRAIN_BATCH,), device=device)
+    lse = torch.zeros(TRAIN_BATCH, device=device)
+    g = torch.ones(TRAIN_BATCH, device=device)
+    p, grad = torch.ones(1000, device=device), torch.ones(1000, device=device)
+    grad[7] = float("nan")
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    hyper = {k: torch.tensor(x, device=device) for k, x in (
+        ("learning_rate", 1e-3), ("b1", 0.9), ("b2", 0.999), ("eps", 1e-8),
+        ("eps_root", 0.0))}
+    count = torch.ones((), dtype=torch.int32, device=device)
+    calls = {"xent_fwd": lambda: xent.xent_fwd(logits, labels),
+             "xent_bwd": lambda: xent.xent_bwd(logits, labels, lse, g),
+             "adam": lambda: adam.adam_leaves([p], [grad], [m], [v], hyper,
+                                              count)}
+    out = {}
+    with debug_nans.enabled_for(True):
+        for name, call in calls.items():
+            try:
+                with debug_nans.NanCheckMode():
+                    call()
+            except FloatingPointError as exc:
+                if f"the {name} kernel" not in str(exc):
+                    raise
+                out[name] = str(exc)
+            else:
+                raise AssertionError(f"the {name} kernel's NaN went unseen")
+    torch.cuda.synchronize()
+    return out
+
+
+DEBUG_MODES = ("scan", "stepwise", "explicit")
+
+
+def phase_train_debug_nans(want_lines: list,
+                           device_flag: str = "cuda") -> dict:
+    """``--debug-nans`` on the cnn run. In each trainer mode a run without
+    the flag and one with it, back to back: both must print ``want_lines``
+    (``train``'s) character for character, with ``train``'s launch
+    counts; the flag's extra wall is their difference. Then each mode
+    resumes with it from a checkpoint whose first params kernel holds a
+    NaN and must raise ``FloatingPointError`` naming the aten op (scan:
+    after its eager re-run of the pass). Then the kernels' own checks
+    (``_kernel_checks``)."""
+    import shutil
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_nans_")
+    base = TRAIN_ARGS + ["--device", device_flag, "--epochs",
+                         str(TRAIN_EPOCHS)]
+    rows, launches = {}, None
+    try:
+        for mode in DEBUG_MODES:
+            walls = {}
+            for flag in ([], ["--debug-nans"]):
+                _zero_counters("cnn")
+                t0 = time.perf_counter()
+                _, out = _run_cli(base + ["--trainer-mode", mode,
+                                          "--checkpoint-dir", os.path.join(
+                                              root, f"{mode}{len(flag)}")]
+                                  + flag)
+                walls[bool(flag)] = time.perf_counter() - t0
+                got = _read_counters("cnn")
+                lines = _train_lines(out, "Epoch: ")
+                if lines != want_lines:
+                    raise AssertionError(f"{mode} {flag} printed\n{lines}\n"
+                                         f"where train printed\n{want_lines}")
+                if got != _want_launches("cnn"):
+                    raise AssertionError(f"{mode} {flag}: launch counts "
+                                         f"{got}")
+                if flag and mode == "scan":
+                    launches = got
+            bad = _poisoned_checkpoint(os.path.join(root, f"{mode}0"),
+                                       os.path.join(root, f"bad_{mode}"))
+            t0 = time.perf_counter()
+            try:
+                _run_cli(base + ["--trainer-mode", mode, "--debug-nans",
+                                 "--resume", bad, "--start-epoch", "0",
+                                 "--checkpoint-dir",
+                                 os.path.join(root, f"poisoned_{mode}")])
+            except FloatingPointError as exc:
+                error = str(exc)
+            else:
+                raise AssertionError(f"{mode}: the poisoned run raised "
+                                     f"nothing")
+            if "aten." not in error:
+                raise AssertionError(f"{mode}: {error}")
+            rows[mode] = {"wall_s": walls[False],
+                          "debug_nans_wall_s": walls[True],
+                          "extra_wall_s": walls[True] - walls[False],
+                          "poisoned_error": error,
+                          "poisoned_wall_s": time.perf_counter() - t0}
+        kernels = _kernel_checks(torch.device(device_flag))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("train_debug_nans", modes=rows, epoch_lines_equal=True,
+         launches=launches, kernel_checks=kernels)
+    return {"launches": launches}
+
+
+PROFILE_DIR_SPANS = ("train", "eval", "checkpoint")
+PROFILE_DIR_KERNELS = ("xent_fwd_kernel", "xent_bwd_kernel",
+                       "adam_leaves_kernel")
+
+
+def phase_train_profile_dir(want_lines: list,
+                            device_flag: str = "cuda") -> dict:
+    """The cnn run with ``--profile-dir``: ``train``'s epoch lines and
+    launch counts, and one non-empty Chrome trace holding the ``train``,
+    ``eval`` and ``checkpoint`` spans of each epoch and the xent and Adam
+    kernels by name (the captured graph's replays included); the int8
+    kernel is not on the training path (``server_delta`` traces it)."""
+    import shutil
+
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        trace_path,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_profile_dir_")
+    try:
+        _zero_counters("cnn")
+        t0 = time.perf_counter()
+        _, out = _run_cli(TRAIN_ARGS + [
+            "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+            "--checkpoint-dir", os.path.join(root, "run"),
+            "--profile-dir", os.path.join(root, "trace")])
+        wall_s = time.perf_counter() - t0
+        launches = _read_counters("cnn")
+        lines = _train_lines(out, "Epoch: ")
+        if lines != want_lines:
+            raise AssertionError(f"train_profile_dir printed\n{lines}\nwhere "
+                                 f"train printed\n{want_lines}")
+        if launches != _want_launches("cnn"):
+            raise AssertionError(f"train_profile_dir: launch counts "
+                                 f"{launches}")
+        path = trace_path(os.path.join(root, "trace"), 0)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        spans = {}
+        kernels = {}
+        for evt in events:
+            name = evt.get("name", "")
+            if (name in PROFILE_DIR_SPANS
+                    and evt.get("cat") == "user_annotation"):
+                spans[name] = spans.get(name, 0) + 1
+            for kernel in PROFILE_DIR_KERNELS:
+                if kernel in name and evt.get("cat") == "kernel":
+                    kernels[kernel] = kernels.get(kernel, 0) + 1
+        if any(spans.get(s, 0) < TRAIN_EPOCHS for s in PROFILE_DIR_SPANS) \
+                or (device_flag == "cuda"
+                    and set(kernels) != set(PROFILE_DIR_KERNELS)):
+            raise AssertionError(f"the trace holds spans {spans} and "
+                                 f"kernels {kernels}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("train_profile_dir", epoch_lines_equal=True, launches=launches,
+         trace_bytes=size, spans=spans, kernels=kernels, wall_s=wall_s)
+    return {"launches": launches}
+
+
 def kernel_of(mangled: str) -> str:
     """``name<args>`` of a kernel from its mangled name: the identifier
     that ends in ``_kernel`` (a length-prefixed name whose length digits may
@@ -3152,6 +3751,8 @@ def ptxas_counts(log: str) -> dict:
 
 
 def main() -> int:
+    import shutil
+
     import_port()
     import torch
 
@@ -3191,6 +3792,14 @@ def main() -> int:
     accum_run = phase_train(model="cnn_accum")
     phase_train_twin("train_grad_accum_stepwise", "cnn_accum",
                      ["--trainer-mode", "stepwise"], accum_run["lines"])
+    publish_run = phase_train_publish(cnn_run["lines"])
+    try:
+        delta_launches = phase_server_delta(publish_run["dir"])["launches"]
+    finally:
+        shutil.rmtree(publish_run["root"], ignore_errors=True)
+    nans_launches = phase_train_debug_nans(cnn_run["lines"])["launches"]
+    profile_dir_launches = phase_train_profile_dir(
+        cnn_run["lines"])["launches"]
     phase_train_profile(device)
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
@@ -3223,6 +3832,13 @@ def main() -> int:
     phase_train_scan_profile_dp(device)
     phase_dp_spawn()
 
+    def new_path_launches(kname):
+        # The training kernels' launches in the weight-distribution and
+        # debugging phases (each run: train's counts).
+        return {"launches_publish": publish_run["launches"][kname],
+                "launches_debug_nans": nans_launches[kname],
+                "launches_profile_dir": profile_dir_launches[kname]}
+
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
         "name": "matmul_i8",
@@ -3241,6 +3857,7 @@ def main() -> int:
         "at": "fc1 128x12544x128",
         "shapes": rows,
         "launches_vit_server": server_vit["launches"],
+        "launches_server_delta": delta_launches,
         "vit_shapes": vit_i8_rows,
         "vit_forward_profiles": server_vit["profiles"],
     }]
@@ -3259,6 +3876,7 @@ def main() -> int:
                 scan_cnn["stepwise"]["kernel_ms_per_call"][kname],
             "launches_grad_accum": accum_run["launches"][kname],
             "launches_vit_grad_accum": vit_accum_launches[kname],
+            **new_path_launches(kname),
             "at": f"{TRAIN_BATCH}x{CLASSES}"})
     all_8 = train_rows["adam"]["all_8"]
     kernels.append({
@@ -3272,6 +3890,7 @@ def main() -> int:
         "replay_ms": scan_cnn["scan"]["kernel_ms_per_call"]["adam"],
         "in_eager_step_ms": scan_cnn["stepwise"]["kernel_ms_per_call"]["adam"],
         "launches_grad_accum": accum_run["launches"]["adam"],
+        **new_path_launches("adam"),
         "at": f"one FusedAdam.step over the 8 cnn leaves, "
               f"{all_8['numel']} params",
         "vit_31": train_rows["adam"]["vit_31"]})
@@ -3400,7 +4019,8 @@ def main() -> int:
             **{f"pair_{key}": value for key, value in d12_rows(
                 "flash_bwd", "f32", "split_ms", *row_keys).items()},
             "at": at_f32})
-    emit("smoke", seconds=time.perf_counter() - _STARTED)
+    emit("smoke", seconds=time.perf_counter() - _STARTED,
+         retaken_traces=RETAKEN["traces"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

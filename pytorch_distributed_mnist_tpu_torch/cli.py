@@ -33,13 +33,23 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. Flags for meshes of more than the data axis, ZeRO, elastic
-runs and publishing are not accepted yet.
+process group. Flags for meshes of more than the data axis, ZeRO and
+elastic runs are not accepted yet.
+
+``--publish delta`` writes each epoch as content-addressed chunks and a
+manifest (``distrib/``); ``--async-checkpoint`` writes checkpoints on a
+thread while the next epoch trains; ``--debug-nans`` raises
+``FloatingPointError`` at the op that makes the first NaN
+(``utils/debug_nans.py``: every op of every step in ``stepwise`` and
+``explicit``; in ``scan`` a pass whose loss sum reads NaN is re-run
+eagerly under the same checks); ``--profile-dir`` writes a ``torch.profiler`` trace of the
+run with its train, eval and checkpoint spans.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import random
 import sys
 from contextlib import closing
@@ -69,6 +79,7 @@ from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
 )
 from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
 from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+    AsyncCheckpointer,
     is_corrupt_checkpoint_error,
     latest_checkpoint,
     quarantine_checkpoint,
@@ -83,12 +94,15 @@ from pytorch_distributed_mnist_tpu_torch.train.state import (
     create_train_state,
 )
 from pytorch_distributed_mnist_tpu_torch.train.trainer import Trainer
+from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
     StagingLog,
     StepTimer,
+    phase,
+    profile_trace,
 )
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -206,8 +220,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prune per-epoch checkpoints more than N epochs "
                         "older than the latest published one (model_best "
                         "is never pruned); 0 keeps every epoch's file")
+    p.add_argument("--publish", type=str, default="full",
+                   choices=["full", "delta"],
+                   help="checkpoint publish format: 'full' writes the "
+                        "whole npz file per epoch (default); 'delta' "
+                        "writes content-addressed chunks plus a small "
+                        "manifest (distrib/): adjacent epochs share "
+                        "unchanged chunks, so each publish costs O(changed "
+                        "bytes) and a serving fleet fetches only what "
+                        "moved")
+    p.add_argument("--chunk-mb", type=float, default=4.0, metavar="MB",
+                   help="delta publish chunk budget in MiB (fixed per-leaf "
+                        "byte boundaries, so a small weight change dirties "
+                        "one chunk, not the file). Default 4")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write checkpoints on a background thread, "
+                        "overlapping the file IO with the next epoch (the "
+                        "state is copied off the card first, so the saved "
+                        "state is exactly the epoch's)")
     p.add_argument("--metrics-file", type=str, default=None,
                    help="append one JSON line per epoch")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the op that makes the "
+                        "first NaN: stepwise and explicit check every op "
+                        "of every step; scan checks each pass's loss sum "
+                        "and re-runs a NaN pass eagerly under the same "
+                        "checks")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run here (one "
+                        "Chrome trace per rank, with train/eval/checkpoint "
+                        "spans per epoch)")
     p.add_argument("--synthetic-train-size", type=int, default=60000)
     p.add_argument("--synthetic-test-size", type=int, default=10000)
     p.add_argument("--device", type=str, default="cuda",
@@ -361,12 +403,17 @@ def run(args, epoch_callback=None) -> dict:
     if args.feed_window < 1:
         raise SystemExit(f"--feed-window must be >= 1, got "
                          f"{args.feed_window}")
+    if args.chunk_mb <= 0:
+        raise SystemExit(f"--chunk-mb must be > 0, got {args.chunk_mb}")
     model_kwargs = _model_kwargs(args)
     device = resolve_device(args.device)
     initialize_distributed(args.coordinator, args.num_processes,
                            args.process_id, device)
+    # The switch is process-wide: on for this run only, so a later run in
+    # the same process without the flag does not inherit it.
     try:
-        return _run_in_world(args, model_kwargs, device, epoch_callback)
+        with debug_nans.enabled_for(args.debug_nans):
+            return _run_in_world(args, model_kwargs, device, epoch_callback)
     finally:
         teardown()
 
@@ -430,40 +477,62 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             if args.metrics_file and process_index() == 0 else None)
     timer = StepTimer()
     history = []
-    for epoch in range(start_epoch, args.epochs):
-        train_loader.set_sample_epoch(epoch)
-        # No epoch follows the last one: stage no gather nothing will use.
-        trainer.prefetch_enabled = epoch + 1 < args.epochs
-        trainer.state.with_learning_rate(lr_of(epoch))
-        # The pass reads its metrics back before it returns, so the timed
-        # span holds all of the epoch's device work and nothing else.
-        with timer.measure(len(train_loader) * args.batch_size):
-            train_loss, train_acc = trainer.train()
-        test_loss, test_acc = trainer.evaluate()
-        synth_tag = ", dataset: synthetic" if synthesized else ""
-        log0(f"Epoch: {epoch}/{args.epochs}, lr: {lr_of(epoch):g},"
-             f" train loss: {train_loss}, train acc: {train_acc},"
-             f" test loss: {test_loss}, test acc: {test_acc}"
-             f"{synth_tag}")
-        is_best = test_acc.accuracy > best_acc
-        best_acc = max(test_acc.accuracy, best_acc)
-        save_checkpoint(trainer.state, epoch=epoch, best_acc=best_acc,
-                        is_best=is_best, directory=args.checkpoint_dir,
-                        keep_last=args.keep_last,
-                        parallel_layout={"tensor": 1, "sequence": 1,
-                                         "expert": 1, "pipeline": 1})
-        history.append({"epoch": epoch, "train_loss": train_loss.average,
-                        "train_acc": train_acc.accuracy,
-                        "test_loss": test_loss.average,
-                        "test_acc": test_acc.accuracy,
-                        "images_per_sec": timer.last_images_per_sec})
-        if sink is not None:
-            sink.write({**history[-1], "lr": lr_of(epoch),
-                        "best_acc": best_acc,
-                        "dataset": ("synthetic" if synthesized
-                                    else args.dataset)})
-        if epoch_callback is not None and epoch_callback(epoch, history[-1]):
-            break
+    # The saver as a context: a clean exit waits for the last write and
+    # raises its error; an exception still lands the write in flight.
+    saver = AsyncCheckpointer() if args.async_checkpoint else None
+    with profile_trace(args.profile_dir,
+                       cuda=trainer.device.type == "cuda"), \
+            (saver if saver is not None else contextlib.nullcontext()):
+        for epoch in range(start_epoch, args.epochs):
+            train_loader.set_sample_epoch(epoch)
+            # No epoch follows the last one: stage no gather nothing will
+            # use.
+            trainer.prefetch_enabled = epoch + 1 < args.epochs
+            trainer.state.with_learning_rate(lr_of(epoch))
+            # The pass reads its metrics back before it returns, so the
+            # timed span holds all of the epoch's device work and nothing
+            # else.
+            with timer.measure(len(train_loader) * args.batch_size), \
+                    phase("train", epoch=epoch):
+                train_loss, train_acc = trainer.train()
+            with phase("eval", epoch=epoch):
+                test_loss, test_acc = trainer.evaluate()
+            synth_tag = ", dataset: synthetic" if synthesized else ""
+            log0(f"Epoch: {epoch}/{args.epochs}, lr: {lr_of(epoch):g},"
+                 f" train loss: {train_loss}, train acc: {train_acc},"
+                 f" test loss: {test_loss}, test acc: {test_acc}"
+                 f"{synth_tag}")
+            is_best = test_acc.accuracy > best_acc
+            best_acc = max(test_acc.accuracy, best_acc)
+            ckpt_kwargs = dict(
+                epoch=epoch, best_acc=best_acc, is_best=is_best,
+                directory=args.checkpoint_dir, keep_last=args.keep_last,
+                parallel_layout={"tensor": 1, "sequence": 1, "expert": 1,
+                                 "pipeline": 1},
+                publish=args.publish, chunk_mb=args.chunk_mb)
+            if saver is not None:
+                # The span is the drain of the previous epoch's write and
+                # this epoch's copy off the device; the write itself runs
+                # on the saver's thread.
+                with phase("checkpoint_drain", epoch=epoch):
+                    saver.save(trainer.state, **ckpt_kwargs)
+            else:
+                with phase("checkpoint", epoch=epoch):
+                    save_checkpoint(trainer.state, **ckpt_kwargs)
+            history.append({"epoch": epoch,
+                            "train_loss": train_loss.average,
+                            "train_acc": train_acc.accuracy,
+                            "test_loss": test_loss.average,
+                            "test_acc": test_acc.accuracy,
+                            "images_per_sec": timer.last_images_per_sec})
+            if sink is not None:
+                sink.write({**history[-1], "lr": lr_of(epoch),
+                            "best_acc": best_acc,
+                            "dataset": ("synthetic" if synthesized
+                                        else args.dataset)})
+            if epoch_callback is not None and \
+                    epoch_callback(epoch, history[-1]):
+                break
     ips = timer.images_per_sec
     # The reference's line; one device per process.
     per_chip = ips / trainer.axis.size
@@ -471,6 +540,7 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
          f"best acc: {best_acc * 100:.2f}%")
     return {"best_acc": best_acc, "history": history,
             "images_per_sec": ips,
+            "checkpoint_drain_ms": None if saver is None else saver.drain_ms,
             "dataset_synthesized": synthesized,
             "start_epoch": start_epoch, "epochs_run": len(history),
             "staging": trainer.staging_log.summary()}

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
+from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 
 __all__ = ["CHUNK", "FusedAdam", "LeafTable", "MAX_LEAVES", "adam_hypers",
            "adam_leaf", "adam_leaf_plain", "adam_leaves", "adam_leaves_plain",
@@ -308,6 +309,7 @@ def adam_leaves(params: Sequence[torch.Tensor],
                             hypers_out=hypers_out)
     with _count_lock:
         adam_leaves.launches += launched
+    debug_nans.check_outputs("adam", *params, *ms, *vs)
 
 
 def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -329,6 +331,7 @@ def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                                                hypers=hypers.contiguous())
     with _count_lock:
         adam_leaves.launches += launched
+    debug_nans.check_outputs("adam", p, m, v)
 
 
 adam_leaves.launches = 0

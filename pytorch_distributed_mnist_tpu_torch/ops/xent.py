@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
+from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 
 __all__ = ["fused_cross_entropy", "fused_cross_entropy_per_example",
            "xent_bwd", "xent_bwd_plain", "xent_fwd", "xent_fwd_plain"]
@@ -147,6 +148,7 @@ def xent_fwd(logits: torch.Tensor, labels: torch.Tensor) \
                            f"at {b}x{c}")
     with _count_lock:
         xent_fwd.launches += 1
+    debug_nans.check_outputs("xent_fwd", loss, lse)
     return loss, lse
 
 
@@ -173,6 +175,7 @@ def xent_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
                            f"at {b}x{c}")
     with _count_lock:
         xent_bwd.launches += 1
+    debug_nans.check_outputs("xent_bwd", out)
     return out
 
 

@@ -170,17 +170,31 @@ class ServePrecision:
         return not (self.weight_cast is not None or self.int8_weights
                     or self.int8_activations or self.act_cast is not None)
 
-    def quantize(self, params: Dict[str, object]) -> Dict[str, object]:
+    def _quantize_leaf(self, leaf):
+        """One leaf's install form; a leaf already in it passes through."""
+        if isinstance(leaf, QuantLeaf) or not _floating_leaf(leaf):
+            return leaf
         if self.int8_weights:
-            return {name: leaf if isinstance(leaf, QuantLeaf)
-                    else (quantize_leaf_i8(leaf) if _floating_leaf(leaf)
-                          else leaf)
-                    for name, leaf in params.items()}
-        if self.weight_cast is not None:
-            return {name: torch.as_tensor(np.asarray(leaf)).to(self.weight_cast)
-                    if _floating_leaf(leaf) else leaf
-                    for name, leaf in params.items()}
-        return params
+            return quantize_leaf_i8(leaf)
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == self.weight_cast:
+            return leaf
+        return torch.as_tensor(np.asarray(leaf)).to(self.weight_cast)
+
+    def quantize(self, params: Dict[str, object],
+                 workers: int = 1) -> Dict[str, object]:
+        """Every leaf in its install form, over ``workers`` threads."""
+        if not (self.int8_weights or self.weight_cast is not None):
+            return params
+        names = list(params)
+        if workers > 1 and len(names) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(min(workers, len(names))) as pool:
+                leaves = list(pool.map(self._quantize_leaf,
+                                       (params[n] for n in names)))
+        else:
+            leaves = [self._quantize_leaf(params[n]) for n in names]
+        return dict(zip(names, leaves))
 
     def wrap_forward(self, forward):
         if self.identity:

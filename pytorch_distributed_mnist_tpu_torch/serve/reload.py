@@ -1,10 +1,14 @@
 """Checkpoint hot-reload: a serve process tracking a live training run.
 
 Counterpart of ``pytorch_distributed_mnist_tpu/serve/reload.py``. Writers
-publish ``checkpoint_{e}.npz`` atomically (tmp + rename), so a watcher
-that resolves ``latest_checkpoint()`` only ever sees whole files, and a
-trainer and a serve process can share one directory with no channel but
-the filesystem.
+publish ``checkpoint_{e}.npz`` files, ``checkpoint_{e}.ckpt`` directories
+and ``checkpoint_{e}.manifest`` files atomically (tmp + rename), so a
+watcher that resolves ``latest_checkpoint()`` only ever sees whole
+checkpoints, and a trainer and a serve process can share one directory
+with no channel but the filesystem. The server's loader is the delta
+fetcher (``distrib/fetch.py``): a torn manifest and a manifest whose
+chunk is found nowhere are both skipped for good, and the next clean
+publish is installed.
 
 The watcher polls on its own daemon thread, loads the newest file through
 ``load_params_for_serving`` (name and shape validation included: a

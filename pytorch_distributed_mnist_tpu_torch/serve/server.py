@@ -29,17 +29,32 @@ batcher's worker, which owns device submission):
   record, the cache block and the kernels' launch counts.
 - ``POST /drain`` — ``{"drain": true|false}`` closes/reopens /predict
   admission (503 + Retry-After) while in-flight requests complete.
+- ``GET /chunks/<sha256>`` — the gossip plane of delta distribution: one
+  chunk of this server's store (``<checkpoint-dir>/chunks/``), whole
+  (200) or from ``Range: bytes=N-`` (206; 416 past its end); 404 for a
+  malformed or unknown digest. Not gated by the drain: a draining server
+  keeps seeding its peers.
+
+Checkpoints of every layout are served: npz files, sharded ``.ckpt``
+directories and delta-published manifests. The reload watcher loads
+through a :class:`~pytorch_distributed_mnist_tpu_torch.distrib.fetch.
+DeltaFetcher`: a manifest's missing chunks come from ``--chunk-peers``
+first, then ``--chunk-source``, and only the leaves that changed are
+rebuilt and quantized again (``-j`` threads); the server boots from a
+manifest through the same fetcher.
 
 Not ported yet: multi-device pools, sharded and pipeline serve modes,
-the precision canary, multi-model serving, the autoscaler, delta
-checkpoint distribution and fleet registration. Their flags are absent
-from the parser rather than accepted and ignored.
+the precision canary, multi-model serving, the autoscaler and fleet
+registration. Their flags are absent from the parser rather than
+accepted and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -67,7 +82,6 @@ from pytorch_distributed_mnist_tpu_torch.serve.economics import (
 from pytorch_distributed_mnist_tpu_torch.serve.engine import (
     DEFAULT_BUCKETS,
     InferenceEngine,
-    load_params_for_serving,
 )
 from pytorch_distributed_mnist_tpu_torch.serve.programs import (
     REPLICATED,
@@ -156,6 +170,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between checkpoint-directory polls")
     p.add_argument("--no-reload", action="store_true",
                    help="serve the boot-time checkpoint forever")
+    p.add_argument("--chunk-peers", type=str, default=None, metavar="URLS",
+                   help="comma-separated peer server base URLs "
+                        "(http://host:port) to gossip checkpoint chunks "
+                        "from: a delta-published manifest's missing chunks "
+                        "are pulled from the peers' GET /chunks/<hash> "
+                        "before the --chunk-source fallback")
+    p.add_argument("--chunk-source", type=str, default=None, metavar="DIR",
+                   help="source chunk-store directory (the trainer's "
+                        "--checkpoint-dir) to fall back to when no peer "
+                        "holds a chunk")
     p.add_argument("--require-checkpoint", action="store_true",
                    help="refuse to start without a published checkpoint")
     p.add_argument("--metrics-file", type=str, default=None,
@@ -165,6 +189,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--metrics-file (0 disables periodic writes)")
     p.add_argument("--seed", type=int, default=0,
                    help="fresh-param seed when no checkpoint exists")
+    p.add_argument("-j", "--workers", type=int, default=4,
+                   help="threads that quantize a delta install's dirty "
+                        "leaves (the JAX package's flag also sizes a native "
+                        "preprocessing backend, which the port does not "
+                        "have)")
     return p
 
 
@@ -198,8 +227,12 @@ class ServeContext:
                  max_request_images: int = 1024,
                  serve_precision: str = "f32", quotas=None,
                  fused: bool = True, cache=None,
-                 price_admission: bool = False) -> None:
+                 price_admission: bool = False,
+                 checkpoint_dir: Optional[str] = None,
+                 fetcher=None) -> None:
         self.model_name = model_name
+        self.checkpoint_dir = checkpoint_dir
+        self.fetcher = fetcher
         self.engine = engine
         self.batcher = batcher
         self.watcher = watcher
@@ -226,6 +259,12 @@ class ServeContext:
         if self.watcher is not None:
             return self.watcher.current_path
         return self.boot_path
+
+    def chunk_dirs(self) -> list:
+        """The checkpoint directories whose chunk stores ``GET
+        /chunks/<sha256>`` searches (a digest names its bytes, so a hit in
+        any store is the chunk)."""
+        return [self.checkpoint_dir] if self.checkpoint_dir else []
 
     def predict_begin(self) -> None:
         with self._drain_lock:
@@ -300,6 +339,9 @@ class _Handler(BaseHTTPRequestHandler):
         stats["device"] = str(ctx.engine.device)
         stats["staging_allocated"] = ctx.engine.staging_allocated()
         stats["kernel_launches"] = kernel_launches()
+        if ctx.fetcher is not None:
+            stats["delta_fetch"] = {"last": dict(ctx.fetcher.last),
+                                    "total": dict(ctx.fetcher.total)}
         if ctx.cache is not None:
             cache_block = ctx.cache.snapshot()
             cache_block["collapsed"] = ctx.batcher.collapsed
@@ -325,8 +367,58 @@ class _Handler(BaseHTTPRequestHandler):
             })
         elif self.path == "/stats":
             self._reply(200, self._stats())
+        elif self.path.startswith("/chunks/"):
+            self._do_chunk(self.path[len("/chunks/"):])
         else:
             self._reply(404, {"error": f"no route {self.path!r}"})
+
+    def _do_chunk(self, digest: str) -> None:
+        """``GET /chunks/<sha256>``: one chunk of the local store, so peers
+        fetch a publish's bytes from each other rather than all from the
+        source. ``Range: bytes=N-`` resumes a torn fetch from byte N (206
+        with a Content-Range; 416 past the end); any other Range is
+        ignored (200, the whole chunk)."""
+        from pytorch_distributed_mnist_tpu_torch.distrib.cas import (
+            CHUNK_DIR,
+            is_digest,
+        )
+
+        if not is_digest(digest):
+            self._reply(404, {"error": "malformed chunk digest"})
+            return
+        for directory in self.ctx.chunk_dirs():
+            try:
+                with open(os.path.join(directory, CHUNK_DIR, digest),
+                          "rb") as f:
+                    data = f.read()
+            except OSError:
+                continue
+            start = 0
+            match = re.fullmatch(r"bytes=(\d+)-",
+                                 (self.headers.get("Range") or "").strip())
+            if match:
+                start = int(match.group(1))
+                if start >= len(data):
+                    self._reply(416, {"error": f"range start {start} past "
+                                               f"chunk end {len(data)}"},
+                                headers={"Content-Range":
+                                         f"bytes */{len(data)}"})
+                    return
+            body = data[start:]
+            try:
+                self.send_response(206 if start else 200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(body)))
+                if start:
+                    self.send_header(
+                        "Content-Range",
+                        f"bytes {start}-{len(data) - 1}/{len(data)}")
+                self.end_headers()
+                self.wfile.write(body)
+            except OSError:
+                pass  # the client went away mid-transfer
+            return
+        self._reply(404, {"error": f"no chunk {digest}"})
 
     def do_POST(self) -> None:  # noqa: N802 - stdlib name
         if self.path == "/drain":
@@ -546,11 +638,13 @@ def _parse_watermarks(spec: Optional[str]) -> ShedPolicy:
         raise SystemExit(f"--shed-watermarks: {exc}") from None
 
 
-def _restore(args, model_name: str):
-    """Boot restore, newest -> oldest: one corrupt or mismatched latest file
-    must not turn a restart into an outage. Returns ``(path, params,
-    epoch)``; seeded fresh params (path and epoch None) when nothing is
-    loadable, unless ``--require-checkpoint``."""
+def _restore(args, model_name: str, loader):
+    """Boot restore, newest -> oldest, each checkpoint through ``loader``
+    (the delta fetcher's: a manifest's chunks may come from peers): one
+    corrupt or mismatched latest checkpoint must not turn a restart into
+    an outage. Returns ``(path, params, epoch)``; seeded fresh params
+    (path and epoch None) when nothing is loadable, unless
+    ``--require-checkpoint``."""
     from pytorch_distributed_mnist_tpu_torch.models.convert import init_params
     from pytorch_distributed_mnist_tpu_torch.serve.programs import (
         check_checkpoint_layout,
@@ -575,7 +669,7 @@ def _restore(args, model_name: str):
                   f"({exc}); trying the next-older epoch", flush=True)
             continue
         try:
-            params, epoch = load_params_for_serving(candidate, model_name)
+            params, epoch = loader(candidate, model_name)
         except Exception as exc:  # noqa: BLE001 - keep walking older epochs
             print(f"WARNING: cannot serve checkpoint {candidate!r} "
                   f"({exc!r}); trying the next-older epoch", flush=True)
@@ -651,7 +745,26 @@ def create_server(args) -> ThreadingHTTPServer:
         model_kwargs["matmul"] = int8_linear
     model = get_model(model_name, **model_kwargs)
 
-    boot_path, params, epoch = _restore(args, model_name)
+    # The delta-distribution loader, at boot and for every reload: a
+    # manifest's missing chunks come from the peers, then the source, and
+    # only its changed leaves are rebuilt and quantized again; npz files
+    # and .ckpt directories take the whole-file load.
+    from pytorch_distributed_mnist_tpu_torch.distrib.fetch import (
+        DeltaFetcher,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.programs import (
+        get_precision,
+    )
+
+    fetcher = DeltaFetcher(
+        args.checkpoint_dir, precision=get_precision(precision),
+        peers=[u.strip() for u in (args.chunk_peers or "").split(",")
+               if u.strip()],
+        source_dir=args.chunk_source, workers=args.workers)
+    print(f"NOTE: -j/--workers {args.workers} sizes the delta fetcher's "
+          f"quantize threads only: the port has no native preprocessing "
+          f"backend", flush=True)
+    boot_path, params, epoch = _restore(args, model_name, fetcher.load)
     serve_log = ServeLog(window_s=args.stats_window_s)
     if sink is not None:
         serve_log.set_sink(sink, source="serve")
@@ -698,6 +811,7 @@ def create_server(args) -> ThreadingHTTPServer:
             args.checkpoint_dir, model_name, engine.swap_params,
             poll_interval_s=args.poll_interval, serve_log=serve_log,
             current_path=boot_path, validate_fn=_validate_reload,
+            loader=fetcher.load,
         ).start()
 
     cache_mb = 0.0 if args.no_cache else max(0.0, float(args.cache_mb))
@@ -712,7 +826,8 @@ def create_server(args) -> ThreadingHTTPServer:
         max_request_images=args.max_request_images,
         serve_precision=precision, quotas=quotas, fused=fuse,
         cache=resp_cache if resp_cache.enabled else None,
-        price_admission=args.price_admission)
+        price_admission=args.price_admission,
+        checkpoint_dir=args.checkpoint_dir, fetcher=fetcher)
     return httpd
 
 

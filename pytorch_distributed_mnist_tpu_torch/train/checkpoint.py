@@ -1,28 +1,42 @@
-"""Checkpoint IO in the JAX package's ``.npz`` layout, format version 1.
+"""Checkpoint IO in the JAX package's three layouts.
 
-Counterpart of the npz paths of ``pytorch_distributed_mnist_tpu/train/
-checkpoint.py``. A ``checkpoint_{e}.npz`` is a zip of ``leaf_{i}`` arrays
-plus a ``__meta__`` JSON (``epoch`` stored as ``e + 1``, ``best_acc``,
-``leaf_names``, ``format_version``, ``world``: the saving world's
-processes and devices, one device per process). Every write goes to a tmp
-name and is published with ``os.replace``, so a reader (the serving
-reload watcher, a resume) never sees half a file.
+Counterpart of ``pytorch_distributed_mnist_tpu/train/checkpoint.py``; each
+package reads what the other writes:
 
-In a world of processes every rank holds the same train state; only
-process 0 writes (the reference's ``:248-249``), and :func:`save_checkpoint`
-returns on every rank only once the file is published (a barrier), so no
-rank reads a file before process 0 has finished writing it. A checkpoint
-saved by a world of N loads in a world of one and the other way round.
+- **npz file** (``checkpoint_{e}.npz``, format version 1): a zip of
+  ``leaf_{i}`` arrays plus a ``__meta__`` JSON (``epoch`` stored as
+  ``e + 1``, ``best_acc``, ``leaf_names``, ``format_version``, ``world``:
+  the saving world's processes and devices, one device per process).
+- **sharded directory** (``checkpoint_{e}.ckpt/``, format version 2):
+  per process a ``shards_p{pid}.npz`` and a slice index
+  ``index_p{pid}.json``, and process 0's ``meta.json`` (``global_shapes``,
+  ``dtypes``). Every leaf of a port state is whole on every process (no
+  leaf is split over processes yet), so process 0 writes each leaf once,
+  as one slice, and the others write empty indexes; the directory is
+  renamed into place by process 0 once every process's index is visible.
+  The port writes it only when asked (``layout="sharded"``); reading
+  stitches whatever slices the indexes name, so a JAX directory written
+  by any mesh loads here.
+- **manifest** (``checkpoint_{e}.manifest``, ``--publish delta``):
+  content-addressed chunks beside it (``distrib/``).
+
+Every write goes to a tmp name and is published with ``os.replace``, so a
+reader (the serving reload watcher, a resume) never sees half a
+checkpoint. In a world of processes every rank holds the same train
+state; process 0 writes (the reference's ``:248-249``), and
+:func:`save_checkpoint` returns on every rank only once the checkpoint is
+published, so no rank reads a file before it is whole. A checkpoint saved
+by a world of N loads in a world of one and the other way round.
 
 - Training (:func:`save_checkpoint`, :func:`load_checkpoint`) carries the
   full train state: params, optimizer state and step, leaf by leaf in the
   JAX package's flatten order (``models/convert.py::state_leaves``),
-  because the JAX loader restores by position. A checkpoint written here
-  resumes in the JAX package and the other way round.
+  because the JAX loader restores by position.
 - Serving (:func:`load_params`) reads the ``['params']`` leaves by name;
   :func:`save_params_checkpoint` writes params only.
-
-Sharded ``.ckpt`` and delta ``.manifest`` layouts are not ported yet.
+- :class:`AsyncCheckpointer` (``--async-checkpoint``) copies the state off
+  the device in ``save`` and writes on a thread while the next epoch
+  trains.
 """
 
 from __future__ import annotations
@@ -32,6 +46,9 @@ import json
 import os
 import re
 import shutil
+import sys
+import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,33 +66,64 @@ from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 
 FORMAT_VERSION = 1
-# Quarantine suffix for corrupt checkpoints; the ``checkpoint_{e}.npz``
+SHARDED_FORMAT_VERSION = 2
+LAYOUTS = (None, "npz", "sharded")
+PUBLISH_MODES = (None, "full", "delta")
+# Quarantine suffix for corrupt checkpoints; the ``checkpoint_{e}.<layout>``
 # pattern never matches it.
 CORRUPT_SUFFIX = ".corrupt"
 
+Named = List[Tuple[str, np.ndarray]]
+
 
 def _read_meta(path: str) -> Dict[str, Any]:
-    """The checkpoint's meta dict, without reading any array."""
+    """The checkpoint's meta dict, without reading any array: the sharded
+    directory's ``meta.json``, the manifest itself, or the npz's
+    ``__meta__``."""
+    if os.path.isdir(path):
+        with open(os.path.join(path, "meta.json")) as f:
+            return json.load(f)
+    if path.endswith(".manifest"):
+        with open(path) as f:
+            return json.load(f)
     with np.load(path) as z:
         return json.loads(bytes(z["__meta__"]).decode())
 
 
-def read_checkpoint_arrays(path: str) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
-    """``(meta, {leaf name: array})`` of a v1 npz checkpoint."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__meta__"]).decode())
-        version = meta.get("format_version")
-        if version != FORMAT_VERSION:
-            raise ValueError(f"{path}: checkpoint format_version {version!r}, "
-                             f"this reader takes {FORMAT_VERSION}")
-        names = meta["leaf_names"]
-        return meta, {name: z[f"leaf_{i}"] for i, name in enumerate(names)}
+def _check_version(path: str, meta: Dict[str, Any], want: int) -> None:
+    version = meta.get("format_version")
+    if version != want:
+        raise ValueError(f"{path}: checkpoint format_version {version!r}, "
+                         f"this reader takes {want}")
+
+
+def read_checkpoint_arrays(path: str) \
+        -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    """``(meta, {leaf name: array})`` of a checkpoint of any layout: an
+    npz file, a sharded ``.ckpt`` directory (stitched) or a manifest
+    (assembled from the chunks beside it)."""
+    if os.path.isdir(path):
+        meta, arrays = _stitch_sharded(path)
+    elif path.endswith(".manifest"):
+        from pytorch_distributed_mnist_tpu_torch.distrib.cas import (
+            MANIFEST_VERSION,
+            load_manifest_arrays,
+        )
+
+        meta, arrays = load_manifest_arrays(path)
+        _check_version(path, meta, MANIFEST_VERSION)
+    else:
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            _check_version(path, meta, FORMAT_VERSION)
+            arrays = [z[f"leaf_{i}"] for i in range(len(meta["leaf_names"]))]
+    return meta, dict(zip(meta["leaf_names"], arrays))
 
 
 def load_params(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     """``({JAX leaf name: array} of the ``['params']`` leaves, epoch)``.
-    ``epoch`` is the file's own ``checkpoint_{e}`` index: meta stores the
-    resume epoch ``e + 1``."""
+    ``epoch`` is the checkpoint's own ``checkpoint_{e}`` index: meta
+    stores the resume epoch ``e + 1``."""
     meta, leaves = read_checkpoint_arrays(path)
     params = {name: arr for name, arr in leaves.items()
               if name.startswith("['params']")}
@@ -91,21 +139,30 @@ def _world_stamp() -> Dict[str, int]:
     return {"processes": n, "devices": n}
 
 
-def _write_npz(leaves: List[Tuple[str, np.ndarray]], *, epoch: int,
-               best_acc: float, directory: str,
+def _meta(named: Named, epoch: int, best_acc: float, version: int,
+          parallel_layout: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    meta = {
+        "epoch": epoch + 1,
+        "best_acc": float(best_acc),
+        "leaf_names": [name for name, _ in named],
+        "format_version": version,
+        "world": _world_stamp(),
+    }
+    if version == SHARDED_FORMAT_VERSION:
+        meta["global_shapes"] = [list(np.shape(a)) for _, a in named]
+        meta["dtypes"] = [np.asarray(a).dtype.name for _, a in named]
+    if parallel_layout is not None:
+        meta["parallel_layout"] = dict(parallel_layout)
+    return meta
+
+
+def _write_npz(leaves: Named, *, epoch: int, best_acc: float,
+               directory: str,
                parallel_layout: Optional[Dict[str, Any]] = None) -> str:
     """Publish ``checkpoint_{epoch}.npz`` holding ``leaves`` in the given
     order; returns its path. Written to a tmp name and renamed."""
     os.makedirs(directory, exist_ok=True)
-    meta = {
-        "epoch": epoch + 1,
-        "best_acc": float(best_acc),
-        "leaf_names": [name for name, _ in leaves],
-        "format_version": FORMAT_VERSION,
-        "world": _world_stamp(),
-    }
-    if parallel_layout is not None:
-        meta["parallel_layout"] = dict(parallel_layout)
+    meta = _meta(leaves, epoch, best_acc, FORMAT_VERSION, parallel_layout)
     payload = {f"leaf_{i}": np.asarray(arr)
                for i, (_, arr) in enumerate(leaves)}
     buf = io.BytesIO()
@@ -129,45 +186,286 @@ def save_params_checkpoint(flat: Dict[str, np.ndarray], *, epoch: int,
                       best_acc=best_acc, directory=directory)
 
 
+def _check_modes(layout: Optional[str], publish: Optional[str]) -> None:
+    """The JAX saver's refusals of a layout and publish mode."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown checkpoint layout {layout!r}")
+    if publish not in PUBLISH_MODES:
+        raise ValueError(f"unknown publish mode {publish!r}")
+    if publish == "delta" and layout == "sharded":
+        raise ValueError(
+            "--publish delta replaces the npz layout and cannot write "
+            "layout='sharded'; save the sharded layout and convert via "
+            "publish_from_checkpoint")
+
+
+def _write_whole(named: Named, *, epoch: int, best_acc: float,
+                 is_best: bool, directory: str, keep_last: int,
+                 parallel_layout: Optional[Dict[str, Any]],
+                 publish: Optional[str], chunk_mb: float) -> str:
+    """Process 0's write of a whole host state: an npz file, or with
+    ``publish="delta"`` the chunks and the manifest; then the best copy
+    and the prune. Touches no device and no collective, so the
+    asynchronous saver runs it on its thread."""
+    if publish == "delta":
+        from pytorch_distributed_mnist_tpu_torch.distrib.publish import (
+            publish_arrays,
+        )
+
+        return publish_arrays(
+            named, epoch=epoch, best_acc=best_acc, directory=directory,
+            chunk_mb=chunk_mb, is_best=is_best, keep_last=keep_last,
+            world=_world_stamp(), parallel_layout=parallel_layout)
+    path = _write_npz(named, epoch=epoch, best_acc=best_acc,
+                      directory=directory, parallel_layout=parallel_layout)
+    if is_best:
+        best = os.path.join(directory, "model_best.npz")
+        shutil.copyfile(path, best + ".tmp")
+        os.replace(best + ".tmp", best)
+    prune_checkpoints(directory, keep_last)
+    return path
+
+
 def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
                     directory: str, keep_last: int = 0,
-                    parallel_layout: Optional[Dict[str, Any]] = None) \
-        -> Optional[str]:
-    """Write the full train state to ``checkpoint_{epoch}.npz`` (meta
-    epoch ``epoch + 1``, the epoch a resume continues at), copy it to
-    ``model_best.npz`` when ``is_best``, then prune past ``keep_last``;
-    returns the path. Only process 0 writes (the others return None),
-    and every rank returns once it has (a barrier in a world of
-    processes). The leaves come off the device here: one host sync per
-    save."""
+                    parallel_layout: Optional[Dict[str, Any]] = None,
+                    layout: Optional[str] = None,
+                    publish: Optional[str] = None,
+                    chunk_mb: float = 4.0) -> Optional[str]:
+    """Write the full train state as ``checkpoint_{epoch}`` (meta epoch
+    ``epoch + 1``, the epoch a resume continues at), copy it to
+    ``model_best`` when ``is_best``, then prune past ``keep_last``;
+    returns the path on process 0 (and the sharded directory's on every
+    rank), else None. Every rank returns once it is published.
+
+    ``publish="delta"`` writes the chunks the store lacks and a
+    ``.manifest`` instead of the npz file (``chunk_mb`` MiB chunks);
+    ``layout="sharded"`` writes a ``.ckpt`` directory. The leaves come off
+    the device here: one host sync per save, on process 0 only."""
+    _check_modes(layout, publish)
+    pid = process_index()
+    if layout == "sharded":
+        return _save_sharded(state, epoch=epoch, best_acc=best_acc,
+                             is_best=is_best, directory=directory, pid=pid,
+                             keep_last=keep_last,
+                             parallel_layout=parallel_layout)
     path = None
-    if process_index() == 0:
-        path = _write_npz(state_to_jax(state), epoch=epoch,
-                          best_acc=best_acc, directory=directory,
-                          parallel_layout=parallel_layout)
-        if is_best:
-            best = os.path.join(directory, "model_best.npz")
-            shutil.copyfile(path, best + ".tmp")
-            os.replace(best + ".tmp", best)
-        prune_checkpoints(directory, keep_last)
+    if pid == 0:
+        path = _write_whole(
+            state_to_jax(state), epoch=epoch, best_acc=best_acc,
+            is_best=is_best, directory=directory, keep_last=keep_last,
+            parallel_layout=parallel_layout, publish=publish,
+            chunk_mb=chunk_mb)
     barrier()
     return path
 
 
+# -- the sharded directory ------------------------------------------------
+
+def _agree(error: Optional[BaseException], epoch: int, phase: str,
+           detail: str) -> None:
+    """Every rank learns whether any rank failed this phase before any
+    goes on, so no rank waits at the next barrier for a peer that raised:
+    a failed rank raises its own error, its peers a ``RuntimeError``
+    naming it. The exchange is itself a barrier."""
+    if process_count() > 1:
+        import torch.distributed as dist
+
+        outcomes: List[Optional[str]] = [None] * process_count()
+        dist.all_gather_object(
+            outcomes, None if error is None else repr(error))
+        failed = [(rank, what) for rank, what in enumerate(outcomes)
+                  if what is not None]
+        if failed and error is None:
+            raise RuntimeError(
+                f"sharded checkpoint {phase} for epoch {epoch} failed on "
+                f"process(es) {[r for r, _ in failed]} ({failed[0][1]}); "
+                f"{detail}")
+    if error is not None:
+        raise error
+
+
+def _sharded_prepare(directory: str, epoch: int, pid: int) -> Tuple[str, str]:
+    """Phase 1 (every rank, a collective): process 0 makes a clean tmp
+    directory; returns ``(tmp, final)``."""
+    final = os.path.join(directory, f"checkpoint_{epoch}.ckpt")
+    tmp = final + ".tmp"
+    err: Optional[BaseException] = None
+    if pid == 0:
+        try:
+            # An earlier crashed attempt's stale shards must not be
+            # published beside fresh ones.
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        except Exception as exc:  # noqa: BLE001 - agreed on below
+            err = exc
+    _agree(err, epoch, "prepare", f"tmp dir {tmp} could not be prepared")
+    return tmp, final
+
+
+def _sharded_collect(state, pid: int) -> Tuple[Named, Dict[str, np.ndarray],
+                                              list]:
+    """Phase 2 (device reads): ``(named, payload, index)``. Process 0 owns
+    every leaf (each is whole, and the same, on every rank), so it copies
+    the state off the device and indexes each leaf as one slice; the
+    others own nothing. The copy is a snapshot: the train loop may update
+    the device state as soon as this returns."""
+    if pid != 0:
+        return [], {}, []
+    named = state_to_jax(state)
+    payload, index = {}, []
+    for i, (_, arr) in enumerate(named):
+        key = f"leaf{i}_s0"
+        payload[key] = arr
+        index.append({"leaf": i, "key": key, "start": [0] * arr.ndim,
+                      "stop": list(arr.shape)})
+    return named, payload, index
+
+
+def _sharded_write_files(tmp: str, pid: int, payload, index,
+                         meta: Optional[Dict[str, Any]]) -> None:
+    """Phase 3 (any thread): file IO only, no device and no collective:
+    what the asynchronous saver overlaps with the next epoch."""
+    shard_file = f"shards_p{pid:05d}.npz"
+    if payload:
+        with open(os.path.join(tmp, shard_file), "wb") as f:
+            np.savez(f, **payload)
+    with open(os.path.join(tmp, f"index_p{pid:05d}.json"), "w") as f:
+        json.dump({"file": shard_file if payload else None,
+                   "shards": index}, f)
+    if meta is not None:  # process 0
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+
+
+def _publish_dir(tmp: str, final: str, directory: str, is_best: bool,
+                 keep_last: int) -> None:
+    """Process 0's publish: every rank's index must be visible here (the
+    checkpoint directory must be one filesystem for all ranks), then the
+    atomic rename, the best copy and the prune."""
+    missing = [p for p in range(process_count())
+               if not os.path.isfile(os.path.join(tmp,
+                                                  f"index_p{p:05d}.json"))]
+    if missing:
+        raise RuntimeError(
+            f"sharded checkpoint save: index files from processes {missing} "
+            f"are not visible in {tmp}; --checkpoint-dir must be a "
+            f"filesystem shared by all ranks")
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    if is_best:
+        best = os.path.join(directory, "model_best.ckpt")
+        best_tmp = best + ".copy_tmp"
+        if os.path.isdir(best_tmp):
+            shutil.rmtree(best_tmp)
+        shutil.copytree(final, best_tmp)
+        if os.path.isdir(best):
+            shutil.rmtree(best)
+        os.replace(best_tmp, best)
+    prune_checkpoints(directory, keep_last)
+
+
+def _sharded_publish(tmp: str, final: str, directory: str, epoch: int,
+                     is_best: bool, keep_last: int, pid: int) -> str:
+    """Phase 4 (every rank, a collective): process 0 publishes, and every
+    rank learns the outcome. The write phase's agreement, just before,
+    is the all-files-on-disk barrier."""
+    err: Optional[BaseException] = None
+    if pid == 0:
+        try:
+            _publish_dir(tmp, final, directory, is_best, keep_last)
+        except Exception as exc:  # noqa: BLE001 - agreed on below
+            err = exc
+    _agree(err, epoch, "publish",
+           f"checkpoint dir {final} may not have been published")
+    return final
+
+
+def _save_sharded(state, *, epoch: int, best_acc: float, is_best: bool,
+                  directory: str, pid: int, keep_last: int = 0,
+                  parallel_layout: Optional[Dict[str, Any]] = None) -> str:
+    """The four phases in a row (the asynchronous saver runs phase 3 on
+    its thread and phase 4 at its next drain)."""
+    tmp, final = _sharded_prepare(directory, epoch, pid)
+    err: Optional[BaseException] = None
+    try:
+        named, payload, index = _sharded_collect(state, pid)
+        meta = (_meta(named, epoch, best_acc, SHARDED_FORMAT_VERSION,
+                      parallel_layout) if pid == 0 else None)
+        _sharded_write_files(tmp, pid, payload, index, meta)
+    except Exception as exc:  # noqa: BLE001 - agreed on below
+        err = exc
+    _agree(err, epoch, "write", f"dropping unpublished {tmp}")
+    return _sharded_publish(tmp, final, directory, epoch, is_best,
+                            keep_last, pid)
+
+
+def _stitch_sharded(path: str) -> Tuple[Dict[str, Any], list]:
+    """``(meta, whole arrays in leaf_names order)`` of a sharded
+    directory, stitched from every index file it holds, whatever world
+    wrote it. A leaf with elements that no slice covers raises
+    (``missing shards``: an incomplete save, or an incomplete view of a
+    shared filesystem)."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    _check_version(path, meta, SHARDED_FORMAT_VERSION)
+    arrays = [np.zeros(shape, dtype=np.dtype(dt))
+              for shape, dt in zip(meta["global_shapes"], meta["dtypes"])]
+    filled = [0] * len(arrays)
+    index_files = 0
+    for name in sorted(os.listdir(path)):
+        if not name.startswith("index_p"):
+            continue
+        index_files += 1
+        with open(os.path.join(path, name)) as f:
+            idx = json.load(f)
+        if idx["file"] is None:
+            continue
+        shard_path = os.path.join(path, idx["file"])
+        if not os.path.isfile(shard_path):
+            continue  # the coverage check below names what is missing
+        with np.load(shard_path) as z:
+            for rec in idx["shards"]:
+                i = rec["leaf"]
+                region = tuple(slice(a, b)
+                               for a, b in zip(rec["start"], rec["stop"]))
+                data = z[rec["key"]]
+                arrays[i][region] = data.reshape(arrays[i][region].shape)
+                filled[i] += data.size
+    saved = (meta.get("world") or {}).get("processes")
+    for i, (total, arr) in enumerate(zip(filled, arrays)):
+        if total < arr.size:
+            world = (f" (saved by a {saved}-process world; {index_files} "
+                     f"index file(s) visible here: an incomplete "
+                     f"shared-filesystem view?)"
+                     if saved and index_files != saved
+                     else ": incomplete save?")
+            raise ValueError(f"{path}: leaf {meta['leaf_names'][i]} is "
+                             f"missing shards ({total}/{arr.size} elements "
+                             f"present){world}")
+    return meta, arrays
+
+
+# -- loading ----------------------------------------------------------------
+
 def load_checkpoint(path: str, state) -> Tuple[Any, int, float]:
-    """Restore ``state`` in place from a full-state checkpoint of the same
-    model and optimizer (the port's or the JAX package's); returns
-    ``(state, start_epoch, best_acc)``. Raises ``ValueError`` on a leaf
-    count, name or shape mismatch and leaves the state untouched."""
+    """Restore ``state`` in place from a full-state checkpoint of any
+    layout, of the same model and optimizer (the port's or the JAX
+    package's); returns ``(state, start_epoch, best_acc)``. Raises
+    ``ValueError`` on a leaf count, name or shape mismatch and leaves the
+    state untouched."""
     meta, leaves = read_checkpoint_arrays(path)
     load_state_from_jax(state, list(leaves), list(leaves.values()), path)
     return state, int(meta["epoch"]), float(meta["best_acc"])
 
 
 def try_resume(path: str, state) -> Tuple[Any, int, float]:
-    """The reference's resume policy: load ``path`` if it exists, else
-    warn and continue fresh with ``(state, 0, 0.0)``."""
-    if path and os.path.isfile(path):
+    """The reference's resume policy: load ``path`` (a file or a
+    ``.ckpt`` directory) if it exists, else warn and continue fresh with
+    ``(state, 0, 0.0)``."""
+    if path and (os.path.isfile(path) or os.path.isdir(path)):
         state, start_epoch, best_acc = load_checkpoint(path, state)
         log0(f"=> loaded checkpoint '{path}' (epoch {start_epoch})")
         return state, start_epoch, best_acc
@@ -184,9 +482,11 @@ def checkpoint_parallel_layout(path: str) -> Optional[Dict[str, Any]]:
 
 
 def is_corrupt_checkpoint_error(exc: BaseException) -> bool:
-    """True when a load failure means the FILE is damaged (bytes present
-    but undecodable) rather than the caller being wrong (a checkpoint of
-    another model -> name/shape ValueErrors)."""
+    """True when a load failure means the checkpoint is damaged (bytes
+    present but undecodable: a torn npz or manifest) rather than the
+    caller being wrong (a checkpoint of another model -> name/shape
+    ValueErrors) or a part being absent (a sharded directory's
+    ``missing shards``, a manifest's ``missing chunk``)."""
     import zipfile
     import zlib
 
@@ -201,31 +501,33 @@ def is_corrupt_checkpoint_error(exc: BaseException) -> bool:
 
 
 def _epoch_checkpoints(directory: str) -> list:
-    """All published ``checkpoint_{e}.npz`` files in ``directory`` as
-    sorted ``(epoch, path)`` pairs. The writers' in-flight ``.tmp`` names
-    never match."""
+    """All published per-epoch checkpoints in ``directory`` (``.npz``
+    files, ``.ckpt`` directories, ``.manifest`` files) as sorted ``(epoch,
+    path)`` pairs: the one rule of resume, the serving watcher and
+    pruning. The writers' in-flight ``.tmp`` names never match."""
     if not os.path.isdir(directory):
         return []
     out = []
     for name in os.listdir(directory):
-        m = re.fullmatch(r"checkpoint_(\d+)\.npz", name)
+        m = re.fullmatch(r"checkpoint_(\d+)\.(npz|ckpt|manifest)", name)
         if m:
             out.append((int(m.group(1)), os.path.join(directory, name)))
     return sorted(out)
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:
-    """Path of the highest-epoch ``checkpoint_{e}.npz``, or None."""
+    """Path of the highest-epoch ``checkpoint_{e}`` of any layout, or
+    None."""
     found = _epoch_checkpoints(directory)
     return found[-1][1] if found else None
 
 
 def quarantine_checkpoint(path: str) -> str:
-    """Rename a corrupt checkpoint out of the resolution namespace:
-    ``checkpoint_{e}.npz`` -> ``checkpoint_{e}.npz.corrupt`` (then
-    ``.corrupt2``...), so ``latest_checkpoint`` falls back to the
-    next-older epoch and pruning never touches the evidence. Returns the
-    quarantine path."""
+    """Rename a corrupt checkpoint (file or directory) out of the
+    resolution namespace: ``checkpoint_{e}.npz`` ->
+    ``checkpoint_{e}.npz.corrupt`` (then ``.corrupt2``...), so
+    ``latest_checkpoint`` falls back to the next-older epoch and pruning
+    never touches the evidence. Returns the quarantine path."""
     dest = path + CORRUPT_SUFFIX
     n = 2
     while os.path.exists(dest):
@@ -239,9 +541,10 @@ def prune_checkpoints(directory: str, keep_last: int) -> None:
     """Delete per-epoch checkpoints strictly older than the latest
     published epoch minus ``keep_last`` (``keep_last <= 0`` keeps all;
     ``model_best`` is never pruned). Keyed to the latest published epoch
-    ``L``, the window ``[L - keep_last, L]`` always survives, so a serving
-    reload watcher mid-load on the previous latest keeps its file for
-    ``keep_last`` further publishes."""
+    ``L`` of any layout, the window ``[L - keep_last, L]`` always
+    survives, so a serving reload watcher mid-load on the previous latest
+    keeps it for ``keep_last`` further publishes. A manifest's chunks go
+    with the delta publish's GC (``distrib/publish.py::gc_chunks``)."""
     if keep_last <= 0:
         return
     found = _epoch_checkpoints(directory)
@@ -251,4 +554,140 @@ def prune_checkpoints(directory: str, keep_last: int) -> None:
     for epoch, path in found:
         if epoch >= latest_epoch - keep_last:
             break  # sorted: everything from here on is inside the window
-        os.remove(path)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+
+
+# -- the asynchronous saver -------------------------------------------------
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writes with the next epoch's training.
+
+    ``save()`` takes :func:`save_checkpoint`'s arguments. It copies the
+    state off the device first, synchronously (``state_to_jax``: a
+    blocking copy into fresh host arrays, so the copy has landed before
+    ``save`` returns and before the next epoch's first step, or replay
+    of a captured graph, updates the params and moments in place), then
+    writes on one thread. At most one write is in flight: ``save`` and
+    :meth:`wait` join the previous one first, and a write's error is
+    raised there (or at the context's exit).
+
+    The sharded layout's phases hold collectives, which must stay on the
+    main thread: ``save`` prepares the tmp directory and snapshots inline,
+    the thread writes the files, and the publish (the write agreement,
+    the rename) runs at the next drain (``save``, ``wait`` or the exit),
+    where every rank arrives at the same point. A crash loses at most the
+    one write in flight, as with the npz file.
+    """
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._result: Optional[str] = None
+        self._error: Optional[BaseException] = None
+        self._pending_publish: Optional[Dict[str, Any]] = None
+        # Wall ms of each drain (a wait for the write in flight).
+        self.drain_ms: List[float] = []
+
+    def _start(self, write, epoch: int) -> None:
+        def run() -> None:
+            try:
+                write()
+            except BaseException as exc:  # raised by the next drain
+                self._error = exc
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name=f"checkpoint-write-{epoch}")
+        self._thread.start()
+
+    def save(self, state, *, epoch: int, best_acc: float, is_best: bool,
+             directory: str, keep_last: int = 0,
+             parallel_layout: Optional[Dict[str, Any]] = None,
+             layout: Optional[str] = None, publish: Optional[str] = None,
+             chunk_mb: float = 4.0) -> None:
+        self.wait()
+        # From here on _result holds this save's outcome only.
+        self._result = None
+        _check_modes(layout, publish)
+        pid = process_index()
+        if layout == "sharded":
+            self._save_sharded(state, pid, epoch=epoch, best_acc=best_acc,
+                               is_best=is_best, directory=directory,
+                               keep_last=keep_last,
+                               parallel_layout=parallel_layout)
+            return
+        if pid != 0:
+            return  # process 0 writes; the others keep no copy
+        named = state_to_jax(state)
+
+        def write() -> None:
+            self._result = _write_whole(
+                named, epoch=epoch, best_acc=best_acc, is_best=is_best,
+                directory=directory, keep_last=keep_last,
+                parallel_layout=parallel_layout, publish=publish,
+                chunk_mb=chunk_mb)
+
+        self._start(write, epoch)
+
+    def _save_sharded(self, state, pid: int, *, epoch: int, best_acc: float,
+                      is_best: bool, directory: str, keep_last: int,
+                      parallel_layout) -> None:
+        tmp, final = _sharded_prepare(directory, epoch, pid)
+        # Armed even when the snapshot fails: the next drain's write
+        # agreement then fails every rank together.
+        self._pending_publish = dict(
+            tmp=tmp, final=final, directory=directory, epoch=epoch,
+            is_best=is_best, keep_last=keep_last, pid=pid)
+        try:
+            named, payload, index = _sharded_collect(state, pid)
+            meta = (_meta(named, epoch, best_acc, SHARDED_FORMAT_VERSION,
+                          parallel_layout) if pid == 0 else None)
+        except Exception as exc:  # noqa: BLE001 - agreed at the drain
+            self._error = exc
+            return
+        self._start(lambda: _sharded_write_files(tmp, pid, payload, index,
+                                                 meta), epoch)
+
+    def wait(self) -> Optional[str]:
+        """Join the write in flight (and publish a sharded one); raise its
+        error if it failed; return its path (process 0), else None."""
+        t0 = time.perf_counter()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._pending_publish is not None:
+            pub, self._pending_publish = self._pending_publish, None
+            err, self._error = self._error, None
+            _agree(err, pub["epoch"], "write",
+                   f"dropping unpublished {pub['tmp']}")
+            self._result = _sharded_publish(**pub)
+        self.drain_ms.append((time.perf_counter() - t0) * 1e3)
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc
+        return self._result
+
+    def __enter__(self) -> "AsyncCheckpointer":
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        if exc_info[0] is None:
+            self.wait()
+            return
+        # The body is unwinding on its own exception: land the write in
+        # flight, but mask nothing and run no collective (the peers may
+        # be unwinding too and would never arrive).
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            print(f"WARNING: async checkpoint write failed while the run "
+                  f"was unwinding; discarded in favor of the run's own "
+                  f"exception: {self._error!r}", file=sys.stderr)
+            self._error = None
+        if self._pending_publish is not None:
+            print(f"WARNING: unpublished checkpoint "
+                  f"{self._pending_publish['tmp']} dropped during unwind "
+                  f"(publish skipped)", file=sys.stderr)
+            self._pending_publish = None

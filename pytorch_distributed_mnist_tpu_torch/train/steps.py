@@ -59,6 +59,7 @@ from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
     grad_all_reduce,
     grad_buffer,
 )
+from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 
 # Ticks of an epoch program's first passes run eagerly, as real steps,
 # before its graph is captured: every kernel has then launched (and its
@@ -322,6 +323,18 @@ class EpochProgram:
         self.launches.credit(replays)
         self.replays += replays
         return MetricState(*(t.clone() for t in self._acc))
+
+    def rerun_checked(self) -> None:
+        """Run the last pass again, every tick eagerly (no graph) under
+        ``--debug-nans``'s ``NanCheckMode``: it raises
+        ``FloatingPointError`` at the first op that makes a NaN.
+        The caller restores the state the pass started from first."""
+        metrics_zero_(self._acc)
+        with torch.no_grad():
+            self._tick.zero_()
+        with debug_nans.NanCheckMode():
+            for _ in range(int(self._source["mask"].shape[0])):
+                self._body()
 
 
 def _make_epoch(state, train: bool, indexed: bool, axis=None,

@@ -33,6 +33,12 @@ world's metrics.
 micro-batches (``train/steps.py::train_step``), in ``scan`` and
 ``stepwise``; ``explicit`` refuses it, as the reference does.
 
+Under ``--debug-nans`` (``utils/debug_nans.py``) the per-batch modes run
+every step under the NaN-checking dispatch mode; ``scan`` keeps a copy of
+the train state from each pass's start on the device, and a pass whose
+loss sum reads NaN is restored and re-run eagerly under the mode, which
+raises at the op that made the NaN.
+
 On the card the trainer makes cuDNN deterministic (no benchmark search),
 so a resumed run repeats the uninterrupted one, and under float32 compute
 it turns TF32 off for convolutions and matrix products, so that float32
@@ -41,6 +47,7 @@ means float32. These settings are fixed before any graph is captured.
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -56,6 +63,7 @@ from pytorch_distributed_mnist_tpu_torch.data.staging import (
     PinnedRing,
     host_buffer,
 )
+from pytorch_distributed_mnist_tpu_torch.models.convert import state_leaves
 from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
     Accuracy,
     Average,
@@ -75,6 +83,7 @@ from pytorch_distributed_mnist_tpu_torch.train.steps import (
     make_train_epoch_indexed,
     train_step,
 )
+from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 
 MODES = ("scan", "stepwise", "explicit")
 EPOCH_GATHERS = ("host", "device")
@@ -255,13 +264,43 @@ class Trainer:
             ms = metric_all_reduce(ms, self.axis)
         return _meters(ms)
 
+    def _checked_pass(self, epoch, source, train: bool, then=None) \
+            -> Tuple[Average, Accuracy]:
+        """One scan pass of ``epoch`` (an epoch function of
+        ``train/steps.py``) over ``source``, read once; ``then()``, when
+        given, runs between the pass's launch and its read. Under
+        ``--debug-nans`` the train state is copied first (on the device),
+        and a NaN loss sum restores the copy and re-runs the pass eagerly
+        under the checking mode, which raises at the op that made the
+        NaN."""
+        snapshot = None
+        if debug_nans.enabled() and train:
+            with torch.no_grad():
+                snapshot = [t.clone() for _, t in state_leaves(self.state)]
+        ms = epoch(*source)
+        if then is not None:
+            then()
+        meters = self._read(ms)
+        if debug_nans.enabled() and math.isnan(meters[0].sum):
+            if snapshot is not None:
+                with torch.no_grad():
+                    for (_, t), saved in zip(state_leaves(self.state),
+                                             snapshot):
+                        t.copy_(saved)
+            epoch.program.rerun_checked()
+            raise FloatingPointError(
+                "--debug-nans: the pass's loss sum is NaN, but its eager "
+                "re-run made no NaN")
+        return meters
+
     def train(self) -> Tuple[Average, Accuracy]:
         """One training epoch over the loader's current shuffle."""
         self.state.model.train()
         if self.mode != "scan":
             acc = metrics_init(self.device)
-            for batch in self._feeder.epoch():
-                accumulate_metrics(acc, self._train_step(batch))
+            with debug_nans.checking():
+                for batch in self._feeder.epoch():
+                    accumulate_metrics(acc, self._train_step(batch))
             return self._read(acc)
         if self.epoch_gather == "device":
             if self._train_data is None:
@@ -279,12 +318,11 @@ class Trainer:
                                for k, t in ticks.items()}
             for k, t in ticks.items():
                 self._ticks[k].copy_(t)
-            return self._read(self._train_epoch(self._train_data,
-                                                self._ticks))
-        ms = self._train_epoch(self._staged_train_epoch())
-        if self.prefetch_enabled:
-            self._start_prefetch()
-        return self._read(ms)
+            return self._checked_pass(self._train_epoch,
+                                      (self._train_data, self._ticks), True)
+        return self._checked_pass(
+            self._train_epoch, (self._staged_train_epoch(),), True,
+            then=self._start_prefetch if self.prefetch_enabled else None)
 
     def evaluate(self) -> Tuple[Average, Accuracy]:
         """One evaluation pass: no gradient, no state update."""
@@ -295,11 +333,13 @@ class Trainer:
                 self._eval_staged = {
                     k: torch.from_numpy(v).to(self.device)
                     for k, v in self.test_loader.stacked_epoch().items()}
-            return self._read(self._eval_epoch(self._eval_staged))
+            return self._checked_pass(self._eval_epoch,
+                                      (self._eval_staged,), False)
         if self._eval_batches is None:
             self._eval_batches = [to_device(batch, self.device)
                                   for batch in self.test_loader]
         acc = metrics_init(self.device)
-        for batch in self._eval_batches:
-            accumulate_metrics(acc, self._eval_step(batch))
+        with debug_nans.checking():
+            for batch in self._eval_batches:
+                accumulate_metrics(acc, self._eval_step(batch))
         return self._read(acc)

@@ -1,9 +1,10 @@
 """Observability of the port: the training :class:`StepTimer`, the JSONL
 metrics sink, the scan trainer's :class:`StagingLog`, the
-:class:`ServeLog` behind ``/stats``, the per-bucket warm-up record, and
+:class:`ServeLog` behind ``/stats``, the per-bucket warm-up record,
 :func:`step_part`, which names the part of a train step a device kernel
 is (a step profile's breakdown; the collectives' kernels are a part of
-their own).
+their own), and ``--profile-dir``'s :func:`profile_trace` with the
+lifecycle spans of :func:`phase`.
 
 Counterpart of the training-input and serving parts of
 ``pytorch_distributed_mnist_tpu/utils/profiling.py``. The reference's
@@ -50,6 +51,55 @@ def step_part(kernel: str, own: Sequence[Tuple[str, str]] = ()) -> str:
     if any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass", "cublas")):
         return "fc_gemm"
     return "other_elementwise"
+
+
+def trace_path(logdir: str, rank: int) -> str:
+    """Where :func:`profile_trace` writes rank ``rank``'s trace."""
+    return os.path.join(logdir, f"trace_rank{rank}.json")
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str], cuda: bool = False):
+    """A ``torch.profiler`` capture of the block (the host's ops and, with
+    ``cuda``, the card's kernels, replays of captured graphs included),
+    written to ``logdir`` as a Chrome trace, one file per rank
+    (:func:`trace_path`); nothing when ``logdir`` is empty. The
+    reference's ``jax.profiler`` trace of ``--profile-dir``."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
+        process_index,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(trace_path(logdir, process_index()))
+
+
+def phase(name: str, **fields):
+    """A named span of one lifecycle phase (``train``, ``eval``,
+    ``checkpoint``, ``checkpoint_drain``), its fields (the epoch) as the
+    span's arguments: ``torch.profiler.record_function``, which costs
+    next to nothing outside a capture. The reference's
+    ``TraceAnnotation`` spans."""
+    import torch
+
+    args = ", ".join(f"{k}={v}" for k, v in fields.items()) or None
+    return torch.profiler.record_function(name, args)
 
 
 class StepTimer:

@@ -57,5 +57,6 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "serve.control", "serve.economics", "serve.batcher",
                 "serve.reload", "serve.server", "parallel.distributed",
                 "parallel.launcher", "parallel.collectives", "parallel.mesh",
+                "distrib.cas", "distrib.publish", "distrib.fetch",
                 "cli", "__main__"):
         assert f"{port.__name__}.{rel}" in names, rel
