@@ -7,7 +7,13 @@ Phases, each printing one JSON line:
 1. device and build: the card's name and power limit (``nvidia-smi``) and
    the build of every hand-written kernel from ``csrc/`` (``nvcc``,
    ``sm_90a``, one process per source, all at once), with each kernel
-   instantiation's registers and spills from ``ptxas -v``;
+   instantiation's registers and spills from ``ptxas -v``; before them,
+   alone, the native host library (``native_vs_plain``): built from
+   ``native/tpumnist_native.cpp`` into the build directory (its seconds,
+   version 4, its path), each entry point bitwise equal to its NumPy
+   expression at the smoke's sizes (the normalize and gather of the
+   8192-image epoch, the pad at buckets 1/8/32/128, the int8 quantize and
+   the float64 cast) with its host ms both ways;
 2. kernel against plain: ``matmul_i8`` against ``matmul_i8_plain`` on the
    card at every shape of the int8 serving paths (the cnn's and the
    ViT's, M up to 6272 at K = 16, 64 and 256) plus ragged ones (exactly
@@ -35,7 +41,12 @@ Phases, each printing one JSON line:
    answers concurrent and sequential ``/predict`` requests, ``/healthz`` and
    ``/stats``, and hot-reloads a newer checkpoint. Its replies are held
    against the same engine run with ``matmul_i8_plain`` on the card, and
-   the kernel's launch count over this phase must rise;
+   the kernel's launch count over this phase must rise; then the same
+   server on the split plane (``--no-fuse``) at ``-j 4``
+   (``server_split_native``): the host normalizes and quantizes every
+   batch through the native library (its calls counted), and every reply
+   equals the same plane's with ``matmul_i8_plain`` and NumPy staging
+   (``TPUMNIST_NATIVE=0``), with the kernel's launch count;
 5. forward profile: the device time of one int8 fused forward per bucket,
    by part (convs, pooling, the int8 products, elementwise work,
    reductions, copies), beside the host's wall time per forward; then
@@ -52,13 +63,16 @@ Phases, each printing one JSON line:
    --optimizer adam_pallas`` in its default ``--trainer-mode scan`` (each
    epoch one captured CUDA graph of the train step, and one of the eval
    step, replayed per batch), 2 epochs of 8192 synthetic images at batch
-   256: both epoch lines, a falling train loss, test accuracy >= 90%,
+   256 (the epochs gathered by the native library): both epoch lines, a
+   falling train loss, test accuracy >= 90%,
    exact launch counts of the three training kernels (Adam once per
    step), checked from the wrappers' counters over the run and from a
    profiler trace of epoch 1 (replays only), 32-leaf checkpoints, a resume
    from ``checkpoint_0.npz`` that repeats epoch 1's line, and ``-e`` on
    ``model_best.npz``; then the same run with ``--trainer-mode stepwise``
-   (``train_stepwise``) and with ``--epoch-gather device``
+   (``train_stepwise``), with ``TPUMNIST_NATIVE=0`` (``train_native_off``:
+   NumPy gathers; the staging log's host-gather ms both ways) and with
+   ``--epoch-gather device``
    (``train_epoch_gather_device``), whose epoch lines must equal the scan
    run's character for character; stepwise at ``--feed-window 2`` and 1
    in 10 back-to-back pairs (``train_feed_window``: the same lines, each
@@ -171,7 +185,23 @@ Phases, each printing one JSON line:
    the cnn's replay in an NCCL world of one (``train_scan_profile_dp``:
    what the all-reduce in the graph adds to the host wall and device ms
    per step);
-16. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
+16. run supervision and the build directory: the cnn run as a process
+   SIGKILLed at epoch 1's entry (``TPUMNIST_FAULT``), then resumed with
+   ``--resume auto`` in this process (``train_fault_resume``: epoch 1's
+   line equal to ``train``'s, exactly one epoch's launches of the three
+   training kernels), and stepwise in an NCCL world of one with an
+   injected raise at step 5 (exit 1, ``InjectedFault`` in phase
+   ``train@0`` on stderr and in the metrics file, run beside the killed
+   run); gloo worlds on the CPU, run beside the kernel builds of phase 1
+   (``chaos_cpu``: a rank killed at the checkpoint publish agreement ends
+   its peer with ``PeerFailure`` and exit 75 within 60 s, the twin with no
+   fault exits 0; a 3-rank ``--elastic`` world shrinks to 2 ranks resumed
+   from ``checkpoint_0`` with ``world_shrunk`` recorded, its epoch-1 line
+   equal to a direct 2-rank world's); the cnn run for 1 epoch as a process
+   on fresh ``--compile-cache`` directories (``cold_start``: by default
+   and with ``--no-precompile`` each library it launches built once, then
+   0 built on the warm directory; the seconds to the first epoch line);
+17. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -654,9 +684,10 @@ def _requests(n_requests: int, seed: int):
     return out
 
 
-def _engine(params, device, matmul, model: str = "cnn"):
-    """The server's engine configuration (``model``, int8, fused, default
-    buckets) with ``matmul`` as the int8 product."""
+def _engine(params, device, matmul, model: str = "cnn", fuse: bool = True):
+    """The server's engine configuration (``model``, int8, fused unless
+    ``fuse`` is false, default buckets) with ``matmul`` as the int8
+    product."""
     import functools
 
     from pytorch_distributed_mnist_tpu_torch.models import get_model
@@ -667,7 +698,7 @@ def _engine(params, device, matmul, model: str = "cnn"):
 
     net = get_model(model, matmul=functools.partial(int8_linear,
                                                     matmul=matmul))
-    return InferenceEngine(net, params, precision="int8", fuse=True,
+    return InferenceEngine(net, params, precision="int8", fuse=fuse,
                            device=device)
 
 
@@ -721,12 +752,23 @@ def phase_forward_profile(device) -> None:
                  reverse=True)[:6])
 
 
-def phase_server(device_flag: str = "cuda") -> int:
+# The native staging calls the split plane makes per dispatched batch.
+NATIVE_STAGING = ("normalize_images", "quant_i8", "pad_into", "cast_f32")
+
+
+def phase_server(device_flag: str = "cuda", split: bool = False) -> int:
     """Boot, drive and reload the server; returns the kernel's launch
-    count over the run. ``device_flag`` is the server's ``--device``."""
+    count over the run. ``device_flag`` is the server's ``--device``.
+    With ``split`` (``server_split_native``) the server runs the split
+    plane (``--no-fuse``) at ``-j 4``: the host normalizes and quantizes
+    each batch through the native library (its calls counted), and every
+    reply must equal the plain engine's, the same plane with
+    ``matmul_i8_plain`` and the NumPy staging (``TPUMNIST_NATIVE=0``)."""
     import shutil
 
     import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.data import native
 
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
         init_params,
@@ -751,8 +793,20 @@ def phase_server(device_flag: str = "cuda") -> int:
     args = build_parser().parse_args([
         "--model", "cnn", "--serve-precision", "int8", "--port", "0",
         "--device", device_flag, "--checkpoint-dir", ckpt_dir,
-        "--require-checkpoint", "--poll-interval", "0.5"])
+        "--require-checkpoint", "--poll-interval", "0.5"]
+        + (["--no-fuse", "-j", "4"] if split else []))
+    native_calls = dict.fromkeys(NATIVE_STAGING, 0)
+    originals = {name: getattr(native, name) for name in NATIVE_STAGING}
 
+    def counting(name):
+        def wrapper(*a, **k):
+            native_calls[name] += 1
+            return originals[name](*a, **k)
+        return wrapper
+
+    if split:
+        for name in NATIVE_STAGING:
+            setattr(native, name, counting(name))
     matmul_i8.launches = 0  # the main path's run starts here
     t_boot = time.perf_counter()
     httpd = create_server(args)
@@ -797,6 +851,12 @@ def phase_server(device_flag: str = "cuda") -> int:
         health = client.get("/healthz")
         stats = client.get("/stats")
         launches = matmul_i8.launches  # the main path's run ends here
+        for name in NATIVE_STAGING:
+            setattr(native, name, originals[name])
+        if split and not (native_calls["normalize_images"]
+                          and native_calls["quant_i8"]):
+            raise AssertionError(f"the split plane's staging made native "
+                                 f"calls {native_calls}")
 
         if launches == 0:
             raise AssertionError("the int8 serving path launched no "
@@ -816,17 +876,28 @@ def phase_server(device_flag: str = "cuda") -> int:
         # its whole batch, so the reference replays the batches the
         # server formed; every one must give equal predictions.
         engine.predict_with_epoch = served
-        ref = _engine(params0, engine.device, matmul_i8_plain)
-        for images, labels in batches:
-            want = ref.predict(images)
-            if not np.array_equal(labels, want):
-                raise AssertionError(
-                    f"a served batch of {len(images)} disagrees with the "
-                    f"plain reference on {int(np.sum(labels != want))} rows")
-        for reply, x in zip(seq_replies, sequential):
-            if reply["predictions"] != ref.predict(x).tolist():
-                raise AssertionError("a sequential reply disagrees with "
-                                     "the plain reference")
+        ref = _engine(params0, engine.device, matmul_i8_plain,
+                      fuse=not split)
+        saved_native = os.environ.get("TPUMNIST_NATIVE")
+        if split:  # the reference stages through NumPy
+            os.environ["TPUMNIST_NATIVE"] = "0"
+        try:
+            for images, labels in batches:
+                want = ref.predict(images)
+                if not np.array_equal(labels, want):
+                    raise AssertionError(
+                        f"a served batch of {len(images)} disagrees with "
+                        f"the plain reference on "
+                        f"{int(np.sum(labels != want))} rows")
+            for reply, x in zip(seq_replies, sequential):
+                if reply["predictions"] != ref.predict(x).tolist():
+                    raise AssertionError("a sequential reply disagrees "
+                                         "with the plain reference")
+        finally:
+            if saved_native is None:
+                os.environ.pop("TPUMNIST_NATIVE", None)
+            else:
+                os.environ["TPUMNIST_NATIVE"] = saved_native
         rows = sum(len(x) for x in burst)
         if sum(len(x) for x, _ in batches) != rows + sum(
                 len(x) for x in sequential):
@@ -848,15 +919,20 @@ def phase_server(device_flag: str = "cuda") -> int:
         if after["model_epoch"] != 1:
             raise AssertionError(f"reply after reload: {after}")
         lat = stats["latency_ms"]
-        emit("server", requests=len(burst) + len(sequential),
+        extra = ({"plane": "split (--no-fuse)", "workers": 4,
+                  "native_staging_calls": native_calls} if split else {})
+        emit("server_split_native" if split else "server",
+             requests=len(burst) + len(sequential),
              rows=rows + sum(len(x) for x in sequential),
              boot_s=boot_s, burst_s=burst_s, burst_rows_per_s=rows / burst_s,
              p50_ms=lat["p50"], p99_ms=lat["p99"],
              batch_histogram=stats["batch_histogram"],
              batches=len(batches), replies_exact=True,
-             reload_epoch=1, launches=launches)
+             reload_epoch=1, launches=launches, **extra)
         return launches
     finally:
+        for name in NATIVE_STAGING:
+            setattr(native, name, originals[name])
         httpd.shutdown()
         httpd.ctx.close()
         httpd.server_close()
@@ -2457,7 +2533,7 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
              test_acc_floor=run_cfg["floor"], wall_s=wall_s,
              resume_repeats_epoch_1=True)
         return {"launches": launches, "lines": lines,
-                "collectives": collectives}
+                "collectives": collectives, "staging": summary["staging"]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3704,6 +3780,484 @@ def phase_train_profile_dir(want_lines: list,
     return {"launches": launches}
 
 
+# -- run supervision and the native host path -------------------------------
+
+# The smoke's own sizes for the native entry points: the 8192-image train
+# epoch gathered at batch 256, the server's buckets padded.
+NATIVE_EPOCH = 8192
+NATIVE_REPEATS = 5  # each host time is the median of this many calls
+
+
+def _host_ms(fn) -> float:
+    """Median wall ms of ``NATIVE_REPEATS`` calls of ``fn`` on the host."""
+    import statistics
+
+    times = []
+    for _ in range(NATIVE_REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def phase_native_vs_plain() -> dict:
+    """The native host library (``data/native.py``): built from
+    ``native/tpumnist_native.cpp`` into the build directory (its seconds,
+    ``tm_version()`` 4, its path), then each entry point against its NumPy
+    expression, bitwise, at the smoke's sizes: the normalize and the
+    epoch gather of the 8192-image train set at batch 256, the staging pad
+    at buckets 1/8/32/128, the int8 quantize and the float64 cast of a
+    bucket-128 batch; each one's host ms both ways."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.data import native
+    from pytorch_distributed_mnist_tpu_torch.data.loader import (
+        MNISTDataLoader,
+    )
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        MNIST_MEAN,
+        MNIST_STD,
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
+    from pytorch_distributed_mnist_tpu_torch.serve.programs import ACT_SCALE
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    load_s = time.perf_counter() - t0
+    version = lib.tm_version()
+    path = native.build_info["path"]
+    if version != native.VERSION or not path.startswith(
+            cuda_build.BUILD_ROOT + os.sep):
+        raise AssertionError(f"native library {path} version {version}")
+    images, labels = synthetic_dataset(NATIVE_EPOCH, seed=SEED)
+    rows = {}
+
+    def check(name, got_fn, want_fn):
+        got, want = got_fn(), want_fn()
+        if isinstance(got, tuple):
+            same = all(_same_bits(g, w) for g, w in zip(got, want))
+        else:
+            same = _same_bits(got, want)
+        if not same:
+            raise AssertionError(f"native {name} differs from NumPy")
+        rows[name] = {"bitwise": True, "native_ms": _host_ms(got_fn),
+                      "numpy_ms": _host_ms(want_fn)}
+
+    check("normalize",
+          lambda: native.normalize_images(images, MNIST_MEAN, MNIST_STD, 4),
+          lambda: ((images.astype(np.float32) / 255.0 - MNIST_MEAN)
+                   / MNIST_STD)[..., None])
+    x = native.normalize_images(images, MNIST_MEAN, MNIST_STD, 4)
+    loader = MNISTDataLoader(x, labels, batch_size=TRAIN_BATCH, train=True,
+                             seed=SEED)
+    m, _ = loader.epoch_ticks(1)
+    labels32 = labels.astype(np.int32)
+    check("gather",
+          lambda: native.gather_epoch(x, labels32, m, 4),
+          lambda: (x[m.reshape(-1)].reshape(m.shape + x.shape[1:]),
+                   labels32[m.reshape(-1)].reshape(m.shape)))
+    for bucket in PATH_BUCKETS:
+        src = x[:max(1, bucket - bucket // 3)]
+
+        def pad_native(src=src, bucket=bucket):
+            dst = np.empty((bucket,) + x.shape[1:], np.float32)
+            if not native.pad_into(dst, src, workers=4):
+                raise AssertionError("pad_into refused a float32 batch")
+            return dst
+
+        def pad_numpy(src=src, bucket=bucket):
+            dst = np.empty((bucket,) + x.shape[1:], np.float32)
+            dst[:len(src)] = src
+            dst[len(src):] = 0.0
+            return dst
+
+        check(f"pad_copy_b{bucket}", pad_native, pad_numpy)
+    batch = np.ascontiguousarray(x[:128])
+    inv = np.float32(1.0) / ACT_SCALE
+    check("quant_i8", lambda: native.quant_i8(batch, float(ACT_SCALE), 4),
+          lambda: np.clip(np.rint(batch * inv), -127, 127).astype(np.int8))
+    f64 = batch.astype(np.float64) * 1.25
+    check("cast_f32", lambda: native.cast_f32(f64, 4),
+          lambda: f64.astype(np.float32))
+    row = {"build_s": native.build_info["seconds"], "load_s": load_s,
+           "version": version,
+           "path": os.path.relpath(path, _HERE), "entry_points": rows,
+           "host_note": "host wall ms on the card's host CPU, median of "
+                        f"{NATIVE_REPEATS} calls, 4 threads"}
+    emit("native_vs_plain", **row)
+    return row
+
+
+def phase_train_native_off(want_lines: list, native_staging: dict,
+                           device_flag: str = "cuda") -> dict:
+    """The cnn run of ``train`` (whose epochs the native library gathers)
+    with ``TPUMNIST_NATIVE=0`` (NumPy normalizes and gathers): its epoch
+    lines must equal ``train``'s character for character, and its kernel
+    launches ``train``'s counts. The staging log's host-gather ms both
+    ways are reported, with no gate."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_off_")
+    saved = os.environ.get("TPUMNIST_NATIVE")
+    os.environ["TPUMNIST_NATIVE"] = "0"
+    try:
+        _zero_counters("cnn")  # the main path's run starts here
+        summary, out = _run_cli(TRAIN_ARGS + [
+            "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+            "--checkpoint-dir", root])
+        launches = _read_counters("cnn")  # ... and ends here
+    finally:
+        if saved is None:
+            os.environ.pop("TPUMNIST_NATIVE", None)
+        else:
+            os.environ["TPUMNIST_NATIVE"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    lines = _train_lines(out, "Epoch: ")
+    if lines != want_lines:
+        raise AssertionError(f"TPUMNIST_NATIVE=0 printed\n{lines}\nwhere "
+                             f"the native run printed\n{want_lines}")
+    if launches != _want_launches("cnn"):
+        raise AssertionError(f"launch counts {launches}, expected "
+                             f"{_want_launches('cnn')}")
+    staging = summary["staging"]
+    row = {"epoch_lines_equal": True, "launches": launches,
+           "host_gather_ms": {"native": native_staging["host_ms"],
+                              "numpy": staging["host_ms"]},
+           "stages": {"native": native_staging["stages"],
+                      "numpy": staging["stages"]},
+           "staging_native": native_staging, "staging_numpy": staging}
+    emit("train_native_off", **row)
+    return row
+
+
+def phase_train_fault_resume(want_lines: list,
+                             device_flag: str = "cuda") -> dict:
+    """The cnn run as a process with ``TPUMNIST_FAULT=train_epoch:0:kill:1``:
+    it must die by SIGKILL at epoch 1's entry with ``checkpoint_0``
+    written; then the same command with ``--resume auto`` (in this
+    process, so the wrappers' counters are read): epoch 1's line must
+    equal ``train``'s, and the kernels launch exactly one epoch's counts
+    (half of ``train``'s). Then ``--trainer-mode stepwise`` in a world of
+    one through the explicit rendezvous (NCCL on the card) with
+    ``TPUMNIST_FAULT=train_step:0:raise:5``: it must exit 1, its stderr
+    naming ``InjectedFault`` and phase ``train@0``, and its metrics file
+    holding the ``run_failed`` event."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fault_")
+    ckpt = os.path.join(root, "run")
+    argv = TRAIN_ARGS + ["--device", device_flag, "--epochs",
+                         str(TRAIN_EPOCHS), "--checkpoint-dir", ckpt]
+    env = dict(os.environ, PYTHONPATH=_HERE)
+    metrics = os.path.join(root, "raise.jsonl")
+
+    def raising_run():
+        # The world of one that raises runs beside the killed run: both
+        # are processes of their own, and only their exits are checked.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_mnist_tpu_torch",
+             *TRAIN_ARGS, "--device", device_flag, "--epochs", "1",
+             "--trainer-mode", "stepwise", "--checkpoint-dir",
+             os.path.join(root, "raise"), "--metrics-file", metrics,
+             *_rendezvous()], capture_output=True, text=True, timeout=300,
+            cwd=_HERE, env=dict(env, TPUMNIST_FAULT="train_step:0:raise:5"))
+        return proc, time.perf_counter() - t0
+
+    raising = _Background(raising_run)
+    try:
+        t0 = time.perf_counter()
+        killed = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_mnist_tpu_torch",
+             *argv], capture_output=True, text=True, timeout=600, cwd=_HERE,
+            env=dict(env, TPUMNIST_FAULT="train_epoch:0:kill:1"))
+        killed_s = time.perf_counter() - t0
+        files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        if killed.returncode != -9 or files != ["checkpoint_0.npz",
+                                                 "model_best.npz"]:
+            raise AssertionError(f"the killed run: rc {killed.returncode}, "
+                                 f"files {files}\n{killed.stdout}\n"
+                                 f"{killed.stderr}")
+        if "firing injected fault train_epoch:0:kill" not in killed.stderr \
+                or _train_lines(killed.stdout, "Epoch: ") != want_lines[:1]:
+            raise AssertionError(f"the killed run:\n{killed.stdout}\n"
+                                 f"{killed.stderr}")
+
+        _zero_counters("cnn")  # the main path's run starts here
+        summary, out = _run_cli(argv + ["--resume", "auto"])
+        launches = _read_counters("cnn")  # ... and ends here
+        lines = _train_lines(out, "Epoch: ")
+        if lines != want_lines[1:]:
+            raise AssertionError(f"the resumed run printed\n{lines}\nwhere "
+                                 f"train printed\n{want_lines[1:]}")
+        want = _want_launches("cnn", epochs=1)
+        if launches != want:
+            raise AssertionError(f"resumed launches {launches}, expected "
+                                 f"{want}")
+
+        raised, raised_s = raising.result()
+        events = []
+        if os.path.isfile(metrics):
+            with open(metrics) as f:
+                events = [json.loads(ln) for ln in f if ln.strip()]
+        failed = [e for e in events if e.get("kind") == "run_failed"]
+        if (raised.returncode != 1 or "InjectedFault" not in raised.stderr
+                or "phase 'train@0'" not in raised.stderr or len(failed) != 1
+                or failed[0]["phase"] != "train@0"
+                or "InjectedFault" not in failed[0]["detail"]):
+            raise AssertionError(f"the raising run: rc {raised.returncode}, "
+                                 f"events {events}\n{raised.stderr[-3000:]}")
+    finally:
+        raising.join()  # its files are under root
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"killed": {"rc": killed.returncode, "wall_s": killed_s,
+                      "files": files},
+           "resumed": {"epoch_lines": lines, "equal_to_train": True,
+                       "start_epoch": summary["start_epoch"],
+                       "launches": launches, "expected_launches": want},
+           "raised": {"rc": raised.returncode, "wall_s": raised_s,
+                      "rendezvous": "tcp 127.0.0.1, 1 process, "
+                                    + ("nccl" if device_flag == "cuda"
+                                       else "gloo"),
+                      "event": failed[0]}}
+    emit("train_fault_resume", **row)
+    return {"launches": launches}
+
+
+# The CPU worlds of the chaos phase: the dp_spawn phase's linear run on
+# 2048 synthetic images, 2 epochs.
+CHAOS_ARGS = ["--model", "linear", "--dataset", "synthetic",
+              "--synthetic-train-size", "2048", "--synthetic-test-size",
+              "500", "--seed", str(SEED), "--epochs", "2"]
+CHAOS_DEADLINE = "8"  # the agreement timeout of the faulted worlds
+
+
+class _Background:
+    """``fn()`` on a thread of its own, started at once; :meth:`result`
+    joins it and returns its value or raises its error."""
+
+    def __init__(self, fn) -> None:
+        self._box = {}
+
+        def run():
+            try:
+                self._box["value"] = fn()
+            except BaseException as exc:  # raised by result()
+                self._box["error"] = exc
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        self._thread.join()
+
+    def result(self):
+        self.join()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["value"]
+
+
+def _chaos_run(argv, fault=None, module="pytorch_distributed_mnist_tpu_torch"):
+    """One process of ``module`` (a CPU world's launcher), its environment
+    this one's with ``fault`` as ``TPUMNIST_FAULT``; (process, seconds)."""
+    env = dict(os.environ, PYTHONPATH=_HERE, OMP_NUM_THREADS="1")
+    env.pop("TPUMNIST_FAULT", None)
+    if fault:
+        env["TPUMNIST_FAULT"] = fault
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=_HERE, env=env)
+    return proc, time.perf_counter() - t0
+
+
+def _chaos_kill(root: str) -> dict:
+    """(a): the publish-agreement kill through ``runtime/chaos.py``."""
+    proc, wall = _chaos_run(
+        ["--fault", "ckpt_publish:1:kill", "--nprocs", "2",
+         "--agreement-timeout", CHAOS_DEADLINE, "--", *CHAOS_ARGS,
+         "--batch-size", "256", "--device", "cpu", "--checkpoint-dir",
+         os.path.join(root, "a")],
+        module="pytorch_distributed_mnist_tpu_torch.runtime.chaos")
+    out = proc.stdout + proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])["chaos"]
+    faulted = result["faulted"]
+    if (proc.returncode != 0 or faulted["returncodes"] != [75, -9]
+            or result["twin"]["returncodes"] != [0, 0]
+            or faulted["seconds"] > 60 or "PeerFailure" not in out
+            or "host(s) [1]" not in out or "'ckpt_publish'" not in out):
+        raise AssertionError(f"chaos (a): rc {proc.returncode}, "
+                             f"{result}\n{out[-4000:]}")
+    return {"fault": result["fault"], "returncodes": faulted["returncodes"],
+            "faulted_s": faulted["seconds"],
+            "twin_returncodes": result["twin"]["returncodes"],
+            "twin_s": result["twin"]["seconds"], "wall_s": wall}
+
+
+def _chaos_elastic(root: str) -> dict:
+    """(b): the 3 -> 2 elastic shrink, then the direct 2-rank world."""
+    el = os.path.join(root, "b")
+    metrics = os.path.join(root, "b.jsonl")
+    proc, wall = _chaos_run(["--spawn", "3", "--elastic", "--min-world", "2",
+                             "--agreement-timeout", CHAOS_DEADLINE,
+                             "--batch-size", "96", "--device", "cpu",
+                             "--metrics-file", metrics, *CHAOS_ARGS,
+                             "--checkpoint-dir", el],
+                            fault="train_epoch:2:kill:1")
+    out = proc.stdout + proc.stderr
+    events = []
+    if os.path.isfile(metrics):
+        with open(metrics) as f:
+            events = [json.loads(ln) for ln in f if ln.strip()]
+    shrunk = [e for e in events if e.get("kind") == "world_shrunk"]
+    lines = _train_lines(proc.stdout, "Epoch: ")
+    resumed = f"=> loaded checkpoint '{el}/checkpoint_0.npz' (epoch 1)"
+    if (proc.returncode != 0 or len(shrunk) != 1
+            or shrunk[0]["new_members"] != [0, 1]
+            or "generation 1: world size 2 (hosts [0, 1])" not in out
+            or resumed not in proc.stdout or len(lines) != 2):
+        raise AssertionError(f"chaos (b): rc {proc.returncode}, events "
+                             f"{events}\n{out[-4000:]}")
+    direct, direct_wall = _chaos_run(
+        ["--spawn", "2", "--batch-size", "96", "--device", "cpu",
+         *CHAOS_ARGS, "--resume", os.path.join(el, "checkpoint_0.npz"),
+         "--checkpoint-dir", os.path.join(root, "direct")])
+    direct_lines = _train_lines(direct.stdout, "Epoch: ")
+    if direct.returncode != 0 or direct_lines != lines[1:]:
+        raise AssertionError(f"the direct 2-rank world printed "
+                             f"{direct_lines}, the shrunk one {lines[1:]}"
+                             f"\n{direct.stderr[-3000:]}")
+    return {"returncode": proc.returncode, "wall_s": wall,
+            "world_shrunk": shrunk[0], "epoch_lines": lines,
+            "direct_world_2_lines": direct_lines,
+            "direct_wall_s": direct_wall, "epoch_1_equal": True}
+
+
+def start_chaos_cpu() -> dict:
+    """Start ``phase_chaos_cpu``'s two worlds, each on a thread (their
+    processes run on the CPU only, so they can overlap the kernel builds,
+    which leave most cores idle after their first seconds)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    return {"root": root, "t0": time.perf_counter(),
+            "kill": _Background(lambda: _chaos_kill(root)),
+            "elastic": _Background(lambda: _chaos_elastic(root))}
+
+
+def phase_chaos_cpu(started=None) -> dict:
+    """Run supervision in gloo worlds on the host's CPU (on a host with
+    one card a world of 2 or more ranks is possible only there),
+    the two worlds side by side (``start_chaos_cpu``). (a)
+    ``runtime/chaos.py``: a world of 2 with rank 1 SIGKILLed at the
+    checkpoint publish agreement (``--agreement-timeout 8``): rank 0 must
+    exit 75 with ``PeerFailure`` naming host 1 and ``ckpt_publish`` within
+    60 s, and the twin with no fault must exit 0. (b) ``--spawn 3
+    --elastic --min-world 2 --batch-size 96`` with rank 2 killed at epoch
+    1's entry: generation 1 must run on 2 ranks resumed from
+    ``checkpoint_0``, ``world_shrunk`` must be recorded, and rank 0's
+    epoch-1 line must equal a direct 2-rank world's resumed from the same
+    checkpoint."""
+    import shutil
+
+    started = started or start_chaos_cpu()
+    try:
+        row = {"kill_at_publish": started["kill"].result(),
+               "elastic_shrink_3_to_2": started["elastic"].result(),
+               "wall_s": time.perf_counter() - started["t0"],
+               "note": "both worlds ran side by side, beside the kernel "
+                       "builds"}
+    finally:
+        shutil.rmtree(started["root"], ignore_errors=True)
+    emit("chaos_cpu", **row)
+    return row
+
+
+def _cold_run(argv: list) -> dict:
+    """One CLI process of ``argv``: its exit code, the seconds to its
+    first epoch line, and its ``build[...]`` lines as counts."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_mnist_tpu_torch", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_HERE,
+        env=dict(os.environ, PYTHONPATH=_HERE))
+    first_epoch_s, out = None, []
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            if first_epoch_s is None and line.startswith("Epoch: "):
+                first_epoch_s = time.perf_counter() - t0
+        err = proc.stderr.read()
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    builds = {}
+    for line in out:
+        m = re.match(r"build\[(\w+)\]: (\d+) built \(([\d.]+) s\), (\d+) "
+                     r"reused", line)
+        if m:
+            builds[m.group(1)] = {"built": int(m.group(2)),
+                                  "seconds": float(m.group(3)),
+                                  "reused": int(m.group(4))}
+    if proc.returncode != 0:
+        raise AssertionError(f"{argv}: rc {proc.returncode}\n"
+                             f"{''.join(out)}\n{err[-3000:]}")
+    return {"first_epoch_s": first_epoch_s,
+            "wall_s": time.perf_counter() - t0, "builds": builds,
+            "built": sorted(k for k, v in builds.items() if v["built"])}
+
+
+def phase_cold_start(device_flag: str = "cuda") -> dict:
+    """The cnn run, 1 epoch, as a process on a fresh empty
+    ``--compile-cache`` directory, by default (every kernel library it
+    launches built on a thread while its data stages) and with
+    ``--no-precompile`` (each built at its first launch): each must build
+    the native library and each CUDA kernel library it launches once;
+    then again on the first run's (warm) directory, which must build
+    nothing. The seconds to the first epoch line of each, with no
+    gate."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cold_")
+    # Off the card (a rehearsal) the kernels take their plain versions:
+    # only the native library is built.
+    want = ["adam", "native", "xent"] if device_flag == "cuda" else ["native"]
+    argv = TRAIN_ARGS + ["--device", device_flag, "--epochs", "1"]
+    rows = {}
+    try:
+        for name, flags, cache in (
+                ("precompile", [], "a"), ("no_precompile",
+                                          ["--no-precompile"], "b"),
+                ("warm", [], "a")):
+            rows[name] = _cold_run(argv + flags + [
+                "--compile-cache", os.path.join(root, cache),
+                "--checkpoint-dir", os.path.join(root, f"ck_{name}")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("precompile", "no_precompile"):
+        builds = rows[name]["builds"]
+        if rows[name]["built"] != want or any(
+                builds[k]["built"] != 1 for k in want):
+            raise AssertionError(f"{name} built {builds}, expected each of "
+                                 f"{want} once")
+    if rows["warm"]["built"]:
+        raise AssertionError(f"the warm run built {rows['warm']['builds']}")
+    emit("cold_start", **rows, built_once=want, warm_built=0)
+    return rows
+
+
 def kernel_of(mangled: str) -> str:
     """``name<args>`` of a kernel from its mangled name: the identifier
     that ends in ``_kernel`` (a length-prefixed name whose length digits may
@@ -3765,6 +4319,12 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = smi_name_and_limit()
     part, peaks = peaks_for(name)
+    # The native library first, alone (its build seconds and host ms are
+    # this phase's numbers); then chaos_cpu's CPU worlds, beside the
+    # kernel builds, which leave most cores idle once the short nvcc runs
+    # are done.
+    phase_native_vs_plain()
+    chaos = start_chaos_cpu()
     t0 = time.perf_counter()
     info = cuda_build.build()
     emit("device_build", device=name, nvidia_smi=smi, torch=torch.__version__,
@@ -3772,18 +4332,22 @@ def main() -> int:
          build_s=time.perf_counter() - t0,
          kernels={k: {"build_s": v["seconds"],
                       "ptxas": ptxas_counts(v["log"])}
-                  for k, v in info.items()})
+                  for k, v in info.items()},
+         beside="chaos_cpu's CPU worlds ran during the builds")
 
+    phase_chaos_cpu(chaos)
     max_err = phase_kernel_vs_plain(device)
     train_err = phase_train_kernels_vs_plain(device)
     rows = phase_timings(device, peaks)
     vit_i8_rows = phase_vit_i8_timings(device, peaks)
     train_rows = phase_train_timings(device, peaks)
     launches = phase_server()
+    split_plane_launches = phase_server(split=True)
     phase_forward_profile(device)
     server_vit = phase_server_vit()
     cnn_run = phase_train()
     train_launches = cnn_run["launches"]
+    native_off = phase_train_native_off(cnn_run["lines"], cnn_run["staging"])
     phase_train_twin("train_stepwise", "cnn", ["--trainer-mode", "stepwise"],
                      cnn_run["lines"])
     phase_train_twin("train_epoch_gather_device", "cnn",
@@ -3820,6 +4384,11 @@ def main() -> int:
     scan_cnn = phase_train_scan_profile(device)
     phase_train_scan_profile(device, model="vit")
     phase_train_scan_profile(device, model="vit", patch_size=2)
+    # Run supervision and the build directory: processes of their own (a
+    # killed run, a raising world of one, CPU worlds, cold starts) and
+    # one resume in this process.
+    fault_run = phase_train_fault_resume(cnn_run["lines"])
+    phase_cold_start()
     # Data parallelism, last: once a process has held an NCCL group, its
     # profiler traces lose device events far more often (175 retaken
     # traces against 19 in one call, PERF.md), so every phase that times
@@ -3837,7 +4406,9 @@ def main() -> int:
         # debugging phases (each run: train's counts).
         return {"launches_publish": publish_run["launches"][kname],
                 "launches_debug_nans": nans_launches[kname],
-                "launches_profile_dir": profile_dir_launches[kname]}
+                "launches_profile_dir": profile_dir_launches[kname],
+                "launches_native_off": native_off["launches"][kname],
+                "launches_fault_resume": fault_run["launches"][kname]}
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{
@@ -3858,6 +4429,7 @@ def main() -> int:
         "shapes": rows,
         "launches_vit_server": server_vit["launches"],
         "launches_server_delta": delta_launches,
+        "launches_server_split_native": split_plane_launches,
         "vit_shapes": vit_i8_rows,
         "vit_forward_profiles": server_vit["profiles"],
     }]

@@ -13,8 +13,12 @@ What is ported:
   ``--spawn N`` or the explicit rendezvous, NCCL on the card and gloo on
   the CPU, the gradient mean inside the captured step, sharded eval and
   rank-0 checkpoints;
-- serving of ``cnn`` and ``linear`` (``python -m
-  pytorch_distributed_mnist_tpu_torch serve``) at every precision plane.
+- serving of ``cnn``, ``linear`` and the ViT (``python -m
+  pytorch_distributed_mnist_tpu_torch serve``) at every precision plane;
+- run supervision (``runtime/``: agreed exits, watchdogs, fault points,
+  elastic shrink and grow), the native C++ host data path
+  (``data/native.py``), ``--download`` and the build directory
+  (``utils/compile_cache.py``).
 
 Every Pallas kernel of the reference has a hand-written CUDA kernel for
 Hopper under ``csrc/``: the cross-entropy, Adam, flash attention and the

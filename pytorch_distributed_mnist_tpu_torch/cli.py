@@ -33,8 +33,28 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. Flags for meshes of more than the data axis, ZeRO and
-elastic runs are not accepted yet.
+process group. Flags for meshes of more than the data axis and ZeRO are
+not accepted yet.
+
+The run is supervised (``runtime/supervision.py``): every failure on a
+rank takes one except path that sends the peers a poison pill at their
+next agreement (the checkpoint phases, the dataset vote, the resume
+agreements all exchange records over the world's gloo group), so they
+exit with ``PeerFailure`` naming the rank and its phase instead of
+waiting; ``--agreement-timeout`` bounds every agreement, and a process
+that dies on a peer's failure exits 75. ``TPUMNIST_FAULT`` injects faults
+at the named points (``runtime/chaos.py``). ``--spawn N --elastic``
+survives a rank's loss by rebuilding a smaller world resumed from the
+last checkpoint, and ``--elastic-grow`` admits joiners at epoch
+boundaries (``runtime/elastic.py``).
+
+The host data path (IDX parse, normalize, the epoch gather) runs in the
+native C++ library over ``-j`` threads (``data/native.py``);
+``--download`` fetches a missing dataset (``data/download.py``). The CUDA
+kernels and the native library are built into ``--compile-cache`` (by
+default ``build/torch_kernels/``), and every kernel library a run will
+launch is built on a thread while its data stages, unless
+``--no-precompile`` (``utils/compile_cache.py``).
 
 ``--publish delta`` writes each epoch as content-addressed chunks and a
 manifest (``distrib/``); ``--async-checkpoint`` writes checkpoints on a
@@ -50,8 +70,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import random
 import sys
+import traceback
 from contextlib import closing
 from typing import Optional
 
@@ -68,18 +90,19 @@ from pytorch_distributed_mnist_tpu_torch.models import (
     list_models,
     model_accepts,
 )
+from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
 from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
 from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
-    barrier,
-    broadcast_object,
     initialize_distributed,
     process_count,
     process_index,
     teardown,
 )
 from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
+from pytorch_distributed_mnist_tpu_torch.runtime import elastic, supervision
 from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
+    checkpoint_world,
     is_corrupt_checkpoint_error,
     latest_checkpoint,
     quarantine_checkpoint,
@@ -94,16 +117,22 @@ from pytorch_distributed_mnist_tpu_torch.train.state import (
     create_train_state,
 )
 from pytorch_distributed_mnist_tpu_torch.train.trainer import Trainer
-from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
+from pytorch_distributed_mnist_tpu_torch.utils import (
+    compile_cache,
+    debug_nans,
+)
 from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
     StagingLog,
     StepTimer,
+    compile_log,
+    failure_events,
     phase,
     profile_trace,
 )
+from pytorch_distributed_mnist_tpu_torch.utils.watchdog import HARD_EXIT_CODE
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -120,8 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--root", type=str, default="data", help="dataset root dir")
     p.add_argument("-j", "--workers", type=int, default=4,
-                   help="accepted for parity with the JAX package; the port "
-                        "gathers batches on the main thread")
+                   help="threads of the native host data path (normalize, "
+                        "the epoch gather; data/native.py)")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--start-epoch", type=int, default=0)
     p.add_argument("--batch-size", type=int, default=256,
@@ -167,6 +196,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--model vit only")
     p.add_argument("--dataset", type=str, default="mnist",
                    choices=["mnist", "fashion_mnist", "synthetic"])
+    p.add_argument("--download", action="store_true",
+                   help="fetch and verify the dataset's IDX files into "
+                        "--root when absent (the reference's "
+                        "download=True); every process tries, and the "
+                        "outcome is agreed across the world")
     p.add_argument("--allow-synthetic", action="store_true",
                    help="if the real dataset's IDX files are missing, train "
                         "on the labelled synthetic dataset instead of "
@@ -250,6 +284,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run here (one "
                         "Chrome trace per rank, with train/eval/checkpoint "
                         "spans per epoch)")
+    p.add_argument("--elastic", action="store_true",
+                   help="survive a rank's loss by SHRINKING the world: the "
+                        "spawned world runs under the elastic supervisor "
+                        "(runtime/elastic.py); on a PeerFailure the "
+                        "survivors agree the shrunk membership and are "
+                        "started again as a smaller world resumed from the "
+                        "last published checkpoint. Requires --spawn")
+    p.add_argument("--min-world", type=int, default=1, metavar="W",
+                   help="elastic floor: stop shrinking (exit code "
+                        "78) when fewer than W ranks remain (default 1)")
+    p.add_argument("--elastic-grow", action="store_true",
+                   help="at each epoch boundary rank 0 checks the elastic "
+                        "directory for join records; when one is pending "
+                        "the world yields and the supervisor rebuilds it "
+                        "larger, resumed from the last published "
+                        "checkpoint. Requires --elastic")
+    p.add_argument("--max-world", type=int, default=0, metavar="W",
+                   help="elastic ceiling: admit no joiner past W ranks "
+                        "(0, the default: unbounded). Requires --elastic")
+    p.add_argument("--agreement-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="deadline of every agreement between ranks (the "
+                        "checkpoint phases, the dataset vote, the resume): "
+                        "a rank that died outside an agreed phase no "
+                        "longer strands its peers; the watchdog prints a "
+                        "phase report and exits with PeerFailure naming "
+                        "the silent ranks. Default: the "
+                        "TPUMNIST_AGREEMENT_TIMEOUT env var, else 0 = off")
+    p.add_argument("--compile-cache", type=str, default=None, metavar="DIR",
+                   help="build directory of the CUDA kernel libraries and "
+                        "the native host library, reused by later runs. "
+                        "Default: the TPUMNIST_COMPILE_CACHE env var, else "
+                        "<checkout>/build/torch_kernels; an empty string "
+                        "builds into a fresh temporary directory")
+    p.add_argument("--no-precompile", action="store_true",
+                   help="build each kernel library at its first launch: by "
+                        "default every library the run will launch is "
+                        "built on a thread while the first epoch's data "
+                        "stages")
     p.add_argument("--synthetic-train-size", type=int, default=60000)
     p.add_argument("--synthetic-test-size", type=int, default=10000)
     p.add_argument("--device", type=str, default="cuda",
@@ -311,8 +384,68 @@ def _check_grad_accum(args) -> None:
 
 
 def _build_loaders(args, seed: int, axis):
+    supervision.set_phase("data_stage")
+    supervision.maybe_fault("data_stage")
     name = "mnist" if args.dataset == "synthetic" else args.dataset
     synthesize = args.dataset == "synthetic"
+    workers = getattr(args, "workers", 4)
+
+    if getattr(args, "download", False) and not synthesize:
+        # Every process tries the (idempotent, atomically published)
+        # download: right whether the ranks share a filesystem or not.
+        from pytorch_distributed_mnist_tpu_torch.data.download import (
+            download_dataset,
+        )
+
+        try:
+            download_dataset(args.root, name)
+        except supervision.InjectedFault:
+            raise  # the chaos harness's process-local failure
+        except Exception as exc:  # noqa: BLE001 - the vote below decides
+            log0(f"WARNING: download of {name!r} failed: {exc}")
+
+    preloaded = None
+    if not synthesize and process_count() > 1:
+        # Real or synthetic is AGREED across the world: unless every rank
+        # can read the files, every rank takes the same exit (fail
+        # together, or fall back to synthetic together), on the outcome
+        # of the actual load, over the supervision records.
+        def _try_load(train: bool):
+            try:
+                return load_dataset(args.root, name, train=train,
+                                    synthesize_if_missing=False)
+            except Exception as exc:  # noqa: BLE001 - any failure votes
+                split = "train" if train else "test"
+                print(f"process {process_index()}: failed to load {name} "
+                      f"{split} split: {exc!r}", file=sys.stderr, flush=True)
+                return None
+
+        loaded = (_try_load(train=True), _try_load(train=False))
+        ok = all(split is not None for split in loaded)
+        records = supervision.allgather_records(
+            "dataset_load", ok, "" if ok else f"{name} load failed")
+        supervision.raise_if_poisoned(records, "the dataset agreement")
+        n_ok = sum(1 for rec in records if rec.ok)
+        if n_ok == len(records):
+            preloaded = loaded
+        else:
+            if not args.allow_synthetic:
+                hint = ("the download may have failed (see any warning "
+                        "above)" if getattr(args, "download", False) else
+                        "pre-download on every host, or pass --download")
+                exc = SystemExit(
+                    f"{name!r} is not present on every host "
+                    f"({n_ok}/{len(records)} loaded it) — {hint}, or pass "
+                    f"--allow-synthetic to train on labelled fake data, or "
+                    f"--dataset synthetic.")
+                supervision.mark_agreed(exc)  # every rank raises it
+                raise exc
+            log0(f"WARNING: {name!r} is not present on every host "
+                 f"({n_ok}/{len(records)} loaded it); all hosts will use "
+                 f"the synthetic fallback so training data stays "
+                 f"consistent across the job")
+            synthesize = True
+            name = "mnist"
     used_synthetic = synthesize
 
     def load_split(train: bool):
@@ -325,11 +458,14 @@ def _build_loaders(args, seed: int, axis):
             except FileNotFoundError:
                 split = "train" if train else "test"
                 if not args.allow_synthetic:
+                    hint = ("the download may have failed (see the warning "
+                            "above)" if getattr(args, "download", False)
+                            else "pass --download to fetch it")
                     raise SystemExit(
                         f"no {name} {split}-split IDX files under "
-                        f"{args.root!r} — place them there, or pass "
-                        f"--allow-synthetic to train on labelled fake data, "
-                        f"or --dataset synthetic.") from None
+                        f"{args.root!r} — {hint}, or pass --allow-synthetic "
+                        f"to train on labelled fake data, or --dataset "
+                        f"synthetic.") from None
                 log0(f"WARNING: no {name} {split}-split IDX files under "
                      f"{args.root!r}; using the synthetic fallback dataset")
                 used_synthetic = True
@@ -337,55 +473,202 @@ def _build_loaders(args, seed: int, axis):
                             synthetic_train_size=n, synthetic_test_size=n,
                             seed=seed)
 
-    train_images, train_labels = load_split(train=True)
-    test_images, test_labels = load_split(train=False)
+    if preloaded is not None:
+        (train_images, train_labels), (test_images, test_labels) = preloaded
+    else:
+        train_images, train_labels = load_split(train=True)
+        test_images, test_labels = load_split(train=False)
     # Each rank takes its shard of every global batch; eval shards too in
     # a world of more than one (padded and masked, the counts summed).
-    train_loader = MNISTDataLoader(normalize_images(train_images),
-                                   train_labels, batch_size=args.batch_size,
-                                   train=True, num_replicas=axis.size,
-                                   rank=axis.rank, seed=seed)
-    test_loader = MNISTDataLoader(normalize_images(test_images), test_labels,
-                                  batch_size=args.batch_size, train=False,
-                                  num_replicas=axis.size, rank=axis.rank,
-                                  seed=seed, shard=axis.size > 1)
+    train_loader = MNISTDataLoader(
+        normalize_images(train_images, workers=workers), train_labels,
+        batch_size=args.batch_size, train=True, num_replicas=axis.size,
+        rank=axis.rank, seed=seed, workers=workers)
+    test_loader = MNISTDataLoader(
+        normalize_images(test_images, workers=workers), test_labels,
+        batch_size=args.batch_size, train=False, num_replicas=axis.size,
+        rank=axis.rank, seed=seed, shard=axis.size > 1, workers=workers)
     return train_loader, test_loader, used_synthetic
 
 
+def _resolve_resume_auto(args) -> str:
+    """``--resume auto``'s one agreed path ('' = none). Only process 0
+    resolves; its record carries the path (or its error), so every rank
+    resumes from the same checkpoint, or all exit together: ranks resuming
+    at different epochs would run different numbers of collectives."""
+    if process_count() <= 1:
+        return latest_checkpoint(args.checkpoint_dir) or ""
+    detail, err = "", None
+    if process_index() == 0:
+        try:
+            resolved = latest_checkpoint(args.checkpoint_dir) or ""
+            if len(resolved.encode()) > supervision.DETAIL_BYTES:
+                raise ValueError(
+                    f"checkpoint path is {len(resolved.encode())} bytes, "
+                    f"over the {supervision.DETAIL_BYTES}-byte "
+                    f"resume-resolution record; use a shorter "
+                    f"--checkpoint-dir")
+            detail = resolved
+        except Exception as exc:  # noqa: BLE001 - agreed below
+            err = repr(exc)
+    records = supervision.allgather_records(
+        "resume_resolve", err is None, detail if err is None else err)
+    supervision.raise_if_poisoned(records, "resume resolution")
+    leader = records[0]
+    if not leader.ok:
+        exc = SystemExit("--resume auto: resolution failed on process 0: "
+                         + leader.detail)
+        supervision.mark_agreed(exc)  # every rank raises it
+        raise exc
+    return leader.detail
+
+
+def _note_cross_world_resume(resume_path: str) -> None:
+    """A checkpoint saved by another world (an elastic rebuild, or any
+    relaunch at a new size) is said so up front and recorded as a
+    ``checkpoint_reshard`` event labelled ``grow`` or ``shrink``. Whole
+    leaves load in any world; unreadable meta is left to the load."""
+    try:
+        saved = checkpoint_world(resume_path)
+    except Exception:  # noqa: BLE001 - the load classifies the damage
+        return
+    if not saved:
+        return
+    current = {"processes": process_count(), "devices": process_count()}
+    if saved != current:
+        direction = ("grow" if (current["processes"], current["devices"])
+                     > (saved["processes"], saved["devices"]) else "shrink")
+        failure_events.record(
+            "checkpoint_reshard",
+            f"{resume_path}: saved by a {saved['processes']}-process/"
+            f"{saved['devices']}-device world; resharding onto this "
+            f"{current['processes']}-process/{current['devices']}-device "
+            f"world ({direction})", saved=saved, current=current,
+            direction=direction)
+        log0(f"=> checkpoint '{resume_path}' was saved at world "
+             f"{saved['processes']}x{saved['devices']} (processes x "
+             f"devices); resharding onto {current['processes']}x"
+             f"{current['devices']} ({direction})")
+
+
 def _resume(args, state):
-    """``(state, start_epoch, best_acc, path)``. Under ``--resume auto`` a
-    corrupt newest checkpoint is quarantined and the next-older one
-    tried; a mismatch (another model or optimizer) raises. In a world of
-    processes every rank loads the file process 0 resolved: ranks that
-    resumed at different epochs would run different numbers of
-    collectives."""
+    """``(state, start_epoch, best_acc, path)`` under the agreement
+    protocol. The ranks agree the load's OUTCOME, not just the path: all
+    go on at the same epoch, or all exit with the same error. Under
+    ``--resume auto`` a newest checkpoint that is corrupt on every rank
+    is quarantined (process 0 renames it, the outcome agreed) and the
+    next-older one tried; a mismatch (another model or optimizer), or an
+    outcome that differs across ranks, raises."""
+    supervision.set_phase("resume")
+    supervision.maybe_fault("resume")
     auto = args.resume == "auto"
+    multi = process_count() > 1
     while True:
         if auto:
-            path = broadcast_object(latest_checkpoint(args.checkpoint_dir)
-                                    if process_index() == 0 else None)
+            path = _resolve_resume_auto(args)
             if not path:
                 log0(f"=> --resume auto: no checkpoint in "
                      f"'{args.checkpoint_dir}' yet, training fresh")
                 return state, 0, 0.0, ""
         else:
             path = args.resume
-        try:
-            state, start_epoch, best_acc = try_resume(path, state)
-        except Exception as exc:
-            if auto and is_corrupt_checkpoint_error(exc):
-                # Every rank read the same bytes; process 0 moves the file
-                # once all have.
-                barrier()
-                if process_index() == 0:
+        if path and (os.path.isfile(path) or os.path.isdir(path)):
+            _note_cross_world_resume(path)
+        if not (multi and path):
+            try:
+                state, start_epoch, best_acc = try_resume(path, state)
+            except Exception as exc:
+                if auto and is_corrupt_checkpoint_error(exc):
                     dest = quarantine_checkpoint(path)
+                    failure_events.record("checkpoint_quarantined",
+                                          f"{path} -> {dest}: {exc!r}")
                     log0(f"=> quarantined corrupt checkpoint {path!r} -> "
                          f"{dest!r} ({exc!r}); falling back to the "
                          f"next-older epoch")
-                barrier()
+                    continue
+                raise
+            return state, start_epoch, best_acc, path
+
+        err: Optional[BaseException] = None
+        start_epoch, best_acc = 0, 0.0
+        try:
+            state, start_epoch, best_acc = try_resume(path, state)
+            outcome = str(start_epoch)
+        except Exception as exc:  # noqa: BLE001 - agreed below
+            print(f"process {process_index()}: resume from {path!r} "
+                  f"failed: {exc!r}", file=sys.stderr, flush=True)
+            err = exc
+            outcome = (("corrupt:" if is_corrupt_checkpoint_error(exc)
+                        else "error:") + repr(exc))
+        records = supervision.allgather_records("resume_load", err is None,
+                                                outcome)
+        if err is not None:
+            supervision.mark_agreed(err)  # delivered just above
+        supervision.raise_if_poisoned(records, "the resume agreement")
+        epochs = [int(rec.detail) if rec.ok else -1 for rec in records]
+        if all(e == epochs[0] for e in epochs):
+            if err is None:
+                return state, start_epoch, best_acc, path
+            all_corrupt = all(rec.detail.startswith("corrupt:")
+                              for rec in records if not rec.ok)
+            if all_corrupt and auto:
+                qerr: Optional[BaseException] = None
+                dest = ""
+                if process_index() == 0:
+                    try:
+                        dest = quarantine_checkpoint(path)
+                    except Exception as exc:  # noqa: BLE001
+                        qerr = exc
+                failed = supervision.agree("resume_quarantine", qerr)
+                if failed and qerr is None:
+                    raise supervision.PeerFailure(
+                        supervision.peer_failure_message(
+                            failed, f"quarantine of corrupt checkpoint "
+                                    f"{path!r} failed on host(s) "
+                                    f"{[h for h, _, _ in failed]};"),
+                        hosts=[h for h, _, _ in failed],
+                        phase="resume_quarantine", reason=failed[0][2])
+                if qerr is not None:
+                    raise qerr
+                failure_events.record(
+                    "checkpoint_quarantined",
+                    f"{path} -> {dest or '(renamed on process 0)'}: "
+                    f"{err!r}")
+                log0(f"=> quarantined corrupt checkpoint {path!r} "
+                     f"({err!r}); falling back to the next-older epoch")
                 continue
-            raise
-        return state, start_epoch, best_acc, path
+            raise err  # the same on every rank (agreed above)
+        exc = SystemExit(
+            f"resume outcome diverged across hosts for {path!r}: start "
+            f"epochs {epochs} (-1 = load failed). A rank resuming at "
+            f"another epoch runs other collectives: check that "
+            f"--checkpoint-dir is one filesystem for every rank and the "
+            f"checkpoint is intact on every one.")
+        supervision.mark_agreed(exc)  # every rank raises it
+        raise exc
+
+
+def _run_kernels(args) -> list:
+    """The CUDA kernel libraries (``ops/cuda_build.py``) a run with these
+    flags launches: what the precompile builds."""
+    names = []
+    if args.loss == "fused":
+        names.append("xent")
+    if args.optimizer == "adam_pallas":
+        names.append("adam")
+    if args.attention == "flash" and model_accepts(args.model,
+                                                   "attention_fn"):
+        from pytorch_distributed_mnist_tpu_torch.ops.flash import (
+            FUSED_MAX_T,
+        )
+
+        if args.dtype == "f32":
+            names.append("flash_tf32")
+        else:
+            tokens = (28 // args.patch_size) ** 2
+            names += ["flash_fwd", "flash_bwd" if tokens <= FUSED_MAX_T
+                      else "flash_bwd_tiled"]
+    return names
 
 
 def run(args, epoch_callback=None) -> dict:
@@ -394,7 +677,15 @@ def run(args, epoch_callback=None) -> dict:
     after each epoch's checkpoint, on every rank; True stops the loop.
     The rendezvous, when the flags or the environment ask for one, comes
     before the model is built, and the process group it made is
-    destroyed on every exit."""
+    destroyed on every exit.
+
+    The body runs under the agreed-exit protocol
+    (``runtime/supervision.py``): any failure on this rank is reported
+    (stderr and ``failure_events``, with its phase), then writes its
+    survivor record when it is an elastic worker unwinding on a
+    peer's failure, then delivers a poison pill to the peers' next
+    agreement, then arms the exit escalation of a peer failure (exit 75),
+    and re-raises."""
     if args.epoch_gather == "device" and args.trainer_mode != "scan":
         raise SystemExit(
             "--epoch-gather device requires --trainer-mode scan (the "
@@ -414,6 +705,16 @@ def run(args, epoch_callback=None) -> dict:
     try:
         with debug_nans.enabled_for(args.debug_nans):
             return _run_in_world(args, model_kwargs, device, epoch_callback)
+    except BaseException as exc:
+        if not (isinstance(exc, SystemExit)
+                and exc.code in (0, None, elastic.EXIT_GROW)):
+            supervision.report_failure(exc)
+        # The survivor record first (local file IO), before a pill that
+        # may wait its whole bound on a dead transport.
+        elastic.write_survivor_record(exc)
+        supervision.deliver_poison(exc)
+        supervision.escalate_exit(exc)
+        raise
     finally:
         teardown()
 
@@ -421,7 +722,22 @@ def run(args, epoch_callback=None) -> dict:
 def _run_in_world(args, model_kwargs: dict, device: torch.device,
                   epoch_callback) -> dict:
     """:func:`run` once this process is in its world."""
+    build_dir = compile_cache.configure(getattr(args, "compile_cache", None))
+    compile_log.reset()
+    agreement_timeout = supervision.configure(
+        getattr(args, "agreement_timeout", None))
+    failure_events.reset()
+    # Attached right after the reset, so even resume-time events (a
+    # quarantine) reach the stream.
+    sink = (JsonlSink(args.metrics_file)
+            if args.metrics_file and process_index() == 0 else None)
+    if sink is not None:
+        failure_events.set_sink(sink, source="train")
+    elastic.note_rebuilt_world()
     log0(args)
+    log0(f"build directory: {build_dir}")
+    if agreement_timeout:
+        log0(f"agreement watchdog: {agreement_timeout:g}s deadline")
     seed = args.seed if args.seed is not None else 0
     if args.seed is not None:
         random.seed(args.seed)
@@ -440,6 +756,12 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
             f"--grad-accum {args.grad_accum} must divide the per-process "
             f"batch ({local_batch}: --batch-size {args.batch_size} over "
             f"{axis.size} processes)")
+    # Every kernel library the run will launch builds on a thread while
+    # the data stages (-e runs one pass: nothing to overlap).
+    precompile = None
+    if (device.type == "cuda" and not args.evaluate
+            and not getattr(args, "no_precompile", False)):
+        precompile = cuda_build.Precompile(_run_kernels(args))
     set_loss_impl(args.loss)
     state = create_train_state(
         get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
@@ -450,6 +772,8 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         # A resumed checkpoint's epoch wins over --start-epoch.
         start_epoch = args.start_epoch
     train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
+    if precompile is not None:
+        precompile.join()
     trainer = Trainer(state, train_loader, test_loader, device,
                       mode=args.trainer_mode, epoch_gather=args.epoch_gather,
                       staging_log=StagingLog(), axis=axis,
@@ -457,29 +781,37 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
                       feed_window=args.feed_window)
     # closing(trainer) joins an in-flight epoch prefetch on every exit.
     with closing(trainer):
-        return _train_or_evaluate(args, trainer, start_epoch, best_acc,
-                                  synthesized, epoch_callback)
+        summary = _train_or_evaluate(args, trainer, start_epoch, best_acc,
+                                     synthesized, epoch_callback, sink)
+    stats = compile_log.stats()
+    for name, rec in stats["builds"].items():
+        log0(f"build[{name}]: {rec['built']} built "
+             f"({rec['seconds']:.1f} s), {rec['reused']} reused")
+    events = failure_events.snapshot()
+    for ev in events:
+        log0(f"supervision[{ev['kind']}]: {ev['detail']}")
+    return {**summary, "compile_stats": stats, "failure_events": events}
 
 
 def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
-                       synthesized: bool, epoch_callback) -> dict:
+                       synthesized: bool, epoch_callback, sink) -> dict:
     """The epoch loop of :func:`run` (or, with ``-e``, one eval pass)."""
     train_loader = trainer.train_loader
     lr_of = step_decay_schedule(args.lr)
     if args.evaluate:
+        supervision.set_phase("eval")
         test_loss, test_acc = trainer.evaluate()
         log0(f"Test Loss: {test_loss}, Test Acc: {test_acc}")
         return {"test_loss": test_loss.average,
                 "test_acc": test_acc.accuracy, "best_acc": best_acc,
                 "start_epoch": start_epoch, "epochs_run": 0}
 
-    sink = (JsonlSink(args.metrics_file)
-            if args.metrics_file and process_index() == 0 else None)
     timer = StepTimer()
     history = []
     # The saver as a context: a clean exit waits for the last write and
     # raises its error; an exception still lands the write in flight.
     saver = AsyncCheckpointer() if args.async_checkpoint else None
+    grow_joiners = None
     with profile_trace(args.profile_dir,
                        cuda=trainer.device.type == "cuda"), \
             (saver if saver is not None else contextlib.nullcontext()):
@@ -492,9 +824,11 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             # The pass reads its metrics back before it returns, so the
             # timed span holds all of the epoch's device work and nothing
             # else.
+            supervision.set_phase(f"train@{epoch}")
             with timer.measure(len(train_loader) * args.batch_size), \
                     phase("train", epoch=epoch):
                 train_loss, train_acc = trainer.train()
+            supervision.set_phase(f"eval@{epoch}")
             with phase("eval", epoch=epoch):
                 test_loss, test_acc = trainer.evaluate()
             synth_tag = ", dataset: synthetic" if synthesized else ""
@@ -504,6 +838,7 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
                  f"{synth_tag}")
             is_best = test_acc.accuracy > best_acc
             best_acc = max(test_acc.accuracy, best_acc)
+            supervision.set_phase(f"checkpoint@{epoch}")
             ckpt_kwargs = dict(
                 epoch=epoch, best_acc=best_acc, is_best=is_best,
                 directory=args.checkpoint_dir, keep_last=args.keep_last,
@@ -533,6 +868,17 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             if epoch_callback is not None and \
                     epoch_callback(epoch, history[-1]):
                 break
+            if epoch + 1 < args.epochs:
+                # The elastic grow rendezvous (a no-op outside an
+                # --elastic-grow supervisor). On a yes, break: the saver's
+                # clean exit publishes this epoch first, and only then
+                # does the world yield.
+                grow_joiners = elastic.maybe_grow_rendezvous()
+                if grow_joiners:
+                    break
+    if grow_joiners:
+        elastic.yield_for_grow(grow_joiners)
+    supervision.set_phase("shutdown")
     ips = timer.images_per_sec
     # The reference's line; one device per process.
     per_chip = ips / trainer.axis.size
@@ -546,10 +892,20 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             "staging": trainer.staging_log.summary()}
 
 
+def _settle_seconds(args) -> float:
+    """How long a spawned world's survivors get to exit on their own once
+    a rank failed: the agreement deadline, the poison pill's bound and
+    the exit escalation's grace when a deadline is set, else none."""
+    timeout = supervision.resolve_timeout(
+        getattr(args, "agreement_timeout", None))
+    return 2 * timeout + 15.0 if timeout > 0 else 0.0
+
+
 def _spawn(args, argv: list) -> int:
     """``--spawn N``: the JAX CLI's refusals, then one card per rank on the
     card (never two NCCL ranks on one card, and never a rank moved to the
-    CPU unasked), then the local world; returns its exit code."""
+    CPU unasked), then the local world, under the elastic supervisor with
+    ``--elastic``; returns its exit code."""
     if args.spawn < 2:
         raise SystemExit(
             f"--spawn {args.spawn}: the local spawner simulates a "
@@ -569,11 +925,45 @@ def _spawn(args, argv: list) -> int:
                   f"--device cpu runs a gloo world on the CPU",
                   file=sys.stderr)
             return 2
+    if args.elastic:
+        # A rank's loss shrinks the world (the survivors start again as a
+        # smaller one, resumed from the last published checkpoint)
+        # instead of ending it; with --elastic-grow, joiners grow it.
+        return elastic.supervise(
+            args.spawn, argv, min_world=args.min_world,
+            max_world=args.max_world, grow=args.elastic_grow,
+            device=args.device)
     from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
         spawn_local,
     )
 
-    return spawn_local(args.spawn, argv, device=args.device)
+    return spawn_local(args.spawn, argv, device=args.device,
+                       settle=_settle_seconds(args))
+
+
+def _check_elastic_flags(args) -> None:
+    """The JAX CLI's refusals of the elastic flags."""
+    if args.elastic and not args.spawn:
+        raise SystemExit(
+            "--elastic supervises the worker processes it spawns, so it "
+            "requires --spawn N (the local world). On a cluster the "
+            "restart actor is the cluster manager — "
+            "runtime/elastic.py::supervise is the reference "
+            "implementation to integrate there.")
+    if args.min_world < 1:
+        raise SystemExit(f"--min-world must be >= 1, got {args.min_world}")
+    if args.elastic and args.min_world > args.spawn:
+        raise SystemExit(f"--min-world {args.min_world} exceeds the initial "
+                         f"world size --spawn {args.spawn}")
+    if (args.elastic_grow or args.max_world) and not args.elastic:
+        raise SystemExit(
+            "--elastic-grow/--max-world shape the elastic supervisor's "
+            "grow direction; they require --elastic (and --spawn N)")
+    if args.max_world < 0 or (args.elastic and args.max_world
+                              and args.max_world < args.spawn):
+        raise SystemExit(f"--max-world {args.max_world} is below the "
+                         f"initial world size --spawn {args.spawn} (0 = "
+                         f"unbounded)")
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -586,6 +976,16 @@ def main(argv: Optional[list] = None) -> None:
         serve_main(argv[1:])
         return
     args = build_parser().parse_args(argv)
+    _check_elastic_flags(args)
     if args.spawn:
         raise SystemExit(_spawn(args, argv))
-    run(args)
+    try:
+        run(args)
+    except BaseException as exc:
+        if not getattr(exc, "_escalated", False):
+            raise
+        # Dying on a peer's failure: the watchdog's exit code, with the
+        # error printed as an uncaught one would be.
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise SystemExit(HARD_EXIT_CODE) from None

@@ -14,6 +14,12 @@ takes ``batch_size / num_replicas`` rows a step (``local_batch_size``),
 from its disjoint sampler shard. The train loader shards by default; the
 eval loader shards when asked (``shard=True``, the CLI's choice in a world
 of more than one), its wrap padding masked so every example counts once.
+
+``stacked_epoch``'s gather runs in the native C++ library over
+``workers`` threads (``data/native.py``, the CLI's ``-j``), into the
+caller's pinned buffers when given; NumPy runs it only under
+``TPUMNIST_NATIVE=0`` or for images that are not float32. Both give the
+same bits.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class MNISTDataLoader:
         seed: int = 0,
         shard: Optional[bool] = None,
         drop_last: Optional[bool] = None,
+        workers: int = 4,
     ) -> None:
         if batch_size % num_replicas != 0:
             raise ValueError(
@@ -51,6 +58,8 @@ class MNISTDataLoader:
             )
         self.images = images
         self.labels = np.asarray(labels, np.int64)  # torch's index type
+        self.workers = workers
+        self._labels32: Optional[np.ndarray] = None  # the native gather's
         self.global_batch_size = batch_size
         self.local_batch_size = batch_size // num_replicas
         self.train = train
@@ -103,8 +112,24 @@ class MNISTDataLoader:
         next epoch while this one trains. ``out`` (arrays of those shapes
         and dtypes, such as pinned host buffers) receives the gather and
         is returned."""
+        from pytorch_distributed_mnist_tpu_torch.data import native
+
         m, mask = self.epoch_ticks(epoch)
         flat = m.reshape(-1)
+        if native.enabled() and self.images.dtype == np.float32:
+            if self._labels32 is None:
+                self._labels32 = self.labels.astype(np.int32)
+            labels = np.empty(m.shape, np.int32)
+            images = None if out is None else out["image"]
+            images, labels = native.gather_epoch(
+                self.images, self._labels32, m, self.workers,
+                out_images=images, out_labels=labels)
+            if out is None:
+                return {"image": images, "label": labels.astype(np.int64),
+                        "mask": mask}
+            out["label"][...] = labels
+            out["mask"][...] = mask
+            return out
         if out is None:
             return {"image": self.images[flat].reshape(
                         m.shape + self.images.shape[1:]),

@@ -1,11 +1,16 @@
 """MNIST-family dataset IO: the IDX format, the reference normalize, a
 deterministic synthetic dataset and ``load_dataset`` over ``--root``.
 
-Counterpart of ``pytorch_distributed_mnist_tpu/data/mnist.py`` (the
-pure-NumPy paths; the port has no native loader). ``normalize_images`` is
-the reference transform ``ToTensor`` + ``Normalize((0.1307,), (0.3081,))``
-as one float32 NumPy expression; the serving plane's on-device normalize
+Counterpart of ``pytorch_distributed_mnist_tpu/data/mnist.py``.
+``parse_idx`` and ``normalize_images`` run in the native C++ library
+(``data/native.py``) unless ``TPUMNIST_NATIVE=0`` asks for NumPy, or the
+input is one the C entry point does not take (an IDX payload other than
+uint8); both paths give the same bits. ``normalize_images`` is the
+reference transform ``ToTensor`` + ``Normalize((0.1307,), (0.3081,))`` in
+float32; the serving plane's on-device normalize
 (``serve/programs.py::fused_normalize``) is bitwise equal to it.
+``load_dataset(download=True)`` fetches a missing dataset
+(``data/download.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +36,14 @@ _IDX_DTYPES = {
 
 
 def parse_idx(path: str) -> np.ndarray:
-    """Parse an IDX file (the MNIST on-disk format), gunzipping ``.gz``."""
+    """Parse an IDX file (the MNIST on-disk format), gunzipping ``.gz``:
+    the native reader for uint8 payloads, NumPy for the other dtypes (and
+    for a file the native reader refuses, which NumPy then reports)."""
+    from pytorch_distributed_mnist_tpu_torch.data import native
+
+    got = native.parse_idx(path)
+    if got is not None:
+        return got
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         data = f.read()
@@ -120,12 +132,35 @@ def load_dataset(root: str, name: str = "mnist", train: bool = True,
                  synthesize_if_missing: bool = True,
                  synthetic_train_size: int = 60000,
                  synthetic_test_size: int = 10000,
-                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+                 seed: int = 0,
+                 download: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """``(images u8 (N, 28, 28), labels u8)`` from the split's IDX files
     under ``root`` (plain or ``.gz``), else the synthetic dataset (train
     and test drawn from disjoint seeds), else ``FileNotFoundError``. Real
-    files always win. There is no download: nothing is fetched."""
+    files always win. ``download=True`` fetches and verifies a missing
+    split's files from the public mirrors first (the reference's
+    ``datasets.MNIST(..., download=True)``); a failed download is warned
+    about and falls through to the missing-file policy, except an injected
+    fault (the chaos harness's), which propagates."""
     d = dataset_dir(root, name)
+    split_incomplete = not all(
+        any(os.path.isfile(os.path.join(d, f + sfx)) for sfx in ("", ".gz"))
+        for f in _FILES[train])
+    if download and split_incomplete:
+        from pytorch_distributed_mnist_tpu_torch.data.download import (
+            download_dataset,
+        )
+        from pytorch_distributed_mnist_tpu_torch.runtime.supervision import (
+            InjectedFault,
+        )
+
+        try:
+            download_dataset(root, name)
+        except InjectedFault:
+            raise
+        except Exception as exc:  # noqa: BLE001 - the missing-file policy
+            print(f"WARNING: download of {name!r} failed: {exc!r}")
+        d = dataset_dir(root, name)
     img_name, lbl_name = _FILES[train]
     for suffix in ("", ".gz"):
         ip = os.path.join(d, img_name + suffix)
@@ -144,8 +179,14 @@ def load_dataset(root: str, name: str = "mnist", train: bool = True,
     return synthetic_dataset(n, seed=seed + (0 if train else 1_000_003))
 
 
-def normalize_images(images: np.ndarray) -> np.ndarray:
-    """uint8 (N,28,28) -> float32 (N,28,28,1), reference transform."""
+def normalize_images(images: np.ndarray, workers: int = 4) -> np.ndarray:
+    """uint8 (N,28,28) -> float32 (N,28,28,1), reference transform: the
+    native kernel over ``workers`` threads for uint8 input, else NumPy."""
+    from pytorch_distributed_mnist_tpu_torch.data import native
+
+    got = native.normalize_images(images, MNIST_MEAN, MNIST_STD, workers)
+    if got is not None:
+        return got
     x = images.astype(np.float32) / 255.0
     x = (x - MNIST_MEAN) / MNIST_STD
     return x[..., None]

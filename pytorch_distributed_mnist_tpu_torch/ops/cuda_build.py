@@ -13,7 +13,12 @@ No PyTorch header is compiled: a build takes seconds, not minutes.
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``. :func:`build` starts one ``nvcc`` per source, all at
 once, so a caller that needs several kernels (``chip_smoke.py``) pays for
-the slowest build only.
+the slowest build only; :class:`Precompile` runs it on a thread, so the
+CLI builds what a run will launch while its data stages. Every build, or
+reuse of a library already in the directory, is recorded in
+``utils/profiling.py``'s ``compile_log``. ``--compile-cache`` and
+``TPUMNIST_COMPILE_CACHE`` move ``BUILD_ROOT``
+(``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -158,6 +163,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     library yet, one ``nvcc`` process per source, all started together.
     Returns :data:`build_info` for those names; raises with nvcc's output
     when any build fails."""
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        compile_log,
+    )
+
     names = list(KERNELS if names is None else names)
     with _lock:
         running = {}
@@ -165,6 +174,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             target = library_path(name)
             if os.path.isfile(target):
                 build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+                compile_log.record_build(name, 0.0, built=False)
                 continue
             os.makedirs(os.path.dirname(target), exist_ok=True)
             tmp = f"{target}.tmp{os.getpid()}"
@@ -181,9 +191,34 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                 continue
             os.replace(tmp, target)  # atomic: a reader never sees half a file
             build_info[name] = {"seconds": seconds, "log": log}
+            compile_log.record_build(name, seconds, built=True)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {name: build_info[name] for name in names}
+
+
+class Precompile:
+    """:func:`build` of ``names`` on a thread, started at once; ``join``
+    waits for it and raises its error. A kernel's first :func:`load`
+    waits on the build lock meanwhile, then finds the library built."""
+
+    def __init__(self, names: Iterable[str]) -> None:
+        self.names = list(names)
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="kernel-precompile")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            build(self.names)
+        except BaseException as exc:  # raised by join()
+            self.error = exc
+
+    def join(self) -> None:
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
 
 
 def load(name: str) -> ctypes.CDLL:

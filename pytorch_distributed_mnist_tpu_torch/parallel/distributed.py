@@ -17,6 +17,12 @@ with NCCL for a rank on the card and gloo for a rank on the CPU.
 Every topology read goes through :func:`process_index` and
 :func:`process_count`, so shard arithmetic can be tested with
 monkeypatched values.
+
+A world of more than one process also gets a second group at the
+rendezvous, over gloo whatever the device (:func:`host_group`): the run
+supervision's records travel there (``runtime/supervision.py``), so that
+under NCCL an exchange of records needs no card and never queues behind
+the train step's collectives.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 _init_info: dict = {}
+_host_group = None  # the gloo group of the supervision records
 
 # (size, rank) variable pairs of the launchers the environment detection
 # reads, in order of precedence: torchrun and the like, Slurm, Open MPI,
@@ -122,6 +129,11 @@ def initialize_distributed(coordinator: Optional[str] = None,
         backend, init_method=f"tcp://{coordinator}",
         world_size=num_processes, rank=process_id,
         device_id=device if device.type == "cuda" else None)
+    global _host_group
+    # Every rank makes the group here, in the same order, as new_group
+    # requires; a world of one exchanges no records.
+    _host_group = (dist.new_group(backend="gloo") if num_processes > 1
+                   else None)
     _init_info.clear()
     _init_info.update(mode=mode, coordinator=coordinator, backend=backend,
                       device=str(device), initialized_at=time.time())
@@ -131,9 +143,11 @@ def teardown() -> None:
     """Destroy the process group this module created, if any (the CLI
     calls it on every exit of ``run``); a group made by someone else is
     left alone."""
+    global _host_group
     if dist.is_initialized() and _init_info.get("mode") in ("explicit",
                                                             "auto"):
-        dist.destroy_process_group()
+        dist.destroy_process_group()  # the host group with it
+        _host_group = None
     _init_info.clear()
 
 
@@ -152,21 +166,10 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def barrier() -> None:
-    """Wait until every rank gets here; nothing without a process group."""
-    if dist.is_initialized():
-        dist.barrier()
-
-
-def broadcast_object(obj):
-    """Rank 0's ``obj`` on every rank (a picklable value, such as the
-    checkpoint path ``--resume auto`` resolved); ``obj`` itself without a
-    process group."""
-    if not dist.is_initialized():
-        return obj
-    box = [obj]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
+def host_group():
+    """The gloo group of this world's supervision records (made at the
+    rendezvous of a world of more than one), else None."""
+    return _host_group
 
 
 def runtime_info() -> dict:

@@ -14,9 +14,14 @@ the reference's ``run_spawn(proc_id)``). One process drives one device:
   gloo.
 
 Rank 0's output streams live; the other ranks write to temp files that
-are replayed when a rank fails. When a rank fails, the others are
-stopped, so no rank waits in a collective for a peer that is gone. The
-return code is the first non-zero one, a signal's as the shell's 128+N.
+are replayed when a rank fails. When a rank fails, the others get
+``settle`` seconds to exit on their own (under the run supervision,
+``runtime/supervision.py``, a survivor unwinds with ``PeerFailure`` and
+exits 75), then are stopped, so no rank waits in a collective for a peer
+that is gone. The CLI gives them the agreement deadline plus the poison
+pill's bound when ``--agreement-timeout`` is set, else none. The return
+code is the first non-zero one, a signal's as the shell's 128+N;
+:func:`run_local` returns every rank's.
 """
 
 from __future__ import annotations
@@ -87,10 +92,21 @@ def _exit_code(rc: int) -> int:
 
 
 def spawn_local(nprocs: int, argv: Sequence[str], device: str = "cuda", *,
-                timeout: Optional[float] = None) -> int:
+                timeout: Optional[float] = None, settle: float = 0.0) -> int:
     """Run ``nprocs`` local processes of the CLI with ``argv`` (``--spawn``
     and ``--device`` removed; each rank gets its own device and the
     rendezvous flags); return 0, or the first failed rank's exit code."""
+    first_bad = run_local(nprocs, argv, device, timeout=timeout,
+                          settle=settle)["first_bad"]
+    return 0 if first_bad is None else _exit_code(first_bad)
+
+
+def run_local(nprocs: int, argv: Sequence[str], device: str = "cuda", *,
+              timeout: Optional[float] = None, settle: float = 0.0) -> dict:
+    """:func:`spawn_local`'s world; returns ``{"returncodes": [each
+    rank's, negative for a signal], "first_bad": the first failure's or
+    None, "stopped": [ranks stopped after the settle period]}``. Raises
+    ``subprocess.TimeoutExpired`` past ``timeout``."""
     if nprocs < 2:
         raise ValueError(f"--spawn needs >= 2 processes, got {nprocs}")
     child_argv = strip_flags(argv, {"--spawn": 1, "--device": 1})
@@ -115,13 +131,15 @@ def spawn_local(nprocs: int, argv: Sequence[str], device: str = "cuda", *,
                     cmd, env=env, stdout=log, stderr=subprocess.STDOUT))
             logs.append(log)
         deadline = None if timeout is None else time.monotonic() + timeout
-        first_bad = None
+        first_bad, settle_end = None, None
         while None in [p.poll() for p in procs]:  # polls every rank
             bad = [p.returncode for p in procs
                    if p.returncode not in (None, 0)]
-            if bad:
+            if bad and first_bad is None:
                 first_bad = bad[0]
-                break  # a rank failed: its peers would wait for it
+                settle_end = time.monotonic() + settle
+            if settle_end is not None and time.monotonic() >= settle_end:
+                break  # its peers would wait for it: stop them
             if deadline is not None and time.monotonic() > deadline:
                 raise subprocess.TimeoutExpired(cmd, timeout)
             time.sleep(POLL_S)
@@ -129,18 +147,23 @@ def spawn_local(nprocs: int, argv: Sequence[str], device: str = "cuda", *,
             first_bad = next((p.returncode for p in procs
                               if p.returncode != 0), None)
     finally:
+        stopped = [r for r, p in enumerate(procs) if p.poll() is None]
         for p in procs:
             if p.poll() is None:
                 p.kill()
         for p in procs:
             p.wait()
         for rank, (p, log) in enumerate(zip(procs, logs)):
-            if log is None:
-                continue
             if p.returncode != 0:
-                log.seek(0)
-                tail = log.read()[-4000:]
+                tail = ""
+                if log is not None:
+                    log.seek(0)
+                    tail = log.read()[-4000:]
                 print(f"--- spawned process {rank} failed "
-                      f"(rc={p.returncode}) ---\n{tail}", file=sys.stderr)
-            log.close()
-    return 0 if first_bad is None else _exit_code(first_bad)
+                      f"(rc={p.returncode}"
+                      f"{', stopped' if rank in stopped else ''}) ---\n"
+                      f"{tail}", file=sys.stderr)
+            if log is not None:
+                log.close()
+    return {"returncodes": [p.returncode for p in procs],
+            "first_bad": first_bad, "stopped": stopped}

@@ -26,7 +26,11 @@ The fused plane (the server's default) takes raw uint8 requests: the
 normalize and, on ``int8``, the activation quantization run on the device
 (``serve/programs.py``), so the host's work is one byte copy. Float
 (already normalized) input takes the split plane: normalize and
-quantization on the host, as in the reference.
+quantization on the host, as in the reference. The split plane's host
+work (the float64 cast, the normalize, the int8 quantize and the float32
+pad into the staging buffer) runs in the native C++ library over
+``workers`` threads (the server's ``-j``, ``data/native.py``), bitwise
+equal to the NumPy expressions that ``TPUMNIST_NATIVE=0`` runs.
 """
 
 from __future__ import annotations
@@ -89,24 +93,36 @@ class StagingPool:
 
 
 def stage_batch(images: np.ndarray, bucket: int, staging: StagingPool,
-                buffers: List) -> torch.Tensor:
+                buffers: List, workers: int = 4) -> torch.Tensor:
     """Copy one chunk into a staging buffer of its bucket, pad rows zero,
-    and append the buffer to ``buffers`` (pinned until completion)."""
+    and append the buffer to ``buffers`` (pinned until completion). A
+    float32 chunk fills through the native pad over ``workers`` threads;
+    int8 and uint8 chunks (a quarter of the bytes) fill through NumPy."""
+    from pytorch_distributed_mnist_tpu_torch.data import native
+
     n = images.shape[0]
     buf = staging.acquire(bucket)
     view = buf.numpy()
-    view[:n] = images
-    if n < bucket:
-        view[n:] = 0
+    filled = (images.dtype == np.float32 and view.dtype == np.float32
+              and images.flags["C_CONTIGUOUS"]
+              and native.pad_into(view, images, workers=workers))
+    if not filled:
+        view[:n] = images
+        if n < bucket:
+            view[n:] = 0
     buffers.append((bucket, buf))
     return buf
 
 
-def preprocess_images(images, input_shape: Tuple[int, ...]) -> np.ndarray:
+def preprocess_images(images, input_shape: Tuple[int, ...],
+                      workers: int = 4) -> np.ndarray:
     """Raw request pixels -> the float32 normalized layout: uint8 ``(N, 28,
-    28)`` raw images are normalized with ``normalize_images``; float32
-    ``(N,) + input_shape`` arrays pass as already normalized. A single
-    example may drop its leading axis either way."""
+    28)`` raw images are normalized with ``normalize_images``; float
+    ``(N,) + input_shape`` arrays pass as already normalized (float64 cast
+    by the native kernel). A single example may drop its leading axis
+    either way."""
+    from pytorch_distributed_mnist_tpu_torch.data import native
+
     arr = np.asarray(images)
     if arr.size == 0:
         raise ValueError("at least one image required")
@@ -115,9 +131,12 @@ def preprocess_images(images, input_shape: Tuple[int, ...]) -> np.ndarray:
         if arr.shape == raw_shape:
             arr = arr[None]
         if arr.ndim == len(raw_shape) + 1 and arr.shape[1:] == raw_shape:
-            return normalize_images(arr)
+            return normalize_images(arr, workers=workers)
     elif np.issubdtype(arr.dtype, np.floating):
-        arr = arr.astype(np.float32, copy=False)
+        cast = native.cast_f32(arr, workers=workers) \
+            if arr.dtype == np.float64 else None
+        arr = cast if cast is not None \
+            else arr.astype(np.float32, copy=False)
         if arr.shape == input_shape:
             arr = arr[None]
         if arr.ndim == len(input_shape) + 1 \
@@ -196,6 +215,7 @@ class InferenceEngine:
         precision: Optional[str] = None,
         fuse: bool = False,
         device="cuda",
+        workers: int = 4,
     ) -> None:
         buckets = sorted({int(b) for b in buckets})
         if not buckets or buckets[0] < 1:
@@ -205,6 +225,7 @@ class InferenceEngine:
         self.raw_shape = self.input_shape[:-1]
         self.serve_log = serve_log
         self.name = name
+        self.workers = int(workers)  # the split plane's host threads
         self.warmup_log = WarmupLog()
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
@@ -320,7 +341,7 @@ class InferenceEngine:
             raw = as_raw_images(images, self.input_shape)
             if raw is not None:
                 return raw
-        return preprocess_images(images, self.input_shape)
+        return preprocess_images(images, self.input_shape, self.workers)
 
     def staging_allocated(self) -> dict:
         return {"split": self._staging.allocated(),
@@ -343,7 +364,8 @@ class InferenceEngine:
                     chunk = x[start:start + self.max_batch]
                     n = chunk.shape[0]
                     bucket = self.bucket_for(n)
-                    staged = stage_batch(chunk, bucket, pool, buffers)
+                    staged = stage_batch(chunk, bucket, pool, buffers,
+                                         self.workers)
                     dev_in = staged.to(self.device, non_blocking=True)
                     out = forward(params, dev_in)
                     if self._cuda:
@@ -373,8 +395,8 @@ class InferenceEngine:
             raw = as_raw_images(images, self.input_shape)
             if raw is not None:
                 return self._dispatch(raw, fused=True)
-        x = preprocess_images(images, self.input_shape)
-        x = self._precision_spec.stage_host(x)
+        x = preprocess_images(images, self.input_shape, self.workers)
+        x = self._precision_spec.stage_host(x, self.workers)
         return self._dispatch(x, fused=False)
 
     def complete(self, inflight: _InFlightBatch) \

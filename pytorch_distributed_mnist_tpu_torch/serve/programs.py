@@ -15,7 +15,9 @@ plane also runs its Dense layers through the int8 matmul kernel).
 The fused plane (the default) takes the raw staged uint8 bytes:
 :func:`fused_normalize` and, on ``int8``, :func:`quant_i8_traced` run on
 the device and are bitwise equal to their host twins
-(``data/mnist.py::normalize_images`` and :func:`_quant_i8_host`). Every
+(``data/mnist.py::normalize_images`` and :func:`_quant_i8_host`, both
+run by the native C++ library over the server's ``-j`` threads and equal
+to their NumPy expressions bit for bit, ``data/native.py``). Every
 divide that must match the host's IEEE divide divides by a tensor on the
 same device: on the card, dividing by a Python number becomes a multiply
 by its reciprocal, which can differ in the last bit.
@@ -78,12 +80,19 @@ ACT_SCALE = _act_scale()
 _INV_ACT_SCALE = float(np.float32(1.0) / ACT_SCALE)
 
 
-def _quant_i8_host(x: np.ndarray, scale: np.float32) -> np.ndarray:
+def _quant_i8_host(x: np.ndarray, scale: np.float32,
+                   workers: int = 4) -> np.ndarray:
     """The host-side float32 -> int8 quantizer (weight leaves and the split
     plane's activation staging): multiply by the float32 reciprocal (never
     a division: the two round differently), round half to even, NaN -> 0,
-    clip to +-127."""
+    clip to +-127. The native kernel over ``workers`` threads, else (under
+    ``TPUMNIST_NATIVE=0``) the same NumPy expression."""
+    from pytorch_distributed_mnist_tpu_torch.data import native
+
     x = np.ascontiguousarray(x, np.float32)
+    q = native.quant_i8(x, float(scale), workers=workers)
+    if q is not None:
+        return q
     inv = np.float32(1.0) / scale
     scaled = np.rint(x * inv)
     scaled = np.where(np.isnan(scaled), np.float32(0.0), scaled)
@@ -151,7 +160,7 @@ class ServePrecision:
     - ``wrap_fused_forward(forward)`` — raw uint8 -> logits: normalize
       (and quantize activations on ``int8``) on the device, then the SAME
       ``wrap_forward`` transform.
-    - ``stage_host(images)`` — the split plane's host-side activation
+    - ``stage_host(images, workers)`` — the split plane's host-side activation
       transform before staging (``int8``: quantize with :data:`ACT_SCALE`).
 
     ``f32`` is the identity on every hook."""
@@ -224,10 +233,11 @@ class ServePrecision:
 
         return fused_forward
 
-    def stage_host(self, images: np.ndarray) -> np.ndarray:
+    def stage_host(self, images: np.ndarray,
+                   workers: int = 4) -> np.ndarray:
         if not self.int8_activations:
             return images
-        return _quant_i8_host(images, ACT_SCALE)
+        return _quant_i8_host(images, ACT_SCALE, workers)
 
 
 _PRECISIONS: Dict[str, ServePrecision] = {}

@@ -190,10 +190,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="fresh-param seed when no checkpoint exists")
     p.add_argument("-j", "--workers", type=int, default=4,
-                   help="threads that quantize a delta install's dirty "
-                        "leaves (the JAX package's flag also sizes a native "
-                        "preprocessing backend, which the port does not "
-                        "have)")
+                   help="host threads of the split plane's native staging "
+                        "(the float64 cast, normalize, int8 quantize and "
+                        "pad, data/native.py) and of a delta install's "
+                        "leaf quantize")
+    p.add_argument("--compile-cache", type=str, default=None, metavar="DIR",
+                   help="build directory of the CUDA kernel libraries and "
+                        "the native host library, reused across runs. "
+                        "Default: the TPUMNIST_COMPILE_CACHE env var, else "
+                        "<checkout>/build/torch_kernels; an empty string "
+                        "builds into a fresh temporary directory")
     return p
 
 
@@ -712,11 +718,16 @@ def create_server(args) -> ThreadingHTTPServer:
         resolve_device,
     )
 
+    from pytorch_distributed_mnist_tpu_torch.utils import compile_cache
+
     model_name = args.model
     if model_name not in list_models():
         raise SystemExit(f"unknown --model {model_name!r}; "
                          f"available: {list_models()}")
     device = resolve_device(args.device)
+    print(f"build directory: "
+          f"{compile_cache.configure(getattr(args, 'compile_cache', None))}",
+          flush=True)
     buckets = _parse_buckets(args.buckets)
     shed_policy = _parse_watermarks(args.shed_watermarks)
     quotas = None
@@ -761,9 +772,6 @@ def create_server(args) -> ThreadingHTTPServer:
         peers=[u.strip() for u in (args.chunk_peers or "").split(",")
                if u.strip()],
         source_dir=args.chunk_source, workers=args.workers)
-    print(f"NOTE: -j/--workers {args.workers} sizes the delta fetcher's "
-          f"quantize threads only: the port has no native preprocessing "
-          f"backend", flush=True)
     boot_path, params, epoch = _restore(args, model_name, fetcher.load)
     serve_log = ServeLog(window_s=args.stats_window_s)
     if sink is not None:
@@ -774,7 +782,7 @@ def create_server(args) -> ThreadingHTTPServer:
         model, params, buckets=buckets, serve_log=serve_log,
         params_epoch=epoch, precision=precision,
         name=precision_engine_name(None, precision), fuse=fuse,
-        device=device)
+        device=device, workers=args.workers)
     engine.warmup()
     warm_ms = engine.warmup_log.stats()["totals"]["wall_ms"]
     plane = f"{precision} " if precision != "f32" else ""

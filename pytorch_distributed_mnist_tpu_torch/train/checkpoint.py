@@ -59,9 +59,12 @@ from pytorch_distributed_mnist_tpu_torch.models.convert import (
     state_to_jax,
 )
 from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
-    barrier,
     process_count,
     process_index,
+)
+from pytorch_distributed_mnist_tpu_torch.runtime import supervision
+from pytorch_distributed_mnist_tpu_torch.runtime.supervision import (
+    maybe_fault,
 )
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
 
@@ -249,14 +252,24 @@ def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
                              is_best=is_best, directory=directory, pid=pid,
                              keep_last=keep_last,
                              parallel_layout=parallel_layout)
-    path = None
+    path, err = None, None
     if pid == 0:
-        path = _write_whole(
-            state_to_jax(state), epoch=epoch, best_acc=best_acc,
-            is_best=is_best, directory=directory, keep_last=keep_last,
-            parallel_layout=parallel_layout, publish=publish,
-            chunk_mb=chunk_mb)
-    barrier()
+        try:
+            path = _write_whole(
+                state_to_jax(state), epoch=epoch, best_acc=best_acc,
+                is_best=is_best, directory=directory, keep_last=keep_last,
+                parallel_layout=parallel_layout, publish=publish,
+                chunk_mb=chunk_mb)
+        except Exception as exc:  # noqa: BLE001 - agreed on below
+            err = exc
+    if process_count() > 1:
+        # The publish agreement: no rank goes on until process 0's file
+        # is published, and every rank learns if it failed.
+        maybe_fault("ckpt_publish")
+        _agree(err, epoch, "publish",
+               f"checkpoint {epoch} may not have been published")
+    elif err is not None:
+        raise err
     return path
 
 
@@ -265,22 +278,25 @@ def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
 def _agree(error: Optional[BaseException], epoch: int, phase: str,
            detail: str) -> None:
     """Every rank learns whether any rank failed this phase before any
-    goes on, so no rank waits at the next barrier for a peer that raised:
-    a failed rank raises its own error, its peers a ``RuntimeError``
-    naming it. The exchange is itself a barrier."""
+    goes on, so no rank waits at the next collective for a peer that
+    raised: a failed rank raises its own error, its peers ``PeerFailure``
+    naming it and the phase it reported. The exchange is the run
+    supervision's agreement ``ckpt_{phase}`` (``runtime/supervision.py``:
+    the records over the gloo group, under the agreement watchdog, so a
+    poison pill from a rank that failed outside checkpointing is
+    attributed to its real phase), and is itself a barrier."""
     if process_count() > 1:
-        import torch.distributed as dist
-
-        outcomes: List[Optional[str]] = [None] * process_count()
-        dist.all_gather_object(
-            outcomes, None if error is None else repr(error))
-        failed = [(rank, what) for rank, what in enumerate(outcomes)
-                  if what is not None]
+        failed = supervision.agree(f"ckpt_{phase}", error)
         if failed and error is None:
-            raise RuntimeError(
-                f"sharded checkpoint {phase} for epoch {epoch} failed on "
-                f"process(es) {[r for r, _ in failed]} ({failed[0][1]}); "
-                f"{detail}")
+            raise supervision.PeerFailure(
+                supervision.peer_failure_message(
+                    failed,
+                    f"checkpoint {phase} for epoch {epoch} failed "
+                    f"on host(s) {[h for h, _, _ in failed]}; {detail}"),
+                hosts=[h for h, _, _ in failed],
+                # The failed peer's own phase: a pill from a rank that
+                # died outside checkpointing names its real failure site.
+                phase=failed[0][1], reason=failed[0][2])
     if error is not None:
         raise error
 
@@ -288,6 +304,7 @@ def _agree(error: Optional[BaseException], epoch: int, phase: str,
 def _sharded_prepare(directory: str, epoch: int, pid: int) -> Tuple[str, str]:
     """Phase 1 (every rank, a collective): process 0 makes a clean tmp
     directory; returns ``(tmp, final)``."""
+    maybe_fault("ckpt_prepare")
     final = os.path.join(directory, f"checkpoint_{epoch}.ckpt")
     tmp = final + ".tmp"
     err: Optional[BaseException] = None
@@ -311,6 +328,7 @@ def _sharded_collect(state, pid: int) -> Tuple[Named, Dict[str, np.ndarray],
     the state off the device and indexes each leaf as one slice; the
     others own nothing. The copy is a snapshot: the train loop may update
     the device state as soon as this returns."""
+    maybe_fault("ckpt_collect")
     if pid != 0:
         return [], {}, []
     named = state_to_jax(state)
@@ -327,6 +345,7 @@ def _sharded_write_files(tmp: str, pid: int, payload, index,
                          meta: Optional[Dict[str, Any]]) -> None:
     """Phase 3 (any thread): file IO only, no device and no collective:
     what the asynchronous saver overlaps with the next epoch."""
+    maybe_fault("ckpt_write")
     shard_file = f"shards_p{pid:05d}.npz"
     if payload:
         with open(os.path.join(tmp, shard_file), "wb") as f:
@@ -372,6 +391,7 @@ def _sharded_publish(tmp: str, final: str, directory: str, epoch: int,
     """Phase 4 (every rank, a collective): process 0 publishes, and every
     rank learns the outcome. The write phase's agreement, just before,
     is the all-files-on-disk barrier."""
+    maybe_fault("ckpt_publish")
     err: Optional[BaseException] = None
     if pid == 0:
         try:
@@ -472,6 +492,14 @@ def try_resume(path: str, state) -> Tuple[Any, int, float]:
     if path:
         log0(f"=> no checkpoint found at '{path}'")
     return state, 0, 0.0
+
+
+def checkpoint_world(path: str) -> Optional[Dict[str, int]]:
+    """The ``world`` stamp of a checkpoint's meta (``{"processes",
+    "devices"}`` of the world that saved it), or ``None`` for checkpoints
+    saved without one."""
+    world = _read_meta(path).get("world")
+    return dict(world) if world else None
 
 
 def checkpoint_parallel_layout(path: str) -> Optional[Dict[str, Any]]:

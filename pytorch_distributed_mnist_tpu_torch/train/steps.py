@@ -60,6 +60,7 @@ from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
     grad_buffer,
 )
 from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
+from pytorch_distributed_mnist_tpu_torch.utils.profiling import compile_log
 
 # Ticks of an epoch program's first passes run eagerly, as real steps,
 # before its graph is captured: every kernel has then launched (and its
@@ -285,6 +286,8 @@ class EpochProgram:
         self._graph = graph
         self._bound = self._pointers()
         self.capture_s = time.perf_counter() - t0
+        compile_log.record_capture(
+            "train_step" if self.train else "eval_step", self.capture_s)
 
     def run(self, source: Dict[str, torch.Tensor]) -> MetricState:
         """One pass over ``source`` (on the state's device); returns the

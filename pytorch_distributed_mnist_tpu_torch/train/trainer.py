@@ -39,6 +39,11 @@ the train state from each pass's start on the device, and a pass whose
 loss sum reads NaN is restored and re-run eagerly under the mode, which
 raises at the op that made the NaN.
 
+The run supervision's fault points (``runtime/supervision.py``) sit at
+``train()``'s entry (``train_epoch``), before each step of the per-batch
+modes (``train_step``; a scan pass replays the epoch with no host
+boundary between steps) and at ``evaluate()``'s entry (``eval``).
+
 On the card the trainer makes cuDNN deterministic (no benchmark search),
 so a resumed run repeats the uninterrupted one, and under float32 compute
 it turns TF32 off for convolutions and matrix products, so that float32
@@ -75,6 +80,9 @@ from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
     make_explicit_dp_eval_step,
     make_explicit_dp_train_step,
     metric_all_reduce,
+)
+from pytorch_distributed_mnist_tpu_torch.runtime.supervision import (
+    maybe_fault,
 )
 from pytorch_distributed_mnist_tpu_torch.train.steps import (
     eval_step,
@@ -295,11 +303,13 @@ class Trainer:
 
     def train(self) -> Tuple[Average, Accuracy]:
         """One training epoch over the loader's current shuffle."""
+        maybe_fault("train_epoch")
         self.state.model.train()
         if self.mode != "scan":
             acc = metrics_init(self.device)
             with debug_nans.checking():
                 for batch in self._feeder.epoch():
+                    maybe_fault("train_step")
                     accumulate_metrics(acc, self._train_step(batch))
             return self._read(acc)
         if self.epoch_gather == "device":
@@ -326,6 +336,7 @@ class Trainer:
 
     def evaluate(self) -> Tuple[Average, Accuracy]:
         """One evaluation pass: no gradient, no state update."""
+        maybe_fault("eval")
         self.state.model.eval()
         if self.mode == "scan":
             if self._eval_staged is None:

@@ -4,7 +4,9 @@ metrics sink, the scan trainer's :class:`StagingLog`, the
 :func:`step_part`, which names the part of a train step a device kernel
 is (a step profile's breakdown; the collectives' kernels are a part of
 their own), and ``--profile-dir``'s :func:`profile_trace` with the
-lifecycle spans of :func:`phase`.
+lifecycle spans of :func:`phase`, the run supervision's
+:class:`EventLog` (``failure_events``) and the build and capture record
+:class:`CompileLog` (``compile_log``).
 
 Counterpart of the training-input and serving parts of
 ``pytorch_distributed_mnist_tpu/utils/profiling.py``. The reference's
@@ -575,3 +577,138 @@ class WarmupLog:
     def reset(self) -> None:
         with self._lock:
             self._programs.clear()
+
+
+class EventLog:
+    """Append-only log of supervision and failure events for the run
+    summary: the reference's ``EventLog``.
+
+    The run-supervision layer (``runtime/supervision.py``) records every
+    watchdog trip, poison pill sent or undelivered, retry, quarantine and
+    world rebuild here, and ``cli.run`` returns the snapshot as the
+    summary's ``failure_events``. With a :class:`JsonlSink` attached
+    (``set_sink``), every event is also appended to the sink as it
+    happens (the ``--metrics-file`` stream), tagged with ``source``.
+    Thread-safe: watchdog timers and the checkpoint writer record from
+    their own threads."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._events = []
+        self._sink: Optional[JsonlSink] = None
+        self._source = "train"
+
+    def set_sink(self, sink: Optional[JsonlSink],
+                 source: str = "train") -> None:
+        """Attach (or detach, ``None``) the JSONL sink; ``source`` stamps
+        each mirrored line."""
+        with self._lock:
+            self._sink = sink
+            self._source = source
+
+    def record(self, kind: str, detail: str, **fields) -> Dict:
+        event = {"t": round(time.time(), 3), "kind": kind,
+                 "detail": detail, **fields}
+        with self._lock:
+            self._events.append(event)
+            sink, source = self._sink, self._source
+        if sink is not None:
+            # try_write: recording runs inside poison-pill delivery and
+            # watchdog escalation, where a sink error must mask nothing.
+            sink.try_write({**event, "source": source})
+        return event
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return [dict(e) for e in self._events]
+
+    def reset(self) -> None:
+        """Clear the events and detach the sink (a later run in the same
+        process reports its own events, to its own file)."""
+        with self._lock:
+            self._events.clear()
+            self._sink = None
+            self._source = "train"
+
+
+# One run, one failure story; cli.run resets it at entry.
+failure_events = EventLog()
+
+
+def record_world_shrunk(old_members, new_members, generation) -> Dict:
+    """The elastic runtime's shrink event (``runtime/elastic.py``): this
+    run is the world rebuilt after a host loss. Old and new membership
+    (stable host ids) and the generation go to the summary's
+    ``failure_events`` and, through the sink, the metrics JSONL."""
+    old_members, new_members = list(old_members), list(new_members)
+    return failure_events.record(
+        "world_shrunk",
+        f"world shrank from {len(old_members)} to {len(new_members)} "
+        f"host(s) at generation {int(generation)}: members {old_members} "
+        f"-> {new_members}; resumed from the last published checkpoint",
+        old_members=old_members, new_members=new_members,
+        generation=int(generation))
+
+
+def record_world_grown(old_members, new_members, generation) -> Dict:
+    """The grow mirror of :func:`record_world_shrunk`: the world rebuilt
+    after a join rendezvous admitted a returned or replacement host."""
+    old_members, new_members = list(old_members), list(new_members)
+    return failure_events.record(
+        "world_grown",
+        f"world grew from {len(old_members)} to {len(new_members)} "
+        f"host(s) at generation {int(generation)}: members {old_members} "
+        f"-> {new_members}; resumed from the last published checkpoint",
+        old_members=old_members, new_members=new_members,
+        generation=int(generation))
+
+
+class CompileLog:
+    """What a run compiled: the reference's ``CompileLog``. PyTorch
+    compiles no programs; what the port builds is its libraries (one
+    ``nvcc`` per CUDA kernel source, ``ops/cuda_build.py``, and the
+    native host library, ``data/native.py``), and what it captures is
+    CUDA graphs (``train/steps.py::EpochProgram``). Each build records its
+    wall seconds, or that an earlier build in the build directory was
+    reused; each capture its wall seconds. ``cli.run`` resets it at entry
+    and returns :meth:`stats` as the summary's ``compile_stats``.
+    Thread-safe: the precompile thread builds beside the main one."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._builds: Dict[str, Dict] = {}
+        self._captures: Dict[str, Dict] = {}
+
+    def record_build(self, name: str, seconds: float, built: bool) -> None:
+        with self._lock:
+            rec = self._builds.setdefault(
+                name, {"built": 0, "reused": 0, "seconds": 0.0})
+            rec["built" if built else "reused"] += 1
+            rec["seconds"] = round(rec["seconds"] + seconds, 3)
+
+    def record_capture(self, name: str, seconds: float) -> None:
+        with self._lock:
+            rec = self._captures.setdefault(name, {"captures": 0,
+                                                   "seconds": 0.0})
+            rec["captures"] += 1
+            rec["seconds"] = round(rec["seconds"] + seconds, 3)
+
+    def stats(self) -> Dict:
+        with self._lock:
+            builds = {k: dict(v) for k, v in sorted(self._builds.items())}
+            captures = {k: dict(v) for k, v in sorted(self._captures.items())}
+        return {"builds": builds, "captures": captures,
+                "built": sum(v["built"] for v in builds.values()),
+                "reused": sum(v["reused"] for v in builds.values()),
+                "graph_captures": sum(v["captures"]
+                                      for v in captures.values())}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._builds.clear()
+            self._captures.clear()
+
+
+# Builds and captures happen wherever a library is first loaded or a pass
+# first replayed; one log per process, reset by cli.run.
+compile_log = CompileLog()

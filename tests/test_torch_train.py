@@ -368,7 +368,7 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--zero-overlap"],
                                   ["--optimizer-sharding", "zero1"],
-                                  ["--elastic"]])
+                                  ["--tensor-parallel", "2"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as info:
         build_parser().parse_args(flag)
