@@ -185,7 +185,30 @@ Phases, each printing one JSON line:
    the cnn's replay in an NCCL world of one (``train_scan_profile_dp``:
    what the all-reduce in the graph adds to the host wall and device ms
    per step);
-16. run supervision and the build directory: the cnn run as a process
+16. one serve process at full breadth (after every phase that times a
+   trace, before any NCCL group), each phase's K3 launches counted from
+   0 over its traffic: ``server_pool`` (two int8 cnn
+   replicas sharing the card, ``serve/pool.py``, under traffic with
+   replica 0 made to die after 5 batches: zero drops, failover,
+   quarantine and a regroup on the card, every batch equal to the same
+   pool with ``matmul_i8_plain``, K3 counted per replica; ``resize`` 2 ->
+   1 -> 2 under traffic; requests/s and p50/p99 of one replica against
+   two, in turns; the CLI's ``--serve-devices`` past the host's devices
+   refused), ``server_canary`` (``--canary-fraction 1.0
+   --canary-promote-after 256``: f32 replies and 2 K3 launches per
+   shadowed batch, int8-plain replies once promoted, at the default
+   budget; under
+   ``TPUMNIST_CANARY_FAULT=disagree`` a rollback and f32 replies),
+   ``server_multimodel`` (``--model-set cnn=A,vit=B --model-weights
+   cnn=2``: each model's replies equal its plain engine's, 2 and 10 K3
+   launches a forward, a publish to A leaves B alone, ``tools/loadgen.py
+   --expect-models 2``) and ``server_autoscale`` (the SLO autoscaler
+   over a pool on the card at an SLO of 1 ms: dry scale-up decisions in
+   its ``/stats`` block and the sink, the pool unmoved; then actuating
+   1 -> 2 replicas sharing the card under traffic, zero drops,
+   plain-equal batches; the CLI's ``--autoscale-max-devices`` past the
+   host's devices refused);
+17. run supervision and the build directory: the cnn run as a process
    SIGKILLed at epoch 1's entry (``TPUMNIST_FAULT``), then resumed with
    ``--resume auto`` in this process (``train_fault_resume``: epoch 1's
    line equal to ``train``'s, exactly one epoch's launches of the three
@@ -201,7 +224,7 @@ Phases, each printing one JSON line:
    on fresh ``--compile-cache`` directories (``cold_start``: by default
    and with ``--no-precompile`` each library it launches built once, then
    0 built on the warm directory; the seconds to the first epoch line);
-17. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
+18. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -1176,6 +1199,664 @@ def phase_server_vit(device_flag: str = "cuda") -> dict:
          i8_per_forward=VIT_I8_PER_FORWARD)
     return {"launches": rows["int8"]["launches"], "rows": rows,
             "profiles": profiles}
+
+
+# -- one serve process at full breadth: the pool, the canary, a model set,
+# -- the autoscaler -----------------------------------------------------------
+
+POOL_FAULT = "0:5"  # replica 0 dies after 5 batches (TPUMNIST_SERVE_FAULT)
+POOL_REQUESTS = 96  # requests of 1-40 images per traffic run
+POOL_CLIENTS = 4  # client threads of a traffic run
+POOL_TIMED_REQUESTS = 240  # per timed run, 8 clients
+CNN_I8_PER_FORWARD = 2  # the cnn's int8 products: fc1 and fc2
+
+
+def _pool_traffic(pool, requests: list, clients: int = POOL_CLIENTS,
+                  record: list = None, serve_log=None) -> dict:
+    """Closed-loop traffic through the pipelined batcher over ``pool``
+    (window: replicas + 1): ``clients`` threads submit ``requests``.
+    Appends ``(rows, labels)`` per completed batch to ``record``; the
+    batcher records each request's latency into ``serve_log``. Returns
+    the replies' labels, each request's latency, the wall and the errors
+    (a dropped request is an error)."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.serve.batcher import (
+        MicroBatcher,
+    )
+
+    lock = threading.Lock()
+
+    def complete(handle):
+        labels, epoch = pool.predict_complete(handle)
+        if record is not None:
+            with lock:
+                record.append((np.array(handle.images), labels.copy()))
+        return np.stack([labels, np.full_like(labels, epoch or 0)], axis=1)
+
+    replies, latency, errors = [None] * len(requests), [], []
+    with MicroBatcher(None, max_batch=pool.max_batch, max_wait_s=0.002,
+                      serve_log=serve_log, dispatch_fn=pool.dispatch,
+                      complete_fn=complete,
+                      max_inflight=pool.n_replicas + 1) as batcher:
+        def client(idx):
+            for i in range(idx, len(requests), clients):
+                t0 = time.perf_counter()
+                try:
+                    out = batcher.predict(pool.preprocess(requests[i]),
+                                          timeout=120.0)
+                except Exception as exc:  # noqa: BLE001 - counted as a drop
+                    errors.append(repr(exc))
+                    continue
+                with lock:
+                    latency.append(time.perf_counter() - t0)
+                replies[i] = out[:, 0]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+        wall = time.perf_counter() - t0
+    dropped = [i for i, r in enumerate(replies)
+               if r is None or len(r) != len(requests[i])]
+    if errors or dropped:
+        raise AssertionError(f"pool traffic dropped {len(dropped)} of "
+                             f"{len(requests)} requests: {errors[:3]}")
+    lat = sorted(latency)
+    return {"replies": replies, "wall_s": wall,
+            "rps": len(requests) / wall,
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3}
+
+
+def _same_as_plain(plain, batches: list, who: str) -> None:
+    """Every served batch's labels equal the plain-product pool's on the
+    same rows (the int8 plane quantizes a Dense input over its whole
+    batch, so the reference replays the batches the pool formed)."""
+    import numpy as np
+
+    for rows, labels in batches:
+        want, _ = plain.predict_complete(plain.dispatch(rows))
+        if not np.array_equal(labels, want):
+            raise AssertionError(
+                f"{who}: a batch of {len(rows)} disagrees with the plain "
+                f"int8 pool on {int(np.sum(labels != want))} rows")
+
+
+def _wait_healed(pool, seconds: float = 120.0) -> dict:
+    deadline = time.monotonic() + seconds
+    while True:
+        topo = pool.topology()
+        if topo["regroups"] >= 1 and not topo["quarantined_groups"]:
+            return topo
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the pool never healed: {topo}")
+        time.sleep(0.05)
+
+
+def phase_server_pool(device_flag: str = "cuda") -> dict:
+    """The replica pool (``serve/pool.py``) at the cnn's full width, int8,
+    fused plane, buckets 1/8/32/128: two replicas sharing the one card
+    (``EnginePool(devices=[cuda:0, cuda:0])``), live traffic from 4
+    client threads through the pipelined batcher with replica 0 made to
+    die after 5 batches (``TPUMNIST_SERVE_FAULT=0:5``). No request may be
+    dropped; the pool must fail over, quarantine and regroup replica 0
+    (generation 1, rebuilt on the card); every served batch must equal
+    the same pool built with ``matmul_i8_plain``; the K3 launches are
+    counted per replica (each engine's model counts its int8 products)
+    and must sum to the wrapper's count. Then ``resize`` 2 -> 1 -> 2
+    under traffic, again with zero drops and plain-equal batches; then
+    requests/s and p50/p99 of one replica against two sharing the card,
+    in turns (1, 2, 2, 1); then the CLI's ``--serve-devices`` one past the
+    host's device count must exit with the device-count refusal."""
+    import functools
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        int8_linear,
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.pool import (
+        SERVE_FAULT_ENV,
+        EnginePool,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.device import (
+        local_devices,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import ServeLog
+
+    device = torch.device(device_flag, 0) if device_flag == "cuda" \
+        else torch.device("cpu")
+    devices = [device, device]
+    params0 = init_params("cnn", SEED)
+    built, count_lock = [], threading.Lock()
+
+    def counting_model():
+        """A cnn whose int8 Dense layers count their products: one K3
+        launch each on the card."""
+        calls = [0]
+
+        def counted(x, w, out_dtype=None):
+            with count_lock:
+                calls[0] += 1
+            return int8_linear(x, w, out_dtype)
+
+        model = get_model("cnn", matmul=counted)
+        built.append((model, calls))
+        return model
+
+    common = dict(buckets=PATH_BUCKETS, precision="int8", fuse=True)
+    saved = os.environ.get(SERVE_FAULT_ENV)
+    os.environ[SERVE_FAULT_ENV] = POOL_FAULT
+    try:
+        pool = EnginePool(counting_model, params0, devices=devices,
+                          serve_log=ServeLog(), **common)
+    finally:
+        if saved is None:
+            os.environ.pop(SERVE_FAULT_ENV, None)
+        else:
+            os.environ[SERVE_FAULT_ENV] = saved
+    plain = EnginePool(functools.partial(
+        get_model, "cnn", matmul=functools.partial(
+            int8_linear, matmul=matmul_i8_plain)), params0,
+        devices=devices, **common)
+    t0 = time.perf_counter()
+    pool.warmup()
+    plain.warmup()
+    warm_s = time.perf_counter() - t0
+    boot_models = {r.name: r.engine.model for r in pool.replicas}
+
+    # The main path's run starts here (both pools warm).
+    matmul_i8.launches = 0
+    for _, calls in built:
+        calls[0] = 0
+    served = []
+    fault_run = _pool_traffic(pool, _requests(POOL_REQUESTS, SEED + 40),
+                              record=served)
+    topo = _wait_healed(pool)
+    launches = matmul_i8.launches  # ... and ends here.
+    r0 = pool.replicas[0]
+    if r0.generation != 1 or r0.engine.device != device \
+            or topo["failovers"] < 1 or topo["active_groups"] != 2:
+        raise AssertionError(f"the pool's heal: generation {r0.generation} "
+                             f"on {r0.engine.device}, {topo}")
+    per_replica = {}
+    for model, calls in built:
+        for name, boot in boot_models.items():
+            if model is boot:
+                per_replica[f"{name} (generation 0)"] = calls[0]
+        if model is r0.engine.model:
+            per_replica[f"{r0.name} (generation 1)"] = calls[0]
+    if launches == 0 or sum(calls[0] for _, calls in built) != launches:
+        raise AssertionError(f"K3 launches {launches} against the replicas' "
+                             f"int8 products {per_replica}")
+    _same_as_plain(plain, served, "server_pool")
+    # resize 2 -> 1 -> 2 under traffic.
+    resized = []
+    during = []
+    traffic = threading.Thread(target=lambda: during.append(_pool_traffic(
+        pool, _requests(POOL_REQUESTS, SEED + 41), record=resized)))
+    traffic.start()
+    time.sleep(0.2)
+    shrink = pool.resize(n_devices=1, devices=devices)
+    time.sleep(0.2)
+    grow = pool.resize(n_devices=2, devices=devices)
+    traffic.join(600.0)
+    if not during or pool.n_replicas != 2:
+        raise AssertionError("the resize run under traffic did not finish")
+    _same_as_plain(plain, resized, "server_pool resize")
+    # One replica against two sharing the card, in turns.
+    timed = []
+    for n in (1, 2, 2, 1):
+        pool.resize(n_devices=n, devices=devices)
+        run = _pool_traffic(pool, _requests(POOL_TIMED_REQUESTS,
+                                            SEED + 42 + n), clients=8)
+        timed.append({"replicas": n, "requests": POOL_TIMED_REQUESTS,
+                      "rps": run["rps"], "p50_ms": run["p50_ms"],
+                      "p99_ms": run["p99_ms"]})
+    # The CLI refuses more replicas than the host has devices.
+    n_local = len(local_devices(device.type))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_pool_cli_")
+    try:
+        create_server(build_parser().parse_args([
+            "--model", "cnn", "--serve-precision", "int8", "--port", "0",
+            "--device", device_flag, "--checkpoint-dir", ckpt,
+            "--serve-devices", str(n_local + 1)]))
+    except SystemExit as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("--serve-devices past the host's devices booted")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if f"this host has {n_local} local device(s)" not in refusal:
+        raise AssertionError(f"the --serve-devices refusal: {refusal}")
+    label = smi_name_and_limit() if device_flag == "cuda" else "cpu"
+    emit("server_pool", device=label, replicas=len(devices),
+         fault=POOL_FAULT, warm_s=warm_s, requests=POOL_REQUESTS,
+         batches=len(served), dropped=0, topology=topo,
+         launches=launches, launches_per_replica=per_replica,
+         replies_exact=True, fault_run_rps=fault_run["rps"],
+         resize={"shrink": shrink["new"]["groups"],
+                 "grow": grow["new"]["groups"], "batches": len(resized),
+                 "dropped": 0, "replies_exact": True,
+                 "rps": during[0]["rps"]},
+         timed=timed, cli_refusal=refusal)
+    return {"launches": launches, "per_replica": per_replica,
+            "timed": timed}
+
+
+def _sequential(client, requests: list, model: str = None) -> list:
+    out = []
+    for x in requests:
+        body = {"images": x.tolist()}
+        if model is not None:
+            body["model"] = model
+        out.append(client.post("/predict", body))
+    return out
+
+
+def phase_server_canary(device_flag: str = "cuda") -> dict:
+    """``serve --model cnn --serve-precision int8 --canary-fraction 1.0
+    --canary-promote-after 256``, at the default budget: sequential
+    requests (each its own batch). While the canary shadows, every reply
+    equals the f32 engine's and K3 launches twice per shadowed batch (the
+    candidate's fc1 and fc2); once it promotes, every reply equals the
+    int8 engine's with ``matmul_i8_plain``. A second boot under
+    ``TPUMNIST_CANARY_FAULT=disagree`` rolls back (``/stats`` says so)
+    and keeps answering with the f32 replies."""
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.canary import (
+        CANARY_FAULT_ENV,
+        PRIMARY,
+        ROLLED_BACK,
+        SHADOW,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    device = torch.device(device_flag, 0) if device_flag == "cuda" \
+        else torch.device("cpu")
+    params0 = init_params("cnn", SEED)
+    f32_ref = InferenceEngine(get_model("cnn"), params0, fuse=True,
+                              device=device)
+    i8_ref = _engine(params0, device, matmul_i8_plain)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_canary_")
+    save_params_checkpoint(params_to_jax(params0), epoch=0, directory=ckpt)
+    argv = ["--model", "cnn", "--serve-precision", "int8",
+            "--canary-fraction", "1.0", "--canary-promote-after", "256",
+            "--port", "0", "--device", device_flag, "--checkpoint-dir",
+            ckpt, "--require-checkpoint", "--no-reload"]
+    out = {}
+    try:
+        for fault in (False, True):
+            saved = os.environ.get(CANARY_FAULT_ENV)
+            if fault:
+                os.environ[CANARY_FAULT_ENV] = "disagree"
+            try:
+                httpd, client, thread = _boot(argv)
+            finally:
+                if saved is None:
+                    os.environ.pop(CANARY_FAULT_ENV, None)
+                else:
+                    os.environ[CANARY_FAULT_ENV] = saved
+            try:
+                canary = httpd.ctx.canary
+                matmul_i8.launches = 0  # the main path's run starts here
+                shadowed = promoted = launches_shadow = 0
+                requests = _requests(48, SEED + 50 + fault)
+                for i, x in enumerate(requests):
+                    state, before = canary.state, matmul_i8.launches
+                    reply = client.post("/predict", {"images": x.tolist()})
+                    ref = i8_ref if state == PRIMARY else f32_ref
+                    if reply["predictions"] != ref.predict(x).tolist():
+                        raise AssertionError(
+                            f"canary ({'fault' if fault else 'clean'}, "
+                            f"{state}): reply {i} disagrees with the "
+                            f"{'int8 plain' if ref is i8_ref else 'f32'} "
+                            f"engine")
+                    if state == SHADOW:
+                        shadowed += 1
+                        launches_shadow += matmul_i8.launches - before
+                    elif state == PRIMARY:
+                        promoted += 1
+                    if (promoted >= 8 and not fault) or (
+                            fault and canary.state == ROLLED_BACK
+                            and i >= shadowed + 8):
+                        break
+                launches = matmul_i8.launches  # ... and ends here.
+                stats = client.get("/stats")["canary"]
+                want = ROLLED_BACK if fault else PRIMARY
+                if stats["state"] != want \
+                        or stats["shadow_batches"] != shadowed \
+                        or launches_shadow != CNN_I8_PER_FORWARD * shadowed:
+                    raise AssertionError(
+                        f"canary ({'fault' if fault else 'clean'}): "
+                        f"{stats}, {shadowed} shadowed batches launched "
+                        f"K3 {launches_shadow} times")
+                if not fault and promoted < 8:
+                    raise AssertionError(f"the canary never promoted: "
+                                         f"{stats}")
+                out["rollback" if fault else "promote"] = {
+                    "state": stats["state"], "shadowed_batches": shadowed,
+                    "compared_rows": stats["compared_rows"],
+                    "disagreed_rows": stats["disagreed_rows"],
+                    "logit_delta": stats["logit_delta"],
+                    "promoted_batches": promoted,
+                    "launches_while_shadowing": launches_shadow,
+                    "launches": launches}
+            finally:
+                httpd.shutdown()
+                httpd.ctx.close()
+                httpd.server_close()
+                thread.join(timeout=30)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit("server_canary", promote=out["promote"], rollback=out["rollback"],
+         replies_exact=True)
+    return {"launches": out["promote"]["launches"]
+            + out["rollback"]["launches"], **out}
+
+
+def phase_server_multimodel(device_flag: str = "cuda") -> dict:
+    """``--model-set cnn=A,vit=B --model-weights cnn=2``, int8, fused:
+    every model's sequential replies equal its own engine's with
+    ``matmul_i8_plain`` (K3: 2 launches a cnn forward, 10 a ViT one); a
+    publish to A moves cnn to epoch 1 and leaves B's ``/healthz`` epoch
+    and replies unchanged; ``tools/loadgen.py --smoke --model cnn
+    --expect-models 2`` (a process of its own, no torch) passes."""
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    device = torch.device(device_flag, 0) if device_flag == "cuda" \
+        else torch.device("cpu")
+    root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    dirs = {m: os.path.join(root, m) for m in ("cnn", "vit")}
+    params = {m: init_params(m, SEED + 60) for m in dirs}
+    for m, d in dirs.items():
+        save_params_checkpoint(params_to_jax(params[m]), epoch=0,
+                               directory=d)
+    refs = {m: _engine(params[m], device, matmul_i8_plain, model=m)
+            for m in dirs}
+    per_forward = {"cnn": CNN_I8_PER_FORWARD, "vit": VIT_I8_PER_FORWARD}
+    httpd, client, thread = _boot([
+        "--model-set", f"cnn={dirs['cnn']},vit={dirs['vit']}",
+        "--model-weights", "cnn=2", "--serve-precision", "int8",
+        "--port", "0", "--device", device_flag, "--poll-interval", "0.2"])
+    try:
+        matmul_i8.launches = 0  # the main path's run starts here
+        requests = _requests(8, SEED + 61)
+        replies, counts = {}, {}
+        for m in dirs:
+            counts[m] = []
+            replies[m] = []
+            for x in requests:
+                before = matmul_i8.launches
+                replies[m] += _sequential(client, [x], model=m)
+                counts[m].append(matmul_i8.launches - before)
+            for x, reply in zip(requests, replies[m]):
+                if reply["model"] != m or reply["model_epoch"] != 0 or \
+                        reply["predictions"] != refs[m].predict(x).tolist():
+                    raise AssertionError(f"{m}: a reply disagrees with its "
+                                         f"plain int8 engine: {reply}")
+            if set(counts[m]) != {per_forward[m]}:
+                raise AssertionError(f"{m}: K3 launches per request "
+                                     f"{counts[m]}, expected "
+                                     f"{per_forward[m]}")
+        new_cnn = init_params("cnn", SEED + 62)
+        save_params_checkpoint(params_to_jax(new_cnn), epoch=1,
+                               directory=dirs["cnn"])
+        deadline = time.monotonic() + 30.0
+        while client.get("/healthz")["models"]["cnn"] != 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the cnn plane never reloaded")
+            time.sleep(0.05)
+        health = client.get("/healthz")
+        if health["models"] != {"cnn": 1, "vit": 0}:
+            raise AssertionError(f"/healthz after a publish to A: {health}")
+        vit_after = _sequential(client, requests, model="vit")
+        if [r["predictions"] for r in vit_after] != \
+                [r["predictions"] for r in replies["vit"]]:
+            raise AssertionError("a publish to A moved B's replies")
+        ref_new = _engine(new_cnn, device, matmul_i8_plain)
+        for x, reply in zip(requests, _sequential(client, requests, "cnn")):
+            if reply["model_epoch"] != 1 or \
+                    reply["predictions"] != ref_new.predict(x).tolist():
+                raise AssertionError(f"cnn after its reload: {reply}")
+        launches = matmul_i8.launches  # ... and ends here.
+        proc = subprocess.run(
+            [sys.executable, os.path.join(_HERE, "tools", "loadgen.py"),
+             "--smoke", "--url", client.base, "--requests", "100",
+             "--concurrency", "4", "--model", "cnn", "--expect-models", "2"],
+            capture_output=True, text=True, timeout=300)
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        if proc.returncode != 0 or not report.get("smoke_ok"):
+            raise AssertionError(f"loadgen --expect-models 2: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        stats = client.get("/stats")
+        emit("server_multimodel", models=sorted(dirs),
+             weights=stats["fair_dispatch"]["weights"],
+             fair_grants=stats["fair_dispatch"]["grants"],
+             launches=launches, launches_per_request=counts,
+             healthz_after_publish=health["models"], replies_exact=True,
+             loadgen={k: report.get(k) for k in (
+                 "ok", "models_served", "smoke_ok")})
+        return {"launches": launches}
+    finally:
+        httpd.shutdown()
+        httpd.ctx.close()
+        httpd.server_close()
+        thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _OnDevices:
+    """The pool as the autoscaler sees it, its resize kept to the pool's
+    own device list: on one card, two replicas sharing it."""
+
+    def __init__(self, pool, devices: list):
+        self.pool = pool
+        self.devices = devices
+
+    @property
+    def n_devices(self) -> int:
+        return self.pool.n_devices
+
+    def resize(self, n_devices: int) -> dict:
+        return self.pool.resize(n_devices=n_devices, devices=self.devices)
+
+
+def phase_server_autoscale(device_flag: str = "cuda") -> dict:
+    """The SLO autoscaler (``serve/control.py``'s ``AutoScaler``, sampling
+    the pool's ``ServeLog.window_stats`` as the server wires it) over an
+    int8 cnn pool of one replica on the card (fused plane, buckets
+    1/8/32/128), whose resize may place a second replica on the same card
+    (``devices=[cuda:0, cuda:0]``, as in ``server_pool``), with an SLO p95
+    of 1 ms and a ceiling of 2, under traffic from 4 client threads.
+    First a dry run: scale-up decisions in the controller's snapshot
+    (the server's ``/stats`` block) and as ``serve_autoscale`` lines in a
+    ``--metrics-file`` sink, every one dry, the pool still one replica. Then the same settings actuating:
+    the pool grows 1 -> 2 replicas sharing the card under the traffic,
+    with zero drops and every batch equal to the plain pool's. Last, the
+    CLI's ``--autoscale-max-devices`` one past the host's device count
+    exits with the device-count refusal, as the reference's does."""
+    import functools
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        int8_linear,
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.control import AutoScaler
+    from pytorch_distributed_mnist_tpu_torch.serve.pool import EnginePool
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.device import (
+        local_devices,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        JsonlSink,
+        ServeLog,
+    )
+
+    device = torch.device(device_flag, 0) if device_flag == "cuda" \
+        else torch.device("cpu")
+    devices = [device, device]
+    params0 = init_params("cnn", SEED)
+    common = dict(buckets=PATH_BUCKETS, precision="int8", fuse=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_autoscale_")
+    metrics = os.path.join(root, "metrics.jsonl")
+    log = ServeLog()
+    log.set_sink(JsonlSink(metrics))
+    pool = EnginePool(functools.partial(get_model, "cnn",
+                                        matmul=int8_linear), params0,
+                      devices=devices[:1], serve_log=log, **common)
+    plain = EnginePool(functools.partial(
+        get_model, "cnn", matmul=functools.partial(
+            int8_linear, matmul=matmul_i8_plain)), params0,
+        devices=devices[:1], **common)
+    pool.warmup()
+    plain.warmup()
+    # The CLI's controller settings, at its defaults but for the SLO and
+    # a quick loop.
+    cli = build_parser().parse_args(["--model", "cnn"])
+    scaler_args = dict(
+        slo_p95_ms=1.0,
+        queue_high=max(1, int(cli.autoscale_queue_high * cli.max_queue)),
+        min_devices=1, max_devices=len(devices), interval_s=0.2,
+        cooldown_s=0.5, down_after=cli.autoscale_down_after,
+        serve_log=log)
+
+    def drive(scaler, until, record=None):
+        """Traffic from 4 clients, run after run, until ``until()``
+        holds (bounded); the runs' wall and drops."""
+        scaler.start()
+        runs = []
+        deadline = time.monotonic() + 120.0
+        try:
+            while not until():
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"the autoscaler never acted: {scaler.snapshot()}")
+                runs.append(_pool_traffic(
+                    pool, _requests(POOL_REQUESTS, SEED + 70 + len(runs)),
+                    record=record, serve_log=log))
+        finally:
+            scaler.stop()
+        return runs
+
+    try:
+        matmul_i8.launches = 0  # the main path's run starts here
+        served = []
+        dry = AutoScaler(_OnDevices(pool, devices), log.window_stats,
+                         dry_run=True, **scaler_args)
+        drive(dry, lambda: dry.snapshot()["scale_ups"] >= 1, record=served)
+        snap = dry.snapshot()
+        ups = [d for d in snap["decisions"] if d["action"] == "scale_up"]
+        if not ups or len(ups) != len(snap["decisions"]) \
+                or not all(d["dry_run"] for d in ups) \
+                or pool.n_replicas != 1:
+            raise AssertionError(f"the dry run actuated: {pool.n_replicas} "
+                                 f"replicas, {snap}")
+        live = AutoScaler(_OnDevices(pool, devices), log.window_stats,
+                          **scaler_args)
+        runs = drive(live, lambda: pool.n_replicas == 2, record=served)
+        launches = matmul_i8.launches  # ... and ends here.
+        acted = live.snapshot()["decisions"]
+        decision = acted[0]
+        if len(acted) != 1 or decision["action"] != "scale_up" \
+                or decision["dry_run"] or "error" in decision \
+                or pool.n_replicas != 2:
+            raise AssertionError(f"the autoscaler's actuation: {decision}")
+        # One forward a served batch, and the warm-up of the grown pool
+        # (a resize builds its new layout whole: two replicas, each one
+        # forward a bucket on each plane).
+        forwards = len(served) + 2 * 2 * len(PATH_BUCKETS)
+        if launches != CNN_I8_PER_FORWARD * forwards:
+            raise AssertionError(f"K3 launches {launches} for {forwards} "
+                                 f"forwards")
+        _same_as_plain(plain, served, "server_autoscale")
+        with open(metrics) as f:
+            events = [json.loads(line) for line in f
+                      if '"serve_autoscale"' in line]
+        if [e["dry_run"] for e in events] != [True] * len(ups) + [False]:
+            raise AssertionError(f"the sink's serve_autoscale lines: "
+                                 f"{events}")
+        # The CLI refuses a ceiling past the host's devices.
+        n_local = len(local_devices(device.type))
+        try:
+            create_server(build_parser().parse_args([
+                "--model", "cnn", "--serve-precision", "int8", "--port",
+                "0", "--device", device_flag, "--checkpoint-dir", root,
+                "--serve-devices", "1", "--max-inflight", "2",
+                "--autoscale", "--autoscale-dry-run", "--slo-p95-ms", "1",
+                "--autoscale-max-devices", str(n_local + 1)]))
+        except SystemExit as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("--autoscale-max-devices past the host's "
+                                 "devices booted")
+        if f"this host has {n_local} local device(s)" not in refusal:
+            raise AssertionError(f"the --autoscale-max-devices refusal: "
+                                 f"{refusal}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("server_autoscale", scale_up_decisions=len(ups), first=ups[0],
+         actuated=decision, traffic_runs=len(runs), batches=len(served),
+         dropped=0, replies_exact=True, sink_events=len(events),
+         launches=launches, cli_refusal=refusal)
+    return {"launches": launches}
 
 
 def ulps(a, b) -> int:
@@ -4384,6 +5065,13 @@ def main() -> int:
     scan_cnn = phase_train_scan_profile(device)
     phase_train_scan_profile(device, model="vit")
     phase_train_scan_profile(device, model="vit", patch_size=2)
+    # One serve process at full breadth, after every phase that times
+    # kernels from a trace and before any NCCL group: the replica pool,
+    # the shadow canary, a model set, the autoscaler.
+    pool_run = phase_server_pool()
+    canary_launches = phase_server_canary()["launches"]
+    multimodel_launches = phase_server_multimodel()["launches"]
+    autoscale_launches = phase_server_autoscale()["launches"]
     # Run supervision and the build directory: processes of their own (a
     # killed run, a raising world of one, CPU worlds, cold starts) and
     # one resume in this process.
@@ -4430,6 +5118,11 @@ def main() -> int:
         "launches_vit_server": server_vit["launches"],
         "launches_server_delta": delta_launches,
         "launches_server_split_native": split_plane_launches,
+        "launches_server_pool": pool_run["launches"],
+        "launches_server_pool_per_replica": pool_run["per_replica"],
+        "launches_server_canary": canary_launches,
+        "launches_server_multimodel": multimodel_launches,
+        "launches_server_autoscale": autoscale_launches,
         "vit_shapes": vit_i8_rows,
         "vit_forward_profiles": server_vit["profiles"],
     }]

@@ -17,10 +17,16 @@ one. An in-flight batch keeps the params it captured at dispatch.
 
 Dispatch/complete split: ``dispatch_logits`` copies the batch into a
 pinned staging buffer, enqueues the host-to-device copy, the forward and
-the device-to-host copy of the logits on the current CUDA stream, records
-an event and returns; ``complete`` waits for the event. The staging
-buffers go back to their free-list only then, when the device is done
-reading them.
+the device-to-host copy of the logits on the engine's own device's current
+stream, records an event on that stream and returns; ``complete`` waits
+for that event only. The staging buffers go back to their free-list only
+then, when the device is done reading them. Dispatch runs under
+``torch.cuda.device(engine.device)``, so it is right from any thread
+whatever that thread's current device: a pool dispatches from the
+batcher's worker and re-dispatches a failed-over batch from the
+completion thread (``serve/pool.py``). A batch's event waits for its own
+device's stream only; two replicas sharing one card share its stream,
+in the order they enqueued.
 
 The fused plane (the server's default) takes raw uint8 requests: the
 normalize and, on ``int8``, the activation quantization run on the device
@@ -35,6 +41,7 @@ equal to the NumPy expressions that ``TPUMNIST_NATIVE=0`` runs.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -90,6 +97,17 @@ class StagingPool:
         in-flight window is warm."""
         with self._lock:
             return dict(self._allocated)
+
+
+def sum_staging(blocks) -> dict:
+    """Sum ``staging_allocated()`` blocks (``{"split": {bucket: n},
+    "fused": {...}}``) over the engines of a pool or a canary."""
+    total: dict = {"split": {}, "fused": {}}
+    for block in blocks:
+        for plane, per_bucket in block.items():
+            for bucket, n in per_bucket.items():
+                total[plane][bucket] = total[plane].get(bucket, 0) + n
+    return total
 
 
 def stage_batch(images: np.ndarray, bucket: int, staging: StagingPool,
@@ -199,9 +217,19 @@ class InferenceEngine:
     float32 host arrays. ``precision`` picks the plane
     (``serve/programs.py``); ``fuse`` adds the raw-uint8 plane.
 
-    Threading: ``dispatch_logits`` from one thread at a time (the
-    batcher's worker), ``complete`` on the completion side, and
-    ``swap_params`` from any thread (the reload watcher)."""
+    Threading: ``dispatch_logits`` and ``complete`` from any thread (a
+    pool's batcher worker and its completion thread may both dispatch
+    on one engine), ``swap_params`` from any thread (the reload
+    watcher). ``torch.func.functional_call`` swaps the model module's
+    parameters in and back out around a call, so two forwards on one
+    module must not overlap: a dispatch's enqueue (staging, the
+    forward, the event) holds ``_enqueue_lock``, one thread at a time
+    per engine, and the module is this engine's own (two engines must
+    never share one). Only the host-side enqueue is serialized: the
+    card still runs one batch while the next is staged, and ``complete``
+    waits outside the lock. ``warmup_log`` may be shared between
+    engines (a pool's or a model plane's), each recording its own
+    program names."""
 
     def __init__(
         self,
@@ -216,6 +244,7 @@ class InferenceEngine:
         fuse: bool = False,
         device="cuda",
         workers: int = 4,
+        warmup_log: Optional[WarmupLog] = None,
     ) -> None:
         buckets = sorted({int(b) for b in buckets})
         if not buckets or buckets[0] < 1:
@@ -226,7 +255,8 @@ class InferenceEngine:
         self.serve_log = serve_log
         self.name = name
         self.workers = int(workers)  # the split plane's host threads
-        self.warmup_log = WarmupLog()
+        self.warmup_log = warmup_log if warmup_log is not None \
+            else WarmupLog()
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
@@ -246,6 +276,8 @@ class InferenceEngine:
         self._fused_forward = self._precision_spec.wrap_fused_forward(
             self._apply)
         self._lock = threading.Lock()
+        # Held for the whole of one dispatch's enqueue (see Threading).
+        self._enqueue_lock = threading.Lock()
         self._params = self._place(params)
         self._params_epoch = params_epoch
         # Called under _lock right after an install, so a response-cache
@@ -347,19 +379,30 @@ class InferenceEngine:
         return {"split": self._staging.allocated(),
                 "fused": self._raw_staging.allocated()}
 
+    def _device_scope(self):
+        """``torch.cuda.device(self.device)`` on the card: what a dispatch
+        enqueues goes to this engine's device and its current stream,
+        whatever the calling thread's current device is."""
+        if self._cuda:
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _dispatch(self, x: np.ndarray, fused: bool,
                   record: bool = True) -> _InFlightBatch:
         """Chunk ``x`` through the top bucket; per chunk: stage, copy to
         the device, run the forward, copy the logits back. Returns before
-        the device is done (on the card)."""
+        the device is done (on the card), with an event recorded on this
+        engine's device's current stream after the last copy."""
         pool = self._raw_staging if fused else self._staging
         forward = self._fused_forward if fused else self._forward
         with self._lock:
             params = self._params  # captured ONCE: the swap boundary
             epoch = self._params_epoch
         chunks, buffers = [], []
+        event = None
         try:
-            with torch.inference_mode():
+            with self._enqueue_lock, self._device_scope(), \
+                    torch.inference_mode():
                 for start in range(0, x.shape[0], self.max_batch):
                     chunk = x[start:start + self.max_batch]
                     n = chunk.shape[0]
@@ -370,20 +413,19 @@ class InferenceEngine:
                     out = forward(params, dev_in)
                     if self._cuda:
                         host = torch.empty(out.shape, dtype=out.dtype,
-                                           pin_memory=True)
+                                           pin_memory=pool.pin)
                         host.copy_(out, non_blocking=True)
                         out = host
                     chunks.append((out, n))
                     if record and self.serve_log is not None:
                         self.serve_log.record_batch(n, bucket,
                                                     replica=self.name)
+                if self._cuda:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
         except BaseException:
             pool.release(buffers)
             raise
-        event = None
-        if self._cuda:
-            event = torch.cuda.Event()
-            event.record()
         return _InFlightBatch(self, chunks, epoch, [(pool, buffers)], event)
 
     def dispatch_logits(self, images) -> _InFlightBatch:
@@ -401,8 +443,9 @@ class InferenceEngine:
 
     def complete(self, inflight: _InFlightBatch) \
             -> Tuple[np.ndarray, Optional[int]]:
-        """Wait for an in-flight batch, release its staging buffers, and
-        return ``(logits (N, classes), epoch)``."""
+        """Wait for an in-flight batch (its own event: never another
+        engine's work), release its staging buffers, and return
+        ``(logits (N, classes), epoch)``."""
         try:
             if inflight.event is not None:
                 inflight.event.synchronize()

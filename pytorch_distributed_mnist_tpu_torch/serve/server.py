@@ -1,7 +1,7 @@
 """The ``serve`` subcommand: a stdlib HTTP JSON inference endpoint.
 
-Counterpart of the single-model, single-device path of
-``pytorch_distributed_mnist_tpu/serve/server.py``.
+Counterpart of ``pytorch_distributed_mnist_tpu/serve/server.py`` in its
+replicated mode.
 ``python -m pytorch_distributed_mnist_tpu_torch serve --checkpoint-dir ckpt
 --model cnn --serve-precision int8`` boots: the model, the newest
 published checkpoint (or seeded fresh params with a loud warning), the
@@ -17,20 +17,58 @@ served (``cnn``, ``linear`` and ``vit``, the ViT at its registered
 defaults with dense attention), at every precision, on the fused and the
 split plane.
 
+The data plane of one process at full breadth:
+
+- ``--serve-devices N`` (0: every local device) makes the engine an
+  :class:`~pytorch_distributed_mnist_tpu_torch.serve.pool.EnginePool`,
+  one replica per device behind a least-loaded dispatcher, with failover,
+  quarantine (``--quarantine-after``), background regroup and live
+  ``POST /resize``; the batcher pipelines up to ``--max-inflight``
+  batches (default replicas + 1). On the card the local devices are the
+  visible cards; under ``--device cpu`` up to
+  :data:`~pytorch_distributed_mnist_tpu_torch.utils.device.CPU_SLOTS`
+  replicas share the host.
+- ``--canary-fraction`` puts the f32 baseline in front and shadows that
+  fraction of batches on the ``--serve-precision`` plane
+  (:class:`~pytorch_distributed_mnist_tpu_torch.serve.canary.
+  ShadowCanary`): it promotes after ``--canary-promote-after`` clean rows
+  and rolls back past ``--canary-budget``.
+- ``--model-set NAME=DIR,...`` boots one model plane per pair (engine or
+  pool, batcher, watcher, canary, autoscaler and ``ServeLog`` each),
+  requests route on their ``model`` field, and a
+  :class:`~pytorch_distributed_mnist_tpu_torch.serve.control.
+  WeightedFairGate` (``--model-weights``) shares the devices between
+  the planes' dispatches.
+- ``--autoscale`` runs the SLO controller
+  (:class:`~pytorch_distributed_mnist_tpu_torch.serve.control.AutoScaler`)
+  over each plane's pool: it samples ``ServeLog.window_stats`` and
+  resizes the pool one replica a step (``--autoscale-dry-run`` records
+  its decisions and actuates nothing).
+
 Endpoints (one handler thread per connection, all funneling into the
-batcher's worker, which owns device submission):
+batchers' workers, which own device submission):
 
 - ``POST /predict`` — body ``{"images": ...}``: one 28x28 image or a list
-  of them, raw 0-255 pixel values. Replies ``{"predictions": [...],
-  "model_epoch": e, "latency_ms": t}``; 503 under admission control.
-- ``GET /healthz`` — liveness + which checkpoint epoch is serving.
+  of them, raw 0-255 pixel values, and ``"model"`` on a multi-model
+  server. Replies ``{"predictions": [...], "model_epoch": e,
+  "latency_ms": t}``; 503 under admission control.
+- ``GET /healthz`` — liveness + which checkpoint epoch is serving (per
+  model under ``models`` on a multi-model server).
 - ``GET /stats`` — the ServeLog snapshot (latency quantiles, queue,
   batch-size histogram, reloads, rejections), the per-bucket warm-up
-  record, the cache block and the kernels' launch counts.
+  record, the cache block and the kernels' launch counts; a pool adds the
+  topology block (``topology_generation``, ``groups``,
+  ``active_groups``, ``quarantined_groups``, ``regroups``,
+  ``failovers``) and one row per replica, a canary its ``canary`` block,
+  the autoscaler its ``autoscaler`` block, and a multi-model server one
+  ``models`` block per plane and the ``fair_dispatch`` block.
+- ``POST /resize`` — ``{"serve_devices": N, "model": ...?}`` re-shapes a
+  plane's pool under live traffic with zero dropped requests (refused
+  without a pool and under a canary).
 - ``POST /drain`` — ``{"drain": true|false}`` closes/reopens /predict
   admission (503 + Retry-After) while in-flight requests complete.
 - ``GET /chunks/<sha256>`` — the gossip plane of delta distribution: one
-  chunk of this server's store (``<checkpoint-dir>/chunks/``), whole
+  chunk of this server's stores (``<checkpoint-dir>/chunks/``), whole
   (200) or from ``Range: bytes=N-`` (206; 416 past its end); 404 for a
   malformed or unknown digest. Not gated by the drain: a draining server
   keeps seeding its peers.
@@ -43,10 +81,10 @@ first, then ``--chunk-source``, and only the leaves that changed are
 rebuilt and quantized again (``-j`` threads); the server boots from a
 manifest through the same fetcher.
 
-Not ported yet: multi-device pools, sharded and pipeline serve modes,
-the precision canary, multi-model serving, the autoscaler and fleet
-registration. Their flags are absent from the parser rather than
-accepted and ignored.
+Not ported yet: the sharded and pipeline serve modes (``--serve-mode``,
+``--serve-mesh``: ROADMAP Queue 1 item 12) and fleet registration
+(``--register-dir``: item 13, the router). Their flags are absent from
+the parser rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -66,11 +104,18 @@ from pytorch_distributed_mnist_tpu_torch.serve.batcher import (
     MicroBatcher,
     Overloaded,
 )
+from pytorch_distributed_mnist_tpu_torch.serve.canary import (
+    SHADOW as CANARY_SHADOW,
+)
+from pytorch_distributed_mnist_tpu_torch.serve.canary import ShadowCanary
 from pytorch_distributed_mnist_tpu_torch.serve.control import (
     PRIORITY_CLASSES,
+    AutoScaler,
     ClientQuotas,
     ShedPolicy,
+    WeightedFairGate,
     parse_quota_spec,
+    parse_weight_spec,
     priority_rank,
 )
 from pytorch_distributed_mnist_tpu_torch.serve.economics import (
@@ -89,9 +134,11 @@ from pytorch_distributed_mnist_tpu_torch.serve.programs import (
     serve_precisions,
 )
 from pytorch_distributed_mnist_tpu_torch.serve.reload import CheckpointWatcher
+from pytorch_distributed_mnist_tpu_torch.utils.device import CPU_SLOTS
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
     JsonlSink,
     ServeLog,
+    WarmupLog,
 )
 
 
@@ -109,6 +156,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default="cnn",
                    help="model architecture the checkpoints belong to (a "
                         "mismatched checkpoint is rejected at load)")
+    p.add_argument("--model-set", type=str, default=None,
+                   metavar="NAME=DIR[,NAME=DIR...]",
+                   help="multi-model serving: one model plane (engine or "
+                        "pool, batcher, watcher, canary, layout gate) per "
+                        "MODEL=CHECKPOINT_DIR pair, from one process "
+                        "sharing the devices; requests route on their "
+                        "'model' field. Overrides --model/--checkpoint-dir;"
+                        " every other serving flag applies to each plane")
+    p.add_argument("--model-weights", type=str, default=None,
+                   metavar="NAME=W[,NAME=W...]",
+                   help="multi-model weighted-fair dispatch: when more "
+                        "than one model has queued work, device dispatch "
+                        "grants interleave in this weight proportion "
+                        "(unnamed models weigh 1.0). Requires --model-set")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="where the model runs: 'cuda' (default) needs a "
@@ -124,6 +185,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=",".join(str(b) for b in DEFAULT_BUCKETS),
                    help="comma-separated batch buckets, each warmed at "
                         "startup; batches pad up to the nearest bucket")
+    p.add_argument("--serve-devices", type=int, default=1,
+                   help="devices the data plane spans (0 = every local "
+                        "device): one engine replica per device behind "
+                        "the least-loaded dispatcher. On the card, the "
+                        "visible cards; under --device cpu, up to "
+                        f"{CPU_SLOTS} replicas sharing the host. Default 1 "
+                        "is the single-device data plane")
     p.add_argument("--serve-precision", type=str, default="f32",
                    choices=serve_precisions(),
                    help="'f32' (default); 'bf16' stores weights bfloat16; "
@@ -136,6 +204,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "normalize/quantize/pad, float staging). Default: "
                         "raw uint8 requests are normalized (and quantized) "
                         "on the device")
+    p.add_argument("--canary-fraction", type=float, default=0.0,
+                   help="shadow-traffic accuracy canary: serve replies "
+                        "from the f32 BASELINE while this fraction of "
+                        "live batches also runs the --serve-precision "
+                        "plane in shadow; argmax disagreements and logit "
+                        "deltas accumulate in /stats, the precision "
+                        "PROMOTES to primary after --canary-promote-after "
+                        "clean rows and ROLLS BACK (permanent for that "
+                        "publish; the server keeps serving) past "
+                        "--canary-budget. 0 (default) serves "
+                        "--serve-precision directly; requires a quantized "
+                        "--serve-precision when set")
+    p.add_argument("--canary-promote-after", type=int, default=200,
+                   help="canary: shadowed rows (images) that must compare "
+                        "within budget before the quantized plane is "
+                        "promoted to primary")
+    p.add_argument("--canary-budget", type=float, default=0.02,
+                   help="canary: allowed argmax-disagreement fraction of "
+                        "the promotion window (budget x promote-after "
+                        "rows; shadow-plane errors count); exceeding it "
+                        "rolls the publish back")
+    p.add_argument("--quarantine-after", type=int, default=3,
+                   help="pool self-healing threshold: this many "
+                        "CONSECUTIVE dispatch/completion failures on one "
+                        "replica (any success resets the count) "
+                        "quarantine it: dispatch skips it, in-flight "
+                        "batches fail over to healthy replicas, and a "
+                        "background regroup rebuilds it on its device "
+                        "under live traffic. Pooled data plane only; "
+                        "input-shaped (4xx) errors never count")
+    p.add_argument("--max-inflight", type=int, default=0,
+                   help="pipelined dispatch window: batches dispatched but "
+                        "not yet completed (0 = auto: replicas+1 on a "
+                        "multi-replica pool, 1 otherwise; 1 disables "
+                        "pipelining)")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="micro-batcher deadline: a request waits at most "
                         "this long for co-riders before its batch flushes")
@@ -155,6 +258,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quota burst allowance in seconds of the class rate")
     p.add_argument("--stats-window-s", type=float, default=60.0,
                    help="rolling-window size for /stats' `window` block")
+    p.add_argument("--autoscale", action="store_true",
+                   help="SLO-driven autoscaling: a background controller "
+                        "samples the rolling-window p95 and queue depth "
+                        "and actuates the pool's resize, one replica a "
+                        "step: up on an SLO breach (--slo-p95-ms, or the "
+                        "queue high watermark), down after sustained "
+                        "calm; hysteresis and a cooldown prevent "
+                        "flapping; every decision is a serve_autoscale "
+                        "JSONL event. Needs the pooled data plane "
+                        "(--serve-devices/--max-inflight) and is refused "
+                        "under an active canary")
+    p.add_argument("--autoscale-dry-run", action="store_true",
+                   help="record every scale decision (JSONL + /stats) "
+                        "without actuating the resize")
+    p.add_argument("--slo-p95-ms", type=float, default=100.0,
+                   help="the serving SLO the autoscaler defends: "
+                        "rolling-window p95 latency above this is a "
+                        "breach (scale up); sustained p95 below half of "
+                        "it with an empty-ish queue scales down")
+    p.add_argument("--autoscale-queue-high", type=float, default=0.75,
+                   help="autoscaler queue-depth high watermark as a "
+                        "fraction of --max-queue: depth at/above it is a "
+                        "breach even while p95 holds")
+    p.add_argument("--autoscale-interval-s", type=float, default=2.0,
+                   help="seconds between autoscaler samples")
+    p.add_argument("--autoscale-cooldown-s", type=float, default=10.0,
+                   help="seconds after any scale action before the next "
+                        "may fire")
+    p.add_argument("--autoscale-down-after", type=int, default=3,
+                   help="consecutive calm samples required before a "
+                        "scale-down")
+    p.add_argument("--autoscale-min-devices", type=int, default=1,
+                   help="autoscaler floor: never scale below this many "
+                        "devices")
+    p.add_argument("--autoscale-max-devices", type=int, default=0,
+                   help="autoscaler ceiling (0 = all local devices)")
     p.add_argument("--cache-mb", type=float, default=64.0,
                    help="response-cache byte budget in MB (exact-byte "
                         "repeats answer from the cache; a hot reload "
@@ -224,31 +363,71 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
-class ServeContext:
-    """Everything one serving process owns; built by :func:`create_server`
-    and shared with the HTTP handlers through the server object."""
+class ModelPlane:
+    """One model's serving stack: engine (or pool, or canary), batcher,
+    reload watcher, delta fetcher, optional canary and autoscaler, its
+    own :class:`ServeLog` and warm-up record. The single-model server is
+    one plane; ``--model-set`` boots one per model, each with its own
+    watcher, canary and layout gate, sharing the devices through the
+    weighted-fair gate."""
 
     def __init__(self, model_name: str, engine, batcher, watcher,
-                 serve_log, boot_path: Optional[str], sink,
-                 max_request_images: int = 1024,
-                 serve_precision: str = "f32", quotas=None,
-                 fused: bool = True, cache=None,
-                 price_admission: bool = False,
-                 checkpoint_dir: Optional[str] = None,
+                 serve_log, boot_path: Optional[str], *, device,
+                 warmup_log: WarmupLog, pool=None, canary=None,
+                 autoscaler=None, checkpoint_dir: Optional[str] = None,
                  fetcher=None) -> None:
         self.model_name = model_name
-        self.checkpoint_dir = checkpoint_dir
-        self.fetcher = fetcher
         self.engine = engine
         self.batcher = batcher
         self.watcher = watcher
         self.serve_log = serve_log
         self.boot_path = boot_path
+        self.device = device
+        self.warmup_log = warmup_log
+        self.pool = pool
+        self.canary = canary
+        self.autoscaler = autoscaler
+        self.checkpoint_dir = checkpoint_dir
+        self.fetcher = fetcher
+
+    @property
+    def checkpoint_path(self) -> Optional[str]:
+        if self.watcher is not None:
+            return self.watcher.current_path
+        return self.boot_path
+
+    def close(self) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        if self.watcher is not None:
+            self.watcher.stop()
+        self.batcher.close()
+
+
+class ServeContext:
+    """Everything one serving process owns; built by :func:`create_server`
+    and shared with the HTTP handlers through the server object.
+
+    ``planes`` maps model name -> :class:`ModelPlane`; ``default_model``
+    names the plane a request without a ``model`` field routes to (the
+    sole plane of a single-model server, whose requests never need the
+    field). The flat attributes (``engine``, ``pool``, ``batcher``, ...)
+    alias the default plane."""
+
+    def __init__(self, planes, default_model: str, sink,
+                 max_request_images: int = 1024, max_inflight: int = 1,
+                 serve_precision: str = "f32", quotas=None,
+                 fair_gate=None, fused: bool = True, cache=None,
+                 price_admission: bool = False) -> None:
+        self.planes = planes
+        self.default_model = default_model
         self.sink = sink
         self.max_request_images = max_request_images
+        self.max_inflight = max_inflight
         self.serve_mode = REPLICATED
         self.serve_precision = serve_precision
         self.quotas = quotas
+        self.fair_gate = fair_gate
         self.fused = fused
         self.cache = cache
         self.price_admission = bool(price_admission)
@@ -259,18 +438,47 @@ class ServeContext:
         self.draining = False
         self._drain_lock = threading.Lock()
         self._active_predicts = 0
+        default = planes[default_model]
+        self.model_name = default.model_name
+        self.engine = default.engine
+        self.pool = default.pool
+        self.canary = default.canary
+        self.batcher = default.batcher
+        self.watcher = default.watcher
+        self.serve_log = default.serve_log
+        self.fetcher = default.fetcher
+        self.boot_path = default.boot_path
+
+    @property
+    def multi_model(self) -> bool:
+        return len(self.planes) > 1
 
     @property
     def checkpoint_path(self) -> Optional[str]:
-        if self.watcher is not None:
-            return self.watcher.current_path
-        return self.boot_path
+        return self.planes[self.default_model].checkpoint_path
+
+    def plane_for(self, model: Optional[str]) -> ModelPlane:
+        """Route one request's ``model`` field to its plane. ``None``
+        routes to the default only on a single-model server: a
+        multi-model server requires the field."""
+        if model is None:
+            if self.multi_model:
+                raise ValueError(
+                    f"multi-model server: the request body must name "
+                    f"'model' (one of {sorted(self.planes)})")
+            return self.planes[self.default_model]
+        plane = self.planes.get(model)
+        if plane is None:
+            raise ValueError(f"unknown model {model!r}; this server "
+                             f"serves {sorted(self.planes)}")
+        return plane
 
     def chunk_dirs(self) -> list:
-        """The checkpoint directories whose chunk stores ``GET
-        /chunks/<sha256>`` searches (a digest names its bytes, so a hit in
-        any store is the chunk)."""
-        return [self.checkpoint_dir] if self.checkpoint_dir else []
+        """Every plane's checkpoint directory, whose chunk stores ``GET
+        /chunks/<sha256>`` searches in plane order (a digest names its
+        bytes, so a hit in any store is the chunk)."""
+        return [p.checkpoint_dir for p in self.planes.values()
+                if p.checkpoint_dir]
 
     def predict_begin(self) -> None:
         with self._drain_lock:
@@ -293,12 +501,12 @@ class ServeContext:
     def write_stats(self, **extra) -> None:
         if self.cache is not None:
             extra.setdefault("cache", self.cache.snapshot())
-        self.serve_log.write_stats(**extra)
+        for plane in self.planes.values():
+            plane.serve_log.write_stats(**extra)
 
     def close(self) -> None:
-        if self.watcher is not None:
-            self.watcher.stop()
-        self.batcher.close()
+        for plane in self.planes.values():
+            plane.close()
         if self.sink is not None:
             self.write_stats(final=True)
 
@@ -333,27 +541,55 @@ class _Handler(BaseHTTPRequestHandler):
         except OSError:
             pass  # the client gave up and closed the socket
 
-    def _stats(self) -> dict:
+    def _plane_stats(self, plane: ModelPlane) -> dict:
+        """One plane's /stats payload (the single-model schema)."""
         ctx = self.ctx
-        stats = ctx.serve_log.snapshot()
-        stats["warmup"] = ctx.engine.warmup_log.stats()
-        stats["buckets"] = list(ctx.engine.buckets)
-        stats["model_epoch"] = ctx.engine.params_epoch
+        stats = plane.serve_log.snapshot()
+        stats["warmup"] = plane.warmup_log.stats()
+        stats["buckets"] = list(plane.engine.buckets)
+        stats["model_epoch"] = plane.engine.params_epoch
         stats["serve_mode"] = ctx.serve_mode
         stats["serve_precision"] = ctx.serve_precision
         stats["fused"] = ctx.fused
-        stats["device"] = str(ctx.engine.device)
-        stats["staging_allocated"] = ctx.engine.staging_allocated()
+        stats["device"] = str(plane.device)
+        stats["staging_allocated"] = plane.engine.staging_allocated()
         stats["kernel_launches"] = kernel_launches()
-        if ctx.fetcher is not None:
-            stats["delta_fetch"] = {"last": dict(ctx.fetcher.last),
-                                    "total": dict(ctx.fetcher.total)}
+        if plane.fetcher is not None:
+            stats["delta_fetch"] = {"last": dict(plane.fetcher.last),
+                                    "total": dict(plane.fetcher.total)}
         if ctx.cache is not None:
             cache_block = ctx.cache.snapshot()
-            cache_block["collapsed"] = ctx.batcher.collapsed
+            cache_block["collapsed"] = plane.batcher.collapsed
             stats["cache"] = cache_block
-        if ctx.price_admission and ctx.batcher.cost_model is not None:
-            stats["cost_model"] = ctx.batcher.cost_model.snapshot()
+        if ctx.price_admission and plane.batcher.cost_model is not None:
+            stats["cost_model"] = plane.batcher.cost_model.snapshot()
+        if plane.canary is not None:
+            stats["canary"] = plane.canary.snapshot()
+        if plane.autoscaler is not None:
+            stats["autoscaler"] = plane.autoscaler.snapshot()
+        if plane.pool is not None:
+            stats["serve_devices"] = plane.pool.n_devices
+            stats["max_inflight"] = ctx.max_inflight
+            # Read live from the pool: a /resize or a regroup shows on
+            # the next fetch.
+            topo = plane.pool.topology()
+            for key in ("topology_generation", "groups", "active_groups",
+                        "quarantined_groups", "regroups", "failovers"):
+                stats[key] = topo[key]
+        return stats
+
+    def _stats(self) -> dict:
+        """The default plane's schema at the top level; a multi-model
+        server adds ``model_set``, one ``models`` block per plane and the
+        ``fair_dispatch`` block."""
+        ctx = self.ctx
+        stats = self._plane_stats(ctx.planes[ctx.default_model])
+        if ctx.multi_model:
+            stats["model_set"] = sorted(ctx.planes)
+            stats["models"] = {name: self._plane_stats(plane)
+                               for name, plane in sorted(ctx.planes.items())}
+            if ctx.fair_gate is not None:
+                stats["fair_dispatch"] = ctx.fair_gate.snapshot()
         if ctx.quotas is not None:
             stats["quota"] = ctx.quotas.snapshot()
         stats["draining"] = ctx.draining
@@ -363,14 +599,19 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802 - stdlib name
         ctx = self.ctx
         if self.path == "/healthz":
-            self._reply(200, {
+            payload = {
                 "ok": True,
                 "model": ctx.model_name,
                 "model_epoch": ctx.engine.params_epoch,
                 "checkpoint": ctx.checkpoint_path,
                 "uptime_s": round(time.time() - ctx.t_start, 3),
                 "draining": ctx.draining,
-            })
+            }
+            if ctx.multi_model:
+                payload["models"] = {
+                    name: plane.engine.params_epoch
+                    for name, plane in sorted(ctx.planes.items())}
+            self._reply(200, payload)
         elif self.path == "/stats":
             self._reply(200, self._stats())
         elif self.path.startswith("/chunks/"):
@@ -427,6 +668,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(404, {"error": f"no chunk {digest}"})
 
     def do_POST(self) -> None:  # noqa: N802 - stdlib name
+        if self.path == "/resize":
+            self._do_resize()
+            return
         if self.path == "/drain":
             self._do_drain()
             return
@@ -451,8 +695,8 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0))
         if 0 < length <= MAX_BODY_BYTES:
             self.rfile.read(length)
-        depth = ctx.batcher.queue_depth()
-        rate = ctx.batcher.drain_rps()
+        depth = sum(p.batcher.queue_depth() for p in ctx.planes.values())
+        rate = max(p.batcher.drain_rps() for p in ctx.planes.values())
         retry_after = min(30.0, max(1.0, depth / rate if rate > 0 else 1.0))
         self._reply(
             503,
@@ -498,10 +742,7 @@ class _Handler(BaseHTTPRequestHandler):
             payload = json.loads(raw_body)
             if not isinstance(payload, dict):
                 raise ValueError("body must be a JSON object")
-            model = payload.get("model")
-            if model is not None and model != ctx.model_name:
-                raise ValueError(f"unknown model {model!r}; this server "
-                                 f"serves {[ctx.model_name]}")
+            plane = ctx.plane_for(payload.get("model"))
             klass = payload.get("priority") or None
             if klass is not None:
                 priority_rank(klass)  # 400 on an unknown class
@@ -515,9 +756,15 @@ class _Handler(BaseHTTPRequestHandler):
         # else shapes the answer; the probe snapshots the invalidation
         # generation so an insert after a concurrent swap is dropped.
         cache = ctx.cache
+        if cache is not None and plane.canary is not None \
+                and plane.canary.state == CANARY_SHADOW:
+            # A shadowing canary judges dispatched traffic only: answering
+            # repeats from the cache (or collapsing them, the key is also
+            # the collapse key) would starve its comparison stream.
+            cache = None
         ckey, hit_value, gen = None, None, 0
         if cache is not None:
-            ckey = request_key(raw_body, ctx.model_name, ctx.serve_mode,
+            ckey = request_key(raw_body, plane.model_name, ctx.serve_mode,
                                ctx.serve_precision)
             hit_value, _hit_epoch, gen = cache.get(ckey)
         if ctx.quotas is not None:
@@ -525,13 +772,13 @@ class _Handler(BaseHTTPRequestHandler):
             if ctx.price_admission:
                 if hit_value is not None:
                     cost = HIT_COST
-                elif ctx.batcher.cost_model is not None:
-                    cost = ctx.batcher.cost_model.price(
+                elif plane.batcher.cost_model is not None:
+                    cost = plane.batcher.cost_model.price(
                         _estimate_rows(payload.get("images")))
             admitted, retry_after = ctx.quotas.admit(
                 client_id, klass or PRIORITY_CLASSES[0], cost=cost)
             if not admitted:
-                ctx.serve_log.record_rejection(klass=klass, quota=True)
+                plane.serve_log.record_rejection(klass=klass, quota=True)
                 self._reply(
                     429,
                     {"error": "quota exceeded",
@@ -542,14 +789,17 @@ class _Handler(BaseHTTPRequestHandler):
         if hit_value is not None:
             predictions, hit_epoch = hit_value
             latency_s = time.perf_counter() - t0
-            ctx.serve_log.record_request(
+            plane.serve_log.record_request(
                 latency_s, queue_wait_s=0.0,
                 images=len(predictions), klass=klass)
-            self._reply(200, {
+            reply = {
                 "predictions": list(predictions),
                 "model_epoch": hit_epoch,
                 "latency_ms": round(latency_s * 1e3, 3),
-            }, headers={"X-Cache": "hit"})
+            }
+            if ctx.multi_model:
+                reply["model"] = plane.model_name
+            self._reply(200, reply, headers={"X-Cache": "hit"})
             return
         try:
             images = payload.get("images")
@@ -559,7 +809,7 @@ class _Handler(BaseHTTPRequestHandler):
             # Raw 0-255 pixels over the wire; quantize to the exact uint8
             # domain training reads from disk.
             raw = np.clip(np.rint(arr), 0, 255).astype(np.uint8)
-            batch = ctx.engine.preprocess(raw)
+            batch = plane.engine.preprocess(raw)
             if batch.shape[0] > ctx.max_request_images:
                 raise ValueError(
                     f"{batch.shape[0]} images in one request (max "
@@ -572,11 +822,11 @@ class _Handler(BaseHTTPRequestHandler):
             # it), so a reply never names a checkpoint installed after its
             # batch ran. The cache key doubles as the collapse key.
             submit_cost = 1.0
-            if ctx.price_admission and ctx.batcher.cost_model is not None:
-                submit_cost = ctx.batcher.cost_model.price(
+            if ctx.price_admission and plane.batcher.cost_model is not None:
+                submit_cost = plane.batcher.cost_model.price(
                     int(batch.shape[0]))
-            out = ctx.batcher.predict(batch, klass=klass,
-                                      collapse_key=ckey, cost=submit_cost)
+            out = plane.batcher.predict(batch, klass=klass,
+                                        collapse_key=ckey, cost=submit_cost)
         except Overloaded as exc:
             payload = {"error": "overloaded", "detail": str(exc),
                        "priority": klass or PRIORITY_CLASSES[0]}
@@ -600,6 +850,8 @@ class _Handler(BaseHTTPRequestHandler):
             "model_epoch": model_epoch,
             "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
         }
+        if ctx.multi_model:
+            reply["model"] = plane.model_name
         headers = None
         if cache is not None:
             cache.put(ckey, (predictions, model_epoch),
@@ -607,6 +859,73 @@ class _Handler(BaseHTTPRequestHandler):
                       epoch=model_epoch, generation=gen)
             headers = {"X-Cache": "miss"}
         self._reply(200, reply, headers=headers)
+
+    def _do_resize(self) -> None:
+        """``POST /resize``: ``{"serve_devices": N, "model": ...?}``
+        re-shapes a plane's pool under live traffic (the new layout built
+        and warmed while the old one serves, an atomic swap, in-flight
+        batches finish on the old engines: zero dropped requests). Replies
+        with the old and new topology. Refused (400) without a pool and
+        under a canary; 409 while another resize runs."""
+        ctx = self.ctx
+        length = int(self.headers.get("Content-Length", 0))
+        if length > MAX_BODY_BYTES:
+            self._reply(413, {"error": "oversized /resize body"})
+            return
+        try:
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            plane = ctx.plane_for(
+                payload.get("model") if isinstance(payload, dict) else None)
+        except (ValueError, TypeError, json.JSONDecodeError) as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        if plane.pool is None:
+            self._reply(400, {
+                "error": "resize needs the pooled data plane; start with "
+                         "--serve-devices/--max-inflight (the default "
+                         "single-engine server has no pool to re-shape)"})
+            return
+        if plane.canary is not None:
+            # A resize mid-canary would re-shape the baseline pool only,
+            # and the two planes' capacity would diverge under the
+            # comparison: refused.
+            self._reply(400, {
+                "error": "resize is not supported while a precision "
+                         "canary is active (--canary-fraction); the "
+                         "baseline and shadow planes must keep the same "
+                         "topology — restart to change it"})
+            return
+        try:
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object with "
+                                 "serve_devices and/or serve_mesh")
+            n_devices = payload.get("serve_devices")
+            mesh_size = payload.get("serve_mesh")
+            if n_devices is None and mesh_size is None:
+                raise ValueError("body must be JSON with serve_devices "
+                                 "and/or serve_mesh")
+            if n_devices is not None:
+                n_devices = int(n_devices)
+            if mesh_size is not None:
+                mesh_size = int(mesh_size)
+        except (ValueError, TypeError) as exc:
+            self._reply(400, {"error": str(exc)})
+            return
+        t0 = time.perf_counter()
+        try:
+            result = plane.pool.resize(n_devices=n_devices,
+                                       mesh_size=mesh_size)
+        except ValueError as exc:  # an invalid target: nothing changed
+            self._reply(400, {"error": str(exc)})
+            return
+        except RuntimeError as exc:  # one resize at a time
+            self._reply(409, {"error": str(exc)})
+            return
+        except Exception as exc:  # noqa: BLE001 - an admin op never kills serving
+            self._reply(500, {"error": repr(exc)})
+            return
+        self._reply(200, {"ok": True, **result,
+                          "warm_s": round(time.perf_counter() - t0, 3)})
 
 
 def _parse_buckets(spec: str):
@@ -619,6 +938,32 @@ def _parse_buckets(spec: str):
         raise SystemExit(f"--buckets needs at least one positive size, "
                          f"got {spec!r}")
     return buckets
+
+
+def _parse_model_set(spec: str, list_models) -> dict:
+    """``--model-set NAME=DIR[,NAME=DIR...]`` -> ordered ``{model:
+    checkpoint_dir}``; flag-language exits on unknown models, duplicates
+    or a malformed pair."""
+    entries: dict = {}
+    for tok in spec.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        name, sep, directory = tok.partition("=")
+        name, directory = name.strip(), directory.strip()
+        if not sep or not name or not directory:
+            raise SystemExit(f"--model-set: expected MODEL=CHECKPOINT_DIR, "
+                             f"got {tok!r}")
+        if name not in list_models():
+            raise SystemExit(f"--model-set names unknown model {name!r}; "
+                             f"available: {list_models()}")
+        if name in entries:
+            raise SystemExit(f"--model-set names {name!r} twice (one plane "
+                             f"per model; point retrains at one directory)")
+        entries[name] = directory
+    if not entries:
+        raise SystemExit("--model-set needs at least one MODEL=DIR pair")
+    return entries
 
 
 def _parse_watermarks(spec: Optional[str]) -> ShedPolicy:
@@ -644,7 +989,7 @@ def _parse_watermarks(spec: Optional[str]) -> ShedPolicy:
         raise SystemExit(f"--shed-watermarks: {exc}") from None
 
 
-def _restore(args, model_name: str, loader):
+def _restore(args, model_name: str, checkpoint_dir: str, loader):
     """Boot restore, newest -> oldest, each checkpoint through ``loader``
     (the delta fetcher's: a manifest's chunks may come from peers): one
     corrupt or mismatched latest checkpoint must not turn a restart into
@@ -661,7 +1006,7 @@ def _restore(args, model_name: str, loader):
     )
 
     layout_rejection = None
-    for _, candidate in reversed(_epoch_checkpoints(args.checkpoint_dir)):
+    for _, candidate in reversed(_epoch_checkpoints(checkpoint_dir)):
         try:
             try:
                 layout = checkpoint_parallel_layout(candidate)
@@ -688,47 +1033,287 @@ def _restore(args, model_name: str, loader):
     if args.require_checkpoint:
         raise SystemExit(
             f"--require-checkpoint: no loadable published checkpoint in "
-            f"{args.checkpoint_dir!r}")
-    print(f"WARNING: no loadable checkpoint in {args.checkpoint_dir!r}; "
+            f"{checkpoint_dir!r}")
+    print(f"WARNING: no loadable checkpoint in {checkpoint_dir!r}; "
           f"serving fresh params (seed {args.seed}) until one is "
           f"published", flush=True)
     return None, init_params(model_name, args.seed), None
 
 
-def create_server(args) -> ThreadingHTTPServer:
-    """Build engine + batcher + watcher and bind the HTTP server (socket
-    bound, not yet serving: callers run ``serve_forever`` themselves, so
-    tests can boot on port 0 in-process). ``server.ctx.close()`` tears the
-    serving stack down."""
+def _build_plane(args, model_name: str, checkpoint_dir: str, *,
+                 shape: dict, sink, shed_policy, fair_gate,
+                 multi_model: bool) -> ModelPlane:
+    """One model's serving stack over the resolved data-plane ``shape``:
+    the single-model server builds one, ``--model-set`` one per model
+    (each with its own ServeLog, fetcher, watcher, canary and, when
+    autoscaling, its own controller over its own pool)."""
+    import functools
+
     import torch
 
+    from pytorch_distributed_mnist_tpu_torch.distrib.fetch import (
+        DeltaFetcher,
+    )
     from pytorch_distributed_mnist_tpu_torch.models import (
         get_model,
-        list_models,
         model_accepts,
     )
+    from pytorch_distributed_mnist_tpu_torch.serve.pool import EnginePool
     from pytorch_distributed_mnist_tpu_torch.serve.programs import (
         check_checkpoint_layout,
+        get_precision,
     )
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         checkpoint_parallel_layout,
     )
+    from pytorch_distributed_mnist_tpu_torch.utils.device import device_name
+
+    device, devices = shape["device"], shape["devices"]
+    n_devices, pooled = shape["n_devices"], shape["pooled"]
+    max_inflight = shape["max_inflight"]
+    precision = args.serve_precision
+    canary_fraction = float(args.canary_fraction or 0.0)
+    fuse = not args.no_fuse
+    buckets = _parse_buckets(args.buckets)
+    model_kwargs = {}
+    if args.dtype:
+        model_kwargs["compute_dtype"] = {
+            "bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
+
+    def _model_factory(plane_precision: str):
+        """Fresh model modules for one precision plane: the int8 plane
+        (and only it) runs the Dense layers through the int8 matmul
+        kernel, so a canary's f32 baseline never runs the kernel it
+        referees. One module per engine: the forward swaps a module's
+        parameters for the length of a call."""
+        kwargs = dict(model_kwargs)
+        if plane_precision == "int8" and model_accepts(model_name, "matmul"):
+            from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+                int8_linear,
+            )
+
+            kwargs["matmul"] = int8_linear
+        return functools.partial(get_model, model_name, **kwargs)
+
+    # The delta-distribution loader, at boot and for every reload. It
+    # quantizes in the fetcher only when one plane owns its output: a
+    # canary's f32 baseline must never receive quantized leaves.
+    fetcher = DeltaFetcher(
+        checkpoint_dir,
+        precision=get_precision(precision) if not canary_fraction else None,
+        peers=[u.strip() for u in (args.chunk_peers or "").split(",")
+               if u.strip()],
+        source_dir=args.chunk_source, workers=args.workers)
+    boot_path, params, epoch = _restore(args, model_name, checkpoint_dir,
+                                        fetcher.load)
+    serve_log = ServeLog(window_s=args.stats_window_s)
+    if sink is not None:
+        serve_log.set_sink(
+            sink, source=f"serve/{model_name}" if multi_model else "serve")
+    warmup_log = WarmupLog()
+    # Multi-model names: the model is the first dotted segment of every
+    # engine and replica name ('cnn.r0', 'vit.int8').
+    name_prefix = f"{model_name}." if multi_model else ""
+
+    def _make_plane(plane_precision: str):
+        """One data plane at ``plane_precision``: the direct path and the
+        canary's two planes go through here, so they cannot drift."""
+        factory = _model_factory(plane_precision)
+        if pooled:
+            return EnginePool(
+                factory, params, devices=devices[:n_devices],
+                buckets=buckets, serve_log=serve_log, params_epoch=epoch,
+                workers=args.workers,
+                quarantine_after=args.quarantine_after,
+                precision=plane_precision, name_prefix=name_prefix,
+                fuse=fuse, warmup_log=warmup_log)
+        return InferenceEngine(
+            factory(), params, buckets=buckets, serve_log=serve_log,
+            params_epoch=epoch, precision=plane_precision,
+            name=precision_engine_name(model_name if multi_model else None,
+                                       plane_precision),
+            fuse=fuse, device=device, workers=args.workers,
+            warmup_log=warmup_log)
+
+    def _tag(labels, epoch):
+        # Row-tagged outputs (label, epoch): the epoch is captured with the
+        # params inside the engine, so a reply names the checkpoint that
+        # really computed it.
+        tag = np.full_like(labels, -1 if epoch is None else epoch)
+        return np.stack([labels, tag], axis=1)
+
+    def _gated(dispatch_fn):
+        """The weighted-fair grant on the batcher's dispatch thread, then
+        the dispatch, outside the gate's lock."""
+        if fair_gate is None:
+            return dispatch_fn
+
+        def gated(images):
+            fair_gate.grant(model_name, int(images.shape[0]))
+            return dispatch_fn(images)
+
+        return gated
+
+    batcher_kw = dict(max_wait_s=args.max_wait_ms / 1e3,
+                      max_queue=args.max_queue, serve_log=serve_log,
+                      shed_policy=shed_policy,
+                      cost_model=CostModel(buckets),
+                      priced=args.price_admission)
+    t0 = time.perf_counter()
+    pool = canary = None
+    if canary_fraction:
+        baseline = _make_plane("f32")
+        candidate = _make_plane(precision)
+        pool = baseline if pooled else None
+        if pooled:
+            # The baseline answers by default: its replica rows are the
+            # ones /stats shows (the candidate registered last).
+            serve_log.set_replicas_probe(baseline.snapshot)
+        canary = engine = ShadowCanary(
+            baseline, candidate, precision, fraction=canary_fraction,
+            promote_after=args.canary_promote_after,
+            budget=args.canary_budget, serve_log=serve_log)
+        canary.warmup()
+        batcher = MicroBatcher(
+            None, max_batch=canary.max_batch,
+            dispatch_fn=_gated(canary.dispatch),
+            complete_fn=lambda handle: _tag(*canary.predict_complete(handle)),
+            max_inflight=max_inflight, **batcher_kw).start()
+    elif pooled:
+        pool = engine = _make_plane(precision)
+        pool.warmup()
+        batcher = MicroBatcher(
+            None, max_batch=pool.max_batch, dispatch_fn=_gated(pool.dispatch),
+            complete_fn=lambda handle: _tag(*pool.predict_complete(handle)),
+            max_inflight=max_inflight, **batcher_kw).start()
+    else:
+        engine = _make_plane(precision)
+        engine.warmup()
+
+        def infer(images):
+            return _tag(*engine.predict_with_epoch(images))
+
+        batcher = MicroBatcher(_gated(infer), max_batch=engine.max_batch,
+                               **batcher_kw).start()
+    warm_ms = warmup_log.stats()["totals"]["wall_ms"]
+    words = []
+    if canary is not None:
+        words.append(f"f32 baseline + {precision} shadow canary (fraction "
+                     f"{canary_fraction}, promote after "
+                     f"{args.canary_promote_after} rows, budget "
+                     f"{args.canary_budget})")
+    elif precision != "f32":
+        words.append(precision)
+    if pooled:
+        words.append(f"{n_devices} replica(s), in-flight window "
+                     f"{max_inflight},")
+    if fuse:
+        words.append("fused")
+    plane = "".join(w + " " for w in words)
+    print(f"{model_name}: warmed {plane}bucket forwards "
+          f"{list(engine.buckets)} on {device_name(device)} in "
+          f"{time.perf_counter() - t0:.1f}s (warm-up wall {warm_ms:.0f} ms)",
+          flush=True)
+
+    watcher = None
+    if not args.no_reload:
+        def _validate_reload(path: str) -> None:
+            check_checkpoint_layout(checkpoint_parallel_layout(path),
+                                    REPLICATED, model_name)
+
+        # A pool or canary's swap_params is the fan-out: one host-side
+        # load, an atomic and stale-refusing install per replica.
+        watcher = CheckpointWatcher(
+            checkpoint_dir, model_name, engine.swap_params,
+            poll_interval_s=args.poll_interval, serve_log=serve_log,
+            current_path=boot_path, validate_fn=_validate_reload,
+            loader=fetcher.load,
+        ).start()
+
+    autoscaler = None
+    if args.autoscale:
+        # The SLO loop over this plane's pool: its rolling-window p95 and
+        # queue depth in, its resize out, one replica a step. Validated
+        # in create_server before any plane was built.
+        max_devices = args.autoscale_max_devices or len(devices)
+        queue_high = max(1, int(args.autoscale_queue_high * args.max_queue))
+        autoscaler = AutoScaler(
+            pool, serve_log.window_stats, slo_p95_ms=args.slo_p95_ms,
+            queue_high=queue_high,
+            min_devices=args.autoscale_min_devices,
+            max_devices=max_devices,
+            interval_s=args.autoscale_interval_s,
+            cooldown_s=args.autoscale_cooldown_s,
+            down_after=args.autoscale_down_after,
+            dry_run=args.autoscale_dry_run, serve_log=serve_log,
+            model=model_name if multi_model else None,
+        ).start()
+        print(f"autoscaler: SLO p95 {autoscaler.slo_p95_ms}ms, queue high "
+              f"{queue_high}, {autoscaler.min_devices}..{max_devices} "
+              f"device(s), cooldown {autoscaler.cooldown_s}s"
+              + (" [dry run]" if autoscaler.dry_run else ""), flush=True)
+
+    return ModelPlane(
+        model_name, engine, batcher, watcher, serve_log, boot_path,
+        device=device, warmup_log=warmup_log, pool=pool, canary=canary,
+        autoscaler=autoscaler, checkpoint_dir=checkpoint_dir,
+        fetcher=fetcher)
+
+
+def create_server(args) -> ThreadingHTTPServer:
+    """Build the model plane(s) (engine or pool, batcher, watcher, and a
+    canary and an autoscaler where asked, per model) and bind the HTTP
+    server (socket bound, not yet serving: callers run ``serve_forever``
+    themselves, so tests can boot on port 0 in-process).
+    ``server.ctx.close()`` tears the serving stack down."""
+    from pytorch_distributed_mnist_tpu_torch.models import list_models
+    from pytorch_distributed_mnist_tpu_torch.utils import compile_cache
     from pytorch_distributed_mnist_tpu_torch.utils.device import (
-        device_name,
+        local_devices,
         resolve_device,
     )
 
-    from pytorch_distributed_mnist_tpu_torch.utils import compile_cache
-
-    model_name = args.model
-    if model_name not in list_models():
-        raise SystemExit(f"unknown --model {model_name!r}; "
-                         f"available: {list_models()}")
+    # The model set: --model-set wins, else --model/--checkpoint-dir is a
+    # one-plane set.
+    if args.model_set:
+        model_dirs = _parse_model_set(args.model_set, list_models)
+    else:
+        if args.model not in list_models():
+            raise SystemExit(f"unknown --model {args.model!r}; "
+                             f"available: {list_models()}")
+        model_dirs = {args.model: args.checkpoint_dir}
+    multi_model = len(model_dirs) > 1
+    if args.model_weights and not multi_model:
+        raise SystemExit("--model-weights shapes multi-model dispatch; it "
+                         "requires --model-set with >= 2 models")
     device = resolve_device(args.device)
     print(f"build directory: "
           f"{compile_cache.configure(getattr(args, 'compile_cache', None))}",
           flush=True)
-    buckets = _parse_buckets(args.buckets)
+
+    # The data plane's shape, shared by every model plane: N models serve
+    # from one set of devices. The default (1 device, window 1) is the
+    # single-engine plane.
+    devices = local_devices(device.type)
+    n_devices = args.serve_devices
+    if n_devices == 0:
+        n_devices = len(devices)
+    if n_devices < 0 or n_devices > len(devices):
+        raise SystemExit(f"--serve-devices {n_devices}: this host has "
+                         f"{len(devices)} local device(s)")
+    max_inflight = args.max_inflight
+    if max_inflight < 0:
+        raise SystemExit(f"--max-inflight {max_inflight}: must be >= 0")
+    if max_inflight == 0:
+        # One in-flight batch per replica plus one forming.
+        max_inflight = n_devices + 1 if n_devices > 1 else 1
+    pooled = n_devices > 1 or max_inflight > 1
+    shape = {"device": device, "devices": devices, "n_devices": n_devices,
+             "max_inflight": max_inflight, "pooled": pooled}
+
+    # Control-plane flags, validated before any plane is built, so a bad
+    # flag dies in milliseconds, not after the warm-ups.
+    _parse_buckets(args.buckets)
     shed_policy = _parse_watermarks(args.shed_watermarks)
     quotas = None
     if args.quota_rps:
@@ -739,103 +1324,82 @@ def create_server(args) -> ThreadingHTTPServer:
             raise SystemExit(f"--quota-rps: {exc}") from None
         if not quotas.enabled:
             quotas = None
+    canary_fraction = float(args.canary_fraction or 0.0)
+    if canary_fraction:
+        if args.serve_precision == "f32":
+            raise SystemExit(
+                "--canary-fraction shadows a quantized plane against the "
+                "f32 baseline; pass a quantized --serve-precision "
+                f"({serve_precisions()[1:]}) or drop the flag")
+        if not 0.0 < canary_fraction <= 1.0:
+            raise SystemExit(
+                f"--canary-fraction {canary_fraction}: must be in (0, 1]")
+        if args.canary_promote_after < 1:
+            raise SystemExit(f"--canary-promote-after "
+                             f"{args.canary_promote_after}: must be >= 1")
+        if args.canary_budget < 0:
+            raise SystemExit(
+                f"--canary-budget {args.canary_budget}: must be >= 0")
+    if args.autoscale_dry_run and not args.autoscale:
+        raise SystemExit("--autoscale-dry-run modifies --autoscale; pass "
+                         "both")
+    if args.autoscale:
+        if not pooled:
+            raise SystemExit(
+                "--autoscale actuates the pool's resize path; start the "
+                "pooled data plane (--serve-devices N / --max-inflight) — "
+                "the single-engine server has no topology to scale")
+        if canary_fraction:
+            raise SystemExit(
+                "--autoscale cannot run under an active precision canary "
+                "(--canary-fraction): a resize would re-shape only the "
+                "baseline pool and the two planes' topology must not "
+                "diverge")
+        if args.autoscale_min_devices < 1:
+            raise SystemExit("--autoscale-min-devices must be >= 1")
+        max_dev = args.autoscale_max_devices
+        if max_dev and max_dev > len(devices):
+            raise SystemExit(
+                f"--autoscale-max-devices {max_dev}: this host has "
+                f"{len(devices)} local device(s)")
+    fair_gate = None
+    if multi_model:
+        try:
+            weights = parse_weight_spec(args.model_weights or "",
+                                        list(model_dirs))
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+        fair_gate = WeightedFairGate(weights)
     sink = JsonlSink(args.metrics_file) if args.metrics_file else None
 
-    model_kwargs = {}
-    if args.dtype:
-        model_kwargs["compute_dtype"] = {
-            "bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
-    precision = args.serve_precision
-    if precision == "int8" and model_accepts(model_name, "matmul"):
-        # The int8 plane (and only it) runs the Dense layers through the
-        # hand-written int8 matmul kernel.
-        from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
-            int8_linear,
-        )
-
-        model_kwargs["matmul"] = int8_linear
-    model = get_model(model_name, **model_kwargs)
-
-    # The delta-distribution loader, at boot and for every reload: a
-    # manifest's missing chunks come from the peers, then the source, and
-    # only its changed leaves are rebuilt and quantized again; npz files
-    # and .ckpt directories take the whole-file load.
-    from pytorch_distributed_mnist_tpu_torch.distrib.fetch import (
-        DeltaFetcher,
-    )
-    from pytorch_distributed_mnist_tpu_torch.serve.programs import (
-        get_precision,
-    )
-
-    fetcher = DeltaFetcher(
-        args.checkpoint_dir, precision=get_precision(precision),
-        peers=[u.strip() for u in (args.chunk_peers or "").split(",")
-               if u.strip()],
-        source_dir=args.chunk_source, workers=args.workers)
-    boot_path, params, epoch = _restore(args, model_name, fetcher.load)
-    serve_log = ServeLog(window_s=args.stats_window_s)
-    if sink is not None:
-        serve_log.set_sink(sink, source="serve")
-    fuse = not args.no_fuse
-    t0 = time.perf_counter()
-    engine = InferenceEngine(
-        model, params, buckets=buckets, serve_log=serve_log,
-        params_epoch=epoch, precision=precision,
-        name=precision_engine_name(None, precision), fuse=fuse,
-        device=device, workers=args.workers)
-    engine.warmup()
-    warm_ms = engine.warmup_log.stats()["totals"]["wall_ms"]
-    plane = f"{precision} " if precision != "f32" else ""
-    plane += "fused " if fuse else ""
-    print(f"{model_name}: warmed {plane}bucket forwards "
-          f"{list(engine.buckets)} on {device_name(device)} in "
-          f"{time.perf_counter() - t0:.1f}s (warm-up wall {warm_ms:.0f} ms)",
-          flush=True)
-
-    def _tag(labels, epoch):
-        # Row-tagged outputs (label, epoch): the epoch is captured with the
-        # params inside the engine, so a reply names the checkpoint that
-        # really computed it.
-        tag = np.full_like(labels, -1 if epoch is None else epoch)
-        return np.stack([labels, tag], axis=1)
-
-    def infer(images):
-        return _tag(*engine.predict_with_epoch(images))
-
-    batcher = MicroBatcher(
-        infer, max_batch=engine.max_batch,
-        max_wait_s=args.max_wait_ms / 1e3, max_queue=args.max_queue,
-        serve_log=serve_log, shed_policy=shed_policy,
-        cost_model=CostModel(buckets), priced=args.price_admission,
-    ).start()
-
-    watcher = None
-    if not args.no_reload:
-        def _validate_reload(path: str) -> None:
-            check_checkpoint_layout(checkpoint_parallel_layout(path),
-                                    REPLICATED, model_name)
-
-        watcher = CheckpointWatcher(
-            args.checkpoint_dir, model_name, engine.swap_params,
-            poll_interval_s=args.poll_interval, serve_log=serve_log,
-            current_path=boot_path, validate_fn=_validate_reload,
-            loader=fetcher.load,
-        ).start()
-
+    planes = {}
+    for model_name, checkpoint_dir in model_dirs.items():
+        planes[model_name] = _build_plane(
+            args, model_name, checkpoint_dir, shape=shape, sink=sink,
+            shed_policy=shed_policy, fair_gate=fair_gate,
+            multi_model=multi_model)
+    # One response cache for the process (keys carry the model name); its
+    # invalidation hook on every plane's answering engine, pool or canary.
     cache_mb = 0.0 if args.no_cache else max(0.0, float(args.cache_mb))
     resp_cache = ResponseCache(int(cache_mb * (1 << 20)))
     if resp_cache.enabled:
-        engine.add_swap_hook(resp_cache.bump_generation)
+        for plane in planes.values():
+            plane.engine.add_swap_hook(resp_cache.bump_generation)
+    if multi_model:
+        print(f"multi-model serving: {sorted(planes)} from one "
+              f"{n_devices}-device budget (weighted-fair dispatch "
+              f"{fair_gate.weights}); requests route on their 'model' "
+              f"field", flush=True)
 
     httpd = _HTTPServer((args.host, args.port), _Handler)
     httpd.daemon_threads = True
     httpd.ctx = ServeContext(  # type: ignore[attr-defined]
-        model_name, engine, batcher, watcher, serve_log, boot_path, sink,
+        planes, next(iter(model_dirs)), sink,
         max_request_images=args.max_request_images,
-        serve_precision=precision, quotas=quotas, fused=fuse,
+        max_inflight=max_inflight, serve_precision=args.serve_precision,
+        quotas=quotas, fair_gate=fair_gate, fused=not args.no_fuse,
         cache=resp_cache if resp_cache.enabled else None,
-        price_admission=args.price_admission,
-        checkpoint_dir=args.checkpoint_dir, fetcher=fetcher)
+        price_admission=args.price_admission)
     return httpd
 
 

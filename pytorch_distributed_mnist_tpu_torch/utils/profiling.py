@@ -300,6 +300,7 @@ class ServeLog:
         self._sink: Optional[JsonlSink] = None
         self._source = "serve"
         self._queue_depth_probe: Optional[Callable[[], int]] = None
+        self._replicas_probe: Optional[Callable[[], Dict]] = None
         self.reset()
 
     def reset(self) -> None:
@@ -320,8 +321,8 @@ class ServeLog:
             # ever carried a class.
             self._classes: Dict[str, Dict] = {}
             # Per-engine execution counters, keyed by the engine's name
-            # (a precision-named engine such as ``int8``); empty when the
-            # engine is unnamed.
+            # (a pool's replica ``r0``, or a precision-named engine such
+            # as ``int8``); empty when the engine is unnamed.
             self._replica_counts: Dict[str, Dict] = {}
 
     def set_sink(self, sink: Optional[JsonlSink],
@@ -335,6 +336,14 @@ class ServeLog:
         snapshot time so ``/stats`` shows the instantaneous depth."""
         with self._lock:
             self._queue_depth_probe = probe
+
+    def set_replicas_probe(self, probe: Optional[Callable[[], Dict]]) -> None:
+        """Register the pool's per-replica snapshot callable (device,
+        serving epoch, in-flight count per replica); merged into this
+        log's per-replica batch counters at snapshot time so ``/stats``
+        and the JSONL ``serve_stats`` lines carry one row per replica."""
+        with self._lock:
+            self._replicas_probe = probe
 
     # -- recorders (each from its owning thread) --------------------------
 
@@ -490,6 +499,7 @@ class ServeLog:
             queue_wait = list(self._queue_wait)
             hist = {str(k): v for k, v in sorted(self._batch_hist.items())}
             probe = self._queue_depth_probe
+            replicas_probe = self._replicas_probe
             classes = {
                 klass: {
                     "requests": rec["requests"],
@@ -505,6 +515,14 @@ class ServeLog:
                                    str(k): v for k, v in
                                    sorted(rec["batch_histogram"].items())}}
                         for name, rec in self._replica_counts.items()}
+        if replicas_probe is not None:
+            try:
+                for name, row in replicas_probe().items():
+                    replicas.setdefault(
+                        name, {"batches": 0, "images": 0,
+                               "batch_histogram": {}}).update(row)
+            except Exception:  # noqa: BLE001 - stats must never raise
+                pass
         depth = 0
         if probe is not None:
             try:
@@ -526,7 +544,7 @@ class ServeLog:
         # unchanged beyond the window block.
         if classes:
             snap["classes"] = classes
-        # Per-engine rows appear only for a named engine.
+        # Per-engine rows appear only for a named engine or a pool.
         if replicas:
             snap["replicas"] = {k: replicas[k] for k in sorted(replicas)}
         return snap

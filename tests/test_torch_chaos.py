@@ -11,8 +11,17 @@ harness (``runtime/chaos.py``) and the CLI.
   recorded), and rank 0's epoch-1 line equals a direct 2-rank world's
   resumed from the same checkpoint.
 
+- The serving modes of the harness, each beside its no-fault twin, on a
+  port server process on the CPU driven by ``tools/loadgen.py``: replica
+  0 dies after 5 batches and is quarantined and regrouped with every
+  request answered; ``/resize`` rolls the pool 3 -> 2 under traffic with
+  zero drops; an injected disagreement rolls the canary back while the
+  f32 baseline answers everything; a load spike scales a 1-replica pool
+  to 2 and back (after a dry run that moves nothing).
+
 Twin of the non-slow cases of ``tests/test_chaos.py`` and
-``tests/test_elastic_chaos.py``. Every world bounds its wait
+``tests/test_elastic_chaos.py`` and of the serve twins of
+``tools/chaos.py``. Every world and server bounds its wait
 (``WORLD_TIMEOUT``)."""
 
 import json
@@ -123,3 +132,62 @@ def test_three_rank_world_shrinks_to_two_and_matches_a_direct_one(
     cap = capfd.readouterr()
     assert got["returncodes"] == [0, 0], (cap.out + cap.err)[-3000:]
     assert _epoch_lines(cap.out) == shrunk_lines[1:]
+
+
+def _serve_chaos(capfd, *argv):
+    from pytorch_distributed_mnist_tpu_torch.runtime import chaos
+
+    rc = chaos.main(["--device", "cpu", "--timeout", str(WORLD_TIMEOUT),
+                     *argv])
+    cap = capfd.readouterr()
+    return rc, json.loads(cap.out.strip().splitlines()[-1])["chaos"], \
+        cap.out + cap.err
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["--serve-fault", "0:5"], "regroups"),
+    (["--resize", "3,2"], "resized"),
+])
+def test_serve_chaos_replica_death_and_rolling_resize(world_env, capfd,
+                                                      argv, check):
+    rc, result, out = _serve_chaos(
+        capfd, "--serve", "--serve-devices", "2", "--expect-groups", "2",
+        "--requests", "120", *argv)
+    assert rc == 0, out[-3000:]
+    faulted, twin = result["faulted"], result["twin"]
+    for run in (faulted, twin):
+        assert run["ok"] and run["answered"] == 120
+        assert run["transport_errors"] == 0
+        assert run["topology"]["active_groups"] == 2
+    if check == "regroups":
+        assert faulted["topology"]["regroups"] == 1
+        assert faulted["topology"]["failovers"] >= 3
+        assert twin["topology"]["regroups"] == 0
+    else:
+        assert faulted["resized"] == [3, 2]
+        assert faulted["topology"]["topology_generation"] == 2
+        assert twin["resized"] == []
+
+
+def test_serve_chaos_canary_rollback(world_env, capfd):
+    rc, result, out = _serve_chaos(capfd, "--serve", "--canary-rollback",
+                                   "--requests", "120")
+    assert rc == 0, out[-3000:]
+    faulted = result["faulted"]
+    assert faulted["canary"]["state"] == "rolled_back"
+    assert faulted["canary"]["rollbacks"] == 1
+    assert faulted["answered"] == 120 and result["twin"]["ok"]
+
+
+def test_serve_chaos_autoscale_spike(world_env, capfd):
+    rc, result, out = _serve_chaos(capfd, "--autoscale-spike",
+                                   "--slo-p95-ms", "2",
+                                   "--spike-duration", "4")
+    assert rc == 0, out[-3000:]
+    spike = result["autoscale_spike"]
+    assert spike["dry_run"]["scale_ups"] >= 1
+    assert spike["dry_run"]["serve_devices"] == 1
+    assert spike["real"]["scale_ups"] >= 1
+    assert spike["real"]["scale_downs"] >= 1
+    assert spike["real"]["transport_errors"] == 0
+    assert spike["real"]["answered"] == spike["real"]["sends"]

@@ -948,3 +948,56 @@ def test_a_replayed_epoch_with_the_nccl_all_reduce_equals_the_eager_steps(
     assert epoch.program.launches.per_replay[
         ("parallel.collectives", "grad_all_reduce", "launches")] == 1
     assert epoch.program.replays == 10
+
+
+def test_two_replicas_on_two_threads_answer_bit_for_bit(card):
+    """Two int8 replicas of one pool (both on the card, or on two cards
+    when there are) dispatched from two threads at once, each thread's
+    current device the other replica's: every reply's logits equal the
+    same engine's run alone, bit for bit."""
+    import functools
+    import threading
+
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import int8_linear
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.pool import EnginePool
+
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", 0),
+               torch.device("cuda", min(1, n_cards - 1))]
+    factory = functools.partial(get_model, "cnn", matmul=int8_linear)
+    params = init_params("cnn", 0)
+    pool = EnginePool(factory, params, devices=devices, buckets=(1, 8, 32),
+                      precision="int8", fuse=True)
+    pool.warmup()
+    alone = InferenceEngine(factory(), params, buckets=(1, 8, 32),
+                            precision="int8", fuse=True, device=devices[0])
+    images, _ = synthetic_dataset(40 * 16, seed=7)
+    batches = np.split(images, 40)
+    got = {}
+
+    def drive(idx):
+        torch.cuda.set_device(devices[1 - idx])
+        replica = pool.replicas[idx]
+        for j in range(idx, len(batches), 2):
+            got[j] = replica.engine.dispatch_logits(batches[j]).complete()[0]
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    assert not any(t.is_alive() for t in threads)
+    for j, raw in enumerate(batches):
+        assert np.array_equal(got[j], alone.logits(raw)), j

@@ -151,8 +151,7 @@ def test_parser_leaves_out_unported_flags_and_defaults_to_cuda():
     args = build_parser().parse_args([])
     assert args.device == "cuda" and args.serve_precision == "f32"
     assert args.buckets == "1,8,32,128" and args.cache_mb == 64.0
-    for flag in ("--serve-devices", "--serve-mode", "--canary-fraction",
-                 "--model-set", "--autoscale", "--register-dir"):
+    for flag in ("--serve-mode", "--serve-mesh", "--register-dir"):
         with pytest.raises(SystemExit):
             build_parser().parse_args([flag, "1"])
 
