@@ -207,7 +207,21 @@ Phases, each printing one JSON line:
    its ``/stats`` block and the sink, the pool unmoved; then actuating
    1 -> 2 replicas sharing the card under traffic, zero drops,
    plain-equal batches; the CLI's ``--autoscale-max-devices`` past the
-   host's devices refused);
+   host's devices refused); then the fleet: ``fleet_router`` (the port's
+   router, ``create_router``, in this process over two in-process int8
+   cnn backends on the card: the ``server`` phase's requests from 4
+   client threads through it, a backend shut down under traffic with
+   zero drops, quarantined, restarted on its port and readmitted through
+   probation, a ``POST /rollout`` of epoch 1 under traffic, a fleet
+   canary rolled back under ``TPUMNIST_FLEET_FAULT=canary_disagree`` with
+   the baseline's weights republished, every batch equal to the plain
+   product's on its epoch's params, the aggregated ``/stats``, the K3
+   count rising; requests/s and p50 through the router against one
+   backend direct, printed) and ``fleet_chaos`` (``runtime/chaos.py
+   --fleet 2 --kill-backend 1 --device cuda --serve-model cnn``: a
+   router process, which imports no torch, over two backend processes
+   sharing the card, a real SIGKILL, zero drops, each backend's K3 count
+   from its own ``/stats`` above 0);
 17. run supervision and the build directory: the cnn run as a process
    SIGKILLed at epoch 1's entry (``TPUMNIST_FAULT``), then resumed with
    ``--resume auto`` in this process (``train_fault_resume``: epoch 1's
@@ -1857,6 +1871,368 @@ def phase_server_autoscale(device_flag: str = "cuda") -> dict:
          dropped=0, replies_exact=True, sink_events=len(events),
          launches=launches, cli_refusal=refusal)
     return {"launches": launches}
+
+
+# -- the fleet: the port's router over port backends ------------------------
+
+FLEET_FAULT_ENV = "TPUMNIST_FLEET_FAULT"  # as serve/router.py spells it
+FLEET_REQUESTS = 64  # the server phase's burst, per traffic run
+FLEET_CLIENTS = 4
+FLEET_TIMED_REQUESTS = 96  # per timed run (router, direct, in turns)
+
+
+def _fleet_traffic(client, requests: list, clients: int = FLEET_CLIENTS,
+                   during=None, body_extra=None) -> dict:
+    """``clients`` threads post ``requests`` through ``client``; after a
+    moment ``during()`` runs on this thread while they do. Returns the
+    replies, each request's latency, the wall and the requests/s; a
+    dropped request (any failure) raises."""
+    replies, latency, errors = [None] * len(requests), [], []
+    lock = threading.Lock()
+
+    def worker(idx):
+        for i in range(idx, len(requests), clients):
+            body = {"images": requests[i].tolist(), **(body_extra or {})}
+            t0 = time.perf_counter()
+            try:
+                reply = client.post("/predict", body)
+            except Exception as exc:  # noqa: BLE001 - counted as a drop
+                with lock:
+                    errors.append(repr(exc))
+                continue
+            with lock:
+                latency.append(time.perf_counter() - t0)
+            replies[i] = reply
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    event = None
+    if during is not None:
+        time.sleep(0.2)
+        event = during()
+    for t in threads:
+        t.join(300.0)
+    wall = time.perf_counter() - t0
+    dropped = [i for i, r in enumerate(replies)
+               if r is None or len(r["predictions"]) != len(requests[i])]
+    if errors or dropped:
+        raise AssertionError(f"fleet traffic dropped {len(dropped)} of "
+                             f"{len(requests)} requests: {errors[:3]}")
+    lat = sorted(latency)
+    return {"replies": replies, "event": event, "wall_s": wall,
+            "rps": len(requests) / wall,
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3}
+
+
+def _wait_until(check, what: str, seconds: float = 60.0):
+    deadline = time.monotonic() + seconds
+    while True:
+        got = check()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def phase_fleet_router(device_flag: str = "cuda") -> dict:
+    """The port's router (``serve/router.py``, ``create_router``) in this
+    process over two in-process port backends on the card (``serve
+    --model cnn --serve-precision int8``, fused plane, buckets
+    1/8/32/128), each on its own checkpoint directory at epoch 0, every
+    batch each backend runs recorded with the epoch it ran at. Under the
+    ``server`` phase's request set from 4 client threads through the
+    router: one backend shut down, with zero dropped requests, then
+    quarantined, restarted on its port and walked back through probation
+    to healthy; ``POST /rollout`` of epoch 1 with zero drops and both
+    backends' ``/healthz`` at 1 after it; a fleet canary of epoch 2 on
+    backend 0 under ``TPUMNIST_FLEET_FAULT=canary_disagree`` rolled back,
+    the baseline's weights republished there as epoch 3 and backend 1
+    still at 1. Every recorded batch must equal the plain-product
+    engine's on the params of its epoch, and every sequential reply
+    through the router the plain engine's on its own. The aggregated
+    ``/stats`` must have a row per backend and merged quantiles, and the
+    process's K3 count (both backends share it) must rise over the phase.
+    Printed, not gated: requests/s and p50 through the router against
+    the same traffic straight to one backend, in turns."""
+    import shutil
+
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.router import (
+        build_parser as router_parser,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.router import (
+        create_router,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    # The params each epoch's checkpoint carries; epoch 3 is the canary's
+    # rollback, the baseline's (epoch 1's) weights republished.
+    params = {e: init_params("cnn", SEED + e) for e in (0, 1, 2)}
+    params[3] = params[1]
+    dirs = [os.path.join(root, f"b{i}") for i in range(2)]
+    for d in dirs:
+        save_params_checkpoint(params_to_jax(params[0]), epoch=0,
+                               directory=d)
+    staging = os.path.join(root, "staging")
+    for e in (1, 2):
+        save_params_checkpoint(params_to_jax(params[e]), epoch=e,
+                               directory=staging)
+    batches, lock = [], threading.Lock()
+
+    def boot(i, port=0):
+        httpd, client, thread = _boot([
+            "--model", "cnn", "--serve-precision", "int8", "--port",
+            str(port), "--device", device_flag, "--checkpoint-dir",
+            dirs[i], "--require-checkpoint", "--poll-interval", "0.2",
+            "--max-wait-ms", "2"])
+        engine = httpd.ctx.engine
+        served = engine.predict_with_epoch
+
+        def recording(images):
+            labels, epoch = served(images)
+            with lock:
+                batches.append((np.array(images), labels.copy(), epoch))
+            return labels, epoch
+
+        engine.predict_with_epoch = recording
+        return {"httpd": httpd, "client": client, "thread": thread,
+                "name": f"127.0.0.1:{httpd.server_address[1]}"}
+
+    def stop(b, close=True):
+        b["httpd"].shutdown()
+        b["httpd"].server_close()
+        b["thread"].join(timeout=30)
+        if close:
+            b["httpd"].ctx.close()
+
+    backends = [boot(0), boot(1)]
+    router_httpd = create_router(router_parser().parse_args([
+        "--backends", ",".join(b["name"] for b in backends), "--host",
+        "127.0.0.1", "--port", "0", "--health-interval", "0.1",
+        "--quarantine-after", "2", "--probation-successes", "2",
+        "--connect-timeout", "2.0"]))
+    router_thread = threading.Thread(target=router_httpd.serve_forever,
+                                     daemon=True)
+    router_thread.start()
+    router = _Client(router_httpd.server_address[1])
+    saved_fault = os.environ.pop(FLEET_FAULT_ENV, None)
+    try:
+        _wait_until(lambda: router.get("/healthz")["routable"] == 2,
+                    "both backends healthy")
+        k3_before = backends[0]["client"].get("/stats")[
+            "kernel_launches"]["matmul_i8"]
+        matmul_i8.launches = 0  # the main path's run starts here
+        burst = _fleet_traffic(router, _requests(FLEET_REQUESTS,
+                                                 SEED + 10))
+        sequential = _requests(12, seed=SEED + 11)
+        seq_replies = [router.post("/predict", {"images": x.tolist()})
+                       for x in sequential]
+
+        # Backend loss: backend 1 shut down under traffic.
+        def victim_row():
+            return {r["name"]: r for r in router.get("/stats")["backends"]
+                    }[backends[1]["name"]]
+
+        loss = _fleet_traffic(router, _requests(FLEET_REQUESTS, SEED + 50),
+                              during=lambda: stop(backends[1], close=False))
+        backends[1]["httpd"].ctx.close()
+        _wait_until(lambda: victim_row()["state"] == "quarantined",
+                    "the shut-down backend quarantined")
+        port = int(backends[1]["name"].rsplit(":", 1)[1])
+        backends[1] = boot(1, port=port)
+        healed = _wait_until(lambda: (lambda r: r if r["state"] == "healthy"
+                                      else None)(victim_row()),
+                             "the restarted backend healthy")
+        if not healed["readmissions"]:
+            raise AssertionError(f"no readmission: {healed}")
+
+        # Rolling reload of epoch 1 under traffic.
+        roll = _fleet_traffic(
+            router, _requests(FLEET_REQUESTS, SEED + 51),
+            during=lambda: router.post("/rollout", {
+                "source": os.path.join(staging, "checkpoint_1.npz")}))
+        rollout = roll["event"]
+        epochs = [b["client"].get("/healthz") for b in backends]
+        if not rollout["ok"] or sorted(rollout["updated"]) != sorted(
+                b["name"] for b in backends) or any(
+                h["model_epoch"] != 1 or h["draining"] for h in epochs):
+            raise AssertionError(f"the rollout: {rollout}, {epochs}")
+
+        # A fleet canary of epoch 2 on backend 0, every cohort reply made
+        # a disagreement: rolled back, the baseline's weights republished
+        # on backend 0 as epoch 3, backend 1 still serving epoch 1.
+        os.environ[FLEET_FAULT_ENV] = "canary_disagree"
+        try:
+            started = router.post("/rollout", {
+                "source": os.path.join(staging, "checkpoint_2.npz"),
+                "canary": {"fraction": 1.0, "budget": 0.0,
+                           "promote_after": 100000,
+                           "backends": [backends[0]["name"]]}})
+        finally:
+            os.environ.pop(FLEET_FAULT_ENV, None)
+        if not started["ok"]:
+            raise AssertionError(f"the canary's publish: {started}")
+        canary_run = _fleet_traffic(router, _requests(16, SEED + 52),
+                                    body_extra={"client_id":
+                                                "canary-probe"})
+        canary = _wait_until(lambda: (lambda c: c if c.get("state") ==
+                                      "rolled_back" else None)(
+            router.get("/stats").get("fleet_canary") or {}),
+            "the fleet canary's rollback")
+        _wait_epoch(backends[0]["client"], 3, "the canary's rollback")
+        after = _fleet_traffic(router, _requests(16, SEED + 53))
+        if backends[1]["client"].get("/healthz")["model_epoch"] != 1:
+            raise AssertionError("backend 1 left the baseline epoch")
+        stats = router.get("/stats")
+        launches = matmul_i8.launches  # ... and ends here.
+        k3_after = backends[0]["client"].get("/stats")[
+            "kernel_launches"]["matmul_i8"]
+
+        rows = {r["name"]: r for r in stats["backends"]}
+        window = stats["fleet"]["window"]
+        if set(rows) != {b["name"] for b in backends} \
+                or window["count"] <= 0 \
+                or not window["p99_ms"] >= window["p50_ms"] > 0:
+            raise AssertionError(f"the aggregated /stats: {stats}")
+        if launches == 0 or k3_after <= k3_before:
+            raise AssertionError(f"K3 launches {launches}, /stats "
+                                 f"{k3_before} -> {k3_after}")
+        for run in (burst, loss, roll, canary_run, after):
+            for reply in run["replies"]:
+                if reply["model_epoch"] not in params:
+                    raise AssertionError(f"a reply at epoch "
+                                         f"{reply['model_epoch']}")
+
+        # Printed, not gated: the router hop against one backend direct.
+        timed = []
+        for via in ("router", "direct", "direct", "router"):
+            client = router if via == "router" else backends[1]["client"]
+            run = _fleet_traffic(client, _requests(FLEET_TIMED_REQUESTS,
+                                                   SEED + 54))
+            timed.append({"via": via, "requests": FLEET_TIMED_REQUESTS,
+                          "rps": run["rps"], "p50_ms": run["p50_ms"],
+                          "p99_ms": run["p99_ms"]})
+
+        # Every recorded batch against the plain product on the params
+        # of its epoch; every sequential reply (a batch of its own).
+        device = backends[0]["httpd"].ctx.engine.device
+        refs = {e: _engine(p, device, matmul_i8_plain)
+                for e, p in params.items() if e != 3}
+        refs[3] = refs[1]
+        with lock:
+            recorded = list(batches)
+        for images, labels, epoch in recorded:
+            want = refs[epoch].predict(images)
+            if not np.array_equal(labels, want):
+                raise AssertionError(
+                    f"a batch of {len(images)} at epoch {epoch} disagrees "
+                    f"with the plain int8 engine on "
+                    f"{int(np.sum(labels != want))} rows")
+        for reply, x in zip(seq_replies, sequential):
+            if reply["model_epoch"] != 0 or \
+                    reply["predictions"] != refs[0].predict(x).tolist():
+                raise AssertionError("a sequential reply through the "
+                                     "router disagrees with the plain "
+                                     "engine")
+        by_epoch = {}
+        for _, _, epoch in recorded:
+            by_epoch[epoch] = by_epoch.get(epoch, 0) + 1
+    finally:
+        if saved_fault is not None:
+            os.environ[FLEET_FAULT_ENV] = saved_fault
+        router_httpd.shutdown()
+        router_httpd.ctx.close()
+        router_httpd.server_close()
+        router_thread.join(timeout=30)
+        for b in backends:
+            try:
+                stop(b)
+            except Exception:  # noqa: BLE001 - the shut-down one
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+    label = smi_name_and_limit() if device_flag == "cuda" else "cpu"
+    emit("fleet_router", device=label, backends=2, clients=FLEET_CLIENTS,
+         requests={"burst": FLEET_REQUESTS, "sequential": len(sequential),
+                   "loss": FLEET_REQUESTS, "rollout": FLEET_REQUESTS,
+                   "canary": 16, "after": 16},
+         dropped=0, replies_exact=True, batches=len(recorded),
+         batches_by_epoch={str(k): v for k, v in sorted(by_epoch.items())},
+         loss={"victim": healed["name"], "quarantines":
+               healed["quarantines"], "readmissions":
+               healed["readmissions"], "rps": loss["rps"]},
+         rollout=rollout, rollout_rps=roll["rps"],
+         canary={k: canary[k] for k in ("state", "compared_rows",
+                                        "disagreed_rows", "rollbacks")},
+         fleet={k: stats["fleet"][k] for k in (
+             "routable", "failovers", "retries", "fleet_503s", "window")},
+         launches=launches, kernel_launches_stats=[k3_before, k3_after],
+         timed=timed)
+    return {"launches": launches, "timed": timed}
+
+
+def phase_fleet_chaos(device_flag: str = "cuda") -> dict:
+    """``runtime/chaos.py --fleet 2 --kill-backend 1 --device cuda
+    --serve-model cnn`` as a process: the port's router (``route``, a
+    process of its own) over two int8 cnn backend processes sharing the
+    card, backend 1 SIGKILLed under open-loop traffic and restarted,
+    then the no-fault twin. Passes only on the tool's exit 0 and its
+    ``chaos`` line: zero dropped requests, the victim quarantined and
+    readmitted, every backend's ``kernel_launches.matmul_i8`` (read from
+    its own ``/stats`` before the kill) above 0 on the card, and no
+    torch, numpy or JAX among the router's imports (``-X
+    importtime``)."""
+    env = dict(os.environ, PYTHONPATH=_HERE)
+    env.pop(FLEET_FAULT_ENV, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_distributed_mnist_tpu_torch."
+         "runtime.chaos", "--fleet", "2", "--kill-backend", "1",
+         "--device", device_flag, "--serve-model", "cnn", "--timeout",
+         "300"], capture_output=True, text=True, timeout=900, cwd=_HERE,
+        env=env)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])["chaos"] if lines else {}
+    faulted, twin = result.get("faulted") or {}, result.get("twin") or {}
+    per_backend = {run: (r.get("k3_launches_before_kill") or {})
+                   for run, r in (("faulted", faulted), ("twin", twin))}
+    imports = [(r.get("router") or {}).get("imports") for r in
+               (faulted, twin)]
+    if (proc.returncode != 0 or not result.get("ok")
+            or not faulted.get("victim_readmissions")
+            or any(i != {"torch": False, "numpy": False, "jax": False}
+                   for i in imports)
+            or (device_flag == "cuda" and not all(
+                len(v) == 2 and all(v.values())
+                for v in per_backend.values()))):
+        raise AssertionError(f"fleet_chaos: rc {proc.returncode}, "
+                             f"{result}\n{proc.stderr[-4000:]}")
+    emit("fleet_chaos", wall_s=wall, seconds=result["seconds"],
+         load={run: r["load"] for run, r in (("faulted", faulted),
+                                              ("twin", twin))},
+         failovers=faulted["failovers"],
+         victim_readmissions=faulted["victim_readmissions"],
+         launches_per_backend=per_backend,
+         router={run: r["router"] for run, r in (("faulted", faulted),
+                                                  ("twin", twin))})
+    return {"launches_per_backend": per_backend}
 
 
 def ulps(a, b) -> int:
@@ -5072,6 +5448,10 @@ def main() -> int:
     canary_launches = phase_server_canary()["launches"]
     multimodel_launches = phase_server_multimodel()["launches"]
     autoscale_launches = phase_server_autoscale()["launches"]
+    # The fleet: the port's router over two backends in this process, then
+    # the chaos tool's router and backend processes sharing the card.
+    fleet_run = phase_fleet_router()
+    fleet_chaos = phase_fleet_chaos()
     # Run supervision and the build directory: processes of their own (a
     # killed run, a raising world of one, CPU worlds, cold starts) and
     # one resume in this process.
@@ -5123,6 +5503,8 @@ def main() -> int:
         "launches_server_canary": canary_launches,
         "launches_server_multimodel": multimodel_launches,
         "launches_server_autoscale": autoscale_launches,
+        "launches_fleet_router": fleet_run["launches"],
+        "launches_fleet_chaos": fleet_chaos["launches_per_backend"],
         "vit_shapes": vit_i8_rows,
         "vit_forward_profiles": server_vit["profiles"],
     }]

@@ -6,7 +6,9 @@ reference's epoch line, ``checkpoint_{e}.npz`` plus ``model_best.npz``,
 ``--resume`` (a path or ``auto``) and ``-e`` to evaluate only. It runs on
 the card unless ``--device cpu`` is given.
 ``python -m pytorch_distributed_mnist_tpu_torch serve ...`` boots the HTTP
-inference server (``serve/server.py``).
+inference server (``serve/server.py``), and ``... route ...`` the fleet
+router over N of them (``serve/router.py``; ``__main__`` dispatches it
+before this module is imported, so a router process loads no torch).
 
 The flags are the data-parallel main-path subset of the JAX package's
 ``build_parser``, with its defaults. ``--trainer-mode`` defaults to
@@ -974,6 +976,13 @@ def main(argv: Optional[list] = None) -> None:
         )
 
         serve_main(argv[1:])
+        return
+    if argv and argv[0] == "route":
+        from pytorch_distributed_mnist_tpu_torch.serve.router import (
+            main as route_main,
+        )
+
+        route_main(argv[1:])
         return
     args = build_parser().parse_args(argv)
     _check_elastic_flags(args)

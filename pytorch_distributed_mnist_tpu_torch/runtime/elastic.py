@@ -552,7 +552,7 @@ def _run_generation(
     generation_timeout: float,
     grow: bool = False,
     max_world: int = 0,
-    device: str = "cpu",
+    device: str = "cuda",
 ) -> GenerationResult:
     """Spawn one generation's worker processes and wait them all out.
 
@@ -676,10 +676,11 @@ def supervise(
     min_world: int = 1,
     max_world: int = 0,
     grow: bool = False,
+    rejoin: Sequence[Tuple[int, int]] = (),
     settle_timeout: float = 60.0,
     generation_timeout: float = 600.0,
     rendezvous_dir: Optional[str] = None,
-    device: str = "cpu",
+    device: str = "cuda",
 ) -> int:
     """Run an elastic local world: spawn ``nprocs`` ranks, and on a host
     loss rebuild the survivors into a smaller world resumed from the
@@ -691,11 +692,17 @@ def supervise(
     ``grow`` (``--elastic-grow``) additionally makes every generation
     run the epoch-boundary grow rendezvous, so joiners are admitted
     between epochs instead of only riding failure rebuilds. ``max_world``
-    (``--max-world``, 0 = unbounded) caps the grown size.
+    (``--max-world``, 0 = unbounded) caps the grown size. ``rejoin`` is
+    the local join hook behind ``runtime/chaos.py --rejoin``: for each
+    ``(host, generation)`` pair the supervisor writes that host's join
+    record (:func:`announce_join`) just before it spawns that
+    generation, a deterministic stand-in for a replacement host that
+    announces itself while generation ``g`` runs.
 
-    ``device`` is the workers' ``--device``: rank r of a generation on
-    the card takes ``cuda:r``, and a generation with more ranks than
-    visible cards is refused (exit 2), as ``--spawn`` refuses it.
+    ``device`` is the workers' ``--device`` (``cuda`` unless named, as
+    the CLI's default): rank r of a generation on the card takes
+    ``cuda:r``, and a generation with more ranks than visible cards is
+    refused (exit 2), as ``--spawn`` refuses it.
 
     The local twin of a cluster manager's restart policy, driven by
     ``--spawn N --elastic [--min-world M] [--elastic-grow]`` and
@@ -765,6 +772,15 @@ def supervise(
             child_argv = list(base_argv)
             if generation > 0:
                 child_argv = _strip_resume(child_argv) + ["--resume", "auto"]
+            for host, at_generation in rejoin:
+                # The join hook: this host's record lands while
+                # generation `at_generation` runs (written just before
+                # the spawn, as a returning host would through
+                # announce_join).
+                if at_generation == generation:
+                    announce_join(rendezvous_dir, host)
+                    _say(f"host {host} announced a join (rejoin hook); "
+                         f"admitted at the next generation boundary")
             _say(f"generation {generation}: world size {len(members)} "
                  f"(hosts {members})"
                  + (", resuming from the last published checkpoint"

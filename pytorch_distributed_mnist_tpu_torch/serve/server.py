@@ -81,9 +81,15 @@ first, then ``--chunk-source``, and only the leaves that changed are
 rebuilt and quantized again (``-j`` threads); the server boots from a
 manifest through the same fetcher.
 
+``--register-dir DIR`` announces the server to a fleet router
+(``serve/router.py``, ``--backends-dir DIR``): a ``backend_*.json``
+record naming its URL, written once the socket is bound and the planes
+are warm, removed while draining and on shutdown. ``/healthz`` carries
+what the router reads of a backend: ``model_epoch``, ``model`` (or
+``models`` per plane) and ``draining``.
+
 Not ported yet: the sharded and pipeline serve modes (``--serve-mode``,
-``--serve-mesh``: ROADMAP Queue 1 item 12) and fleet registration
-(``--register-dir``: item 13, the router). Their flags are absent from
+``--serve-mesh``: ROADMAP Queue 1 item 12). Their flags are absent from
 the parser rather than accepted and ignored.
 """
 
@@ -319,6 +325,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="source chunk-store directory (the trainer's "
                         "--checkpoint-dir) to fall back to when no peer "
                         "holds a chunk")
+    p.add_argument("--register-dir", type=str, default=None, metavar="DIR",
+                   help="fleet registration directory: write a backend "
+                        "record (tmp+rename JSON naming this server's "
+                        "URL) once the socket is bound and the planes are "
+                        "warm, remove it while draining and on shutdown; "
+                        "a router's --backends-dir polls it for dynamic "
+                        "join and leave without a restart")
     p.add_argument("--require-checkpoint", action="store_true",
                    help="refuse to start without a published checkpoint")
     p.add_argument("--metrics-file", type=str, default=None,
@@ -438,6 +451,13 @@ class ServeContext:
         self.draining = False
         self._drain_lock = threading.Lock()
         self._active_predicts = 0
+        # Fleet registration (--register-dir): the record announcing this
+        # backend to a router's --backends-dir poller. Written on boot,
+        # removed while draining (a draining backend leaves the
+        # discovered set before the next health sweep routes to it),
+        # written again on undrain, removed on close.
+        self._register_path: Optional[str] = None
+        self._register_url: Optional[str] = None
         default = planes[default_model]
         self.model_name = default.model_name
         self.engine = default.engine
@@ -493,10 +513,27 @@ class ServeContext:
             return self._active_predicts
 
     def set_draining(self, draining: bool) -> bool:
-        """Flip the drain gate; returns the previous state (idempotent)."""
+        """Flip the drain gate; returns the previous state (idempotent).
+        The registration record follows the gate (file IO outside the
+        lock)."""
         with self._drain_lock:
             prev, self.draining = self.draining, bool(draining)
+        if prev != draining and self._register_path is not None:
+            if draining:
+                _remove_register_record(self._register_path)
+            else:
+                _write_register_record(self._register_path,
+                                       self._register_url)
         return prev
+
+    def enable_registration(self, register_dir: str, url: str) -> None:
+        os.makedirs(register_dir, exist_ok=True)
+        safe = url.split("//", 1)[-1].replace(":", "_").replace("/", "_")
+        self._register_path = os.path.join(register_dir,
+                                           f"backend_{safe}.json")
+        self._register_url = url
+        _write_register_record(self._register_path, url)
+        print(f"registered backend {url} in {register_dir}", flush=True)
 
     def write_stats(self, **extra) -> None:
         if self.cache is not None:
@@ -505,10 +542,27 @@ class ServeContext:
             plane.serve_log.write_stats(**extra)
 
     def close(self) -> None:
+        if self._register_path is not None:
+            _remove_register_record(self._register_path)
+            self._register_path = None
         for plane in self.planes.values():
             plane.close()
         if self.sink is not None:
             self.write_stats(final=True)
+
+
+def _write_register_record(path: str, url: Optional[str]) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"url": url}, f)
+    os.replace(tmp, path)
+
+
+def _remove_register_record(path: str) -> None:
+    try:
+        os.remove(path)
+    except OSError:
+        pass  # already gone (a second drain, shutdown after a drain)
 
 
 def kernel_launches() -> dict:
@@ -1400,6 +1454,15 @@ def create_server(args) -> ThreadingHTTPServer:
         quotas=quotas, fair_gate=fair_gate, fused=not args.no_fuse,
         cache=resp_cache if resp_cache.enabled else None,
         price_admission=args.price_admission)
+    if args.register_dir:
+        # Announced after the socket is bound (the real port is known,
+        # port 0 included) and the planes are warm: a router that
+        # discovers the record can route to it at once.
+        port = httpd.server_address[1]
+        adv_host = args.host if args.host not in ("", "0.0.0.0", "::") \
+            else "127.0.0.1"
+        httpd.ctx.enable_registration(args.register_dir,
+                                      f"http://{adv_host}:{port}")
     return httpd
 
 

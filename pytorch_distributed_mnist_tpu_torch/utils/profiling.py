@@ -5,8 +5,10 @@ metrics sink, the scan trainer's :class:`StagingLog`, the
 is (a step profile's breakdown; the collectives' kernels are a part of
 their own), and ``--profile-dir``'s :func:`profile_trace` with the
 lifecycle spans of :func:`phase`, the run supervision's
-:class:`EventLog` (``failure_events``) and the build and capture record
-:class:`CompileLog` (``compile_log``).
+:class:`EventLog` (``failure_events``), the build and capture record
+:class:`CompileLog` (``compile_log``) and the fleet router's
+:func:`record_fleet_event`. The module imports the standard library
+only, so the router's process may load it without torch.
 
 Counterpart of the training-input and serving parts of
 ``pytorch_distributed_mnist_tpu/utils/profiling.py``. The reference's
@@ -679,6 +681,23 @@ def record_world_grown(old_members, new_members, generation) -> Dict:
         f"-> {new_members}; resumed from the last published checkpoint",
         old_members=old_members, new_members=new_members,
         generation=int(generation))
+
+
+def record_fleet_event(sink, kind: str, **fields) -> None:
+    """The fleet router's lifecycle line (``fleet_quarantine`` /
+    ``fleet_failover`` / ``fleet_rollout_*`` / ``fleet_canary_*`` /
+    ``fleet_scale_*``) into a :class:`JsonlSink`.
+
+    The sibling of :meth:`ServeLog.record_pool_event` one level up, but
+    a free function taking the sink explicitly: the router
+    (``serve/router.py``) owns no ServeLog, and imports this lazily, only
+    when ``--metrics-file`` gave it a sink. ``source: "router"`` keys the
+    fleet tier's lines apart from the backends' ``serve_*`` events in the
+    same stream."""
+    if sink is None:
+        return
+    sink.try_write({"t": round(time.time(), 3), "kind": kind,
+                    "source": "router", **fields})
 
 
 class CompileLog:

@@ -1001,3 +1001,70 @@ def test_two_replicas_on_two_threads_answer_bit_for_bit(card):
     assert not any(t.is_alive() for t in threads)
     for j, raw in enumerate(batches):
         assert np.array_equal(got[j], alone.logits(raw)), j
+
+
+def test_the_router_over_two_int8_backends_answers_as_one_backend(
+        card, tmp_path):
+    """The port's router over two in-process int8 cnn backends on the
+    card: each request, sent alone (a batch of its own), gets through the
+    router the same reply, bit for bit, as straight from a third backend
+    on the same checkpoint."""
+    import json
+    import threading
+    import urllib.request
+
+    from pytorch_distributed_mnist_tpu_torch.data.mnist import (
+        synthetic_dataset,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+        params_to_jax,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve import router, server
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        save_params_checkpoint,
+    )
+
+    save_params_checkpoint(params_to_jax(init_params("cnn", 3)), epoch=0,
+                           directory=str(tmp_path))
+    started = []
+
+    def serve(httpd):
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        started.append(httpd)
+        return f"127.0.0.1:{httpd.server_address[1]}"
+
+    def post(name, images):
+        req = urllib.request.Request(
+            f"http://{name}/predict",
+            data=json.dumps({"images": images.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read()
+
+    names = [serve(server.create_server(server.build_parser().parse_args([
+        "--model", "cnn", "--serve-precision", "int8", "--port", "0",
+        "--device", "cuda", "--checkpoint-dir", str(tmp_path),
+        "--require-checkpoint", "--no-reload"]))) for _ in range(3)]
+    front = serve(router.create_router(router.build_parser().parse_args([
+        "--backends", ",".join(names[:2]), "--port", "0",
+        "--health-interval", "0.1"])))
+    try:
+        images, _ = synthetic_dataset(200, seed=9)
+        sizes = [1, 3, 8, 17, 32, 40, 64, 35]
+        start = 0
+        for size in sizes * 2:
+            x = images[start % 150:start % 150 + size]
+            start += size
+            got, want = json.loads(post(front, x)), json.loads(
+                post(names[2], x))
+            assert got["predictions"] == want["predictions"]
+            assert got["model_epoch"] == want["model_epoch"] == 0
+        stats = json.loads(urllib.request.urlopen(
+            f"http://{front}/stats", timeout=60).read())
+        assert all(r["requests"] > 0 for r in stats["backends"])
+    finally:
+        for httpd in started:
+            httpd.shutdown()
+            httpd.ctx.close()
+            httpd.server_close()

@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert count == len(_modules()) >= 41
+    assert count == len(_modules()) >= 42
     assert bad == [], f"the port pulled in {bad}"
 
 
@@ -56,7 +56,7 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "utils.logging", "serve.programs", "serve.engine",
                 "serve.control", "serve.economics", "serve.batcher",
                 "serve.reload", "serve.server", "serve.pool",
-                "serve.canary", "parallel.distributed",
+                "serve.canary", "serve.router", "parallel.distributed",
                 "parallel.launcher", "parallel.collectives", "parallel.mesh",
                 "distrib.cas", "distrib.publish", "distrib.fetch",
                 "data.native", "data.download", "utils.watchdog",
