@@ -238,7 +238,28 @@ Phases, each printing one JSON line:
    on fresh ``--compile-cache`` directories (``cold_start``: by default
    and with ``--no-precompile`` each library it launches built once, then
    0 built on the warm directory; the seconds to the first epoch line);
-18. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
+18. the MoE family and ZeRO: ``--model moe_mlp`` (8 experts, embed 64,
+   hidden 128, float32, dense dispatch) trained as phase 6 with the fused
+   cross-entropy and Adam (``train_moe``: 1 Adam launch a step over its
+   10 leaves, resume, ``-e``) and its stepwise twin; the capacity
+   dispatch and ``--moe-aux-weight 0.01`` runs (``train_moe_capacity``,
+   ``train_moe_aux``), each held to the same flags on the plain versions,
+   as ``train_moe`` is (``train_moe_plain``); Adam's multi-leaf launch
+   held bit for bit over the MoE's leaves too (``kernel_vs_plain``);
+   a scan-profile row (``train_scan_profile_moe_mlp``); the int8 server on
+   ``train_moe``'s checkpoint (``server_moe``, with the serving phases: no
+   int8 product runs, the replies equal the engine's replay). After the
+   NCCL phases, the cnn run unsharded, then with ``--optimizer-sharding
+   zero1``, ``zero3`` and ``zero1 --zero-overlap`` in the world of one
+   (``train_zero_none``, ``train_zero1``, ``train_zero3``,
+   ``train_zero1_overlap``): one rank's ZeRO prints the unsharded run's
+   lines, Adam once a step on the shards, each run's peak device memory
+   printed. In ``dp_spawn``,
+   gloo worlds of 2 and 4 on the CPU for ``--expert-parallel 2`` (dense,
+   and capacity on a 2 x 2 mesh) and ZeRO-1 and ZeRO-3, each held to a
+   run of one process: the only place EP and ZeRO run across ranks, the
+   card's machine having one card;
+19. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -326,6 +347,13 @@ VIT_TRAIN_ARGS = ["--model", "vit", "--attention", "flash", "--loss",
                   "synthetic", "--synthetic-train-size", "8192",
                   "--synthetic-test-size", "2048", "--batch-size",
                   str(TRAIN_BATCH), "--seed", str(SEED)]
+# The MoE classifier's training path at its registered widths, the cnn
+# run's data, batch and cut.
+MOE_TRAIN_ARGS = ["--model", "moe_mlp", "--loss", "fused", "--optimizer",
+                  "adam_pallas", "--dataset", "synthetic",
+                  "--synthetic-train-size", "8192", "--synthetic-test-size",
+                  "2048", "--batch-size", str(TRAIN_BATCH), "--seed",
+                  str(SEED)]
 VIT_SHAPE = (TRAIN_BATCH, 49, 4, 16)  # (B, T, H, D) of each attention
 # --grad-accum 2's micro-batch: the rows each cross-entropy and flash
 # launch of the accumulating runs takes.
@@ -369,6 +397,10 @@ TRAIN_RUNS = {
                   "params": 31, "depth": VIT_DEPTH, "floor": 0.88,
                   "dtype": "bf16", "remat": True,
                   "phase": "train_vit_remat"},
+    # The MoE family at full width (8 experts, embed 64, hidden 128),
+    # float32 as its CLI default, dense dispatch: 38 leaves (10 params).
+    "moe": {"args": MOE_TRAIN_ARGS, "leaves": 38, "params": 10, "depth": 0,
+            "floor": 0.85, "dtype": "f32", "phase": "train_moe"},
 }
 # Shapes the flash kernels are held against their plain versions at: the
 # ViT's, its micro-batch under --grad-accum 2, then T in {1, 16, 196,
@@ -2273,8 +2305,8 @@ def adam_hyper_scalars(device):
 
 
 def leaf_shapes(model: str = "cnn"):
-    """The model's param shapes (cnn: 8, vit: 31), in the order the
-    optimizer walks them."""
+    """The model's param shapes (cnn: 8, vit: 31, moe_mlp: 10, its expert
+    weights 3-D), in the order the optimizer walks them."""
     from pytorch_distributed_mnist_tpu_torch.models import get_model
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
         jax_param_order,
@@ -2334,7 +2366,7 @@ def phase_train_kernels_vs_plain(device) -> dict:
     # The multi-leaf launch over each model's leaves, its hypers formed in
     # the launch, for ADAM_STEPS steps (through t = 31 and t = 168, where
     # torch's vectorized pow rounds apart from its scalar one).
-    for model in ("cnn", "vit"):
+    for model in ("cnn", "vit", "moe_mlp"):
         err, most = _adam_leaves_vs_plain(device, model, hyper, gen)
         adam_err, adam_ulps = max(adam_err, err), max(adam_ulps, most)
     # The hypers the launch forms, against adam_hypers on the card.
@@ -2359,7 +2391,7 @@ def phase_train_kernels_vs_plain(device) -> dict:
          atol=1e-6,
          max_abs_err_fwd=worst["xent_fwd"], max_abs_err_bwd=worst["xent_bwd"])
     emit("kernel_vs_plain", kernel="adam", shapes=[list(s) for s in sizes],
-         steps=[1, 2, 10], multi_leaf_models=["cnn", "vit"],
+         steps=[1, 2, 10], multi_leaf_models=["cnn", "vit", "moe_mlp"],
          multi_leaf_steps=ADAM_STEPS, hypers_equal_steps=ADAM_HYPER_STEPS,
          bitwise=True, max_ulp=adam_ulps, max_abs_err=adam_err)
     return {**worst, "adam": adam_err}
@@ -3456,7 +3488,8 @@ def _traced_run(base: list, model: str, ckpt: str, dp: bool = False):
 
 
 def phase_train(device_flag: str = "cuda", model: str = "cnn",
-                dp: bool = False, want_lines=None) -> dict:
+                dp: bool = False, want_lines=None,
+                keep_best: bool = False) -> dict:
     """Train ``model`` (``TRAIN_RUNS``) through the CLI in its default
     ``--trainer-mode scan``, resume and evaluate; returns its kernels'
     launch counts over the training run and its epoch lines. The counts
@@ -3468,7 +3501,9 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
     world of one (``train_dp_world1``, ``train_dp_vit_world1``): the
     gradient all-reduce inside the captured step, the metric all-reduce
     once per pass, both counted exactly, and its epoch lines must equal
-    ``want_lines`` (the run without a group) character for character."""
+    ``want_lines`` (the run without a group) character for character.
+    ``keep_best`` keeps a copy of the run's last checkpoint (its path
+    under ``best``, alone in its directory; the caller removes it)."""
     import shutil
 
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
@@ -3589,8 +3624,15 @@ def phase_train(device_flag: str = "cuda", model: str = "cnn",
              test_acc=[r["test_acc"] for r in hist],
              test_acc_floor=run_cfg["floor"], wall_s=wall_s,
              resume_repeats_epoch_1=True)
+        kept = {}
+        if keep_best:
+            kept_dir = tempfile.mkdtemp(prefix="chip_smoke_best_")
+            kept["best"] = shutil.copy(
+                os.path.join(ckpt, f"checkpoint_{TRAIN_EPOCHS - 1}.npz"),
+                kept_dir)
         return {"launches": launches, "lines": lines,
-                "collectives": collectives, "staging": summary["staging"]}
+                "collectives": collectives, "staging": summary["staging"],
+                **kept}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3637,6 +3679,284 @@ def phase_train_twin(phase: str, model: str, flags: list, want_lines: list,
            "staging": summary["staging"]}
     emit(phase, **row)
     return row
+
+
+def _lines_close(lines: list, want_lines: list, loss_tol: float,
+                 acc_tol: float) -> bool:
+    """Epoch lines that agree with ``want_lines`` within ``loss_tol`` on
+    the losses and ``acc_tol`` percentage points on the accuracies."""
+    got, want = _epoch_numbers(lines), _epoch_numbers(want_lines)
+    if len(got) != len(want):
+        return False
+    for x, y in zip(got, want):
+        if x[:3] != y[:3] or abs(x[3] - y[3]) > loss_tol \
+                or abs(x[5] - y[5]) > loss_tol \
+                or abs(x[4] - y[4]) > acc_tol or abs(x[6] - y[6]) > acc_tol:
+            return False
+    return True
+
+
+# The MoE run's variants, each against the same flags on the plain
+# versions (``--loss xla --optimizer adam``): float32 on both sides, the
+# cross-entropy summed and Adam rounded in other orders.
+MOE_VARIANTS = [("train_moe_capacity", ["--moe-dispatch", "capacity"]),
+                ("train_moe_aux", ["--moe-aux-weight", "0.01"])]
+PLAIN_FLAGS = ["--loss", "xla", "--optimizer", "adam"]
+
+
+def phase_train_moe_variants(dense_lines: list,
+                             device_flag: str = "cuda") -> dict:
+    """``train_moe``'s flags on the plain versions (``train_moe_plain``),
+    its epoch lines held to ``dense_lines`` (``train_moe``'s); then
+    ``MOE_VARIANTS``: the MoE run with capacity dispatch, and with the
+    load-balance loss in the objective, through the kernels (exact launch
+    counts, as the dense run's) and again on the plain versions. Each
+    pair's epoch lines must agree (losses within 1e-4, accuracies within
+    0.1 percentage points). Returns each variant's launches."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        t0 = time.perf_counter()
+        _, plain_text = _run_cli(MOE_TRAIN_ARGS + PLAIN_FLAGS + [
+            "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+            "--checkpoint-dir", os.path.join(root, "p")])
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    plain = _train_lines(plain_text, "Epoch: ")
+    if not _lines_close(dense_lines, plain, 1e-4, 0.1):
+        raise AssertionError(f"train_moe printed\n{dense_lines}\nthe plain "
+                             f"versions' run\n{plain}")
+    emit("train_moe_plain", epoch_lines=dense_lines, plain_lines=plain,
+         plain_flags=PLAIN_FLAGS, plain_wall_s=wall_s)
+    out = {}
+    for phase, flags in MOE_VARIANTS:
+        root = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+        try:
+            _zero_counters("moe")
+            t0 = time.perf_counter()
+            summary, text = _run_cli(
+                MOE_TRAIN_ARGS + flags + ["--device", device_flag,
+                                          "--epochs", str(TRAIN_EPOCHS),
+                                          "--checkpoint-dir",
+                                          os.path.join(root, "k")])
+            wall_s = time.perf_counter() - t0
+            launches = _read_counters("moe")
+            _, plain_text = _run_cli(
+                MOE_TRAIN_ARGS + flags + PLAIN_FLAGS + [
+                    "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+                    "--checkpoint-dir", os.path.join(root, "p")])
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        lines = _train_lines(text, "Epoch: ")
+        plain = _train_lines(plain_text, "Epoch: ")
+        if launches != _want_launches("moe"):
+            raise AssertionError(f"{phase}: launch counts {launches}, "
+                                 f"expected {_want_launches('moe')}")
+        if len(lines) != TRAIN_EPOCHS or not _lines_close(lines, plain,
+                                                          1e-4, 0.1):
+            raise AssertionError(f"{phase}: the kernels' run printed\n"
+                                 f"{lines}\nthe plain versions'\n{plain}")
+        hist = summary["history"]
+        if hist[1]["test_acc"] < TRAIN_RUNS["moe"]["floor"]:
+            raise AssertionError(f"{phase}: test accuracy "
+                                 f"{hist[1]['test_acc']:.4f}")
+        emit(phase, flags=flags, epoch_lines=lines, plain_lines=plain,
+             plain_flags=PLAIN_FLAGS, launches=launches, wall_s=wall_s,
+             images_per_sec=[r["images_per_sec"] for r in hist])
+        out[phase] = launches
+    return out
+
+
+def phase_server_moe(ckpt: str, device_flag: str = "cuda") -> dict:
+    """``serve --model moe_mlp --serve-precision int8`` (the fused plane,
+    the default buckets) on ``train_moe``'s last checkpoint: a burst of
+    requests, each reply's predictions equal to the same plane's engine
+    replayed on the batch the server formed (the int8 plane quantizes
+    activations per batch) and the logits finite and close to the f32
+    engine's. ``MoEClassifier`` takes no int8 product (as in JAX, the
+    int8 plane dequantizes its weights): no ``matmul_i8`` launch."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import matmul_i8
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_params_for_serving,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+
+    args = build_parser().parse_args([
+        "--model", "moe_mlp", "--serve-precision", "int8", "--port", "0",
+        "--device", device_flag, "--checkpoint-dir", os.path.dirname(ckpt),
+        "--require-checkpoint"])
+    matmul_i8.launches = 0
+    t0 = time.perf_counter()
+    httpd = create_server(args)
+    boot_s = time.perf_counter() - t0
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    try:
+        client = _Client(httpd.server_address[1])
+        engine = httpd.ctx.engine
+        batches = []
+        served = engine.predict_with_epoch
+
+        def recording(images):
+            labels, epoch = served(images)
+            batches.append((np.array(images), labels.copy()))
+            return labels, epoch
+
+        engine.predict_with_epoch = recording
+        burst = _requests(32, seed=SEED + 20)
+        t1 = time.perf_counter()
+        replies = [client.post("/predict", {"images": x.tolist()})
+                   for x in burst]
+        wall_s = time.perf_counter() - t1
+        stats = client.get("/stats")
+        engine.predict_with_epoch = served
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for reply, x in zip(replies, burst):
+        if len(reply["predictions"]) != len(x):
+            raise AssertionError(f"bad /predict reply: {reply}")
+    params, epoch = load_params_for_serving(ckpt, "moe_mlp")
+    ref = InferenceEngine(get_model("moe_mlp"), params, precision="int8",
+                          fuse=True, params_epoch=epoch,
+                          device=engine.device)
+    f32 = InferenceEngine(get_model("moe_mlp"), params, precision="f32",
+                          fuse=True, params_epoch=epoch,
+                          device=engine.device)
+    for images, labels in batches:
+        if not np.array_equal(ref.predict(images), labels):
+            raise AssertionError("a served batch disagrees with the int8 "
+                                 "engine's replay")
+    logits = ref.logits(burst[0])
+    want = f32.logits(burst[0])
+    if logits.shape != (len(burst[0]), 10) or not np.all(
+            np.isfinite(logits)):
+        raise AssertionError(f"bad logits {logits.shape}")
+    agree = float(np.mean(np.concatenate(
+        [ref.predict(x) == f32.predict(x) for x in burst])))
+    if agree < 0.97:
+        raise AssertionError(f"int8 agrees with f32 on {agree:.3f}")
+    if matmul_i8.launches:
+        raise AssertionError(f"the MoE's int8 plane launched matmul_i8 "
+                             f"{matmul_i8.launches} times")
+    row = {"model": "moe_mlp", "precision": "int8", "plane": "fused",
+           "checkpoint": os.path.basename(ckpt), "boot_s": boot_s,
+           "requests": len(burst), "batches": len(batches),
+           "wall_s": wall_s, "int8_agrees_with_f32": agree,
+           "max_abs_logit_diff_vs_f32": float(np.max(np.abs(logits - want))),
+           "matmul_i8_launches": matmul_i8.launches,
+           "latency_ms": stats.get("latency_ms")}
+    emit("server_moe", **row)
+    return row
+
+
+# ZeRO on the cnn run in an NCCL world of one (its explicit rendezvous):
+# (phase, flags, whether its lines equal the unsharded run's bit for
+# bit). The first run is the unsharded one, for the peak device memory
+# the others are read beside. The overlapped plane refuses --loss fused,
+# as the JAX CLI does, so it runs the plain cross-entropy and is held to
+# the lines within 1e-4 / 0.1 points.
+ZERO_RUNS = [("train_zero_none", ["--optimizer-sharding", "none"], True),
+             ("train_zero1", ["--optimizer-sharding", "zero1"], True),
+             ("train_zero3", ["--optimizer-sharding", "zero3"], True),
+             ("train_zero1_overlap", ["--optimizer-sharding", "zero1",
+                                      "--zero-overlap", "--loss", "xla"],
+              False)]
+
+
+def phase_train_zero(want_lines: list, device_flag: str = "cuda") -> dict:
+    """``ZERO_RUNS``, each the cnn run of ``train`` in a world of one: one
+    rank's ZeRO equals no sharding, so the epoch lines must equal
+    ``want_lines`` (the run without a group); the fused Adam kernel runs
+    once a step on the rank's contiguous shards (every cnn leaf splits
+    over an axis of one), the counts exact, the collectives a count
+    all-reduce a step and a metric all-reduce a pass (the gradient
+    all-reduce is the plane's reduce-scatter). Returns each run's
+    launches."""
+    import gc
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
+        read_checkpoint_arrays,
+    )
+
+    out = {}
+    for phase, flags, exact in ZERO_RUNS:
+        want_coll = _want_collectives(True)
+        if "none" not in flags:  # the plane's reduce-scatter instead
+            want_coll = dict(want_coll, grad_all_reduce=0)
+        root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+        try:
+            _zero_counters("cnn")
+            _zero_collectives()
+            on_card = device_flag == "cuda"
+            peak = left = None
+            if on_card:  # the earlier runs' garbage collected first
+                gc.collect()
+                torch.cuda.synchronize()
+                start = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary, text = _run_cli(TRAIN_ARGS + flags + [
+                "--device", device_flag, "--epochs", str(TRAIN_EPOCHS),
+                "--checkpoint-dir", root], dp=True)
+            wall_s = time.perf_counter() - t0
+            if on_card:
+                peak = torch.cuda.max_memory_allocated() - start
+                gc.collect()
+                torch.cuda.synchronize()
+                left = torch.cuda.memory_allocated() - start
+            launches = _read_counters("cnn")
+            collectives = _collective_counts()
+            meta, leaves = read_checkpoint_arrays(
+                os.path.join(root, "checkpoint_1.npz"))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        lines = _train_lines(text, "Epoch: ")
+        want = _want_launches("cnn")
+        if "--loss" in flags:
+            want = dict(want, xent_fwd=0, xent_bwd=0)
+        if launches != want:
+            raise AssertionError(f"{phase}: launch counts {launches}, "
+                                 f"expected {want}")
+        if collectives != want_coll:
+            raise AssertionError(f"{phase}: collectives {collectives}, "
+                                 f"expected {want_coll}")
+        same = lines == want_lines
+        if (exact and not same) or not _lines_close(lines, want_lines, 1e-4,
+                                                    0.1):
+            raise AssertionError(f"{phase} printed\n{lines}\nwhere the "
+                                 f"unsharded run printed\n{want_lines}")
+        if len(leaves) != TRAIN_RUNS["cnn"]["leaves"] or \
+                meta["world"] != {"processes": 1, "devices": 1}:
+            raise AssertionError(f"{phase}: checkpoint {len(leaves)} leaves "
+                                 f"stamped {meta['world']}")
+        emit(phase, flags=flags, world_of_one="nccl" if device_flag ==
+             "cuda" else "gloo", epoch_lines=lines,
+             equal_to_unsharded=same, launches=launches,
+             expected_launches=want, collectives=collectives,
+             wall_s=wall_s, peak_device_bytes=peak,
+             left_allocated_bytes=left,
+             peak_note="torch.cuda.max_memory_allocated over the run less "
+                       "the bytes allocated at its start, activations "
+                       "included; left: still allocated once the run "
+                       "returned; on one rank every ZeRO shard is a whole "
+                       "leaf",
+             images_per_sec=[r["images_per_sec"]
+                             for r in summary["history"]])
+        out[phase] = launches
+    return out
 
 
 # Pairs of feed-window runs, each pair one run at --feed-window 2 and one
@@ -4282,10 +4602,83 @@ def phase_dp_spawn() -> dict:
         row["cpu_world_2"] = {"exit": 0, "wall_s": wall, "epoch_lines": lines,
                               "devices_line": devices[0], "files": files,
                               "world": meta["world"]}
+        row["cpu_worlds_parallel"] = _spawn_parallel_worlds(spawn_here, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("dp_spawn", **row)
     return row
+
+
+# Expert parallelism and ZeRO across ranks, as gloo worlds on the CPU:
+# (name, world size, flags, the mesh its devices line prints, the run its
+# epoch line is held to). The card's machine has one card, and NCCL takes
+# one card per rank. The 2 x 2 capacity world drops tokens per group of 64
+# rows, each data rank's rows interleaved from the epoch's order by the
+# sampler; no run of one process groups those rows so, so it is held to
+# the one-process capacity run (one group of 256) only loosely
+# (``LOOSE_HOLDS``), and to the JAX step by tests/test_torch_moe.py.
+SPAWN_MOE_ARGS = ["--model", "moe_mlp", "--dataset", "synthetic",
+                  "--synthetic-train-size", "2048", "--synthetic-test-size",
+                  "512", "--batch-size", "256", "--seed", str(SEED),
+                  "--epochs", "1", "--device", "cpu"]
+PARALLEL_WORLDS = [
+    ("ep2_dense", 2, SPAWN_MOE_ARGS + ["--expert-parallel", "2"],
+     {"data": 1, "expert": 2}, "moe_one"),
+    ("ep2_capacity", 4, SPAWN_MOE_ARGS + ["--expert-parallel", "2",
+                                          "--moe-dispatch", "capacity"],
+     {"data": 2, "expert": 2}, "moe_capacity_one"),
+    ("zero1", 2, SPAWN_CPU_ARGS + ["--dtype", "f32",
+                                   "--optimizer-sharding", "zero1"],
+     {"data": 2}, "linear_one_f32"),
+    ("zero3", 4, SPAWN_CPU_ARGS + ["--dtype", "f32",
+                                   "--optimizer-sharding", "zero3"],
+     {"data": 4}, "linear_one_f32"),
+]
+
+
+# Reference runs held loosely, with the reason: (losses, accuracy points).
+LOOSE_HOLDS = {"moe_capacity_one": (5e-3, 1.0, "other token groups: the "
+                                    "2 x 2 world's capacity and drops are "
+                                    "per 64 interleaved rows")}
+
+
+def _spawn_parallel_worlds(spawn_here, root: str) -> dict:
+    """``PARALLEL_WORLDS`` through ``--spawn`` on the CPU: each must exit
+    0, print its mesh and one epoch line, and hold its line to the same
+    flags' run without EP or ZeRO (losses within 1e-5, accuracies within
+    one example; ``LOOSE_HOLDS`` names the looser ones): EP and ZeRO are
+    layout changes. Only here do EP and ZeRO run across ranks: the card's
+    machine has one card."""
+    refs = {}
+    for ref, argv in (("moe_one", SPAWN_MOE_ARGS),
+                      ("moe_capacity_one",
+                       SPAWN_MOE_ARGS + ["--moe-dispatch", "capacity"]),
+                      ("linear_one_f32", SPAWN_CPU_ARGS + ["--dtype", "f32"])):
+        _, text = _run_cli(argv + ["--checkpoint-dir",
+                                   os.path.join(root, ref)])
+        refs[ref] = _train_lines(text, "Epoch: ")
+    out = {"note": "expert parallelism and ZeRO across 2 or more ranks run "
+                   "here only, as gloo worlds on the CPU: the card's "
+                   "machine has one card"}
+    for name, n, argv, mesh, ref in PARALLEL_WORLDS:
+        code, text, err, wall = spawn_here(
+            ["--spawn", str(n), *argv], os.path.join(root, name))
+        lines = _train_lines(text, "Epoch: ")
+        devices = _train_lines(text, "devices: ")
+        want_dev = f"devices: {n} (cpu), processes: {n}, mesh: {mesh}"
+        if code != 0 or len(lines) != 1 or devices != [want_dev]:
+            raise AssertionError(f"{name}: exit {code}\n{text}\n{err}")
+        loss_tol, acc_tol, why = LOOSE_HOLDS.get(ref, (1e-5, 100 / 2048,
+                                                       None))
+        if not _lines_close(lines, refs[ref], loss_tol, acc_tol):
+            raise AssertionError(f"{name} printed {lines}; {ref} printed "
+                                 f"{refs[ref]}")
+        out[name] = {"world": n, "wall_s": wall, "epoch_lines": lines,
+                     "devices_line": devices[0], "held_to": ref,
+                     "reference_lines": refs[ref], "loss_tol": loss_tol,
+                     "acc_tol_points": acc_tol, "loose_because": why}
+    print("chip_smoke.py: " + out["note"], flush=True)
+    return out
 
 
 # The weight-distribution path (--publish delta, the manifest and its
@@ -5413,6 +5806,10 @@ def main() -> int:
     accum_run = phase_train(model="cnn_accum")
     phase_train_twin("train_grad_accum_stepwise", "cnn_accum",
                      ["--trainer-mode", "stepwise"], accum_run["lines"])
+    moe_run = phase_train(model="moe", keep_best=True)
+    moe_stepwise = phase_train_twin("train_moe_stepwise", "moe",
+                                    ["--trainer-mode", "stepwise"],
+                                    moe_run["lines"])
     publish_run = phase_train_publish(cnn_run["lines"])
     try:
         delta_launches = phase_server_delta(publish_run["dir"])["launches"]
@@ -5441,6 +5838,10 @@ def main() -> int:
     scan_cnn = phase_train_scan_profile(device)
     phase_train_scan_profile(device, model="vit")
     phase_train_scan_profile(device, model="vit", patch_size=2)
+    phase_train_scan_profile(device, model="moe_mlp")
+    # The MoE's plain, capacity and aux runs time nothing from a trace:
+    # they run after the last phase that does, as the serving phases do.
+    moe_variants = phase_train_moe_variants(moe_run["lines"])
     # One serve process at full breadth, after every phase that times
     # kernels from a trace and before any NCCL group: the replica pool,
     # the shadow canary, a model set, the autoscaler.
@@ -5448,6 +5849,10 @@ def main() -> int:
     canary_launches = phase_server_canary()["launches"]
     multimodel_launches = phase_server_multimodel()["launches"]
     autoscale_launches = phase_server_autoscale()["launches"]
+    try:
+        phase_server_moe(moe_run["best"])
+    finally:
+        shutil.rmtree(os.path.dirname(moe_run["best"]), ignore_errors=True)
     # The fleet: the port's router over two backends in this process, then
     # the chaos tool's router and backend processes sharing the card.
     fleet_run = phase_fleet_router()
@@ -5467,6 +5872,7 @@ def main() -> int:
                      cnn_run["lines"], dp=True)
     phase_train(model="vit", dp=True, want_lines=vit_run["lines"])
     phase_train_scan_profile_dp(device)
+    zero_launches = phase_train_zero(cnn_run["lines"])
     phase_dp_spawn()
 
     def new_path_launches(kname):
@@ -5476,7 +5882,14 @@ def main() -> int:
                 "launches_debug_nans": nans_launches[kname],
                 "launches_profile_dir": profile_dir_launches[kname],
                 "launches_native_off": native_off["launches"][kname],
-                "launches_fault_resume": fault_run["launches"][kname]}
+                "launches_fault_resume": fault_run["launches"][kname],
+                # The MoE family and ZeRO.
+                "launches_train_moe": moe_run["launches"][kname],
+                "launches_train_moe_stepwise": moe_stepwise["launches"][kname],
+                **{f"launches_{phase}": launched[kname]
+                   for phase, launched in moe_variants.items()},
+                **{f"launches_{phase}": launched[kname]
+                   for phase, launched in zero_launches.items()}}
 
     main_row = next(r for r in rows if r["layer"] == "fc1" and r["m"] == 128)
     kernels = [{

@@ -35,8 +35,16 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. Flags for meshes of more than the data axis and ZeRO are
-not accepted yet.
+process group. Flags for meshes of other axes than ``('data',)`` and
+``('data', 'expert')`` are not accepted yet.
+
+``--model moe_mlp`` trains the switch MoE (``models/moe.py``; ``--moe-
+dispatch dense|capacity``, ``--moe-aux-weight`` adds its load-balance
+loss to the objective); ``--expert-parallel E`` splits its experts over
+an expert axis of E ranks. ``--optimizer-sharding zero1|zero3`` shards
+the optimizer state (and the params) over the data axis
+(``parallel/zero.py``), ``--zero-overlap`` issues its bucketed
+collectives as the backward runs (``parallel/zero_overlap.py``).
 
 The run is supervised (``runtime/supervision.py``): every failure on a
 rank takes one except path that sends the peers a poison pill at their
@@ -196,6 +204,66 @@ def build_parser() -> argparse.ArgumentParser:
                         "of storing them (~depth x lower activation memory "
                         "for the token axis; composes with --grad-accum). "
                         "--model vit only")
+    p.add_argument("--expert-parallel", type=int, default=1,
+                   help="expert-parallel width for --model moe_mlp: expert "
+                        "weights (leading num_experts dim) shard over an "
+                        "'expert' mesh axis (parallel/expert.py); devices "
+                        "split data x expert, expert count must divide "
+                        "evenly. Composes with --optimizer-sharding zero1 "
+                        "and --moe-dispatch")
+    p.add_argument("--moe-aux-weight", type=float, default=0.0,
+                   metavar="W",
+                   help="weight of the MoE router's load-balance loss in "
+                        "the training objective (models/moe.py returns it "
+                        "beside the logits when asked; top-1 routing can "
+                        "collapse onto one expert without it — 0.01 is a "
+                        "typical switch-transformer value). 0 (default) "
+                        "skips it entirely; metrics always report the "
+                        "cross-entropy alone")
+    p.add_argument("--moe-dispatch", type=str, default="dense",
+                   choices=["dense", "capacity"],
+                   help="moe_mlp routing: dense = algebraic one-hot "
+                        "combine (layout-exact); capacity = GShard-style "
+                        "physical dispatch into per-expert buffers "
+                        "bounded by the capacity factor, crossing the "
+                        "expert axis via all_to_all "
+                        "(parallel/moe_dispatch.py)")
+    p.add_argument("--optimizer-sharding", type=str, default="none",
+                   choices=["none", "zero1", "zero3"],
+                   help="zero1 = shard Adam moments over the data axis "
+                        "(ZeRO-1; parallel/zero.py). Params stay "
+                        "replicated; the gradient all-reduce becomes a "
+                        "reduce-scatter into the moment shards and an "
+                        "all-gather of the updated params. zero3 = shard "
+                        "params too (FSDP-style: the state holds 1/N of "
+                        "each split param, all-gathered before use). Per "
+                        "rank on the device: the whole params (the "
+                        "gathered workspace under zero3), the whole "
+                        "gradient buffer and 1/N of the moments, param "
+                        "and gradient shards, plus a packing buffer for "
+                        "the leaves split off dim 0; for the cnn (every "
+                        "leaf split on dim 0) 2P + 4P/N floats against "
+                        "unsharded Adam's 4P")
+    p.add_argument("--zero-overlap", action="store_true",
+                   help="overlapped ZeRO data plane "
+                        "(parallel/zero_overlap.py): bucketed gradient "
+                        "reduce-scatters issued from backward hooks as "
+                        "each bucket's gradients exist, so communication "
+                        "overlaps the remaining backward, the owner-shard "
+                        "optimizer update, and the updated-shard "
+                        "all-gather carried across the step boundary "
+                        "into the next forward. Same state layout and "
+                        "numerics as the default path; requires "
+                        "--optimizer-sharding zero1|zero3 and pure data "
+                        "parallelism; composes with --grad-accum")
+    p.add_argument("--zero-bucket-mb", type=float, default=4.0,
+                   metavar="MB",
+                   help="gradient bucket budget for --zero-overlap: "
+                        "size-ordered leaves pack into buckets of at "
+                        "most this many MiB; each bucket is one "
+                        "communication-issue group (smaller = earlier "
+                        "first reduce-scatter, larger = fewer, "
+                        "better-utilized collectives)")
     p.add_argument("--dataset", type=str, default="mnist",
                    choices=["mnist", "fashion_mnist", "synthetic"])
     p.add_argument("--download", action="store_true",
@@ -208,9 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the labelled synthetic dataset instead of "
                         "exiting")
     p.add_argument("--dtype", type=str, default=None, choices=list(_DTYPES),
-                   help="compute dtype; default bfloat16 activations with "
-                        "float32 params and logits. f32 also turns TF32 "
-                        "off on the card")
+                   help="compute dtype; linear/cnn/vit default to bfloat16 "
+                        "activations with float32 params and logits, the "
+                        "MoE model to f32 (router numerics). f32 also "
+                        "turns TF32 off on the card")
     p.add_argument("--optimizer", type=str, default="adam",
                    choices=list(OPTIMIZERS),
                    help="adam_pallas = the fused CUDA update kernel")
@@ -366,6 +435,112 @@ def _model_kwargs(args) -> dict:
                 f"{args.model!r} does not accept it")
         model_kwargs["remat"] = True
     return model_kwargs
+
+
+def _moe_num_experts() -> int:
+    from pytorch_distributed_mnist_tpu_torch.models.registry import (
+        model_field_default,
+    )
+
+    return model_field_default("moe_mlp", "num_experts")
+
+
+def _check_parallel_flags(args, n_devices: int) -> None:
+    """The JAX CLI's refusals of the expert-parallel, MoE and ZeRO flags,
+    in its order and words, before the model or the data is built.
+    ``n_devices`` is the world's (one device per process)."""
+    ep = args.expert_parallel
+    if ep < 1:
+        raise SystemExit(f"--expert-parallel must be >= 1, got {ep}")
+    if ep > 1:
+        if args.model != "moe_mlp":
+            raise SystemExit(
+                f"--expert-parallel requires --model moe_mlp (the EP rule "
+                f"table shards the leading num_experts weight dim; other "
+                f"models would silently stay replicated); got --model "
+                f"{args.model}")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--expert-parallel does not compose with --trainer-mode "
+                "explicit (the explicit shard_map owns the whole mesh as "
+                "a data axis); use scan or stepwise")
+        num_experts = _moe_num_experts()
+        if num_experts % ep:
+            raise SystemExit(
+                f"--expert-parallel {ep} must divide the moe_mlp's "
+                f"{num_experts} experts")
+        if n_devices % ep:
+            raise SystemExit(
+                f"--expert-parallel {ep} does not divide the "
+                f"{n_devices} available devices")
+    if args.optimizer_sharding == "zero3" and ep > 1:
+        raise SystemExit(
+            "--optimizer-sharding zero3 composes with data parallelism "
+            "only; combine TP/SP/EP with zero1 instead (README "
+            "composition matrix)")
+    grad_accum = args.grad_accum
+    if ep > 1 and args.moe_dispatch == "capacity" \
+            and (args.batch_size // grad_accum) % n_devices:
+        raise SystemExit(
+            f"--moe-dispatch capacity with --expert-parallel {ep}: "
+            f"the per-step batch ({args.batch_size // grad_accum}) "
+            f"must divide evenly over the {n_devices} "
+            f"data x expert token groups")
+    aux_weight = args.moe_aux_weight
+    if aux_weight:
+        if args.model != "moe_mlp":
+            raise SystemExit(
+                f"--moe-aux-weight applies to --model moe_mlp (the router "
+                f"sows the load-balance loss); got --model {args.model}")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--moe-aux-weight does not compose with --trainer-mode "
+                "explicit; use scan or stepwise")
+    if args.zero_overlap:
+        if args.optimizer_sharding == "none":
+            raise SystemExit(
+                "--zero-overlap schedules the ZeRO weight update "
+                "explicitly; pass --optimizer-sharding zero1 or zero3 "
+                "with it")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--zero-overlap does not compose with --trainer-mode "
+                "explicit (both own the whole mesh as one shard_map "
+                "data axis); use scan or stepwise")
+        if ep > 1:
+            raise SystemExit(
+                "--zero-overlap composes with data parallelism only; "
+                "TP/SP/EP/PP layouts stay on the default "
+                "propagation-scheduled path (drop --zero-overlap)")
+        if aux_weight:
+            raise SystemExit(
+                "--zero-overlap does not compose with --moe-aux-weight "
+                "(the sown aux statistic is a global-batch quantity; "
+                "the overlapped body sees local shards)")
+        if args.loss == "fused":
+            raise SystemExit(
+                "--zero-overlap does not compose with --loss fused "
+                "(the fused kernel's shard_map cannot nest inside the "
+                "overlapped step's shard_map over the same data axis)")
+        if args.epoch_gather == "device":
+            raise SystemExit(
+                "--zero-overlap requires --epoch-gather host (the "
+                "overlapped step is not embedded in the device-gather "
+                "epoch program)")
+        if args.zero_bucket_mb <= 0:
+            raise SystemExit(
+                f"--zero-bucket-mb must be > 0, got {args.zero_bucket_mb:g}")
+    if args.moe_dispatch != "dense" and not model_accepts(args.model,
+                                                          "dispatch"):
+        raise SystemExit(
+            f"--moe-dispatch only applies to MoE models; "
+            f"{args.model!r} does not accept a dispatch mode")
+    if args.optimizer_sharding == "zero1" \
+            and args.optimizer not in ("adam", "adam_pallas"):
+        raise SystemExit(
+            f"--optimizer-sharding zero1 requires an Adam optimizer "
+            f"(got --optimizer {args.optimizer}: no mu/nu moment state "
+            f"to shard)")
 
 
 def _check_grad_accum(args) -> None:
@@ -705,6 +880,7 @@ def run(args, epoch_callback=None) -> dict:
     # The switch is process-wide: on for this run only, so a later run in
     # the same process without the flag does not inherit it.
     try:
+        _check_parallel_flags(args, process_count())
         with debug_nans.enabled_for(args.debug_nans):
             return _run_in_world(args, model_kwargs, device, epoch_callback)
     except BaseException as exc:
@@ -745,9 +921,16 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         random.seed(args.seed)
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
-    axis = make_mesh(device=device)
-    log0(f"devices: {axis.size} ({'gpu' if device.type == 'cuda' else 'cpu'}"
-         f"), processes: {process_count()}, mesh: {axis.shape}")
+    ep = args.expert_parallel
+    if ep > 1:
+        mesh = make_mesh(("data", "expert"),
+                         shape=(process_count() // ep, ep), device=device)
+    else:
+        mesh = make_mesh(device=device)
+    # Batches shard, and gradients and metrics sum, over the data axis.
+    axis = mesh.data
+    log0(f"devices: {mesh.size} ({'gpu' if device.type == 'cuda' else 'cpu'}"
+         f"), processes: {process_count()}, mesh: {mesh.shape}")
     local_batch = args.batch_size // axis.size
     if (args.grad_accum > 1 and args.batch_size % axis.size == 0
             and local_batch % args.grad_accum):
@@ -765,6 +948,13 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
             and not getattr(args, "no_precompile", False)):
         precompile = cuda_build.Precompile(_run_kernels(args))
     set_loss_impl(args.loss)
+    if args.moe_dispatch != "dense":
+        model_kwargs["dispatch"] = args.moe_dispatch
+    if model_accepts(args.model, "mesh") and mesh.reduces:
+        # The MoE splits its experts over the expert axis, offsets its
+        # capacity positions and sums its aux statistic over the data
+        # axis: it needs the mesh; one process runs it alone.
+        model_kwargs["mesh"] = mesh
     state = create_train_state(
         get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
         optimizer=args.optimizer, momentum=args.momentum,
@@ -773,6 +963,31 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     if not (resume_path and start_epoch > 0):
         # A resumed checkpoint's epoch wins over --start-epoch.
         start_epoch = args.start_epoch
+    rules = None
+    if ep > 1:
+        # The expert weights' leading num_experts dim splits over
+        # 'expert' (parallel/expert.py); router, embed and head replicate.
+        # ZeRO composes rules-first, its moments claiming the rest.
+        from pytorch_distributed_mnist_tpu_torch.parallel.expert import (
+            moe_ep_rules,
+        )
+        from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
+            shard_state,
+        )
+
+        rules = moe_ep_rules("expert")
+        if args.optimizer_sharding == "none":
+            shard_state(state, mesh, rules)
+    if args.optimizer_sharding != "none":
+        from pytorch_distributed_mnist_tpu_torch.parallel.zero import (
+            shard_state_zero,
+        )
+
+        shard_state_zero(
+            state, mesh, rules=rules,
+            level=3 if args.optimizer_sharding == "zero3" else 1,
+            bucket_mb=args.zero_bucket_mb if args.zero_overlap else None,
+            overlap=args.zero_overlap)
     train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
     if precompile is not None:
         precompile.join()
@@ -780,7 +995,9 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
                       mode=args.trainer_mode, epoch_gather=args.epoch_gather,
                       staging_log=StagingLog(), axis=axis,
                       grad_accum=args.grad_accum,
-                      feed_window=args.feed_window)
+                      feed_window=args.feed_window,
+                      aux_weight=args.moe_aux_weight,
+                      zero_overlap=args.zero_overlap)
     # closing(trainer) joins an in-flight epoch prefetch on every exit.
     with closing(trainer):
         summary = _train_or_evaluate(args, trainer, start_epoch, best_acc,
@@ -844,7 +1061,8 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             ckpt_kwargs = dict(
                 epoch=epoch, best_acc=best_acc, is_best=is_best,
                 directory=args.checkpoint_dir, keep_last=args.keep_last,
-                parallel_layout={"tensor": 1, "sequence": 1, "expert": 1,
+                parallel_layout={"tensor": 1, "sequence": 1,
+                                 "expert": args.expert_parallel,
                                  "pipeline": 1},
                 publish=args.publish, chunk_mb=args.chunk_mb)
             if saver is not None:
@@ -883,7 +1101,7 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
     supervision.set_phase("shutdown")
     ips = timer.images_per_sec
     # The reference's line; one device per process.
-    per_chip = ips / trainer.axis.size
+    per_chip = ips / process_count()
     log0(f"throughput: {ips:,.0f} images/sec ({per_chip:,.0f}/chip), "
          f"best acc: {best_acc * 100:.2f}%")
     return {"best_acc": best_acc, "history": history,

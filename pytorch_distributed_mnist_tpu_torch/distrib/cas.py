@@ -118,7 +118,11 @@ class ChunkStore:
         return freed
 
 
-def _nbytes(leaf) -> int:
+def _leaf_bytes(leaf) -> int:
+    """Bytes of a leaf: an array, a tensor (read without importing torch),
+    or anything with ``shape`` and a numpy ``dtype``."""
+    if hasattr(leaf, "element_size"):
+        return leaf.numel() * leaf.element_size()
     shape = tuple(np.shape(leaf))
     dtype = np.dtype(getattr(leaf, "dtype", np.float32))
     return int(np.prod(shape, dtype=np.int64)) * dtype.itemsize if shape \
@@ -129,18 +133,21 @@ def bucket_plan(leaves, bucket_mb: float) -> List[List[int]]:
     """Flat leaf indices packed into byte-budgeted buckets: largest leaf
     first (ties by index, so every host plans alike), a bucket closing
     when the next leaf would take it past ``bucket_mb`` MiB, a leaf
-    larger than the budget alone in its own. A copy of the reference's
-    ``parallel/zero_overlap.py::bucket_plan``, which orders the ZeRO
-    buckets by the same rule."""
+    larger than the budget alone in its own. The one plan of the
+    package: the publish walks leaves in its order and the overlapped
+    ZeRO plane (``parallel/zero_overlap.py``) groups its collectives by
+    it, as the reference's ``parallel/zero_overlap.py::bucket_plan``
+    does."""
     if bucket_mb <= 0:
         raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
     budget = int(bucket_mb * (1 << 20))
-    order = sorted(range(len(leaves)), key=lambda i: (-_nbytes(leaves[i]), i))
+    order = sorted(range(len(leaves)),
+                   key=lambda i: (-_leaf_bytes(leaves[i]), i))
     plan: List[List[int]] = []
     cur: List[int] = []
     cur_bytes = 0
     for i in order:
-        nbytes = _nbytes(leaves[i])
+        nbytes = _leaf_bytes(leaves[i])
         if cur and cur_bytes + nbytes > budget:
             plan.append(cur)
             cur, cur_bytes = [], 0

@@ -1,10 +1,11 @@
-"""Model zoo of the port: ``linear``, ``cnn`` and ``vit``, registered by
-name."""
+"""Model zoo of the port: ``linear``, ``cnn``, ``vit`` and ``moe_mlp``,
+registered by name."""
 
 from pytorch_distributed_mnist_tpu_torch.models import (  # registers
     attention,
     cnn,
     linear,
+    moe,
 )
 from pytorch_distributed_mnist_tpu_torch.models.registry import (
     get_model,
@@ -15,4 +16,4 @@ from pytorch_distributed_mnist_tpu_torch.models.registry import (
 )
 
 __all__ = ["attention", "cnn", "get_model", "linear", "list_models",
-           "model_accepts", "model_field_default", "register_model"]
+           "model_accepts", "model_field_default", "moe", "register_model"]

@@ -46,10 +46,12 @@ def jax_param_path(port_name: str) -> str:
     ``conv1.weight`` -> ``['params']['conv1']['kernel']``;
     ``block0.attn.qkv.kernel`` -> ``['params']['block0']['attn']['qkv']
     ['kernel']``; ``block0.ln1.weight`` -> ``...['ln1']['scale']``;
-    ``pos_embed`` -> ``['params']['pos_embed']``."""
+    ``pos_embed`` -> ``['params']['pos_embed']``; the MoE's raw
+    ``moe.w1`` -> ``['params']['moe']['w1']``."""
     *layers, leaf = port_name.split(".")
     kind = param_kind(port_name)
-    keys = layers + ([leaf] if kind == "pos_embed" else [kind])
+    named = kind in ("pos_embed", "raw_kernel", "raw_bias")
+    keys = layers + ([leaf] if named else [kind])
     return "['params']" + "".join(f"['{k}']" for k in keys)
 
 
@@ -122,14 +124,18 @@ def init_params(model_name: str, seed: int) -> Dict[str, np.ndarray]:
     out = {}
     for name, shape in param_shapes(model_name).items():
         kind = param_kind(name)
-        if kind == "bias":
+        if kind in ("bias", "raw_bias"):
             arr = rng.normal(0.0, 0.01, size=shape)
         elif kind == "scale":
             arr = 1.0 + rng.normal(0.0, 0.01, size=shape)
         elif kind == "pos_embed":
             arr = rng.normal(0.0, 0.02, size=shape)
         else:
-            fan_in = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+            if kind == "raw_kernel":
+                fan_in = int(np.prod(shape[:-1]))
+            else:
+                fan_in = (int(np.prod(shape[1:])) if len(shape) == 4
+                          else shape[0])
             arr = rng.normal(0.0, 1.0 / np.sqrt(fan_in), size=shape)
         out[name] = arr.astype(np.float32)
     return out
@@ -139,10 +145,11 @@ def state_leaves(state) -> List[Tuple[str, torch.Tensor]]:
     """``(JAX leaf name, tensor)`` of every leaf of a port train state
     (``train/state.py::TrainState``), in the JAX package's flatten order.
     The tensors are the live ones (device, port layout)."""
-    params = dict(state.model.named_parameters())
+    params = state.param_leaves()
     names = jax_param_order(params)
     opt = state.optimizer
-    if [id(p) for p in opt.params] != [id(params[n]) for n in names]:
+    if getattr(state, "zero", None) is None and \
+            [id(p) for p in opt.params] != [id(params[n]) for n in names]:
         raise ValueError("the optimizer's params are not the model's in "
                          "the JAX flatten order")
     out = [("['opt_state'].count", opt.count)]
@@ -161,10 +168,17 @@ def state_leaves(state) -> List[Tuple[str, torch.Tensor]]:
 
 def state_to_jax(state) -> List[Tuple[str, np.ndarray]]:
     """The train state as ``(JAX name, host array in the JAX layout)`` in
-    flatten order: what the checkpoint writer stores. One device-to-host
-    copy per leaf."""
-    return [(name, _to_jax_layout(t.detach().cpu().numpy()))
-            for name, t in state_leaves(state)]
+    flatten order: what the checkpoint writer stores, every leaf whole.
+    One device-to-host copy per leaf. A state with placed leaves
+    (``state.placements``) gathers each over its mesh axis first: a
+    collective, so every rank of the world calls this."""
+    placements = getattr(state, "placements", None) or {}
+    out = []
+    for name, t in state_leaves(state):
+        if name in placements:
+            t = placements[name].gather(t)
+        out.append((name, _to_jax_layout(t.detach().cpu().numpy())))
+    return out
 
 
 def load_state_from_jax(state, names: Sequence[str],
@@ -175,6 +189,7 @@ def load_state_from_jax(state, names: Sequence[str],
     rest). Raises ``ValueError`` on any mismatch, before anything is
     written."""
     leaves = state_leaves(state)
+    placements = getattr(state, "placements", None) or {}
     if len(leaves) != len(arrays):
         raise ValueError(f"{path}: checkpoint has {len(arrays)} leaves, "
                          f"current state has {len(leaves)} — "
@@ -185,6 +200,11 @@ def load_state_from_jax(state, names: Sequence[str],
             raise ValueError(f"{path}: leaf {saved} where the state has "
                              f"{name} — model/optimizer mismatch")
         arr = _to_port_layout(np.asarray(arr))
+        if name in placements:
+            if arr.shape != placements[name].shape:
+                raise ValueError(f"{path}: leaf {name} shape {arr.shape} != "
+                                 f"expected {placements[name].shape}")
+            arr = placements[name].local(arr)  # this rank's slice
         if arr.shape != tuple(t.shape):
             raise ValueError(f"{path}: leaf {name} shape {arr.shape} != "
                              f"expected {tuple(t.shape)}")
@@ -192,3 +212,5 @@ def load_state_from_jax(state, names: Sequence[str],
     with torch.no_grad():
         for t, value in staged:
             t.copy_(value.to(t.dtype))
+    if getattr(state, "zero", None) is not None:
+        state.zero.stale = True  # the ZeRO-3 workspace is re-gathered

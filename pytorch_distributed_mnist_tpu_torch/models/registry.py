@@ -40,12 +40,22 @@ def list_models():
     return sorted(_REGISTRY)
 
 
+# Raw params of the MoE layer (``models/moe.py``): flax ``self.param``
+# leaves named as they are, not a Dense's ``kernel``/``bias``.
+_RAW_MOE = {"w1": "raw_kernel", "w2": "raw_kernel",
+            "b1": "raw_bias", "b2": "raw_bias"}
+
+
 def param_kind(name: str) -> str:
     """What a param is, by its port name, for init and conversion:
     ``"bias"``; ``"scale"`` (a LayerNorm's ``weight``: its layer's name
-    starts with ``ln``); ``"pos_embed"``; else ``"kernel"`` (a Dense
+    starts with ``ln``); ``"pos_embed"``; ``"raw_kernel"`` and
+    ``"raw_bias"`` (the MoE layer's ``w1``/``w2`` and ``b1``/``b2``,
+    leaves that keep their own names); else ``"kernel"`` (a Dense
     kernel, or a conv weight)."""
     *layers, leaf = name.split(".")
+    if layers and layers[-1] == "moe" and leaf in _RAW_MOE:
+        return _RAW_MOE[leaf]
     if leaf == "bias":
         return "bias"
     if leaf == "pos_embed" and not layers:
@@ -75,7 +85,10 @@ def lecun_normal_init(model, seed: int, order=None) -> None:
     """Training init in flax's default scheme, in place: every kernel
     drawn from ``lecun_normal`` (a normal truncated to +-2 standard
     deviations, scaled to std ``sqrt(1/fan_in) / 0.8796...``), every bias
-    zero, every LayerNorm scale one, and ``pos_embed`` drawn from
+    zero (raw MoE biases too), every LayerNorm scale one, raw MoE kernels
+    from ``lecun_normal`` with flax's fan-in of a stacked kernel (every
+    dim but the last: ``(E, C, H)`` has fan-in ``E * C``), and
+    ``pos_embed`` drawn from
     ``normal(stddev=0.02)`` (cut at 4 standard deviations, where flax's is
     not cut: 6 draws in 100,000 lie beyond). Draws come from a
     ``torch.Generator`` seeded with ``seed``, on the CPU, in ``order``
@@ -90,7 +103,7 @@ def lecun_normal_init(model, seed: int, order=None) -> None:
         for name in (order or list(params)):
             p = params[name]
             kind = param_kind(name)
-            if kind == "bias":
+            if kind in ("bias", "raw_bias"):
                 p.zero_()
             elif kind == "scale":
                 p.fill_(1.0)
@@ -99,8 +112,11 @@ def lecun_normal_init(model, seed: int, order=None) -> None:
             else:
                 # Conv weights are OIHW (fan_in = I*H*W), Dense kernels
                 # (in, out).
-                fan_in = (p.shape[1] * p.shape[2] * p.shape[3]
-                          if p.dim() == 4 else p.shape[0])
+                if kind == "raw_kernel":
+                    fan_in = p[..., 0].numel()
+                else:
+                    fan_in = (p.shape[1] * p.shape[2] * p.shape[3]
+                              if p.dim() == 4 else p.shape[0])
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 p.copy_(_normal_draw(p.shape, gen, 2.0) * std)
 

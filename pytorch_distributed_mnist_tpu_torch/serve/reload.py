@@ -124,8 +124,16 @@ class CheckpointWatcher:
                 is_corrupt_checkpoint_error,
             )
 
-            permanent = (is_corrupt_checkpoint_error(exc)
-                         or isinstance(exc, ValueError))
+            # The sharded loader's missing-shards ValueError is
+            # absence-level (a stale NFS readdir view of a directory whose
+            # atomic publish means it WAS complete), the same reasoning
+            # is_corrupt_checkpoint_error gives for leaving it out of
+            # quarantine: it stays retryable here too.
+            stale_view = (isinstance(exc, ValueError)
+                          and "missing shards" in str(exc))
+            permanent = not stale_view and (
+                is_corrupt_checkpoint_error(exc)
+                or isinstance(exc, ValueError))
             if permanent:
                 self._failed = path
             if self.serve_log is not None:

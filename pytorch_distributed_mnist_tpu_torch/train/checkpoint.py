@@ -10,10 +10,12 @@ package reads what the other writes:
 - **sharded directory** (``checkpoint_{e}.ckpt/``, format version 2):
   per process a ``shards_p{pid}.npz`` and a slice index
   ``index_p{pid}.json``, and process 0's ``meta.json`` (``global_shapes``,
-  ``dtypes``). Every leaf of a port state is whole on every process (no
-  leaf is split over processes yet), so process 0 writes each leaf once,
-  as one slice, and the others write empty indexes; the directory is
-  renamed into place by process 0 once every process's index is visible.
+  ``dtypes``). A leaf whole on every process is written once, by process
+  0, as one slice; a leaf split over a mesh axis (the expert weights of
+  expert parallelism, ZeRO's shards: ``state.placements``) is written as
+  each rank's slice by the ranks at coordinate 0 of the other axes. The
+  directory is renamed into place by process 0 once every process's
+  index is visible.
   The port writes it only when asked (``layout="sharded"``); reading
   stitches whatever slices the indexes name, so a JAX directory written
   by any mesh loads here.
@@ -23,7 +25,9 @@ package reads what the other writes:
 Every write goes to a tmp name and is published with ``os.replace``, so a
 reader (the serving reload watcher, a resume) never sees half a
 checkpoint. In a world of processes every rank holds the same train
-state; process 0 writes (the reference's ``:248-249``), and
+state, but for its slices of the split leaves; process 0 writes whole
+leaves (the reference's ``:248-249``; split leaves are gathered first,
+on every rank), and
 :func:`save_checkpoint` returns on every rank only once the checkpoint is
 published, so no rank reads a file before it is whole. A checkpoint saved
 by a world of N loads in a world of one and the other way round.
@@ -67,6 +71,10 @@ from pytorch_distributed_mnist_tpu_torch.runtime.supervision import (
     maybe_fault,
 )
 from pytorch_distributed_mnist_tpu_torch.utils.logging import log0
+from pytorch_distributed_mnist_tpu_torch.utils.profiling import failure_events
+from pytorch_distributed_mnist_tpu_torch.utils.watchdog import (
+    retry_with_backoff,
+)
 
 FORMAT_VERSION = 1
 SHARDED_FORMAT_VERSION = 2
@@ -253,10 +261,15 @@ def save_checkpoint(state, *, epoch: int, best_acc: float, is_best: bool,
                              keep_last=keep_last,
                              parallel_layout=parallel_layout)
     path, err = None, None
+    named = None
+    if _placed(state):
+        # Split leaves gather over their mesh axes: every rank takes part.
+        named = state_to_jax(state)
     if pid == 0:
         try:
             path = _write_whole(
-                state_to_jax(state), epoch=epoch, best_acc=best_acc,
+                named if named is not None else state_to_jax(state),
+                epoch=epoch, best_acc=best_acc,
                 is_best=is_best, directory=directory, keep_last=keep_last,
                 parallel_layout=parallel_layout, publish=publish,
                 chunk_mb=chunk_mb)
@@ -321,6 +334,13 @@ def _sharded_prepare(directory: str, epoch: int, pid: int) -> Tuple[str, str]:
     return tmp, final
 
 
+def _placed(state) -> bool:
+    """True when some leaf of ``state`` lives split over a mesh axis
+    (``parallel/tensor.py::Placement``): whole leaves then take a
+    collective, and a sharded directory holds each rank's slices."""
+    return bool(getattr(state, "placements", None))
+
+
 def _sharded_collect(state, pid: int) -> Tuple[Named, Dict[str, np.ndarray],
                                               list]:
     """Phase 2 (device reads): ``(named, payload, index)``. Process 0 owns
@@ -329,6 +349,8 @@ def _sharded_collect(state, pid: int) -> Tuple[Named, Dict[str, np.ndarray],
     others own nothing. The copy is a snapshot: the train loop may update
     the device state as soon as this returns."""
     maybe_fault("ckpt_collect")
+    if _placed(state):
+        return _sharded_collect_placed(state, pid)
     if pid != 0:
         return [], {}, []
     named = state_to_jax(state)
@@ -338,6 +360,50 @@ def _sharded_collect(state, pid: int) -> Tuple[Named, Dict[str, np.ndarray],
         payload[key] = arr
         index.append({"leaf": i, "key": key, "start": [0] * arr.ndim,
                       "stop": list(arr.shape)})
+    return named, payload, index
+
+
+def _sharded_collect_placed(state, pid: int):
+    """Phase 2 of a state with split leaves: each rank indexes the slices
+    it writes (``Placement.writes``: coordinate 0 on every other mesh
+    axis), in the JAX layout; process 0 also writes every whole leaf and
+    returns shape-only stand-ins of them all for the meta."""
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        _to_jax_layout,
+        state_leaves,
+    )
+
+    placements = state.placements
+    named: Named = []
+    payload, index = {}, []
+    for i, (name, t) in enumerate(state_leaves(state)):
+        pl = placements.get(name)
+        arr = _to_jax_layout(t.detach().cpu().numpy())
+        if pl is None:
+            shape = arr.shape
+            if pid == 0:
+                key = f"leaf{i}_s0"
+                payload[key] = arr
+                index.append({"leaf": i, "key": key,
+                              "start": [0] * arr.ndim,
+                              "stop": list(arr.shape)})
+        else:
+            jax_dim = [d for d, a in enumerate(pl.spec) if a is not None][0]
+            shape = list(arr.shape)
+            shape[jax_dim] = pl.shape[pl.dim]
+            shape = tuple(shape)
+            if pl.writes:
+                key = f"leaf{i}_s{pl.index}"
+                start = [0] * arr.ndim
+                stop = list(shape)
+                start[jax_dim] = pl.index * pl.chunk
+                stop[jax_dim] = (pl.index + 1) * pl.chunk
+                payload[key] = arr
+                index.append({"leaf": i, "key": key, "start": start,
+                              "stop": stop})
+        if pid == 0:
+            named.append((name, np.broadcast_to(np.zeros((), arr.dtype),
+                                                shape)))
     return named, payload, index
 
 
@@ -373,17 +439,44 @@ def _publish_dir(tmp: str, final: str, directory: str, is_best: bool,
             f"filesystem shared by all ranks")
     if os.path.isdir(final):
         shutil.rmtree(final)
-    os.replace(tmp, final)
-    if is_best:
-        best = os.path.join(directory, "model_best.ckpt")
-        best_tmp = best + ".copy_tmp"
-        if os.path.isdir(best_tmp):
-            shutil.rmtree(best_tmp)
-        shutil.copytree(final, best_tmp)
-        if os.path.isdir(best):
-            shutil.rmtree(best)
-        os.replace(best_tmp, best)
-    prune_checkpoints(directory, keep_last)
+
+    # The rename is the one retry-safe step on a network filesystem (a
+    # transient ESTALE or EIO on a busy NFS export): failing here aborts
+    # every rank through the publish agreement, while a retry publishes a
+    # checkpoint that is already whole on disk.
+    def _replace_once() -> None:
+        try:
+            os.replace(tmp, final)
+        except OSError:
+            if os.path.isdir(final) and not os.path.exists(tmp):
+                # A lost NFS reply: the server made the rename, the
+                # client's retry sees tmp gone. The publish landed.
+                return
+            raise
+
+    retry_with_backoff(
+        _replace_once, attempts=3, retry_on=(OSError,),
+        on_retry=lambda attempt, exc, delay: failure_events.record(
+            "publish_retry",
+            f"rename to {final} attempt {attempt} failed ({exc!r}); "
+            f"retrying in {delay:.2f}s"))
+    try:
+        if is_best:
+            best = os.path.join(directory, "model_best.ckpt")
+            best_tmp = best + ".copy_tmp"
+            if os.path.isdir(best_tmp):
+                shutil.rmtree(best_tmp)
+            shutil.copytree(final, best_tmp)
+            if os.path.isdir(best):
+                shutil.rmtree(best)
+            os.replace(best_tmp, best)
+        prune_checkpoints(directory, keep_last)
+    except Exception as exc:
+        # The rename landed: say so, or the phase failure would send a
+        # postmortem to discard a checkpoint that is valid on disk.
+        raise RuntimeError(
+            f"checkpoint {final} WAS published, but a post-publish step "
+            f"(best copy / prune) failed: {exc!r}") from exc
 
 
 def _sharded_publish(tmp: str, final: str, directory: str, epoch: int,
@@ -645,9 +738,16 @@ class AsyncCheckpointer:
                                keep_last=keep_last,
                                parallel_layout=parallel_layout)
             return
-        if pid != 0:
+        if _placed(state):
+            # Split leaves gather over their mesh axes: every rank takes
+            # part, and only process 0 keeps the copy.
+            named = state_to_jax(state)
+            if pid != 0:
+                return
+        elif pid != 0:
             return  # process 0 writes; the others keep no copy
-        named = state_to_jax(state)
+        else:
+            named = state_to_jax(state)
 
         def write() -> None:
             self._result = _write_whole(

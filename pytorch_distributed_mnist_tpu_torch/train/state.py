@@ -136,6 +136,24 @@ class TrainState:
         # (``parallel/collectives.py::grad_buffer``), made at its first
         # use; None for a single process.
         self.grad_buffer = None
+        # Leaves that live split over a mesh axis, by JAX leaf name
+        # (``parallel/tensor.py::Placement``): the expert weights under
+        # expert parallelism, ZeRO's shards. Empty: every leaf is whole.
+        self.placements = {}
+        # The ZeRO data plane (``parallel/zero.py::ZeroPlane``), or None.
+        self.zero = None
+
+    def param_leaves(self):
+        """``{port param name: live tensor}`` of the params the state
+        holds: the model's, except that under ZeRO-3 a split leaf is this
+        rank's shard (the model's whole param is a gathered workspace)."""
+        params = dict(self.model.named_parameters())
+        zero = self.zero
+        if zero is not None and zero.level == 3:
+            for i, name in enumerate(zero.names):
+                if i in zero.shards:
+                    params[name] = zero.shards[i]
+        return params
 
     @property
     def learning_rate(self) -> float:

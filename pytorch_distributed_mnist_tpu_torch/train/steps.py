@@ -34,6 +34,7 @@ accumulated step is what is captured.
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -85,8 +86,39 @@ def make_forward_program(model: torch.nn.Module):
     return forward
 
 
+def _forward_with_aux(model: torch.nn.Module, images: torch.Tensor,
+                      aux_weight: float):
+    """Training forward returning ``(logits, aux)``: ``aux`` is the sum of
+    the ``aux_loss`` entries the model sowed (the MoE router's
+    load-balance term, ``models/moe.py``), or 0.0 when ``aux_weight`` is
+    0, in which case nothing is asked of the model. The port of the
+    reference's ``_forward_with_aux``: a model sows by returning
+    ``(logits, {path: value})`` when called with ``intermediates=True``
+    (one that takes no such argument sows nothing).
+
+    Only entries whose path holds ``aux_loss`` join the objective; any
+    other sown value raises, so a diagnostic can never join the loss. The
+    statistic cannot see the validity mask: train batches are whole (the
+    loader drops the ragged tail)."""
+    if not aux_weight:
+        return model(images), 0.0
+    if "intermediates" not in inspect.signature(model.forward).parameters:
+        return model(images), torch.zeros((), device=images.device)
+    logits, sown = model(images, intermediates=True)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for path, leaf in sown.items():
+        if "aux_loss" not in path:
+            raise ValueError(
+                f"aux_weight is set but the model sowed a non-aux_loss "
+                f"intermediate at {path!r}; only 'aux_loss' entries may "
+                f"join the training objective")
+        aux = aux + torch.sum(leaf)
+    return logits, aux
+
+
 def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
-               accum: int = 1, replica_mean: bool = False) -> MetricState:
+               accum: int = 1, replica_mean: bool = False,
+               aux_weight: float = 0.0) -> MetricState:
     """One optimizer step on one batch (on the state's device); updates
     ``state`` in place and returns this batch's metrics, still on the
     device. On an ``axis`` that reduces, ``batch`` is this rank's local
@@ -97,19 +129,31 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
     takes DDP's rule instead (the explicit mode's): each rank's masked
     mean, summed and divided by the axis size. ``accum > 1`` splits the
     batch into that many micro-batches (:func:`_accum_train_step`). The
-    metrics stay this rank's."""
+    objective is the cross-entropy plus ``aux_weight`` times the model's
+    sown aux loss (:func:`_forward_with_aux`); the metrics report the
+    cross-entropy alone, and stay this rank's.
+
+    A ZeRO-placed state (``state.zero``, ``parallel/zero.py``) reduces
+    through its plane instead of the all-reduce: the reduce-scatter into
+    this rank's shards, the optimizer on the shards, the all-gather. The
+    overlapped plane (``parallel/zero_overlap.py``) takes the
+    micro-batched body at any ``accum``, its hooks armed for the last
+    backward."""
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {accum}")
-    if accum > 1:
-        return _accum_train_step(state, batch, axis, accum)
+    zero = state.zero
+    if accum > 1 or (zero is not None and zero.overlap):
+        return _accum_train_step(state, batch, axis, accum, aux_weight)
     images, labels = batch["image"], batch["label"]
     mask = batch.get("mask")
-    logits = state.model(images)
+    if zero is not None:
+        zero.before_forward()
+    logits, aux = _forward_with_aux(state.model, images, aux_weight)
     reduce = axis is not None and axis.reduces
-    if not reduce:
+    if not reduce and zero is None:
         loss = cross_entropy(logits, labels, mask)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss + aux_weight * aux if aux_weight else loss).backward()
     else:
         grads = grad_buffer(state)
         grads.zero_()
@@ -121,7 +165,9 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
             # The global count is known before the forward: its
             # all-reduce needs nothing of this step's work. In a world of
             # one this is ``masked_mean``'s expression, bit for bit.
-            total = count_all_reduce(example_count(labels, mask), axis)
+            total = example_count(labels, mask)
+            if reduce:
+                count_all_reduce(total, axis)
             if mask is None:
                 num, loss = per_ex.sum(), per_ex.mean()
             else:
@@ -130,7 +176,20 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
                 live = mask.float()
                 num = (per_ex * live).sum()
                 loss = num / torch.clamp(live.sum(), min=1.0)
-            (num / torch.clamp(total, min=1.0)).backward()
+            objective = num / torch.clamp(total, min=1.0)
+            if aux_weight:
+                # aux is the global batch's (its sums all-reduced with an
+                # identity backward): each rank backpropagates it whole
+                # through its own rows, and the gradient sum over the
+                # axis is its gradient.
+                objective = objective + aux_weight * aux
+            objective.backward()
+        if zero is not None:
+            zero.step(state.optimizer)
+            state.step.add_(1)
+            return metrics_update(metrics_init(logits.device),
+                                  loss.detach(), logits.detach(), labels,
+                                  mask)
         grad_all_reduce(grads, axis)
         if replica_mean:
             grads.flat.div_(axis.size)
@@ -141,14 +200,19 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
 
 
 def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
-                      accum: int) -> MetricState:
+                      accum: int, aux_weight: float = 0.0) -> MetricState:
     """:func:`train_step` over ``accum`` micro-batches, in the order of
     the reference's ``make_accum_train_step_fn``: per micro-batch of
     ``n`` real examples, the backward pass of its masked mean times ``n``
-    (its per-example loss sum) adds into the flat gradient buffer against
-    the same params, and its metrics fold in with ``loss_sum / max(n,
-    1)``; then the sum over the axis, one division by the real examples
-    over every micro-batch and rank, and one optimizer step."""
+    (its per-example loss sum) plus ``aux_weight * aux * n`` adds into the
+    flat gradient buffer against the same params, and its metrics fold
+    in with ``loss_sum / max(n, 1)``; then the sum over the axis, one
+    division by the real examples over every micro-batch and rank, and
+    one optimizer step. On an axis that reduces, the aux term's ``n`` is
+    the micro-batch's count over the axis (the reference's micro-batch
+    is the global one). A ZeRO-placed state's plane is armed before the
+    last backward: the overlapped plane issues its reduce-scatters from
+    that backward's hooks."""
     images, labels = batch["image"], batch["label"]
     mask = batch.get("mask")
     b = labels.shape[0]
@@ -156,9 +220,12 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         raise ValueError(f"global batch {b} not divisible by --grad-accum "
                          f"{accum}")
     reduce = axis is not None and axis.reduces
+    zero = state.zero
     total = example_count(labels, mask)
     if reduce:
         count_all_reduce(total, axis)
+    if zero is not None:
+        zero.before_forward()
     grads = grad_buffer(state)
     grads.zero_()
     metrics = metrics_init(labels.device)
@@ -167,14 +234,25 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         rows = slice(k * micro, (k + 1) * micro)
         mb_labels = labels[rows]
         mb_mask = None if mask is None else mask[rows]
-        logits = state.model(images[rows])
+        logits, aux = _forward_with_aux(state.model, images[rows],
+                                        aux_weight)
         n = example_count(mb_labels, mb_mask)
         loss_sum = cross_entropy(logits, mb_labels, mb_mask) * n
-        loss_sum.backward()
+        objective = loss_sum
+        if aux_weight:
+            n_aux = count_all_reduce(n.clone(), axis) if reduce else n
+            objective = loss_sum + aux_weight * aux * n_aux
+        if zero is not None and k == accum - 1:
+            zero.begin_backward()  # the overlapped plane's hooks
+        objective.backward()
         grads.check()
         loss_mean = loss_sum.detach() / torch.clamp(n, min=1.0)
         metrics = metrics_update(metrics, loss_mean, logits.detach(),
                                  mb_labels, mb_mask)
+    if zero is not None:
+        zero.step(state.optimizer, divisor=total)
+        state.step.add_(1)
+        return metrics
     if reduce:
         grad_all_reduce(grads, axis)
     grads.flat.div_(torch.clamp(total, min=1.0))
@@ -231,8 +309,10 @@ class EpochProgram:
     wall time and ``replays`` the replays so far."""
 
     def __init__(self, state, train: bool, indexed: bool,
-                 warmup: int, axis=None, accum: int = 1) -> None:
+                 warmup: int, axis=None, accum: int = 1,
+                 aux_weight: float = 0.0) -> None:
         self.state = state
+        self.aux_weight = aux_weight
         self.train = train
         self.indexed = indexed
         self.warmup = warmup
@@ -264,7 +344,7 @@ class EpochProgram:
     def _body(self) -> None:
         if self.train:
             metrics = train_step(self.state, self._batch(), self.axis,
-                                 self.accum)
+                                 self.accum, aux_weight=self.aux_weight)
         else:
             metrics = eval_step(self.state, self._batch())
         accumulate_metrics(self._acc, metrics)
@@ -341,7 +421,8 @@ class EpochProgram:
 
 
 def _make_epoch(state, train: bool, indexed: bool, axis=None,
-                accum: int = 1) -> Callable[..., MetricState]:
+                accum: int = 1, aux_weight: float = 0.0) \
+        -> Callable[..., MetricState]:
     """The one factory behind the three ``make_*_epoch*`` functions, as
     the reference's ``_make_epoch``: ``train`` picks the train or the eval
     step, ``indexed`` where a tick's batch comes from, ``axis`` the data
@@ -351,7 +432,7 @@ def _make_epoch(state, train: bool, indexed: bool, axis=None,
     program = EpochProgram(
         state, train=train, indexed=indexed,
         warmup=TRAIN_WARMUP_TICKS if train else EVAL_WARMUP_TICKS,
-        axis=axis, accum=accum)
+        axis=axis, accum=accum, aux_weight=aux_weight)
     if indexed:
         def epoch(data, ticks):
             return program.run({**data, **ticks})
@@ -362,8 +443,8 @@ def _make_epoch(state, train: bool, indexed: bool, axis=None,
     return epoch
 
 
-def make_train_epoch(state, axis=None, grad_accum: int = 1) \
-        -> Callable[..., MetricState]:
+def make_train_epoch(state, axis=None, grad_accum: int = 1,
+                     aux_weight: float = 0.0) -> Callable[..., MetricState]:
     """``epoch(batches) -> MetricState``: one train step per batch of
     ``batches`` (``{'image': (S, B, ...), 'label': (S, B), 'mask': (S,
     B)}`` on the state's device), updating ``state`` in place, with the
@@ -371,10 +452,11 @@ def make_train_epoch(state, axis=None, grad_accum: int = 1) \
     micro-batches a step. Pass the same tensors, refilled, every epoch.
     The metrics are this rank's."""
     return _make_epoch(state, train=True, indexed=False, axis=axis,
-                       accum=grad_accum)
+                       accum=grad_accum, aux_weight=aux_weight)
 
 
-def make_train_epoch_indexed(state, axis=None, grad_accum: int = 1) \
+def make_train_epoch_indexed(state, axis=None, grad_accum: int = 1,
+                             aux_weight: float = 0.0) \
         -> Callable[..., MetricState]:
     """``epoch(data, ticks) -> MetricState``: as :func:`make_train_epoch`,
     each batch gathered on the device from the resident dataset ``data``
@@ -383,7 +465,7 @@ def make_train_epoch_indexed(state, axis=None, grad_accum: int = 1) \
     crosses to the device once per run, and an epoch's upload is its
     index matrix."""
     return _make_epoch(state, train=True, indexed=True, axis=axis,
-                       accum=grad_accum)
+                       accum=grad_accum, aux_weight=aux_weight)
 
 
 def make_eval_epoch(state) -> Callable[..., MetricState]:

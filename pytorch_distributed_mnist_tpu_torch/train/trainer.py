@@ -31,7 +31,13 @@ world's metrics.
 
 ``grad_accum`` splits every train step's batch into that many
 micro-batches (``train/steps.py::train_step``), in ``scan`` and
-``stepwise``; ``explicit`` refuses it, as the reference does.
+``stepwise``; ``explicit`` refuses it, as the reference does, and so it
+refuses ``aux_weight`` (the MoE's load-balance term in the objective)
+and a ZeRO-placed state (``parallel/zero.py``). Under ZeRO-3 the whole
+params are gathered from the shards before each eval pass;
+``zero_overlap`` asks for the overlapped plane
+(``parallel/zero_overlap.py``), whose carry is rebuilt before a train
+pass when a load replaced the shards.
 
 Under ``--debug-nans`` (``utils/debug_nans.py``) the per-batch modes run
 every step under the NaN-checking dispatch mode; ``scan`` keeps a copy of
@@ -116,7 +122,8 @@ class Trainer:
                  test_loader: MNISTDataLoader, device: torch.device,
                  mode: str = "scan", epoch_gather: str = "host",
                  staging_log=None, axis=None, grad_accum: int = 1,
-                 feed_window: int = 2) -> None:
+                 feed_window: int = 2, aux_weight: float = 0.0,
+                 zero_overlap: bool = False) -> None:
         if mode not in MODES:
             raise ValueError(f"unknown trainer mode {mode!r} "
                              f"({', '.join(MODES)})")
@@ -128,6 +135,28 @@ class Trainer:
         if epoch_gather == "device" and mode != "scan":
             raise ValueError("epoch_gather='device' is a scan-mode path (the "
                              "gather runs inside the epoch program)")
+        if aux_weight and mode == "explicit":
+            raise ValueError("mode='explicit' does not support aux_weight; "
+                             "use scan/stepwise")
+        if zero_overlap:
+            if state.zero is None or not state.zero.overlap:
+                raise ValueError(
+                    "zero_overlap requires the ZeRO state sharding "
+                    "(parallel/zero.py shard_state_zero, overlap=True)")
+            if mode == "explicit":
+                raise ValueError(
+                    "zero_overlap does not compose with mode='explicit' "
+                    "(both own the mesh as one shard_map data axis)")
+            if epoch_gather == "device":
+                raise ValueError(
+                    "zero_overlap requires epoch_gather='host' (the "
+                    "overlapped step is not embedded in the device-gather "
+                    "epoch program)")
+        if mode == "explicit" and (state.zero is not None
+                                   or state.placements):
+            raise ValueError(
+                "mode='explicit' is the replicated-DP shard_map path; "
+                "use scan/stepwise with a sharded state")
         self.state = state
         self.train_loader = train_loader
         self.test_loader = test_loader
@@ -158,7 +187,8 @@ class Trainer:
         if mode == "scan":
             make = (make_train_epoch_indexed if epoch_gather == "device"
                     else make_train_epoch)
-            self._train_epoch = make(state, axis, grad_accum=grad_accum)
+            self._train_epoch = make(state, axis, grad_accum=grad_accum,
+                                     aux_weight=aux_weight)
             self._eval_epoch = make_eval_epoch(state)
         else:
             self._feeder = BatchFeeder(train_loader, device,
@@ -168,8 +198,8 @@ class Trainer:
             self._train_step = make_explicit_dp_train_step(state, axis)
             self._eval_step = make_explicit_dp_eval_step(state, axis)
         else:
-            self._train_step = lambda batch: train_step(state, batch, axis,
-                                                        grad_accum)
+            self._train_step = lambda batch: train_step(
+                state, batch, axis, grad_accum, aux_weight=aux_weight)
             self._eval_step = lambda batch: eval_step(state, batch)
 
     # -- host-gather staging (scan) ----------------------------------------
@@ -265,6 +295,15 @@ class Trainer:
 
     # -- passes ----------------------------------------------------------
 
+    def _refresh_zero(self) -> None:
+        """Before a train pass: rebuild the overlapped ZeRO-3 carry (the
+        whole params gathered from the shards) if a checkpoint load or
+        an outside install replaced the shards since it was gathered; a
+        replayed graph gathers only at each step's tail."""
+        zero = self.state.zero
+        if zero is not None and zero.level == 3 and zero.stale:
+            zero.gather_params()
+
     def _read(self, ms: MetricState) -> Tuple[Average, Accuracy]:
         """The pass's meters: its accumulator summed over the axis (the
         explicit steps summed theirs already), then read once."""
@@ -305,6 +344,7 @@ class Trainer:
         """One training epoch over the loader's current shuffle."""
         maybe_fault("train_epoch")
         self.state.model.train()
+        self._refresh_zero()
         if self.mode != "scan":
             acc = metrics_init(self.device)
             with debug_nans.checking():
@@ -338,6 +378,10 @@ class Trainer:
         """One evaluation pass: no gradient, no state update."""
         maybe_fault("eval")
         self.state.model.eval()
+        zero = self.state.zero
+        if zero is not None and zero.level == 3:
+            # The eval forward reads the whole params: gather the shards.
+            zero.gather_params()
         if self.mode == "scan":
             if self._eval_staged is None:
                 # The eval set never reshuffles: stage it once.

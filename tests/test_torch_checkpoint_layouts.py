@@ -268,3 +268,65 @@ def test_a_directory_missing_a_shard_is_absence_not_corruption(tmp_path):
     with pytest.raises(ValueError, match="missing shards") as info:
         port_ckpt.load_checkpoint(path, _port_state())
     assert not port_ckpt.is_corrupt_checkpoint_error(info.value)
+
+
+def _flaky_replace(monkeypatch, fail_on: str, *, lost_reply: bool = False):
+    """``os.replace`` that fails its first rename onto a path ending in
+    ``fail_on``: a transient ``OSError(116, 'Stale file handle')``, or,
+    with ``lost_reply``, the rename made and its reply lost (``ENOENT``)."""
+    real = os.replace
+    state = {"failed": 0}
+
+    def replace(src, dst):
+        if str(dst).endswith(fail_on) and not state["failed"]:
+            state["failed"] += 1
+            if lost_reply:
+                real(src, dst)
+                raise FileNotFoundError(2, "No such file or directory", src)
+            raise OSError(116, "Stale file handle")
+        return real(src, dst)
+
+    monkeypatch.setattr(os, "replace", replace)
+    monkeypatch.setattr("time.sleep", lambda s: None)
+    return state
+
+
+@pytest.mark.parametrize("case", ["stale_handle_once", "lost_reply"])
+def test_the_sharded_publish_retries_a_transient_rename(tmp_path,
+                                                        monkeypatch, case):
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        failure_events,
+    )
+
+    failure_events.reset()
+    flaky = _flaky_replace(monkeypatch, "checkpoint_0.ckpt",
+                           lost_reply=case == "lost_reply")
+    state = _port_state()
+    path = port_ckpt.save_checkpoint(state, epoch=0, best_acc=0.5,
+                                     is_best=True, directory=str(tmp_path),
+                                     layout="sharded")
+    assert flaky["failed"] == 1
+    assert path.endswith("checkpoint_0.ckpt") and os.path.isdir(path)
+    assert not os.path.exists(path + ".tmp") and not any(
+        n.endswith(".tmp") for n in os.listdir(tmp_path))
+    retries = [e for e in failure_events.snapshot()
+               if e["kind"] == "publish_retry"]
+    # A lost reply is a publish that landed: no retry is scheduled.
+    assert len(retries) == (1 if case == "stale_handle_once" else 0)
+    _, epoch, _ = port_ckpt.load_checkpoint(path, _port_state(seed=4))
+    assert epoch == 1
+    assert os.path.isdir(tmp_path / "model_best.ckpt")
+
+
+def test_a_post_publish_failure_says_the_checkpoint_was_published(
+        tmp_path, monkeypatch):
+    def broken_copy(src, dst):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(port_ckpt.shutil, "copytree", broken_copy)
+    with pytest.raises(RuntimeError, match="WAS published, but a "
+                                           "post-publish step"):
+        port_ckpt.save_checkpoint(_port_state(), epoch=0, best_acc=0.5,
+                                  is_best=True, directory=str(tmp_path),
+                                  layout="sharded")
+    assert os.path.isdir(tmp_path / "checkpoint_0.ckpt")

@@ -53,7 +53,7 @@ def _images(n, seed):
 
 
 def test_registry_and_capability_probe():
-    assert list_models() == ["cnn", "linear", "vit"]
+    assert list_models() == ["cnn", "linear", "moe_mlp", "vit"]
     assert model_accepts("cnn", "matmul")
     assert model_accepts("linear", "matmul")
     assert model_accepts("vit", "matmul")

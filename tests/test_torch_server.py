@@ -161,13 +161,13 @@ def test_parser_leaves_out_unported_flags_and_defaults_to_cuda():
 
 def test_cli_dispatches_serve_and_refuses_training(capsys, tmp_path):
     # A bare invocation trains (the JAX package's default subcommand);
-    # training flags the port does not have yet (every trainer mode and
-    # --grad-accum are ported; --zero-overlap is not) exit 2.
+    # training flags the port does not have yet (every trainer mode,
+    # --grad-accum and ZeRO are ported; --dcn-slices is not) exit 2.
     with pytest.raises(SystemExit) as info:
-        cli.main(["--epochs", "1", "--zero-overlap", "--device",
+        cli.main(["--epochs", "1", "--dcn-slices", "2", "--device",
                   "cpu", "--checkpoint-dir", str(tmp_path)])
     assert info.value.code == 2
-    assert "unrecognized arguments: --zero-overlap" \
+    assert "unrecognized arguments: --dcn-slices" \
         in capsys.readouterr().err
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", "--help"])

@@ -366,8 +366,8 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
         "--epoch-gather device requires --trainer-mode scan")
 
 
-@pytest.mark.parametrize("flag", [["--zero-overlap"],
-                                  ["--optimizer-sharding", "zero1"],
+@pytest.mark.parametrize("flag", [["--zero-bucket-mb-dcn", "1"],
+                                  ["--pipeline-stages", "2"],
                                   ["--tensor-parallel", "2"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as info:
