@@ -145,7 +145,16 @@ Phases, each printing one JSON line:
    call, and the SDPA backend that served each), their plain versions,
    ``F.scaled_dot_product_attention`` forward and backward (in the
    problem's dtype) as the yardstick, and each kernel's bound (a 3xTF32
-   kernel's operations at a third of the TF32 rate);
+   kernel's operations at a third of the TF32 rate); then tensor and
+   sequence parallelism's per-rank shapes (``flash_rank_shapes``,
+   ``RANK_SHAPES``: TP's (256, 49, 2|1, 16) and (128, 49, 2, 16),
+   Ulysses's (256, 196, 2|1, 16)), bf16 and float32, causal and not: the
+   forward and backward against their plain versions and against the
+   head slice of the whole 4-head call (same bits or not, and by how
+   much), their device ms beside the plain versions, SDPA and the bound,
+   and ``sharded_flash_attention`` and Ulysses's local attention on the
+   card, each call's launches counted from 0 (one forward and one
+   backward of its route);
 10. the other backward routes on the attention path: ``flash_attention``
    forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair, at
    the ViT's shape and at (2, 33, 2, 12) in float32 the 3xTF32 pair (and
@@ -234,7 +243,15 @@ Phases, each printing one JSON line:
    its peer with ``PeerFailure`` and exit 75 within 60 s, the twin with no
    fault exits 0; a 3-rank ``--elastic`` world shrinks to 2 ranks resumed
    from ``checkpoint_0`` with ``world_shrunk`` recorded, its epoch-1 line
-   equal to a direct 2-rank world's); the cnn run for 1 epoch as a process
+   equal to a direct 2-rank world's), and beside them tensor and sequence
+   parallelism's gloo worlds (``tp_sp_spawn``: the ViT at patch 7 in
+   float32 on 2048 images with ``--tensor-parallel 2`` plain, with the
+   flash, cross-entropy and Adam kernels' flags and with ``--tp-overlap``,
+   ``--sequence-parallel 2`` ring and Ulysses with flash, ``--tensor-parallel
+   2 --sequence-parallel 2`` and ``--tensor-parallel 2
+   --optimizer-sharding zero1`` in worlds of 4, each epoch line held to
+   one process's run of the same flags, the overlap to the plain TP
+   world's); the cnn run for 1 epoch as a process
    on fresh ``--compile-cache`` directories (``cold_start``: by default
    and with ``--no-precompile`` each library it launches built once, then
    0 built on the warm directory; the seconds to the first epoch line);
@@ -441,6 +458,18 @@ TILED_CHECK_SHAPES = [(32, 196, 4, 16), P2_SHAPE, (32, 196, 4, 12)]
 FORCED_CUDA_CORE_CASES = [((32, 196, 4, 16), "bfloat16"),
                           (VIT_SHAPE, "float32"),
                           (D12_SHAPE, "bfloat16"), (D12_SHAPE, "float32")]
+
+# Tensor and sequence parallelism's per-rank attention blocks (ROADMAP
+# Queue 1 item 16 parts 3-4), at the ViT's D = 16 and the smoke's batch:
+# under --tensor-parallel each rank runs the kernels on its (B/dp, 49,
+# 4/tp, 16) heads (sharded_flash_attention), under Ulysses on the full
+# 196 tokens of --patch-size 2 with 4/sp heads (its local attention).
+# Each is held against the head slice of the whole (B, T, 4, 16) call.
+RANK_SHAPES = [("tp2", (TRAIN_BATCH, 49, 2, 16)),
+               ("tp4", (TRAIN_BATCH, 49, 1, 16)),
+               ("dp2_tp2", (TRAIN_BATCH // 2, 49, 2, 16)),
+               ("ulysses2", (TRAIN_BATCH, 196, 2, 16)),
+               ("ulysses4", (TRAIN_BATCH, 196, 1, 16))]
 
 
 _STARTED = time.perf_counter()
@@ -2223,8 +2252,9 @@ def phase_fleet_chaos(device_flag: str = "cuda") -> dict:
     """``runtime/chaos.py --fleet 2 --kill-backend 1 --device cuda
     --serve-model cnn`` as a process: the port's router (``route``, a
     process of its own) over two int8 cnn backend processes sharing the
-    card, backend 1 SIGKILLed under open-loop traffic and restarted,
-    then the no-fault twin. Passes only on the tool's exit 0 and its
+    card, backend 1 SIGKILLed under open-loop traffic (once it has
+    drawn a request, frozen until one waits unread in its socket) and
+    restarted, then the no-fault twin. Passes only on the tool's exit 0 and its
     ``chaos`` line: zero dropped requests, the victim quarantined and
     readmitted, every backend's ``kernel_launches.matmul_i8`` (read from
     its own ``/stats`` before the kill) above 0 on the card, and no
@@ -2254,12 +2284,15 @@ def phase_fleet_chaos(device_flag: str = "cuda") -> dict:
             or (device_flag == "cuda" and not all(
                 len(v) == 2 and all(v.values())
                 for v in per_backend.values()))):
-        raise AssertionError(f"fleet_chaos: rc {proc.returncode}, "
-                             f"{result}\n{proc.stderr[-4000:]}")
+        # The verdict last, where the end of the output shows it.
+        raise AssertionError(f"fleet_chaos: rc {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}\n{result}")
     emit("fleet_chaos", wall_s=wall, seconds=result["seconds"],
          load={run: r["load"] for run, r in (("faulted", faulted),
                                               ("twin", twin))},
          failovers=faulted["failovers"],
+         victim_requests_before_kill=faulted["victim_requests_before_kill"],
+         victim_unread_bytes_at_kill=faulted["victim_unread_bytes_at_kill"],
          victim_readmissions=faulted["victim_readmissions"],
          launches_per_backend=per_backend,
          router={run: r["router"] for run, r in (("faulted", faulted),
@@ -3240,6 +3273,206 @@ def phase_flash_split_route(device) -> dict:
          forced_cuda_core=[[list(s), d] for s, d in FORCED_CUDA_CORE_CASES],
          launches=launches, expected_launches=want, max_abs_err=errors)
     return launches
+
+
+def _rank_block(whole, heads):
+    """Rank heads ``heads`` of the whole problem ``whole`` (q, k, v, dO),
+    laid out as the rank's model hands them over: slices of its own
+    (B, T, 3, H/n, D) product."""
+    import torch
+
+    q, k, v, do = whole
+    qkv = torch.stack([x[:, :, heads] for x in (q, k, v)], dim=2)
+    qkv = qkv.contiguous()
+    return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+            do[:, :, heads].contiguous())
+
+
+def _rank_paths(device, shapes) -> dict:
+    """The slice's entry points on the card, counted from 0: for each TP
+    shape ``sharded_flash_attention`` (the ``--tensor-parallel
+    --attention flash`` attention) on rank 0's block, and for each
+    Ulysses shape ``ulysses_attention_local`` with ``flash_attention`` as
+    its local attention on a seq axis of one rank (on one card no
+    all-to-all can run; the local attention takes the block it is
+    handed), each forward and backward through autograd, bf16. Each call
+    must launch one tensor-core forward and one backward of its route."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+        DataAxis,
+        GridMesh,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.ulysses import (
+        ulysses_attention_local,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    calls = []
+    for tag, shape in shapes:
+        q, k, v, do = flash_inputs(shape, torch.bfloat16, gen, device)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        if tag.startswith("ulysses"):
+            seq = DataAxis(1, 0, device, None, "seq")
+            call = (lambda leaves=leaves, seq=seq: ulysses_attention_local(
+                *leaves, axis=seq, local_attention=flash.flash_attention))
+        else:
+            tp = VIT_SHAPE[2] // shape[2]
+            dp = TRAIN_BATCH // shape[0]
+            mesh = GridMesh(dp * tp, 0, device, (
+                DataAxis(dp, 0, device, None, "data"),
+                DataAxis(tp, 0, device, None, "model"),
+                DataAxis(1, 0, device, None, "seq")))
+            call = (lambda leaves=leaves, mesh=mesh:
+                    flash.sharded_flash_attention(
+                        *leaves, mesh=mesh, batch_axis="data",
+                        head_axis="model"))
+        calls.append((tag, shape, call, do))
+    fwd, bwd = flash.flash_fwd, flash.flash_bwd
+    out = {}
+    for tag, shape, call, do in calls:
+        # This path's run starts here ...
+        fwd.launches = 0
+        fwd.route_launches.update(dict.fromkeys(fwd.route_launches, 0))
+        bwd.launches = 0
+        bwd.route_launches.update(dict.fromkeys(bwd.route_launches, 0))
+        call().backward(do)
+        torch.cuda.synchronize()
+        # ... and ends here.
+        got = {"flash_fwd": dict(fwd.route_launches),
+               "flash_bwd": dict(bwd.route_launches)}
+        route = flash._bwd_route(shape, torch.bfloat16)
+        want = {"flash_fwd": {r: int(r == "tensor")
+                              for r in fwd.route_launches},
+                "flash_bwd": {r: int(r == route)
+                              for r in bwd.route_launches}}
+        if got != want:
+            raise AssertionError(f"{tag} {shape}: launches {got}, expected "
+                                 f"{want}")
+        out[tag] = {"entry": ("ulysses_attention_local" if
+                              tag.startswith("ulysses")
+                              else "sharded_flash_attention"),
+                    "flash_fwd": 1, "flash_bwd": 1, "bwd_route": route}
+    return out
+
+
+def phase_flash_rank_shapes(device, peaks) -> dict:
+    """The flash kernels at tensor and sequence parallelism's per-rank
+    shapes (``RANK_SHAPES``), bf16 and float32, causal and not: the
+    forward and ``flash_bwd`` (its route's kernels) against their plain
+    versions within ``flash_tolerance``, and against the head slice of
+    the whole (B, T, 4, 16) call at the same B and T (first and last
+    rank's heads): attention is independent per head, and whether each
+    output matches bit for bit, and by how much if not, is printed. Then
+    their device ms beside the plain versions, SDPA's forward and
+    backward and the bound (non-causal, as the ViT calls them), and the
+    slice's entry points' launches counted from 0 (``_rank_paths``).
+    Returns the rows, the largest errors and the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    require_full_float32()
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    heads = VIT_SHAPE[2]
+    worst = {**dict.fromkeys(FWD_KEYS.values(), 0.0),
+             **dict.fromkeys(BWD_KEYS.values(), 0.0)}
+    checks = {}
+    f32 = flash_tolerance(torch.float32)
+    for tag, shape in RANK_SHAPES:
+        b, t, hl, d = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = flash_tolerance(dtype)
+            fwd_route = flash._fwd_route(shape, dtype)
+            bwd_route = flash._bwd_route(shape, dtype)
+            for causal in (False, True):
+                where = f"{tag} {shape} {dtype} causal={causal}"
+                whole = flash_inputs((b, t, heads, d), dtype, gen, device)
+                o_w, lse_w = flash.flash_fwd(*whole[:3], causal=causal)
+                g_w = flash.flash_bwd(*whole[:3], o_w, lse_w, whole[3],
+                                      causal=causal)
+                same, diff = True, 0.0
+                for r in (0, heads // hl - 1):
+                    cut = slice(r * hl, (r + 1) * hl)
+                    q, k, v, do = _rank_block(whole, cut)
+                    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+                    want_o, want_lse = flash.flash_fwd_plain(q, k, v,
+                                                             causal=causal)
+                    got = flash.flash_bwd(q, k, v, want_o, want_lse, do,
+                                          causal=causal)
+                    want = flash.flash_bwd_plain(q, k, v, want_o, want_lse,
+                                                 do, causal=causal)
+                    mine = flash.flash_bwd(q, k, v, o, lse, do,
+                                           causal=causal)
+                    fk, bk = FWD_KEYS[fwd_route], BWD_KEYS[bwd_route]
+                    worst[fk] = max(
+                        worst[fk], _close("O", o, want_o, tol, where),
+                        _close("lse", lse, want_lse, f32, where))
+                    worst[bk] = max(worst[bk], *(
+                        _close(name, x, w, tol, where) for name, x, w in
+                        zip(("dQ", "dK", "dV"), got, want)))
+                    pairs = [(o, o_w[:, :, cut]),
+                             (lse, lse_w[:, cut]),
+                             *zip(mine, (x[:, :, cut] for x in g_w))]
+                    same = same and all(torch.equal(a, w) for a, w in pairs)
+                    diff = max(diff, *(float((a.float() - w.float()).abs()
+                                             .max()) for a, w in pairs))
+                checks[where] = {"fwd_route": fwd_route,
+                                 "bwd_route": bwd_route,
+                                 "whole_head_slice_same_bits": same,
+                                 "whole_head_slice_max_abs_diff": diff}
+    torch.cuda.synchronize()
+
+    rows = {}
+    for tag, shape in RANK_SHAPES:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            elem = dtype.itemsize
+            q, k, v, do = flash_inputs(shape, dtype, gen, device)
+            o, lse = flash.flash_fwd(q, k, v)
+            ops = (q, k, v, o, lse, do)
+            heads_t = [x.transpose(1, 2) for x in (q, k, v)]
+            fwd_kernel = FWD_KEYS[flash._fwd_route(shape, dtype)]
+            bwd_route = flash._bwd_route(shape, dtype)
+            pair = {"fused": ("flash_bwd",),
+                    "tiled": ("flash_dq_tiled", "flash_dkv_tiled"),
+                    "tf32x3": TF32_PAIR}[bwd_route]
+            key = f"{tag}_{'bf16' if elem == 2 else 'f32'}"
+            least, by, _, _ = flash_bound_ms(fwd_kernel, shape, elem, peaks)
+            fwd_row = _timed_row({
+                "kernel": lambda q=q, k=k, v=v: flash.flash_fwd(q, k, v),
+                "plain": lambda q=q, k=k, v=v: flash.flash_fwd_plain(q, k,
+                                                                     v),
+                "library": lambda h=heads_t:
+                    F.scaled_dot_product_attention(*h)},
+                shape=list(shape), dtype=dtype_name, bound_ms=least,
+                bound_by=by, route=fwd_kernel)
+            bwd_row = _timed_row({
+                "kernel": lambda ops=ops: flash.flash_bwd(*ops),
+                "plain": lambda ops=ops: flash.flash_bwd_plain(*ops),
+                "library": _sdpa_backward(q, k, v, do)},
+                shape=list(shape), dtype=dtype_name,
+                **dict(zip(("bound_ms", "bound_by"),
+                           pair_bound_ms(pair, shape, elem, peaks))),
+                route=bwd_route)
+            for row in (fwd_row, bwd_row):
+                row["library_backend"] = sdpa_backend(row["library_kernels"])
+            rows[f"flash_fwd_{key}"] = fwd_row
+            rows[f"flash_bwd_{key}"] = bwd_row
+            emit("timing", kernel=f"flash_fwd_{key}", **fwd_row)
+            emit("timing", kernel=f"flash_bwd_{key}", **bwd_row)
+    launches = _rank_paths(device, RANK_SHAPES)
+    same = {w: c["whole_head_slice_same_bits"] for w, c in checks.items()}
+    emit("flash_rank_shapes", shapes={t: list(s) for t, s in RANK_SHAPES},
+         tolerance={"float32": flash_tolerance(torch.float32),
+                    "bfloat16": flash_tolerance(torch.bfloat16)},
+         max_abs_err=worst, checks=checks,
+         all_same_bits_as_whole_slice=all(same.values()),
+         entry_launches=launches)
+    return {"rows": rows, "max_abs_err": worst, "launches": launches,
+            "checks": checks}
 
 
 def _train_lines(text: str, prefix: str) -> list:
@@ -5631,6 +5864,127 @@ def phase_chaos_cpu(started=None) -> dict:
     return row
 
 
+# Tensor and sequence parallelism across ranks, as gloo worlds on the CPU
+# (the card's machine has one card, and NCCL takes one card per rank): the
+# ViT at --patch-size 7 (16 tokens, the JAX tests' shape) in float32 on
+# the dp_spawn cut (2048 images, 1 epoch). (name, world size, flags, the
+# mesh its devices line prints, the run its epoch line is held to: a run
+# of one process of the same flags, or, for the overlap, the unoverlapped
+# TP world.)
+SPAWN_VIT_ARGS = ["--model", "vit", "--patch-size", "7", "--dtype", "f32",
+                  "--dataset", "synthetic", "--synthetic-train-size",
+                  "2048", "--synthetic-test-size", "512", "--batch-size",
+                  "256", "--seed", str(SEED), "--epochs", "1", "--device",
+                  "cpu"]
+VIT_KERNEL_FLAGS = ["--attention", "flash", "--loss", "fused",
+                    "--optimizer", "adam_pallas"]
+TP_SP_REFS = {"vit_one": [],
+              "vit_flash_one": ["--attention", "flash"],
+              "vit_kernels_one": VIT_KERNEL_FLAGS}
+TP_SP_WORLDS = [
+    ("tp2", 2, ["--tensor-parallel", "2"],
+     {"data": 1, "model": 2, "seq": 1}, "vit_one"),
+    ("tp2_kernels", 2, ["--tensor-parallel", "2", *VIT_KERNEL_FLAGS],
+     {"data": 1, "model": 2, "seq": 1}, "vit_kernels_one"),
+    ("tp2_overlap", 2, ["--tensor-parallel", "2", "--tp-overlap"],
+     {"data": 1, "model": 2, "seq": 1}, "tp2"),
+    ("sp2_ring", 2, ["--sequence-parallel", "2"],
+     {"data": 1, "model": 1, "seq": 2}, "vit_one"),
+    ("sp2_ulysses_flash", 2, ["--sequence-parallel", "2",
+                              "--sequence-parallel-impl", "ulysses",
+                              "--attention", "flash"],
+     {"data": 1, "model": 1, "seq": 2}, "vit_flash_one"),
+    ("tp2_sp2", 4, ["--tensor-parallel", "2", "--sequence-parallel", "2"],
+     {"data": 1, "model": 2, "seq": 2}, "vit_one"),
+    ("tp2_zero1", 4, ["--tensor-parallel", "2", "--optimizer-sharding",
+                      "zero1"], {"data": 2, "model": 2, "seq": 1},
+     "vit_one"),
+]
+
+
+TP_SP_THREADS = 3  # runs at once: the card machine's 8 cores, beside
+# the kernel builds and chaos_cpu's worlds
+
+
+def _tp_sp_worlds(root: str) -> dict:
+    """``TP_SP_WORLDS`` through ``--spawn`` on the CPU, after the
+    one-process references, ``TP_SP_THREADS`` runs at a time: each must
+    exit 0, print its mesh and one epoch line, and hold that line to its
+    reference's (losses within 1e-5, accuracies within one example of
+    512): TP and SP are layout changes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(name, argv):
+        proc, wall = _chaos_run([*argv, *SPAWN_VIT_ARGS, "--checkpoint-dir",
+                                 os.path.join(root, name)])
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr[-3000:]}")
+        return proc, wall
+
+    out = {}
+    with ThreadPoolExecutor(TP_SP_THREADS) as pool:
+        refs = {ref: pool.submit(run, ref, flags)
+                for ref, flags in TP_SP_REFS.items()}
+        worlds = {name: pool.submit(run, name, ["--spawn", str(n), *flags])
+                  for name, n, flags, _, _ in TP_SP_WORLDS}
+        lines = {}
+        for ref, fut in refs.items():
+            proc, wall = fut.result()
+            lines[ref] = _train_lines(proc.stdout, "Epoch: ")
+            out[ref] = {"wall_s": wall, "epoch_lines": lines[ref]}
+        for name, n, flags, mesh, _ in TP_SP_WORLDS:
+            proc, wall = worlds[name].result()
+            lines[name] = _train_lines(proc.stdout, "Epoch: ")
+            devices = _train_lines(proc.stdout, "devices: ")
+            want_dev = f"devices: {n} (cpu), processes: {n}, mesh: {mesh}"
+            if len(lines[name]) != 1 or devices != [want_dev]:
+                raise AssertionError(f"{name}: {devices}\n{proc.stdout}")
+            out[name] = {"world": n, "flags": flags, "wall_s": wall,
+                         "epoch_lines": lines[name],
+                         "devices_line": devices[0]}
+    for name, _, _, _, ref in TP_SP_WORLDS:
+        if not _lines_close(lines[name], lines[ref], 1e-5, 100 / 512):
+            raise AssertionError(f"{name} printed {lines[name]}; {ref} "
+                                 f"printed {lines[ref]}")
+        out[name].update(held_to=ref, reference_lines=lines[ref])
+    return out
+
+
+def start_tp_sp_cpu() -> dict:
+    """Start ``phase_tp_sp_spawn``'s worlds on a thread, beside the kernel
+    builds (as ``start_chaos_cpu``)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_sp_")
+    return {"root": root, "t0": time.perf_counter(),
+            "worlds": _Background(lambda: _tp_sp_worlds(root))}
+
+
+def phase_tp_sp_spawn(started=None) -> dict:
+    """Tensor and sequence parallelism in gloo worlds on the host's CPU,
+    the dp_spawn family's worlds for this slice (``TP_SP_WORLDS``: TP 2
+    plain, with the flash, cross-entropy and Adam kernels' flags, and
+    overlapped; SP 2 ring and Ulysses with flash; TP 2 x SP 2; TP 2 x
+    ZeRO-1 on a 2 x 2 data x model mesh), each held to its reference
+    run; run beside the kernel builds (``start_tp_sp_cpu``). On the CPU
+    the kernels' wrappers take their plain versions: these worlds launch
+    no card kernel (the per-rank shapes run on the card in
+    ``flash_rank_shapes``)."""
+    import shutil
+
+    started = started or start_tp_sp_cpu()
+    try:
+        row = {"worlds": started["worlds"].result(),
+               "wall_s": time.perf_counter() - started["t0"],
+               "card_kernel_launches": 0,
+               "note": "TP and SP across 2 or more ranks run here only, as "
+                       "gloo worlds on the CPU: the card's machine has one "
+                       "card; the worlds ran beside the kernel builds"}
+    finally:
+        shutil.rmtree(started["root"], ignore_errors=True)
+    emit("tp_sp_spawn", **row)
+    return row
+
+
 def _cold_run(argv: list) -> dict:
     """One CLI process of ``argv``: its exit code, the seconds to its
     first epoch line, and its ``build[...]`` lines as counts."""
@@ -5775,6 +6129,7 @@ def main() -> int:
     # are done.
     phase_native_vs_plain()
     chaos = start_chaos_cpu()
+    tp_sp = start_tp_sp_cpu()
     t0 = time.perf_counter()
     info = cuda_build.build()
     emit("device_build", device=name, nvidia_smi=smi, torch=torch.__version__,
@@ -5783,9 +6138,11 @@ def main() -> int:
          kernels={k: {"build_s": v["seconds"],
                       "ptxas": ptxas_counts(v["log"])}
                   for k, v in info.items()},
-         beside="chaos_cpu's CPU worlds ran during the builds")
+         beside="chaos_cpu's and tp_sp_spawn's CPU worlds ran during "
+                "the builds")
 
     phase_chaos_cpu(chaos)
+    tp_sp_run = phase_tp_sp_spawn(tp_sp)
     max_err = phase_kernel_vs_plain(device)
     train_err = phase_train_kernels_vs_plain(device)
     rows = phase_timings(device, peaks)
@@ -5821,6 +6178,7 @@ def main() -> int:
     phase_train_profile(device)
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
+    rank_run = phase_flash_rank_shapes(device, peaks)
     split_launches = phase_flash_split_route(device)
     vit_run = phase_train(model="vit")
     vit_launches = vit_run["launches"]
@@ -6079,6 +6437,40 @@ def main() -> int:
             **{f"pair_{key}": value for key, value in d12_rows(
                 "flash_bwd", "f32", "split_ms", *row_keys).items()},
             "at": at_f32})
+    # Tensor and sequence parallelism's per-rank shapes (flash_rank_shapes):
+    # each kernel's rows at the shapes whose route it is, with the
+    # launches of the slice's entry points there (bf16, counted from 0).
+    rank_rows, rank_launches = rank_run["rows"], rank_run["launches"]
+    rank_keys = ("kernel_ms", "plain_ms", "library_ms", "library_backend",
+                 "bound_ms", "bound_by", "route", "shape")
+    for entry in kernels:
+        kname = entry["name"]
+        kind, dt = {"flash_fwd": ("flash_fwd", "bf16"),
+                    "flash_bwd": ("flash_bwd", "bf16"),
+                    "flash_dq_tiled": ("flash_bwd", "bf16"),
+                    "flash_dkv_tiled": ("flash_bwd", "bf16"),
+                    "flash_fwd_tf32": ("flash_fwd", "f32"),
+                    "flash_dq_tf32": ("flash_bwd", "f32"),
+                    "flash_dkv_tf32": ("flash_bwd", "f32")}.get(
+                        kname, (None, None))
+        if kind is None:
+            continue
+        own = {"flash_bwd": "fused", "flash_dq_tiled": "tiled",
+               "flash_dkv_tiled": "tiled"}.get(kname)
+        picked = {}
+        for tag, _ in RANK_SHAPES:
+            row = rank_rows[f"{kind}_{tag}_{dt}"]
+            if own is not None and row["route"] != own:
+                continue
+            picked[tag] = {k: row[k] for k in rank_keys}
+            if dt == "bf16":
+                picked[tag]["launches_entry"] = rank_launches[tag][kind]
+        entry["rank_shapes"] = picked
+        entry["rank_shapes_max_abs_err"] = rank_run["max_abs_err"][{
+            "flash_dq_tiled": "flash_bwd_tiled",
+            "flash_dkv_tiled": "flash_bwd_tiled",
+            "flash_dq_tf32": "flash_bwd_tf32",
+            "flash_dkv_tf32": "flash_bwd_tf32"}.get(kname, kname)]
     emit("smoke", seconds=time.perf_counter() - _STARTED,
          retaken_traces=RETAKEN["traces"])
     print(json.dumps({"kernels": kernels}), flush=True)

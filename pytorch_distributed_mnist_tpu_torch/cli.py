@@ -35,8 +35,18 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. Flags for meshes of other axes than ``('data',)`` and
-``('data', 'expert')`` are not accepted yet.
+process group. The pipeline ``stage`` axis and the two-tier meshes'
+flags are not accepted yet.
+
+``--model vit`` also trains over a ``('data', 'model', 'seq')`` mesh:
+``--tensor-parallel N`` runs Megatron blocks over a model axis of N
+ranks (``--attention flash`` then runs the kernels on each rank's heads,
+``--tp-overlap`` the collective-matmul schedule on a sequence-sharded
+residual stream, ``parallel/tensor.py``), ``--sequence-parallel N``
+shards the tokens over a seq axis with ring or Ulysses attention
+(``--sequence-parallel-impl``, ``parallel/ring.py``,
+``parallel/ulysses.py``; Ulysses takes ``--attention flash`` as its local
+attention).
 
 ``--model moe_mlp`` trains the switch MoE (``models/moe.py``; ``--moe-
 dispatch dense|capacity``, ``--moe-aux-weight`` adds its load-balance
@@ -80,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
 import random
 import sys
@@ -204,6 +215,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "of storing them (~depth x lower activation memory "
                         "for the token axis; composes with --grad-accum). "
                         "--model vit only")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="tensor-parallel width for --model vit (Megatron "
+                        "column/row parallel blocks over a 'model' mesh "
+                        "axis; ranks are split data x model; composes "
+                        "with --optimizer-sharding zero1 and "
+                        "--sequence-parallel)")
+    p.add_argument("--tp-overlap", action="store_true",
+                   help="overlap the Megatron column-parallel matmuls with "
+                        "their sequence all-gather: ring hops, each "
+                        "followed by one row block's matmul, on a "
+                        "sequence-sharded residual stream (parallel/"
+                        "tensor.py allgather_matmul). Requires "
+                        "--tensor-parallel >= 2 with --model vit and a "
+                        "tp-divisible token count (e.g. --patch-size 7). "
+                        "Off by default; this path is trajectory-equal to "
+                        "the unoverlapped one")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="sequence-parallel width for --model vit: the token "
+                        "axis is sharded over a 'seq' mesh axis and every "
+                        "block's attention runs as ring attention "
+                        "(neighbour send/recv, parallel/ring.py). Token "
+                        "count (28/patch)^2 must divide evenly - e.g. "
+                        "--patch-size 7 gives 16 tokens")
+    p.add_argument("--sequence-parallel-impl", type=str, default="ring",
+                   choices=["ring", "ulysses"],
+                   help="ring = blockwise online softmax with neighbour "
+                        "send/recv (parallel/ring.py); ulysses = "
+                        "all-to-all head re-sharding (parallel/ulysses.py; "
+                        "head count must divide by the seq width, and it "
+                        "does not compose with --tensor-parallel since "
+                        "Ulysses re-shards heads itself)")
     p.add_argument("--expert-parallel", type=int, default=1,
                    help="expert-parallel width for --model moe_mlp: expert "
                         "weights (leading num_experts dim) shard over an "
@@ -437,6 +479,14 @@ def _model_kwargs(args) -> dict:
     return model_kwargs
 
 
+def _vit_num_heads() -> int:
+    from pytorch_distributed_mnist_tpu_torch.models.registry import (
+        model_field_default,
+    )
+
+    return model_field_default("vit", "num_heads")
+
+
 def _moe_num_experts() -> int:
     from pytorch_distributed_mnist_tpu_torch.models.registry import (
         model_field_default,
@@ -446,13 +496,32 @@ def _moe_num_experts() -> int:
 
 
 def _check_parallel_flags(args, n_devices: int) -> None:
-    """The JAX CLI's refusals of the expert-parallel, MoE and ZeRO flags,
-    in its order and words, before the model or the data is built.
-    ``n_devices`` is the world's (one device per process)."""
+    """The JAX CLI's refusals of the tensor-, sequence- and
+    expert-parallel, MoE and ZeRO flags, in its order and words, before
+    the model or the data is built. ``n_devices`` is the world's (one
+    device per process)."""
     ep = args.expert_parallel
-    if ep < 1:
-        raise SystemExit(f"--expert-parallel must be >= 1, got {ep}")
+    tp = args.tensor_parallel
+    sp = args.sequence_parallel
+    patch = args.patch_size
+    for flag, width in (("--expert-parallel", ep), ("--tensor-parallel", tp),
+                        ("--sequence-parallel", sp)):
+        if width < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {width}")
+    if args.tp_overlap and tp < 2:
+        raise SystemExit(
+            "--tp-overlap requires --tensor-parallel >= 2 without "
+            "--pipeline-stages (it rewrites the pure DP x TP schedule; "
+            "the pipeline's stage body is already an explicit program)")
     if ep > 1:
+        # EP targets the MoE family; TP/SP target the ViT: the mesh
+        # families are disjoint.
+        if tp > 1 or sp > 1:
+            raise SystemExit(
+                "--expert-parallel does not combine with "
+                "--tensor-parallel/--sequence-parallel/--pipeline-stages: "
+                "EP shards the moe_mlp expert dim over a data x expert "
+                "mesh; the others shard the ViT")
         if args.model != "moe_mlp":
             raise SystemExit(
                 f"--expert-parallel requires --model moe_mlp (the EP rule "
@@ -473,7 +542,7 @@ def _check_parallel_flags(args, n_devices: int) -> None:
             raise SystemExit(
                 f"--expert-parallel {ep} does not divide the "
                 f"{n_devices} available devices")
-    if args.optimizer_sharding == "zero3" and ep > 1:
+    if args.optimizer_sharding == "zero3" and (tp > 1 or sp > 1 or ep > 1):
         raise SystemExit(
             "--optimizer-sharding zero3 composes with data parallelism "
             "only; combine TP/SP/EP with zero1 instead (README "
@@ -507,7 +576,7 @@ def _check_parallel_flags(args, n_devices: int) -> None:
                 "--zero-overlap does not compose with --trainer-mode "
                 "explicit (both own the whole mesh as one shard_map "
                 "data axis); use scan or stepwise")
-        if ep > 1:
+        if tp > 1 or sp > 1 or ep > 1:
             raise SystemExit(
                 "--zero-overlap composes with data parallelism only; "
                 "TP/SP/EP/PP layouts stay on the default "
@@ -530,6 +599,8 @@ def _check_parallel_flags(args, n_devices: int) -> None:
         if args.zero_bucket_mb <= 0:
             raise SystemExit(
                 f"--zero-bucket-mb must be > 0, got {args.zero_bucket_mb:g}")
+    if tp > 1 or sp > 1:
+        _check_tp_sp_flags(args, n_devices, tp, sp, patch)
     if args.moe_dispatch != "dense" and not model_accepts(args.model,
                                                           "dispatch"):
         raise SystemExit(
@@ -541,6 +612,106 @@ def _check_parallel_flags(args, n_devices: int) -> None:
             f"--optimizer-sharding zero1 requires an Adam optimizer "
             f"(got --optimizer {args.optimizer}: no mu/nu moment state "
             f"to shard)")
+
+
+def _check_tp_sp_flags(args, n_devices: int, tp: int, sp: int,
+                       patch: int) -> None:
+    """The JAX CLI's refusals of a ``('data', 'model', 'seq')`` mesh (its
+    mesh block, then its flash-under-TP guard), in its order and words."""
+    if args.model != "vit":
+        raise SystemExit(
+            f"--tensor-parallel/--sequence-parallel require --model "
+            f"vit (the Megatron rule table and the ring attention "
+            f"target its blocks; other models would silently stay "
+            f"replicated); got --model {args.model}")
+    flash_ok = (tp == 1 and sp > 1
+                and args.sequence_parallel_impl == "ulysses") \
+        or (tp > 1 and sp == 1)
+    if args.attention == "flash" and not flash_ok:
+        raise SystemExit(
+            "--attention flash composes with "
+            "--sequence-parallel-impl ulysses (full sequence per "
+            "device, head subset) or with --tensor-parallel alone "
+            "(kernel shard_mapped over batch x heads); the ring "
+            "supplies its own blockwise attention")
+    if n_devices % (tp * sp):
+        raise SystemExit(
+            f"--tensor-parallel {tp} x --sequence-parallel {sp} does "
+            f"not divide the {n_devices} available devices")
+    tokens = (28 // patch) ** 2
+    num_heads = _vit_num_heads()
+    if sp > 1:
+        if tokens % sp:
+            raise SystemExit(
+                f"--sequence-parallel {sp} needs the token count "
+                f"(28/patch)^2 divisible by it; --patch-size {patch} "
+                f"gives {tokens} tokens — try --patch-size 7 "
+                f"(16 tokens)")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--sequence-parallel does not compose with "
+                "--trainer-mode explicit (the ring's shard_map cannot "
+                "nest inside the explicit-DP shard_map); use scan or "
+                "stepwise")
+        if tp > 1 and num_heads % tp:
+            raise SystemExit(
+                f"--tensor-parallel {tp} with --sequence-parallel: the "
+                f"ring shards the ViT's {num_heads} attention heads "
+                f"exactly over the model axis, so the width must "
+                f"divide {num_heads}")
+        if args.sequence_parallel_impl == "ulysses":
+            if tp > 1:
+                raise SystemExit(
+                    "--sequence-parallel-impl ulysses does not compose "
+                    "with --tensor-parallel: Ulysses re-shards the "
+                    "head axis itself (all_to_all)")
+            if num_heads % sp:
+                raise SystemExit(
+                    f"--sequence-parallel-impl ulysses shards the "
+                    f"{num_heads} heads over the seq axis; "
+                    f"--sequence-parallel {sp} must divide {num_heads}")
+    if args.tp_overlap:
+        if sp > 1:
+            raise SystemExit(
+                "--tp-overlap does not compose with "
+                "--sequence-parallel: the overlapped schedule already "
+                "shards the token axis (over 'model', between blocks)")
+        if tokens % tp:
+            raise SystemExit(
+                f"--tp-overlap shards the ViT's {tokens} tokens over "
+                f"--tensor-parallel {tp}, which does not divide "
+                f"evenly; try --patch-size 7 (16 tokens)")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--tp-overlap does not compose with --trainer-mode "
+                "explicit (the overlapped shard_map cannot nest "
+                "inside the explicit-DP shard_map); use scan or "
+                "stepwise")
+        if args.attention == "flash":
+            raise SystemExit(
+                "--tp-overlap hands attention this device's local "
+                "heads directly inside its shard_map; --attention "
+                "flash's GSPMD wrapper does not apply there")
+        if args.optimizer_sharding != "none":
+            raise SystemExit(
+                "--tp-overlap uses the explicit head-major layout "
+                "(parallel/pipeline_tp.py); the ZeRO rule composition "
+                "targets the standard flax tree — drop "
+                "--optimizer-sharding")
+    if tp > 1 and sp == 1 and args.attention == "flash":
+        # The kernel runs on each rank's (B/dp, T, H/tp, D) block.
+        if num_heads % tp:
+            raise SystemExit(
+                f"--attention flash with --tensor-parallel {tp}: the "
+                f"kernel shards the ViT's {num_heads} heads over the "
+                f"model axis, so the width must divide {num_heads}")
+        dp_width = n_devices // (tp * sp)
+        micro = args.batch_size // args.grad_accum
+        if micro % dp_width:
+            raise SystemExit(
+                f"--attention flash with --tensor-parallel {tp}: the "
+                f"per-step batch ({micro}) must divide evenly over the "
+                f"{dp_width} data slices for the kernel's shard_map")
 
 
 def _check_grad_accum(args) -> None:
@@ -922,7 +1093,12 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
     ep = args.expert_parallel
-    if ep > 1:
+    tp, sp = args.tensor_parallel, args.sequence_parallel
+    if tp > 1 or sp > 1:
+        mesh = make_mesh(("data", "model", "seq"),
+                         shape=(process_count() // (tp * sp), tp, sp),
+                         device=device)
+    elif ep > 1:
         mesh = make_mesh(("data", "expert"),
                          shape=(process_count() // ep, ep), device=device)
     else:
@@ -953,18 +1129,80 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     if model_accepts(args.model, "mesh") and mesh.reduces:
         # The MoE splits its experts over the expert axis, offsets its
         # capacity positions and sums its aux statistic over the data
-        # axis: it needs the mesh; one process runs it alone.
+        # axis; the ViT runs Megatron blocks over the model axis and
+        # shards its tokens over the seq axis: they need the mesh; one
+        # process runs them alone.
         model_kwargs["mesh"] = mesh
-    state = create_train_state(
-        get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
-        optimizer=args.optimizer, momentum=args.momentum,
-        weight_decay=args.weight_decay)
+    if sp > 1:
+        # The attention over the seq axis; under --attention flash (the
+        # Ulysses composition alone passes the checks) the kernels are
+        # its per-rank local attention (full sequence, local heads).
+        local_attn = model_kwargs.pop("attention_fn", None)
+        if args.sequence_parallel_impl == "ulysses":
+            from pytorch_distributed_mnist_tpu_torch.parallel.ulysses import (
+                ulysses_attention,
+            )
+
+            model_kwargs["attention_fn"] = functools.partial(
+                ulysses_attention, mesh=mesh, axis="seq", batch_axis="data",
+                local_attention=local_attn)
+        else:
+            from pytorch_distributed_mnist_tpu_torch.parallel.ring import (
+                ring_attention,
+            )
+
+            # The ring's blockwise online softmax IS the attention.
+            assert local_attn is None, "ring+flash must be refused earlier"
+            model_kwargs["attention_fn"] = functools.partial(
+                ring_attention, mesh=mesh, axis="seq", batch_axis="data",
+                head_axis="model" if tp > 1 else None)
+    elif tp > 1 and model_kwargs.get("attention_fn") is not None:
+        # --tensor-parallel + --attention flash: the kernels on each
+        # rank's (B/dp, T, H/tp, D) block, whole heads by the rules.
+        from pytorch_distributed_mnist_tpu_torch.ops.flash import (
+            sharded_flash_attention,
+        )
+
+        model_kwargs["attention_fn"] = functools.partial(
+            sharded_flash_attention, mesh=mesh, batch_axis="data",
+            head_axis="model")
+    if tp > 1 and args.tp_overlap:
+        # The head-major split tree and the collective-matmul schedule
+        # (parallel/tensor.py); placed below, after the resume.
+        from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
+            create_overlap_tp_vit_state,
+        )
+
+        model_kwargs.pop("mesh", None)
+        state, _ = create_overlap_tp_vit_state(
+            get_model(args.model, **model_kwargs), seed, mesh, device,
+            lr=args.lr, optimizer=args.optimizer, momentum=args.momentum,
+            weight_decay=args.weight_decay, place=False)
+    else:
+        state = create_train_state(
+            get_model(args.model, **model_kwargs), seed, device, lr=args.lr,
+            optimizer=args.optimizer, momentum=args.momentum,
+            weight_decay=args.weight_decay)
     state, start_epoch, best_acc, resume_path = _resume(args, state)
     if not (resume_path and start_epoch > 0):
         # A resumed checkpoint's epoch wins over --start-epoch.
         start_epoch = args.start_epoch
     rules = None
-    if ep > 1:
+    if tp > 1:
+        # Megatron's rules over 'model' (head-aligned qkv), or the
+        # overlapped schedule's on its split tree. ZeRO composes
+        # rules-first, its moments claiming the rest.
+        from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
+            overlap_tp_rules,
+            shard_state,
+            vit_tp_rules,
+        )
+
+        rules = (overlap_tp_rules("model") if args.tp_overlap
+                 else vit_tp_rules("model"))
+        if args.optimizer_sharding == "none":
+            shard_state(state, mesh, rules)
+    elif ep > 1:
         # The expert weights' leading num_experts dim splits over
         # 'expert' (parallel/expert.py); router, embed and head replicate.
         # ZeRO composes rules-first, its moments claiming the rest.
@@ -1061,7 +1299,8 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
             ckpt_kwargs = dict(
                 epoch=epoch, best_acc=best_acc, is_best=is_best,
                 directory=args.checkpoint_dir, keep_last=args.keep_last,
-                parallel_layout={"tensor": 1, "sequence": 1,
+                parallel_layout={"tensor": args.tensor_parallel,
+                                 "sequence": args.sequence_parallel,
                                  "expert": args.expert_parallel,
                                  "pipeline": 1},
                 publish=args.publish, chunk_mb=args.chunk_mb)

@@ -39,7 +39,7 @@ def param_shapes(model_name: str, **model_kwargs) -> Dict[str, tuple]:
             get_model(model_name, **model_kwargs).named_parameters()}
 
 
-def jax_param_path(port_name: str) -> str:
+def jax_param_path(port_name: str, root: str = "['params']") -> str:
     """A port param name -> its path inside the flax variables (and inside
     each moment tree): every module level is one key, and the leaf is
     named as flax names it (:func:`registry.param_kind`).
@@ -47,17 +47,20 @@ def jax_param_path(port_name: str) -> str:
     ``block0.attn.qkv.kernel`` -> ``['params']['block0']['attn']['qkv']
     ['kernel']``; ``block0.ln1.weight`` -> ``...['ln1']['scale']``;
     ``pos_embed`` -> ``['params']['pos_embed']``; the MoE's raw
-    ``moe.w1`` -> ``['params']['moe']['w1']``."""
+    ``moe.w1`` -> ``['params']['moe']['w1']``. ``root`` is the flax
+    variables' ``params`` level: a tree that is not a flax variables dict
+    (the split tree of ``parallel/pipeline_tp.py``, which the JAX state
+    holds as its params directly) has none, ``root=""``."""
     *layers, leaf = port_name.split(".")
     kind = param_kind(port_name)
     named = kind in ("pos_embed", "raw_kernel", "raw_bias")
     keys = layers + ([leaf] if named else [kind])
-    return "['params']" + "".join(f"['{k}']" for k in keys)
+    return root + "".join(f"['{k}']" for k in keys)
 
 
-def jax_leaf_name(port_name: str) -> str:
+def jax_leaf_name(port_name: str, root: str = "['params']") -> str:
     """``conv1.weight`` -> ``['params']['params']['conv1']['kernel']``."""
-    return "['params']" + jax_param_path(port_name)
+    return "['params']" + jax_param_path(port_name, root)
 
 
 def key_path(jax_name: str) -> Tuple[str, ...]:
@@ -147,6 +150,7 @@ def state_leaves(state) -> List[Tuple[str, torch.Tensor]]:
     The tensors are the live ones (device, port layout)."""
     params = state.param_leaves()
     names = jax_param_order(params)
+    root = getattr(state.model, "param_root", "['params']")
     opt = state.optimizer
     if getattr(state, "zero", None) is None and \
             [id(p) for p in opt.params] != [id(params[n]) for n in names]:
@@ -157,11 +161,11 @@ def state_leaves(state) -> List[Tuple[str, torch.Tensor]]:
             for k in sorted(opt.hyperparams)]
     for prefix, value in opt.inner_leaves():
         if isinstance(value, list):
-            out += [(prefix + jax_param_path(n), t)
+            out += [(prefix + jax_param_path(n, root), t)
                     for n, t in zip(names, value)]
         else:
             out.append((prefix, value))
-    out += [(jax_leaf_name(n), params[n]) for n in names]
+    out += [(jax_leaf_name(n, root), params[n]) for n in names]
     out.append(("['step']", state.step))
     return out
 

@@ -33,14 +33,16 @@ class Dense(nn.Module):
         self.compute_dtype = compute_dtype
         self.matmul = matmul
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel`` in the compute dtype, without the bias."""
         cd = self.compute_dtype
         x, kernel = x.to(cd), self.kernel.to(cd)
         if self.matmul is None:
-            y = torch.matmul(x, kernel)
-        else:
-            y = self.matmul(x, kernel, cd)
-        return y + self.bias.to(cd)
+            return torch.matmul(x, kernel)
+        return self.matmul(x, kernel, cd)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.product(x) + self.bias.to(self.compute_dtype)
 
 
 @register_model("linear")

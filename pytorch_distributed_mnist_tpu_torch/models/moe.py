@@ -12,7 +12,7 @@ Two dispatch modes behind one interface:
   token algebraically and the one-hot combine zeroes all but the routed
   expert. Under expert parallelism each rank combines its local experts'
   share and the shares sum over the expert subgroup
-  (``parallel/moe_dispatch.py``'s Megatron pair: the input's gradient is
+  (``parallel/regions.py``'s Megatron pair: the input's gradient is
   all-reduced, the output all-reduced with an identity backward).
 - ``dispatch='capacity'``: physical dispatch into per-expert buffers
   bounded by ``capacity_factor``, crossing the expert axis by all-to-all
@@ -45,11 +45,13 @@ from torch import nn
 from pytorch_distributed_mnist_tpu_torch.models.linear import Dense
 from pytorch_distributed_mnist_tpu_torch.models.registry import register_model
 from pytorch_distributed_mnist_tpu_torch.parallel.moe_dispatch import (
-    copy_to_region,
     load_balance_loss,
     moe_capacity_forward,
-    reduce_from_region,
     top1_mask_gate,
+)
+from pytorch_distributed_mnist_tpu_torch.parallel.regions import (
+    copy_to_region,
+    reduce_from_region,
 )
 
 

@@ -58,7 +58,7 @@ def param_kind(name: str) -> str:
         return _RAW_MOE[leaf]
     if leaf == "bias":
         return "bias"
-    if leaf == "pos_embed" and not layers:
+    if leaf == "pos_embed":
         return "pos_embed"
     if leaf == "weight" and layers and layers[-1].startswith("ln"):
         return "scale"

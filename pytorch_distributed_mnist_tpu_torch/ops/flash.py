@@ -77,7 +77,7 @@ from pytorch_distributed_mnist_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_bwd", "flash_bwd_plain", "flash_dkv",
            "flash_dkv_plain", "flash_dq", "flash_dq_plain", "flash_fwd",
-           "flash_fwd_plain"]
+           "flash_fwd_plain", "sharded_flash_attention"]
 
 MAX_HEAD_DIM = 128  # the kernels hold 16 head dims per thread, 8 threads
 # The fused backward keeps a whole (batch, head) in one block: one warp per
@@ -518,3 +518,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"block must be <= 512 (block^2 f32 scratch exceeds VMEM "
             f"beyond that), got {block}")
     return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))
+
+
+def sharded_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, mesh,
+                            batch_axis: Optional[str] = None,
+                            head_axis: Optional[str] = None,
+                            causal: bool = False,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on this rank's ``(B/dp, T, H/tp, D)`` block of the
+    global ``(B, T, H, D)`` arrays: the reference's nested ``shard_map``
+    over the batch and head axes. Attention is independent per batch row
+    and per head, so each rank runs :func:`flash_attention` (the CUDA
+    kernels on a card tensor) on the block it holds, with no collective
+    and no gather. This is how ``--attention flash`` composes with
+    ``--tensor-parallel``: the Megatron rules give each rank whole heads
+    (``parallel/tensor.py::vit_tp_rules``). ``batch_axis`` and
+    ``head_axis`` name the mesh axes the block is split over."""
+    for name in (batch_axis, head_axis):
+        if name is not None:
+            mesh.axis(name)  # a KeyError names an axis the mesh lacks
+    return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -20,6 +20,12 @@ the global batch. Here each rank is a process with one device:
   collective. The buffer never moves, so a CUDA graph that captured the
   step replays onto the same addresses (``train/steps.py::EpochProgram``
   checks before each pass).
+- On a mesh that shards tokens over ``seq`` the gradients sum over the
+  data axis's ``sums`` (``('data', 'seq')``, ``parallel/mesh.py``) in the
+  same one collective, each rank first zeroing the views of the leaves it
+  holds as copies (``GradBuffer.copies``: the ViT's head on every ``seq``
+  coordinate but 0), so each counts once. The example count and the
+  metrics still sum over ``data`` alone.
 - :func:`metric_all_reduce` sums a pass's (or, in the explicit mode, a
   step's) three metric accumulators in one collective.
 - :func:`make_explicit_dp_train_step` and
@@ -52,10 +58,14 @@ ALIGN = 64  # elements: every gradient view starts on a 256-byte boundary
 class GradBuffer:
     """One flat float32 buffer holding every gradient of ``params``; each
     parameter's ``.grad`` is its view (padded to :data:`ALIGN` elements,
-    the padding zero)."""
+    the padding zero). ``copies`` are the params whose gradients this
+    rank holds as copies of another rank's (:meth:`zero_copies`)."""
 
-    def __init__(self, params: Sequence[torch.Tensor]) -> None:
+    def __init__(self, params: Sequence[torch.Tensor],
+                 copies: Sequence[torch.Tensor] = ()) -> None:
         self.params: List[torch.Tensor] = list(params)
+        ids = {id(c) for c in copies}
+        self.copies = [i for i, p in enumerate(self.params) if id(p) in ids]
         offsets, total = [], 0
         for p in self.params:
             if p.dtype != torch.float32:
@@ -77,6 +87,13 @@ class GradBuffer:
                 p.grad = view
         self.flat.zero_()
 
+    @torch.no_grad()
+    def zero_copies(self) -> None:
+        """Zero the copied gradients before a sum over the ranks that
+        hold them: the rank that does not zero them counts them once."""
+        for i in self.copies:
+            self.views[i].zero_()
+
     def check(self) -> None:
         """Raise unless every ``.grad`` is still its view: autograd added
         the backward pass's gradients in place."""
@@ -88,11 +105,25 @@ class GradBuffer:
                     f"it")
 
 
+def grad_copies(model) -> list:
+    """The params whose gradients ``model`` holds as copies of another
+    rank's (its ``grad_copies()``; none for a model without one)."""
+    copies = getattr(model, "grad_copies", None)
+    return list(copies()) if copies is not None else []
+
+
 def grad_buffer(state) -> GradBuffer:
     """The train state's :class:`GradBuffer`, made at its first use."""
     if state.grad_buffer is None:
-        state.grad_buffer = GradBuffer(state.optimizer.params)
+        state.grad_buffer = GradBuffer(state.optimizer.params,
+                                       grad_copies(state.model))
     return state.grad_buffer
+
+
+def grad_axis(axis):
+    """The axis the gradients sum over: ``axis.sums`` when the mesh shards
+    tokens, else ``axis`` (None: no axis)."""
+    return None if axis is None else (getattr(axis, "sums", None) or axis)
 
 
 @torch.no_grad()
@@ -112,12 +143,16 @@ count_all_reduce.launches = 0
 
 def grad_all_reduce(grads: GradBuffer, axis) -> None:
     """Sum every gradient over ``axis`` (a ``parallel/mesh.py::DataAxis``
-    that reduces): one all-reduce of the flat buffer. The caller chose
-    the loss's divisor so that the sum is the gradient it wants (the
-    global count's, or the axis size's under DDP's rule). A world of one
-    sums one rank: exact."""
+    that reduces; over its ``sums`` when it has one, the copied
+    gradients zeroed first): one all-reduce of the flat buffer. The
+    caller chose the loss's divisor so that the sum is the gradient it
+    wants (the global count's, or the axis size's under DDP's rule). A
+    world of one sums one rank: exact."""
     grads.check()
-    dist.all_reduce(grads.flat, group=axis.group)
+    over = grad_axis(axis)
+    if over is not axis:
+        grads.zero_copies()
+    dist.all_reduce(grads.flat, group=over.group)
     with _count_lock:
         grad_all_reduce.launches += 1
 

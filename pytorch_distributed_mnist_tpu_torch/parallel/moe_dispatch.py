@@ -22,8 +22,8 @@ oversubscription the result equals dense dispatch.
 
 Where JAX runs a ``shard_map`` over the token groups ``(data, expert)``,
 each rank of the port takes its ``1/ep`` slice of its data rank's batch
-(:class:`_Split`) and all-gathers the output over the expert subgroup
-(:class:`_Gather`), so a rank's group holds the rows JAX's
+(``split``) and all-gathers the output over the expert subgroup
+(``gather``), so a rank's group holds the rows JAX's
 ``P(('data', 'expert'))`` gives that device. Without an expert axis
 (``ep = 1``) JAX hands the model no mesh: the capacity and the arrival
 positions are over the GLOBAL batch, so on a data axis that reduces the
@@ -31,10 +31,11 @@ port offsets each rank's positions by the earlier ranks' counts.
 
 The collectives of a region every rank of the expert subgroup computes
 alike come in Megatron pairs, so that the replicated leaves' gradients
-are counted once: :class:`_CopyToRegion` (identity forward, all-reduce
-backward) and :class:`_ReduceFromRegion` (all-reduce forward, identity
-backward); :class:`_Split` (slice forward, all-gather backward) and
-:class:`_Gather` (all-gather forward, slice backward).
+are counted once: ``copy_to_region`` (identity forward, all-reduce
+backward) and ``reduce_from_region`` (all-reduce forward, identity
+backward); ``split`` (slice forward, all-gather backward) and
+``gather`` (all-gather forward, slice backward). They live in
+``parallel/regions.py``, shared with tensor and sequence parallelism.
 
 Routing and dispatch tensors are float32: top-1 is a discrete decision,
 and bf16 logit noise would make the routing layout-dependent.
@@ -49,102 +50,20 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from pytorch_distributed_mnist_tpu_torch.parallel.regions import (
+    all_to_all,
+    copy_to_region,
+    gather,
+    reduce_from_region,
+    split,
+)
+
 __all__ = [
     "top1_mask_gate",
     "build_dispatch",
     "moe_capacity_forward",
     "load_balance_loss",
 ]
-
-
-# -- autograd collectives --------------------------------------------------
-
-class _CopyToRegion(torch.autograd.Function):
-    """Identity forward; the gradient all-reduced over ``group``."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromRegion(torch.autograd.Function):
-    """All-reduce (sum) forward over ``group``; identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def _rows(n: int, size: int, rank: int) -> slice:
-    chunk = n // size
-    return slice(rank * chunk, (rank + 1) * chunk)
-
-
-class _Split(torch.autograd.Function):
-    """This rank's ``1/size`` of dim 0 forward; the gradient all-gathered
-    over ``group`` backward (every rank then holds the whole batch's)."""
-
-    @staticmethod
-    def forward(ctx, x, group, size, rank):
-        ctx.group, ctx.size = group, size
-        return x[_rows(x.shape[0], size, rank)].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        out = torch.empty((ctx.size * g.shape[0],) + tuple(g.shape[1:]),
-                          dtype=g.dtype, device=g.device)
-        dist.all_gather_into_tensor(out, g, group=ctx.group)
-        return out, None, None, None
-
-
-class _Gather(torch.autograd.Function):
-    """The group's dim-0 slices all-gathered forward; this rank's slice of
-    the gradient backward."""
-
-    @staticmethod
-    def forward(ctx, x, group, size, rank):
-        ctx.size, ctx.rank = size, rank
-        x = x.contiguous()
-        out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g[_rows(g.shape[0], ctx.size, ctx.rank)].contiguous(),
-                None, None, None)
-
-
-def copy_to_region(x, axis):
-    return x if axis is None or axis.group is None \
-        else _CopyToRegion.apply(x, axis.group)
-
-
-def reduce_from_region(x, axis):
-    return x if axis is None or axis.group is None \
-        else _ReduceFromRegion.apply(x, axis.group)
-
-
-def _all_to_all(x, axis):
-    from torch.distributed.nn.functional import all_to_all_single
-
-    x = x.contiguous()
-    return all_to_all_single(torch.empty_like(x), x, group=axis.group)
 
 
 # -- routing ----------------------------------------------------------------
@@ -203,7 +122,7 @@ def load_balance_loss(probs: torch.Tensor, axis=None) -> torch.Tensor:
     n = counts[-1]
     f = counts[:-1] / n
     # Identity backward: each rank backpropagates through its own rows.
-    p = _ReduceFromRegion.apply(probs.sum(0), axis.group) / n
+    p = reduce_from_region(probs.sum(0), axis) / n
     return e * torch.sum(f * p)
 
 
@@ -262,9 +181,9 @@ def moe_capacity_forward(
             e_loc = e // n_groups
             ei = ei.reshape((n_groups, e_loc) + tuple(ei.shape[1:]))
             # (G, E_loc, Cap, M): dim 0 becomes the sender-group index.
-            ei = _all_to_all(ei, ep_axis)
+            ei = all_to_all(ei, ep_axis)
             y = _expert_mlp(ei, w1, b1, w2, b2, compute_dtype)
-            y = _all_to_all(y, ep_axis)
+            y = all_to_all(y, ep_axis)
             y = y.reshape((e,) + tuple(y.shape[2:]))
         return torch.einsum("ecm,bec->bm", y.to(torch.float32),
                             combine).to(x_loc.dtype)
@@ -296,8 +215,7 @@ def moe_capacity_forward(
             f"batch {batch} not divisible by the {n_groups} token "
             f"groups of mesh axes {token_axes} (capacity dispatch shards "
             f"tokens over them)")
-    g, rank = ep_axis.group, ep_axis.rank
-    x_g = _Split.apply(x, g, ep, rank)
-    probs_g = _Split.apply(probs, g, ep, rank)
+    x_g = split(x, ep_axis)
+    probs_g = split(probs, ep_axis)
     out = local_forward(x_g, probs_g, ep)
-    return _Gather.apply(out, g, ep, rank)
+    return gather(out, ep_axis)

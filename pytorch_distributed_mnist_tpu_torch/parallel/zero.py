@@ -119,7 +119,8 @@ def zero_state_sharding(state, mesh, data_axis: str = "data",
 
     ``level=1``: Adam ``mu``/``nu`` sharded over ``data_axis``, params
     replicated. ``level=3``: params sharded the same way too.
-    ``rules`` is a rule table (``parallel/expert.py::moe_ep_rules``);
+    ``rules`` is a rule table (``parallel/expert.py::moe_ep_rules``,
+    ``parallel/tensor.py::vit_tp_rules``);
     leaves it matches keep its layout everywhere (params AND moments),
     and ZeRO applies to the remaining leaves only. ``base_sharding`` (a
     ``{name: P}`` base layout) adds ``data_axis`` to the claimed moment
@@ -215,6 +216,7 @@ class ZeroPlane:
         )
         from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
             GradBuffer,
+            grad_copies,
         )
 
         if level not in (1, 3):
@@ -267,8 +269,11 @@ class ZeroPlane:
                 n = self.params[i].numel() // self.n
                 self.shards[i] = self.shard_flat[lo:lo + n].view(shape)
                 self.grad_shards[i] = self.grad_flat[lo:lo + n].view(shape)
-        self.grads = GradBuffer(self.params)
+        self.grads = GradBuffer(self.params, grad_copies(state.model))
         state.grad_buffer = self.grads
+        # A seq axis whose ranks hold partial gradients (the tokens shard
+        # over it): summed over it before the data-axis plane runs.
+        self.seq = None
         # The optimizer's tensors: this rank's shard of each split leaf,
         # the whole param of each unsplit one.
         self.update = [self.shards.get(i, p)
@@ -375,6 +380,9 @@ class ZeroPlane:
         reduced gradients and unpack the unsplit ones."""
         self.armed = False
         self.grads.check()
+        if self.seq is not None and self.seq.group is not None:
+            self.grads.zero_copies()
+            dist.all_reduce(self.grads.flat, group=self.seq.group)
         while self._next < len(self.buckets):
             self._issue_reduce(self._next)
             self._next += 1
@@ -518,6 +526,7 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
     plan = (bucket_plan([named[n] for n in names], bucket_mb)
             if bucket_mb else [list(range(len(names)))])
     plane = ZeroPlane(state, axis, level, dims, plan, overlap=overlap)
+    plane.seq = getattr(mesh, "seq", None)
     new = _rebuild_optimizer(old, plane.update)
     with torch.no_grad():
         for (_, ov), (_, nv) in zip(old.inner_leaves(), new.inner_leaves()):

@@ -127,6 +127,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -155,6 +156,12 @@ FLEET_FAULT_ENV = "TPUMNIST_FLEET_FAULT"
 PACKAGE = "pytorch_distributed_mnist_tpu_torch"
 # Open-loop seconds of the fleet modes' and the cache storm's traffic.
 LOAD_SECONDS = 4.0
+# Unread bytes on a connection that mark a ``/predict`` request (a batch
+# of images as JSON) rather than a health probe's few header lines.
+REQUEST_BYTES = 1024
+# The longest ``--kill-backend`` keeps its victim frozen: under the 2 s
+# read timeout of the router's health probe, so the victim stays routable.
+FREEZE_SECONDS = 1.5
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _LOADGEN = os.path.join(_REPO, "tools", "loadgen.py")
@@ -650,6 +657,25 @@ def _k3_launches(url: str) -> int:
                .get("matmul_i8", 0))
 
 
+def _unread_bytes_on(port: int) -> int:
+    """The most bytes that any established TCP connection to ``port`` on
+    this host holds unread (``/proc/net/tcp`` and ``tcp6``)."""
+    most = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            # sl local_address rem_address st tx_queue:rx_queue ...
+            fields = row.split()
+            if (fields[3] == "01"
+                    and int(fields[1].rsplit(":", 1)[1], 16) == port):
+                most = max(most, int(fields[4].split(":")[1], 16))
+    return most
+
+
 def _wait_for(check, timeout: float) -> bool:
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -742,54 +768,95 @@ def _fleet_once(args, injected: bool) -> dict:
 
 def _fleet_kill(args, injected, url, backends, flags, env, load,
                 out) -> bool:
-    """``--kill-backend K``: SIGKILL backend K a third into the traffic;
-    every request answered, K quarantined, and after a restart on its
-    port K walks probation back to healthy. Each backend's
+    """``--kill-backend K``: SIGKILL backend K a third into the traffic,
+    once the router has sent it a request, and frozen until a request
+    waits unread in its socket (``FREEZE_SECONDS`` at most); every request answered, K quarantined, and after a restart on
+    its port K walks probation back to healthy. Each backend's
     ``kernel_launches.matmul_i8`` is read from its own ``/stats`` before
     the kill."""
     victim = backends[args.kill_backend]
+
+    def victim_row() -> dict:
+        return {r["name"]: r for r in _get_json(url, "/stats")["backends"]
+                }[victim.name]
+
     lg = _start_loadgen(load + ["--rate", "80"])
     time.sleep(LOAD_SECONDS * 0.35)
+    # The kill lands under load: wait until the router has sent the victim
+    # a request. On a busy host the load generator can start sending late,
+    # and a backend killed before any traffic reaches it is quarantined
+    # by the health poller alone, with no request to fail over.
+    drew = _wait_for(lambda: victim_row()["requests"] >= 1
+                     or lg.poll() is not None, args.timeout)
+    out["victim_requests_before_kill"] = victim_row()["requests"]
+    if not (drew and out["victim_requests_before_kill"] >= 1):
+        _say(f"backend {args.kill_backend} drew no request before the "
+             f"traffic ended")
     out["k3_launches_before_kill"] = {b.name: _k3_launches(b.url)
                                       for b in backends}
     if injected:
-        _say(f"SIGKILL backend {args.kill_backend} ({victim.url})")
+        # Freeze the victim until a request the router sent it waits
+        # unread in its socket (or for FREEZE_SECONDS where the host's
+        # /proc/net/tcp shows no receive queues), then SIGKILL it: the
+        # death cuts the requests sent to it meanwhile, which the router
+        # must fail over, however the host schedules the traffic. A
+        # frozen backend still accepts connections, and its health probe
+        # fails only after the router's read timeout, so it stays
+        # routable meanwhile. (The router's /stats waits on every
+        # backend's, so it cannot say what is in flight while the victim
+        # is frozen.)
+        port = int(victim.url.rsplit(":", 1)[1])
+        victim.proc.send_signal(signal.SIGSTOP)
+        _wait_for(lambda: _unread_bytes_on(port) >= REQUEST_BYTES,
+                  FREEZE_SECONDS)
+        out["victim_unread_bytes_at_kill"] = _unread_bytes_on(port)
+        _say(f"SIGKILL backend {args.kill_backend} ({victim.url}), "
+             f"{out['victim_unread_bytes_at_kill']} bytes unread")
         victim.kill()
     rc, report = _finish_loadgen(lg, args.timeout)
     out["load"] = {k: report.get(k) for k in (
         "ok", "status_counts", "transport_errors", "conn_refused",
         "transport_retries", "throughput_rps", "latency_ms")}
-    ok = _answered_all(rc, report, least=10)
+    ok = (_answered_all(rc, report, least=10)
+          and out["victim_requests_before_kill"] >= 1)
     if args.device == "cuda" and (args.serve_precision or "int8") == "int8":
         # On the card every backend's int8 plane runs the kernel, never
         # its plain version.
         ok = ok and all(out["k3_launches_before_kill"].values())
     if not injected:
         stats = _get_json(url, "/stats")
-        return ok and all(r["state"] == "healthy" and not r["quarantines"]
-                          for r in stats["backends"])
+        calm = all(r["state"] == "healthy" and not r["quarantines"]
+                   for r in stats["backends"])
+        if not (ok and calm):
+            _say(f"the no-fault twin failed: load {out['load']}, "
+                 f"backends {stats['backends']}")
+        return ok and calm
     row = {}
 
     def victim_is(state):
         nonlocal row
-        row = {r["name"]: r for r in _get_json(url, "/stats")["backends"]
-               }[victim.name]
+        row = victim_row()
         return row["state"] == state
 
     quarantined = _wait_for(lambda: victim_is("quarantined"), args.timeout)
     stats = _get_json(url, "/stats")
     out["victim_quarantined"] = quarantined
-    port = int(victim.url.rsplit(":", 1)[1])
     victim.close()
     revived = _Served(args, flags, env, ckpt=victim.ckpt, port=port)
     backends[args.kill_backend] = revived
     if revived.url is None:
+        _say(f"backend {args.kill_backend} did not restart on port {port}")
         return False
     healed = _wait_for(lambda: victim_is("healthy"), args.timeout)
     out["victim_readmissions"] = row.get("readmissions")
     out["failovers"] = stats["fleet"]["failovers"]
-    return (ok and quarantined and stats["fleet"]["failovers"] >= 1
+    held = (ok and quarantined and stats["fleet"]["failovers"] >= 1
             and healed and bool(row.get("readmissions")))
+    if not held:
+        _say(f"the kill failed: load {out['load']}, quarantined "
+             f"{quarantined}, failovers {out['failovers']}, healed {healed}, "
+             f"victim {row}")
+    return held
 
 
 def _fleet_rolling(args, injected, url, backends, staging, dirs, load,

@@ -12,8 +12,10 @@ package reads what the other writes:
   ``index_p{pid}.json``, and process 0's ``meta.json`` (``global_shapes``,
   ``dtypes``). A leaf whole on every process is written once, by process
   0, as one slice; a leaf split over a mesh axis (the expert weights of
-  expert parallelism, ZeRO's shards: ``state.placements``) is written as
-  each rank's slice by the ranks at coordinate 0 of the other axes. The
+  expert parallelism, the Megatron weights of tensor parallelism, ZeRO's
+  shards: ``state.placements``) is written as each rank's slice of the
+  JAX layout by the ranks at coordinate 0 of the other axes (a
+  head-aligned ``qkv`` slice is gathered and cut contiguous first). The
   directory is renamed into place by process 0 once every process's
   index is visible.
   The port writes it only when asked (``layout="sharded"``); reading
@@ -378,6 +380,11 @@ def _sharded_collect_placed(state, pid: int):
     payload, index = {}, []
     for i, (name, t) in enumerate(state_leaves(state)):
         pl = placements.get(name)
+        if pl is not None and pl.blocks > 1:
+            # A head-aligned slice is not the JAX layout's: the file holds
+            # the contiguous one, cut from the whole leaf (a collective
+            # over the placement's axis: every rank of it is here).
+            t = pl.contiguous(pl.gather(t))
         arr = _to_jax_layout(t.detach().cpu().numpy())
         if pl is None:
             shape = arr.shape

@@ -169,12 +169,14 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, seed: int, device,
                        lr: float = 1e-3, optimizer: str = "adam",
                        momentum: float = 0.9,
-                       weight_decay: float = 1e-4) -> TrainState:
-    """Initialise ``model``'s params (``lecun_normal_init`` from ``seed``),
-    move it to ``device`` and build the optimizer over its params in the
-    JAX flatten order."""
+                       weight_decay: float = 1e-4,
+                       init: bool = True) -> TrainState:
+    """Initialise ``model``'s params (``lecun_normal_init`` from ``seed``;
+    ``init=False`` keeps the values it holds), move it to ``device`` and
+    build the optimizer over its params in the JAX flatten order."""
     order = jax_param_order(name for name, _ in model.named_parameters())
-    lecun_normal_init(model, seed, order)
+    if init:
+        lecun_normal_init(model, seed, order)
     model.to(device)
     params = dict(model.named_parameters())
     tx = make_optimizer([params[n] for n in order], lr=lr,

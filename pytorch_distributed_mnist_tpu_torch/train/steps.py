@@ -58,6 +58,7 @@ from pytorch_distributed_mnist_tpu_torch.ops.metrics import (
 from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
     count_all_reduce,
     grad_all_reduce,
+    grad_axis,
     grad_buffer,
 )
 from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
@@ -150,7 +151,10 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
         zero.before_forward()
     logits, aux = _forward_with_aux(state.model, images, aux_weight)
     reduce = axis is not None and axis.reduces
-    if not reduce and zero is None:
+    # The gradients may sum over a wider axis than the count (data x seq
+    # when the tokens shard over seq).
+    over = grad_axis(axis)
+    if not (over is not None and over.reduces) and zero is None:
         loss = cross_entropy(logits, labels, mask)
         state.optimizer.zero_grad(set_to_none=True)
         (loss + aux_weight * aux if aux_weight else loss).backward()
@@ -220,6 +224,7 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         raise ValueError(f"global batch {b} not divisible by --grad-accum "
                          f"{accum}")
     reduce = axis is not None and axis.reduces
+    over = grad_axis(axis)
     zero = state.zero
     total = example_count(labels, mask)
     if reduce:
@@ -253,7 +258,7 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         zero.step(state.optimizer, divisor=total)
         state.step.add_(1)
         return metrics
-    if reduce:
+    if over is not None and over.reduces:
         grad_all_reduce(grads, axis)
     grads.flat.div_(torch.clamp(total, min=1.0))
     state.optimizer.step()

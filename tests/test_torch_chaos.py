@@ -352,6 +352,7 @@ def test_fleet_chaos_beside_its_twin(world_env, capfd, mode):
         assert faulted["victim_quarantined"]
         assert faulted["victim_readmissions"] >= 1
         assert faulted["failovers"] >= 1
+        assert faulted["victim_requests_before_kill"] >= 1
         assert twin["fleet"]["failovers"] == 0
         assert len(faulted["k3_launches_before_kill"]) == 2
     elif mode[0] == "--rolling-reload":

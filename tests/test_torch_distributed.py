@@ -824,10 +824,17 @@ def test_one_process_without_flags_makes_no_group():
 
 
 def test_the_mesh_refuses_other_axes():
+    """The pipeline 'stage' axis and the two-tier meshes wait; the
+    ('data', 'model', 'seq') mesh is the port's now."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        make_mesh(("data", "model"), (1, 1))
+        make_mesh(("data", "stage"), (1, 1))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        make_mesh(("dcn", "ici"), (1, 1))
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         make_mesh(("data",), (2,))
+    mesh = make_mesh(("data", "model", "seq"), (1, 1, 1))
+    assert mesh.shape == {"data": 1, "model": 1, "seq": 1}
+    assert not mesh.reduces and mesh.data.sums is None
 
 
 def test_log0_prints_nothing_on_rank_1(monkeypatch, capsys):

@@ -7,8 +7,9 @@ writing the epoch rows into ``--metrics-file``; a one-process run goes
 through ``cli.run``. EP is a layout change, not a math change: the EP
 run's trajectory equals the one-process run's (dense dispatch is
 layout-exact; the router is float32). The refusals carry the JAX CLI's
-words. The ViT-family flags (``--tensor-parallel`` and the rest) wait for
-ROADMAP Queue 1 item 16 parts 3-5: the port's parser does not take them.
+words. The pipeline and two-tier flags (``--pipeline-stages`` and the
+rest) wait for ROADMAP Queue 1 item 16 parts 5-6: the port's parser does
+not take them.
 """
 
 import json
@@ -162,13 +163,19 @@ def test_cli_expert_parallel_rejects_non_moe(tmp_path):
 
 
 def test_cli_expert_parallel_rejects_vit_family_combos(tmp_path, capsys):
-    """The JAX CLI refuses EP with TP/SP/PP; the port's parser has no such
-    flags yet, so argparse refuses them by name."""
+    """The JAX CLI refuses EP with TP/SP, in its words; the pipeline flag
+    is not in the port's parser yet, so argparse refuses it by name."""
+    for flag in ("--tensor-parallel", "--sequence-parallel"):
+        assert _refused(tmp_path, "--expert-parallel", "2", flag, "2") == (
+            "--expert-parallel does not combine with "
+            "--tensor-parallel/--sequence-parallel/--pipeline-stages: "
+            "EP shards the moe_mlp expert dim over a data x expert "
+            "mesh; the others shard the ViT")
     with pytest.raises(SystemExit) as info:
         cli.build_parser().parse_args(_base(
-            tmp_path, "--expert-parallel", "2", "--tensor-parallel", "2"))
+            tmp_path, "--expert-parallel", "2", "--pipeline-stages", "2"))
     assert info.value.code == 2
-    assert "--tensor-parallel" in capsys.readouterr().err
+    assert "--pipeline-stages" in capsys.readouterr().err
 
 
 def test_cli_rule_table_parallelism_rejects_zero3(tmp_path):
@@ -197,17 +204,16 @@ def _train_flags(parser) -> set:
 
 def test_the_train_parser_lacks_exactly_the_unported_flags():
     """Beside the JAX CLI's train parser, the port's lacks the flags of the
-    tensor, sequence, pipeline and two-tier meshes only, and offers
-    ``--model moe_mlp``."""
+    pipeline and two-tier meshes only, and offers ``--model moe_mlp``;
+    the tensor- and sequence-parallel flags have the JAX defaults and
+    choices."""
     from pytorch_distributed_mnist_tpu.cli import (
         build_parser as jax_build_parser,
     )
 
     missing = _train_flags(jax_build_parser()) - _train_flags(
         cli.build_parser())
-    assert missing == {"--tensor-parallel", "--tp-overlap",
-                       "--sequence-parallel", "--sequence-parallel-impl",
-                       "--pipeline-stages", "--dcn-slices",
+    assert missing == {"--pipeline-stages", "--dcn-slices",
                        "--zero-bucket-mb-dcn"}
     model = next(a for a in cli.build_parser()._actions
                  if "--model" in a.option_strings)
@@ -215,5 +221,10 @@ def test_the_train_parser_lacks_exactly_the_unported_flags():
     args = cli.build_parser().parse_args([])
     jargs = jax_build_parser().parse_args([])
     for flag in ("expert_parallel", "moe_aux_weight", "moe_dispatch",
-                 "optimizer_sharding", "zero_overlap", "zero_bucket_mb"):
+                 "optimizer_sharding", "zero_overlap", "zero_bucket_mb",
+                 "tensor_parallel", "tp_overlap", "sequence_parallel",
+                 "sequence_parallel_impl"):
         assert getattr(args, flag) == getattr(jargs, flag), flag
+    impl = {a.dest: a.choices for a in cli.build_parser()._actions}
+    jimpl = {a.dest: a.choices for a in jax_build_parser()._actions}
+    assert impl["sequence_parallel_impl"] == jimpl["sequence_parallel_impl"]

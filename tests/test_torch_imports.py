@@ -63,5 +63,6 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "utils.compile_cache", "runtime.supervision",
                 "runtime.elastic", "runtime.chaos", "cli", "__main__",
                 "models.moe", "parallel.moe_dispatch", "parallel.expert",
-                "parallel.tensor", "parallel.zero", "parallel.zero_overlap"):
+                "parallel.tensor", "parallel.zero", "parallel.zero_overlap",
+                "parallel.ring", "parallel.ulysses", "parallel.pipeline_tp"):
         assert f"{port.__name__}.{rel}" in names, rel

@@ -376,8 +376,8 @@ def test_zero1_scan_epoch_matches_replicated(world, mesh8):
 
 
 def test_zero1_respects_ep_rules():
-    """Moment leaves a rule lays out keep the rule's layout (the port's
-    rule table is the EP one; the TP table waits for item 16 part 3)."""
+    """Moment leaves a rule lays out keep the rule's layout (the EP
+    table's)."""
     state = create_train_state(get_model("moe_mlp"), 0, CPU)
     mesh = ExpertMesh(4, 0, CPU, DataAxis(2, 0, CPU, None, "data"),
                       DataAxis(2, 0, CPU, None, "expert"))
@@ -387,6 +387,49 @@ def test_zero1_respects_ep_rules():
     assert sharding[mu + "['embed']['kernel']"] == P("data", None)
     assert sharding["['params']['params']['moe']['w1']"] == P("expert", None,
                                                               None)
+
+
+def test_zero1_respects_tp_rules():
+    """The TP table's leaves keep its layout, moments and params alike
+    (head-aligned qkv included); ZeRO claims the other moments over
+    data: the JAX ``shard_state_zero(rules=vit_tp_rules)`` layout."""
+    from pytorch_distributed_mnist_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh,
+    )
+    from pytorch_distributed_mnist_tpu.parallel.tensor import (
+        vit_tp_rules as jax_vit_tp_rules,
+    )
+    from pytorch_distributed_mnist_tpu.parallel.zero import (
+        zero1_state_sharding as jax_zero1_state_sharding,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import GridMesh
+    from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
+        vit_tp_rules,
+    )
+
+    state = create_train_state(get_model("vit"), 0, CPU)
+    mesh = GridMesh(8, 0, CPU, (DataAxis(4, 0, CPU, None, "data"),
+                                DataAxis(2, 0, CPU, None, "model"),
+                                DataAxis(1, 0, CPU, None, "seq")))
+    sharding = zero1_state_sharding(state, mesh, rules=vit_tp_rules())
+    mu = "['opt_state'].inner_state[0].mu['params']"
+    qkv = "['block0']['attn']['qkv']['kernel']"
+    assert sharding[mu + qkv] == P(None, "model")
+    assert sharding[mu + qkv].blocks == 3
+    assert sharding["['params']['params']" + qkv] == P(None, "model")
+    # (16, 64): ZeRO splits the larger dim.
+    assert sharding[mu + "['embed']['kernel']"] == P(None, "data")
+    assert sharding["['params']['params']['embed']['kernel']"] == P()
+    jstate = jax_create_train_state(jax_get_model("vit"), jax.random.key(0))
+    tree = jax_zero1_state_sharding(
+        jstate, jax_make_mesh(("data", "model"), shape=(4, 2)),
+        rules=jax_vit_tp_rules())
+    want = {k: v.spec for k, v in jax_ckpt._leaves_with_names(
+        {"params": tree.params, "opt_state": tree.opt_state,
+         "step": tree.step})}
+    assert sorted(sharding) == sorted(want)
+    for name, spec in sharding.items():
+        assert tuple(spec) == tuple(want[name]), name
 
 
 def _cli(tmp_path, *extra, model="linear"):
