@@ -154,7 +154,11 @@ Phases, each printing one JSON line:
    much), their device ms beside the plain versions, SDPA and the bound,
    and ``sharded_flash_attention`` and Ulysses's local attention on the
    card, each call's launches counted from 0 (one forward and one
-   backward of its route);
+   backward of its route); then pipeline parallelism's per-microbatch
+   shapes (``pipeline_shapes``, ``PIPELINE_SHAPES``: (128, 49, 4, 16),
+   (64, 49, 4, 16) and (128, 49, 2, 16)), bf16 and float32, the same
+   checks against the rows (and heads) of the whole batch's call, the
+   same timings, and ``flash_attention`` as the stage body calls it;
 10. the other backward routes on the attention path: ``flash_attention``
    forward and backward at (32, 196, 4, 16) bf16 launch the tiled pair, at
    the ViT's shape and at (2, 33, 2, 12) in float32 the 3xTF32 pair (and
@@ -173,7 +177,13 @@ Phases, each printing one JSON line:
    and with ``--remat`` (``train_vit_remat``: ``train_vit``'s epoch lines
    character for character, one more flash forward a block a step, the
    same backwards), and the peak device memory of one train step with
-   and without remat at patch 4 and 2 (``train_vit_remat_memory``);
+   and without remat at patch 4 and 2 (``train_vit_remat_memory``); then
+   the pipelined ViT (``train_pipeline``: ``create_pipelined_vit_state``
+   on a one-rank ``('data', 'stage')`` mesh, at 2 and 4 microbatches, 8
+   steps stepwise and as the scan mode's replayed graph, flash, fused
+   loss and Adam: each step held to the unpipelined ViT's on the same
+   batches, the scan run to its stepwise twin, and per step m * depth
+   flash forwards and backwards, one cross-entropy each way, one Adam);
 12. ViT train profiles: as phase 7 for one ViT step (flash kernels, GEMMs,
    LayerNorm/GELU and other elementwise work, xent, Adam, copies), at the
    default patch 4 (49 tokens) and at ``--patch-size 2`` (196 tokens),
@@ -251,7 +261,11 @@ Phases, each printing one JSON line:
    2 --sequence-parallel 2`` and ``--tensor-parallel 2
    --optimizer-sharding zero1`` in worlds of 4, each epoch line held to
    one process's run of the same flags, the overlap to the plain TP
-   world's); the cnn run for 1 epoch as a process
+   world's), and in the same pool pipeline parallelism's (``pp_spawn``:
+   ``--pipeline-stages 2`` with ``--data`` 2 and the kernels' flags,
+   with ``--tensor-parallel 2``, with ``--optimizer-sharding zero1`` and
+   with ``--remat --grad-accum 2``, each held to one process's run of
+   the same flags); the cnn run for 1 epoch as a process
    on fresh ``--compile-cache`` directories (``cold_start``: by default
    and with ``--no-precompile`` each library it launches built once, then
    0 built on the warm directory; the seconds to the first epoch line);
@@ -470,6 +484,15 @@ RANK_SHAPES = [("tp2", (TRAIN_BATCH, 49, 2, 16)),
                ("dp2_tp2", (TRAIN_BATCH // 2, 49, 2, 16)),
                ("ulysses2", (TRAIN_BATCH, 196, 2, 16)),
                ("ulysses4", (TRAIN_BATCH, 196, 1, 16))]
+# Pipeline parallelism's per-microbatch attention blocks (ROADMAP Queue 1
+# item 16 part 5), at the ViT's D = 16 and the smoke's batch with the
+# default m = S microbatches: each stage runs its blocks on (B/(dp*m), 49,
+# 4/tp, 16) (pp2: 2 stages; dp2_pp2: 2 data slices of 2 stages; pp2_tp2:
+# 2 stages of the Megatron body's local heads). Each is held against the
+# rows (and heads) of the whole (B, 49, 4, 16) call it cuts.
+PIPELINE_SHAPES = [("pp2", (TRAIN_BATCH // 2, 49, 4, 16)),
+                   ("dp2_pp2", (TRAIN_BATCH // 4, 49, 4, 16)),
+                   ("pp2_tp2", (TRAIN_BATCH // 2, 49, 2, 16))]
 
 
 _STARTED = time.perf_counter()
@@ -3475,6 +3498,157 @@ def phase_flash_rank_shapes(device, peaks) -> dict:
             "checks": checks}
 
 
+def _pipeline_paths(device, shapes) -> dict:
+    """The pipeline's attention entry point on the card, counted from 0:
+    the stage body hands each microbatch's block straight to the model's
+    ``attention_fn`` (``flash_attention``; under PP x TP its local
+    heads), forward and backward through autograd, bf16. Each call must
+    launch one tensor-core forward and one backward of its route."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    fwd, bwd = flash.flash_fwd, flash.flash_bwd
+    out = {}
+    for tag, shape in shapes:
+        q, k, v, do = flash_inputs(shape, torch.bfloat16, gen, device)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        # This path's run starts here ...
+        fwd.launches = 0
+        fwd.route_launches.update(dict.fromkeys(fwd.route_launches, 0))
+        bwd.launches = 0
+        bwd.route_launches.update(dict.fromkeys(bwd.route_launches, 0))
+        flash.flash_attention(*leaves).backward(do)
+        torch.cuda.synchronize()
+        # ... and ends here.
+        got = {"flash_fwd": dict(fwd.route_launches),
+               "flash_bwd": dict(bwd.route_launches)}
+        route = flash._bwd_route(shape, torch.bfloat16)
+        want = {"flash_fwd": {r: int(r == "tensor")
+                              for r in fwd.route_launches},
+                "flash_bwd": {r: int(r == route)
+                              for r in bwd.route_launches}}
+        if got != want:
+            raise AssertionError(f"{tag} {shape}: launches {got}, expected "
+                                 f"{want}")
+        out[tag] = got
+    return out
+
+
+def phase_pipeline_shapes(device, peaks) -> dict:
+    """The flash kernels at pipeline parallelism's per-microbatch shapes
+    (``PIPELINE_SHAPES``), bf16 and float32, as the ViT calls them (not
+    causal): the forward and ``flash_bwd`` against their plain versions
+    within ``flash_tolerance``, and against the rows (and, under TP, the
+    heads) of the whole (B, 49, 4, 16) call, for the first and the last
+    microbatch: attention is independent per example and per head, and
+    whether each output matches bit for bit, and by how much if not, is
+    printed. Then their device ms beside the plain versions, SDPA's
+    forward and backward and the bound, and the entry point's launches
+    counted from 0 (``_pipeline_paths``). Returns the rows, the largest
+    errors and the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_mnist_tpu_torch.ops import flash
+
+    require_full_float32()
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    worst = {**dict.fromkeys(FWD_KEYS.values(), 0.0),
+             **dict.fromkeys(BWD_KEYS.values(), 0.0)}
+    checks = {}
+    f32 = flash_tolerance(torch.float32)
+    for tag, shape in PIPELINE_SHAPES:
+        b, t, hl, d = shape
+        heads = VIT_SHAPE[2]
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = flash_tolerance(dtype)
+            fwd_route = flash._fwd_route(shape, dtype)
+            bwd_route = flash._bwd_route(shape, dtype)
+            where = f"{tag} {shape} {dtype}"
+            whole = flash_inputs((TRAIN_BATCH, t, heads, d), dtype, gen,
+                                 device)
+            o_w, lse_w = flash.flash_fwd(*whole[:3])
+            g_w = flash.flash_bwd(*whole[:3], o_w, lse_w, whole[3])
+            same, diff = True, 0.0
+            for first in (0, TRAIN_BATCH - b):
+                rows = slice(first, first + b)
+                cut = slice(0, hl) if first == 0 else slice(heads - hl, heads)
+                q, k, v, do = _rank_block([x[rows] for x in whole], cut)
+                o, lse = flash.flash_fwd(q, k, v)
+                want_o, want_lse = flash.flash_fwd_plain(q, k, v)
+                got = flash.flash_bwd(q, k, v, want_o, want_lse, do)
+                want = flash.flash_bwd_plain(q, k, v, want_o, want_lse, do)
+                mine = flash.flash_bwd(q, k, v, o, lse, do)
+                fk, bk = FWD_KEYS[fwd_route], BWD_KEYS[bwd_route]
+                worst[fk] = max(worst[fk], _close("O", o, want_o, tol, where),
+                                _close("lse", lse, want_lse, f32, where))
+                worst[bk] = max(worst[bk], *(
+                    _close(name, x, w, tol, where) for name, x, w in
+                    zip(("dQ", "dK", "dV"), got, want)))
+                pairs = [(o, o_w[rows][:, :, cut]),
+                         (lse, lse_w[rows][:, cut]),
+                         *zip(mine, (x[rows][:, :, cut] for x in g_w))]
+                same = same and all(torch.equal(a, w) for a, w in pairs)
+                diff = max(diff, *(float((a.float() - w.float()).abs()
+                                         .max()) for a, w in pairs))
+            checks[where] = {"fwd_route": fwd_route, "bwd_route": bwd_route,
+                             "whole_rows_same_bits": same,
+                             "whole_rows_max_abs_diff": diff}
+    torch.cuda.synchronize()
+
+    rows = {}
+    for tag, shape in PIPELINE_SHAPES:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            elem = dtype.itemsize
+            q, k, v, do = flash_inputs(shape, dtype, gen, device)
+            o, lse = flash.flash_fwd(q, k, v)
+            ops = (q, k, v, o, lse, do)
+            heads_t = [x.transpose(1, 2) for x in (q, k, v)]
+            fwd_kernel = FWD_KEYS[flash._fwd_route(shape, dtype)]
+            bwd_route = flash._bwd_route(shape, dtype)
+            pair = {"fused": ("flash_bwd",),
+                    "tiled": ("flash_dq_tiled", "flash_dkv_tiled"),
+                    "tf32x3": TF32_PAIR}[bwd_route]
+            key = f"{tag}_{'bf16' if elem == 2 else 'f32'}"
+            least, by, _, _ = flash_bound_ms(fwd_kernel, shape, elem, peaks)
+            fwd_row = _timed_row({
+                "kernel": lambda q=q, k=k, v=v: flash.flash_fwd(q, k, v),
+                "plain": lambda q=q, k=k, v=v: flash.flash_fwd_plain(q, k,
+                                                                     v),
+                "library": lambda h=heads_t:
+                    F.scaled_dot_product_attention(*h)},
+                shape=list(shape), dtype=dtype_name, bound_ms=least,
+                bound_by=by, route=fwd_kernel)
+            bwd_row = _timed_row({
+                "kernel": lambda ops=ops: flash.flash_bwd(*ops),
+                "plain": lambda ops=ops: flash.flash_bwd_plain(*ops),
+                "library": _sdpa_backward(q, k, v, do)},
+                shape=list(shape), dtype=dtype_name,
+                **dict(zip(("bound_ms", "bound_by"),
+                           pair_bound_ms(pair, shape, elem, peaks))),
+                route=bwd_route)
+            for row in (fwd_row, bwd_row):
+                row["library_backend"] = sdpa_backend(row["library_kernels"])
+            rows[f"flash_fwd_{key}"] = fwd_row
+            rows[f"flash_bwd_{key}"] = bwd_row
+            emit("timing", kernel=f"flash_fwd_{key}", **fwd_row)
+            emit("timing", kernel=f"flash_bwd_{key}", **bwd_row)
+    launches = _pipeline_paths(device, PIPELINE_SHAPES)
+    same = {w: c["whole_rows_same_bits"] for w, c in checks.items()}
+    emit("pipeline_shapes",
+         shapes={t: list(s) for t, s in PIPELINE_SHAPES},
+         tolerance={"float32": flash_tolerance(torch.float32),
+                    "bfloat16": flash_tolerance(torch.bfloat16)},
+         max_abs_err=worst, checks=checks,
+         all_same_bits_as_whole_rows=all(same.values()),
+         entry_launches=launches)
+    return {"rows": rows, "max_abs_err": worst, "launches": launches,
+            "checks": checks}
+
+
 def _train_lines(text: str, prefix: str) -> list:
     return [ln for ln in text.splitlines() if ln.startswith(prefix)]
 
@@ -4640,6 +4814,242 @@ def phase_train_scan_profile(device, model: str = "cnn",
         f"train_scan_profile_{model}" + ("" if patch_size == 4
                                          else f"_p{patch_size}")
     emit(phase, **row)
+    return row
+
+
+# The pipelined ViT on the card: a ('data', 'stage') mesh of one rank
+# (NCCL refuses two ranks on one card), at m microbatches, bf16, flash,
+# fused loss and Adam, over the scan profiles' batches.
+PIPELINE_MICROBATCHES = (2, 4)
+PIPELINE_STEPS = 8  # train steps each run takes
+# The pipelined step against the unpipelined one on the same batches from
+# the same init (bf16; each step's products run at another M): every
+# step's loss sum within 1e-3 relative, correct counts within 2 of 256;
+# and after the steps the params' distance from the unpipelined run's
+# within PIPELINE_PARAM_HOLD of how far that run moved them
+# (``_param_gaps``), over all leaves and for the worst leaf. On an H100
+# sound runs read at most 1.3e-4 on the losses, 0.024 over all leaves and
+# 0.017 for the worst; with a microbatch's gradient lost at least 0.035,
+# 0.30 and 0.50. The qkv biases sit out of the worst leaf: their k third
+# has no gradient (softmax ignores a shift shared by every key), so Adam
+# walks it on rounding noise in either run. A planted fault, one
+# microbatch's gradient lost, must break the hold at every m.
+PIPELINE_HOLD = (1e-3, 2)
+PIPELINE_PARAM_HOLD = 0.1
+PIPELINE_NOISE_LEAVES = ("attn.qkv.bias",)
+
+
+def _param_gaps(got: dict, want: dict, init: dict) -> dict:
+    """``{leaf: |got - want| / |want - init|}`` (Frobenius norms): how far
+    a run's params lie from the reference run's, against how far the
+    reference moved them from ``init``; ``"all"`` over every leaf."""
+    gaps, num, den = {}, 0.0, 0.0
+    for name, w in want.items():
+        w = w.detach().double()
+        d = (got[name].detach().double() - w).norm().item()
+        moved = (w - init[name].double()).norm().item()
+        gaps[name] = d / max(moved, 1e-30)
+        num, den = num + d * d, den + moved * moved
+    gaps["all"] = (num / max(den, 1e-60)) ** 0.5
+    return gaps
+
+
+def _lose_microbatch(model, m: int):
+    """Plant a fault on a pipelined model: the gradient of the logits of
+    microbatch 0's rows is zeroed, so that microbatch's gradient is lost,
+    as a skipped hop's backward would lose it. Returns the hook's
+    handle."""
+    import torch
+
+    def zero_rows(g):
+        rows = g.shape[0] // m
+        return torch.cat([torch.zeros_like(g[:rows]), g[rows:]])
+
+    def hook(module, inputs, out):
+        if out.requires_grad:
+            out.register_hook(zero_rows)
+
+    return model.register_forward_hook(hook)
+
+
+def phase_train_pipeline(device) -> dict:
+    """``parallel/pipeline_vit.py`` on the card: the ViT's pipelined
+    train state (``create_pipelined_vit_state`` on a one-rank stage axis,
+    the GPipe tick loop with no hop) at m = 2 and 4 microbatches, in the
+    stepwise mode (``train_step`` per batch) and the scan mode (the
+    epoch program: one captured graph of the step replayed per batch),
+    with ``--attention flash --loss fused --optimizer adam_pallas``. Each
+    stepwise run is held to the unpipelined ViT's steps on the same
+    batches from the same init, its losses and, after the steps, its
+    params (``PIPELINE_HOLD``, ``PIPELINE_PARAM_HOLD``); the scan run to
+    its stepwise twin within 1e-6. A stepwise run at each m with one
+    microbatch's gradient lost (``_lose_microbatch``) must fail that
+    hold. Each run's launches, counted from 0 over the run, must be
+    ``(m + S - 1) * depth / S`` flash forwards and backwards a step (S =
+    1: m * depth), one cross-entropy each way and one Adam. A scan run's
+    first pass holds its warm-up and capture: each scan state (the
+    unpipelined one too) then replays one more pass, timed alone."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.data.loader import to_device
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops import adam, flash, xent
+    from pytorch_distributed_mnist_tpu_torch.ops.flash import (
+        flash_attention,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_mnist_tpu_torch.parallel.pipeline_vit import (
+        create_pipelined_vit_state,
+        merge_vit_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.steps import (
+        make_train_epoch,
+        train_step,
+    )
+
+    make_plain, host, _ = _scan_setup(device, "vit", 4)
+    n = PIPELINE_STEPS
+    host = {k: v[:n] for k, v in host.items()}
+    staged = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    mesh = make_mesh(("data", "stage"), shape=(1, 1), device=device)
+    counters = {"flash_fwd": flash.flash_fwd, "flash_bwd": flash.flash_bwd,
+                "xent_fwd": xent.xent_fwd, "xent_bwd": xent.xent_bwd,
+                "adam": adam.adam_leaves}
+
+    def pipelined(m):
+        state, _ = create_pipelined_vit_state(
+            get_model("vit", attention_fn=flash_attention), SEED, mesh,
+            device, num_microbatches=m, optimizer="adam_pallas")
+        return state
+
+    def stepwise(state):
+        out = []
+        for s in range(n):
+            m = train_step(state, to_device({k: v[s] for k, v in
+                                             host.items()}, device))
+            out.append([float(t) for t in m])
+        return out
+
+    def scan(state):
+        epoch = make_train_epoch(state)
+        return [float(t) for t in epoch(staged)], epoch
+
+    def replay_ms(epoch):
+        """Host wall per step of a pass that only replays the captured
+        graph (the state trains on; nothing is compared)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(staged)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def params_of(state):
+        return merge_vit_params(state.model.split_params())
+
+    def hold(got, params) -> dict:
+        """The losses' and the params' gaps from the unpipelined run, and
+        whether they are within the hold."""
+        losses = np.array([r[0] for r in got])
+        loss_gap = float(np.max(np.abs(losses - ref) / np.abs(ref)))
+        gaps = _param_gaps(params, plain_params, init)
+        worst = max((k for k in gaps if k != "all"
+                     and not k.endswith(PIPELINE_NOISE_LEAVES)),
+                    key=gaps.get)
+        noise = {k: v for k, v in gaps.items()
+                 if k.endswith(PIPELINE_NOISE_LEAVES)}
+        return {"loss_gap": loss_gap, "param_gap_all": gaps["all"],
+                "param_gap_worst": gaps[worst], "param_gap_worst_leaf": worst,
+                "param_gap_noise_leaves": noise,
+                "within": loss_gap <= every
+                and max(gaps[worst], gaps["all"]) <= PIPELINE_PARAM_HOLD
+                and all(abs(a[1] - b[1]) <= correct
+                        for a, b in zip(got, plain))}
+
+    plain_state = make_plain()
+    init = {k: v.detach().clone()
+            for k, v in plain_state.model.named_parameters()}
+    t0 = time.perf_counter()
+    plain = stepwise(plain_state)
+    plain_ms = (time.perf_counter() - t0) / n * 1e3
+    plain_params = dict(plain_state.model.named_parameters())
+    ref = np.array([r[0] for r in plain])
+    _, plain_epoch = scan(make_plain())
+    every, correct = PIPELINE_HOLD
+    row = {"steps": n, "batch": TRAIN_BATCH, "stages": 1,
+           "depth": VIT_DEPTH, "plain_step_metrics": plain,
+           "plain_stepwise_wall_ms_per_step": plain_ms,
+           "plain_replay_wall_ms_per_step": replay_ms(plain_epoch),
+           "runs": {}}
+    for m in PIPELINE_MICROBATCHES:
+        per_step = {"flash_fwd": m * VIT_DEPTH, "flash_bwd": m * VIT_DEPTH,
+                    "xent_fwd": 1, "xent_bwd": 1, "adam": 1}
+        for mode in ("stepwise", "scan"):
+            state = pipelined(m)
+            torch.cuda.synchronize()
+            # This path's run starts here ...
+            for c in counters.values():
+                c.launches = 0
+                if hasattr(c, "route_launches"):
+                    c.route_launches.update(dict.fromkeys(c.route_launches,
+                                                          0))
+            t0 = time.perf_counter()
+            if mode == "stepwise":
+                got = stepwise(state)
+            else:
+                got, epoch = scan(state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n * 1e3
+            launches = {k: c.launches for k, c in counters.items()}
+            routes = {k: dict(counters[k].route_launches)
+                      for k in ("flash_fwd", "flash_bwd")}
+            # ... and ends here.
+            want = {k: v * n for k, v in per_step.items()}
+            if launches != want or routes["flash_fwd"]["tensor"] != \
+                    want["flash_fwd"] or routes["flash_bwd"]["fused"] != \
+                    want["flash_bwd"]:
+                raise AssertionError(f"train_pipeline m={m} {mode}: "
+                                     f"launches {launches} {routes}, "
+                                     f"expected {want}")
+            if mode == "stepwise":
+                held = hold(got, params_of(state))
+                summed = np.sum(np.array(got, np.float64), axis=0)
+            else:
+                if not np.allclose(got, summed, rtol=1e-6, atol=0):
+                    raise AssertionError(f"train_pipeline m={m} scan {got} "
+                                         f"against its stepwise {summed}")
+            row["runs"][f"m{m}_{mode}"] = {
+                "metrics": got, "launches": launches, "routes": routes,
+                "launches_per_step": per_step, "wall_ms_per_step": wall}
+            if mode == "stepwise":
+                row["runs"][f"m{m}_stepwise"].update(held)
+            else:
+                row["runs"][f"m{m}_scan"]["replay_wall_ms_per_step"] = \
+                    replay_ms(epoch)
+        # The planted fault, after the counted runs.
+        state = pipelined(m)
+        handle = _lose_microbatch(state.model, m)
+        got = stepwise(state)
+        handle.remove()
+        row["runs"][f"m{m}_lost_microbatch"] = {
+            "metrics": got, **hold(got, params_of(state))}
+    emit("train_pipeline", **row)
+    for m in PIPELINE_MICROBATCHES:
+        sound = row["runs"][f"m{m}_stepwise"]
+        planted = row["runs"][f"m{m}_lost_microbatch"]
+        if not sound["within"]:
+            raise AssertionError(
+                f"train_pipeline m={m}: steps {sound['metrics']} against the "
+                f"unpipelined {plain}; loss gap {sound['loss_gap']}, param "
+                f"gap {sound['param_gap_all']}, worst leaf "
+                f"{sound['param_gap_worst']} "
+                f"({sound['param_gap_worst_leaf']})")
+        if planted["within"]:
+            raise AssertionError(
+                f"train_pipeline m={m}: the hold does not see a lost "
+                f"microbatch (loss gap {planted['loss_gap']}, param gap "
+                f"{planted['param_gap_all']}, worst leaf "
+                f"{planted['param_gap_worst']})")
     return row
 
 
@@ -5880,7 +6290,8 @@ VIT_KERNEL_FLAGS = ["--attention", "flash", "--loss", "fused",
                     "--optimizer", "adam_pallas"]
 TP_SP_REFS = {"vit_one": [],
               "vit_flash_one": ["--attention", "flash"],
-              "vit_kernels_one": VIT_KERNEL_FLAGS}
+              "vit_kernels_one": VIT_KERNEL_FLAGS,
+              "vit_remat_accum_one": ["--remat", "--grad-accum", "2"]}
 TP_SP_WORLDS = [
     ("tp2", 2, ["--tensor-parallel", "2"],
      {"data": 1, "model": 2, "seq": 1}, "vit_one"),
@@ -5899,6 +6310,21 @@ TP_SP_WORLDS = [
     ("tp2_zero1", 4, ["--tensor-parallel", "2", "--optimizer-sharding",
                       "zero1"], {"data": 2, "model": 2, "seq": 1},
      "vit_one"),
+]
+# Pipeline parallelism across ranks (``pp_spawn``), in the same pool: DP 2
+# x PP 2 with the kernels' flags, PP 2 x TP 2, PP 2 x ZeRO-1 (moments
+# stage x data) and PP 2 with --remat --grad-accum 2, each held to one
+# process's run of the same flags (the pipeline is a layout change).
+PP_WORLDS = [
+    ("pp2_dp2_kernels", 4, ["--pipeline-stages", "2", *VIT_KERNEL_FLAGS],
+     {"data": 2, "stage": 2}, "vit_kernels_one"),
+    ("pp2_tp2", 4, ["--pipeline-stages", "2", "--tensor-parallel", "2"],
+     {"data": 1, "stage": 2, "model": 2}, "vit_one"),
+    ("pp2_zero1", 4, ["--pipeline-stages", "2", "--optimizer-sharding",
+                      "zero1"], {"data": 2, "stage": 2}, "vit_one"),
+    ("pp2_remat_accum", 2, ["--pipeline-stages", "2", "--remat",
+                            "--grad-accum", "2"],
+     {"data": 1, "stage": 2}, "vit_remat_accum_one"),
 ]
 
 
@@ -5927,13 +6353,13 @@ def _tp_sp_worlds(root: str) -> dict:
         refs = {ref: pool.submit(run, ref, flags)
                 for ref, flags in TP_SP_REFS.items()}
         worlds = {name: pool.submit(run, name, ["--spawn", str(n), *flags])
-                  for name, n, flags, _, _ in TP_SP_WORLDS}
+                  for name, n, flags, _, _ in TP_SP_WORLDS + PP_WORLDS}
         lines = {}
         for ref, fut in refs.items():
             proc, wall = fut.result()
             lines[ref] = _train_lines(proc.stdout, "Epoch: ")
             out[ref] = {"wall_s": wall, "epoch_lines": lines[ref]}
-        for name, n, flags, mesh, _ in TP_SP_WORLDS:
+        for name, n, flags, mesh, _ in TP_SP_WORLDS + PP_WORLDS:
             proc, wall = worlds[name].result()
             lines[name] = _train_lines(proc.stdout, "Epoch: ")
             devices = _train_lines(proc.stdout, "devices: ")
@@ -5943,7 +6369,7 @@ def _tp_sp_worlds(root: str) -> dict:
             out[name] = {"world": n, "flags": flags, "wall_s": wall,
                          "epoch_lines": lines[name],
                          "devices_line": devices[0]}
-    for name, _, _, _, ref in TP_SP_WORLDS:
+    for name, _, _, _, ref in TP_SP_WORLDS + PP_WORLDS:
         if not _lines_close(lines[name], lines[ref], 1e-5, 100 / 512):
             raise AssertionError(f"{name} printed {lines[name]}; {ref} "
                                  f"printed {lines[ref]}")
@@ -5964,25 +6390,39 @@ def phase_tp_sp_spawn(started=None) -> dict:
     the dp_spawn family's worlds for this slice (``TP_SP_WORLDS``: TP 2
     plain, with the flash, cross-entropy and Adam kernels' flags, and
     overlapped; SP 2 ring and Ulysses with flash; TP 2 x SP 2; TP 2 x
-    ZeRO-1 on a 2 x 2 data x model mesh), each held to its reference
-    run; run beside the kernel builds (``start_tp_sp_cpu``). On the CPU
-    the kernels' wrappers take their plain versions: these worlds launch
-    no card kernel (the per-rank shapes run on the card in
-    ``flash_rank_shapes``)."""
+    ZeRO-1 on a 2 x 2 data x model mesh) and, in the same pool, pipeline
+    parallelism's (``PP_WORLDS``, emitted as ``pp_spawn``), each held to
+    its reference run; run beside the kernel builds
+    (``start_tp_sp_cpu``). On the CPU the kernels' wrappers take their
+    plain versions: these worlds launch no card kernel (the per-rank and
+    per-microbatch shapes run on the card in ``flash_rank_shapes`` and
+    ``pipeline_shapes``)."""
     import shutil
 
     started = started or start_tp_sp_cpu()
     try:
-        row = {"worlds": started["worlds"].result(),
-               "wall_s": time.perf_counter() - started["t0"],
-               "card_kernel_launches": 0,
-               "note": "TP and SP across 2 or more ranks run here only, as "
-                       "gloo worlds on the CPU: the card's machine has one "
-                       "card; the worlds ran beside the kernel builds"}
+        worlds = started["worlds"].result()
+        wall = time.perf_counter() - started["t0"]
     finally:
         shutil.rmtree(started["root"], ignore_errors=True)
+    pp = {name for name, *_ in PP_WORLDS}
+    pp_refs = {ref for *_, ref in PP_WORLDS}
+    row = {"worlds": {k: v for k, v in worlds.items() if k not in pp},
+           "wall_s": wall, "card_kernel_launches": 0,
+           "note": "TP and SP across 2 or more ranks run here only, as "
+                   "gloo worlds on the CPU: the card's machine has one "
+                   "card; the worlds ran beside the kernel builds"}
     emit("tp_sp_spawn", **row)
-    return row
+    pp_row = {"worlds": {k: v for k, v in worlds.items()
+                         if k in pp or k in pp_refs},
+              "wall_s": wall, "card_kernel_launches": 0,
+              "note": "pipeline parallelism across 2 or more ranks runs "
+                      "here only, as gloo worlds on the CPU, in "
+                      "tp_sp_spawn's pool: the card runs the one-rank "
+                      "stage axis (train_pipeline) and the kernels at the "
+                      "per-microbatch shapes (pipeline_shapes)"}
+    emit("pp_spawn", **pp_row)
+    return {**row, "pp": pp_row}
 
 
 def _cold_run(argv: list) -> dict:
@@ -6179,6 +6619,7 @@ def main() -> int:
     flash_err = phase_flash_vs_plain(device)
     flash_rows = phase_flash_timings(device, peaks)
     rank_run = phase_flash_rank_shapes(device, peaks)
+    pipeline_run = phase_pipeline_shapes(device, peaks)
     split_launches = phase_flash_split_route(device)
     vit_run = phase_train(model="vit")
     vit_launches = vit_run["launches"]
@@ -6188,6 +6629,7 @@ def main() -> int:
     remat_launches = phase_train(model="vit_remat",
                                  want_lines=vit_run["lines"])["launches"]
     phase_remat_memory(device)
+    pp_train = phase_train_pipeline(device)
     phase_train_profile(device, model="vit")
     p2 = phase_train_profile(device, model="vit", patch_size=2)
     f32_launches = phase_train(model="vit_f32")["launches"]
@@ -6437,40 +6879,52 @@ def main() -> int:
             **{f"pair_{key}": value for key, value in d12_rows(
                 "flash_bwd", "f32", "split_ms", *row_keys).items()},
             "at": at_f32})
-    # Tensor and sequence parallelism's per-rank shapes (flash_rank_shapes):
+    # Tensor and sequence parallelism's per-rank shapes (flash_rank_shapes)
+    # and pipeline parallelism's per-microbatch shapes (pipeline_shapes):
     # each kernel's rows at the shapes whose route it is, with the
     # launches of the slice's entry points there (bf16, counted from 0).
-    rank_rows, rank_launches = rank_run["rows"], rank_run["launches"]
-    rank_keys = ("kernel_ms", "plain_ms", "library_ms", "library_backend",
-                 "bound_ms", "bound_by", "route", "shape")
+    shape_keys = ("kernel_ms", "plain_ms", "library_ms", "library_backend",
+                  "bound_ms", "bound_by", "route", "shape")
+    kinds = {"flash_fwd": ("flash_fwd", "bf16"),
+             "flash_bwd": ("flash_bwd", "bf16"),
+             "flash_dq_tiled": ("flash_bwd", "bf16"),
+             "flash_dkv_tiled": ("flash_bwd", "bf16"),
+             "flash_fwd_tf32": ("flash_fwd", "f32"),
+             "flash_dq_tf32": ("flash_bwd", "f32"),
+             "flash_dkv_tf32": ("flash_bwd", "f32")}
+    errs = {"flash_dq_tiled": "flash_bwd_tiled",
+            "flash_dkv_tiled": "flash_bwd_tiled",
+            "flash_dq_tf32": "flash_bwd_tf32",
+            "flash_dkv_tf32": "flash_bwd_tf32"}
     for entry in kernels:
         kname = entry["name"]
-        kind, dt = {"flash_fwd": ("flash_fwd", "bf16"),
-                    "flash_bwd": ("flash_bwd", "bf16"),
-                    "flash_dq_tiled": ("flash_bwd", "bf16"),
-                    "flash_dkv_tiled": ("flash_bwd", "bf16"),
-                    "flash_fwd_tf32": ("flash_fwd", "f32"),
-                    "flash_dq_tf32": ("flash_bwd", "f32"),
-                    "flash_dkv_tf32": ("flash_bwd", "f32")}.get(
-                        kname, (None, None))
+        kind, dt = kinds.get(kname, (None, None))
         if kind is None:
             continue
         own = {"flash_bwd": "fused", "flash_dq_tiled": "tiled",
                "flash_dkv_tiled": "tiled"}.get(kname)
-        picked = {}
-        for tag, _ in RANK_SHAPES:
-            row = rank_rows[f"{kind}_{tag}_{dt}"]
-            if own is not None and row["route"] != own:
-                continue
-            picked[tag] = {k: row[k] for k in rank_keys}
-            if dt == "bf16":
-                picked[tag]["launches_entry"] = rank_launches[tag][kind]
-        entry["rank_shapes"] = picked
-        entry["rank_shapes_max_abs_err"] = rank_run["max_abs_err"][{
-            "flash_dq_tiled": "flash_bwd_tiled",
-            "flash_dkv_tiled": "flash_bwd_tiled",
-            "flash_dq_tf32": "flash_bwd_tf32",
-            "flash_dkv_tf32": "flash_bwd_tf32"}.get(kname, kname)]
+        for key, run, shapes in (("rank_shapes", rank_run, RANK_SHAPES),
+                                 ("pipeline_shapes", pipeline_run,
+                                  PIPELINE_SHAPES)):
+            picked = {}
+            for tag, _ in shapes:
+                row = run["rows"][f"{kind}_{tag}_{dt}"]
+                if own is not None and row["route"] != own:
+                    continue
+                picked[tag] = {k: row[k] for k in shape_keys}
+                if dt == "bf16":
+                    picked[tag]["launches_entry"] = run["launches"][tag][kind]
+            entry[key] = picked
+            entry[f"{key}_max_abs_err"] = run["max_abs_err"][
+                errs.get(kname, kname)]
+    # The one-rank pipelined step's launches per run (train_pipeline).
+    for entry in kernels:
+        if entry["name"] in ("flash_fwd", "flash_bwd", "xent_fwd",
+                             "xent_bwd", "adam"):
+            entry["launches_train_pipeline"] = {
+                run: got["launches"][entry["name"]]
+                for run, got in pp_train["runs"].items()
+                if "launches" in got}
     emit("smoke", seconds=time.perf_counter() - _STARTED,
          retaken_traces=RETAKEN["traces"])
     print(json.dumps({"kernels": kernels}), flush=True)

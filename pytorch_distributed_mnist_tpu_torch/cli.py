@@ -35,8 +35,7 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. The pipeline ``stage`` axis and the two-tier meshes'
-flags are not accepted yet.
+process group. The two-tier meshes' flags are not accepted yet.
 
 ``--model vit`` also trains over a ``('data', 'model', 'seq')`` mesh:
 ``--tensor-parallel N`` runs Megatron blocks over a model axis of N
@@ -46,7 +45,11 @@ residual stream, ``parallel/tensor.py``), ``--sequence-parallel N``
 shards the tokens over a seq axis with ring or Ulysses attention
 (``--sequence-parallel-impl``, ``parallel/ring.py``,
 ``parallel/ulysses.py``; Ulysses takes ``--attention flash`` as its local
-attention).
+attention). ``--pipeline-stages S`` runs it as a GPipe pipeline over a
+``('data', 'stage')`` mesh (``parallel/pipeline_vit.py``), or with
+``--tensor-parallel`` over ``('data', 'stage', 'model')`` with Megatron
+stage bodies (``parallel/pipeline_tp.py``); ``--optimizer-sharding zero1``
+then shards the moments stage x data.
 
 ``--model moe_mlp`` trains the switch MoE (``models/moe.py``; ``--moe-
 dispatch dense|capacity``, ``--moe-aux-weight`` adds its load-balance
@@ -215,6 +218,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "of storing them (~depth x lower activation memory "
                         "for the token axis; composes with --grad-accum). "
                         "--model vit only")
+    p.add_argument("--pipeline-stages", type=int, default=1,
+                   help="pipeline-parallel stages for --model vit (GPipe "
+                        "over a 'stage' mesh axis; devices are split "
+                        "data x stage, vit depth must divide evenly)")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="tensor-parallel width for --model vit (Megatron "
                         "column/row parallel blocks over a 'model' mesh "
@@ -503,20 +510,22 @@ def _check_parallel_flags(args, n_devices: int) -> None:
     ep = args.expert_parallel
     tp = args.tensor_parallel
     sp = args.sequence_parallel
+    pp = args.pipeline_stages
     patch = args.patch_size
     for flag, width in (("--expert-parallel", ep), ("--tensor-parallel", tp),
-                        ("--sequence-parallel", sp)):
+                        ("--sequence-parallel", sp),
+                        ("--pipeline-stages", pp)):
         if width < 1:
             raise SystemExit(f"{flag} must be >= 1, got {width}")
-    if args.tp_overlap and tp < 2:
+    if args.tp_overlap and (tp < 2 or pp > 1):
         raise SystemExit(
             "--tp-overlap requires --tensor-parallel >= 2 without "
             "--pipeline-stages (it rewrites the pure DP x TP schedule; "
             "the pipeline's stage body is already an explicit program)")
     if ep > 1:
-        # EP targets the MoE family; TP/SP target the ViT: the mesh
+        # EP targets the MoE family; TP/SP/PP target the ViT: the mesh
         # families are disjoint.
-        if tp > 1 or sp > 1:
+        if tp > 1 or sp > 1 or pp > 1:
             raise SystemExit(
                 "--expert-parallel does not combine with "
                 "--tensor-parallel/--sequence-parallel/--pipeline-stages: "
@@ -548,6 +557,18 @@ def _check_parallel_flags(args, n_devices: int) -> None:
             "only; combine TP/SP/EP with zero1 instead (README "
             "composition matrix)")
     grad_accum = args.grad_accum
+    if grad_accum > 1 and pp > 1:
+        # Each accumulation micro-batch feeds the pipeline, which divides
+        # it again: per-dataslice size must still split into the
+        # pipeline's own microbatches (== stages by default).
+        dp_size = max(1, n_devices // pp)
+        micro = args.batch_size // grad_accum
+        if micro % dp_size or (micro // dp_size) % pp:
+            raise SystemExit(
+                f"--grad-accum {grad_accum} with --pipeline-stages {pp}: "
+                f"each accumulation micro-batch ({micro}) must split over "
+                f"{dp_size} data slices into a per-slice batch divisible "
+                f"by {pp} pipeline microbatches")
     if ep > 1 and args.moe_dispatch == "capacity" \
             and (args.batch_size // grad_accum) % n_devices:
         raise SystemExit(
@@ -576,7 +597,7 @@ def _check_parallel_flags(args, n_devices: int) -> None:
                 "--zero-overlap does not compose with --trainer-mode "
                 "explicit (both own the whole mesh as one shard_map "
                 "data axis); use scan or stepwise")
-        if tp > 1 or sp > 1 or ep > 1:
+        if tp > 1 or sp > 1 or ep > 1 or pp > 1:
             raise SystemExit(
                 "--zero-overlap composes with data parallelism only; "
                 "TP/SP/EP/PP layouts stay on the default "
@@ -599,7 +620,15 @@ def _check_parallel_flags(args, n_devices: int) -> None:
         if args.zero_bucket_mb <= 0:
             raise SystemExit(
                 f"--zero-bucket-mb must be > 0, got {args.zero_bucket_mb:g}")
-    if tp > 1 or sp > 1:
+    if pp > 1 and sp > 1:
+        raise SystemExit(
+            "--pipeline-stages does not compose with --sequence-parallel: "
+            "the ring/Ulysses attention is itself a shard_map collective "
+            "program and cannot nest inside the pipeline's shard_map body "
+            "(see docs/DESIGN.md for the cost argument)")
+    if pp > 1:
+        _check_pp_flags(args, n_devices, pp, tp)
+    elif tp > 1 or sp > 1:
         _check_tp_sp_flags(args, n_devices, tp, sp, patch)
     if args.moe_dispatch != "dense" and not model_accepts(args.model,
                                                           "dispatch"):
@@ -612,6 +641,35 @@ def _check_parallel_flags(args, n_devices: int) -> None:
             f"--optimizer-sharding zero1 requires an Adam optimizer "
             f"(got --optimizer {args.optimizer}: no mu/nu moment state "
             f"to shard)")
+
+
+def _check_pp_flags(args, n_devices: int, pp: int, tp: int) -> None:
+    """The JAX CLI's refusals of a pipeline mesh, in its order and
+    words."""
+    if args.model != "vit":
+        raise SystemExit(
+            f"--pipeline-stages requires --model vit (the pipelined "
+            f"architecture is embed -> N transformer blocks -> head); "
+            f"got --model {args.model}")
+    if args.optimizer_sharding == "zero3":
+        raise SystemExit(
+            "--pipeline-stages composes with --optimizer-sharding "
+            "zero1 (moments sharded stage x data); zero3 would "
+            "re-shard the stage-sharded params themselves (see "
+            "docs/DESIGN.md)")
+    if n_devices % (pp * tp):
+        raise SystemExit(
+            f"--pipeline-stages {pp}"
+            + (f" x --tensor-parallel {tp}" if tp > 1 else "")
+            + f" does not divide the {n_devices} available devices")
+    if tp > 1:
+        num_heads = _vit_num_heads()
+        if num_heads % tp:
+            raise SystemExit(
+                f"--tensor-parallel {tp} with --pipeline-stages: the "
+                f"Megatron stage body shards the ViT's {num_heads} "
+                f"attention heads over the model axis, so the width "
+                f"must divide {num_heads}")
 
 
 def _check_tp_sp_flags(args, n_devices: int, tp: int, sp: int,
@@ -1092,9 +1150,18 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         random.seed(args.seed)
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
-    ep = args.expert_parallel
+    ep, pp = args.expert_parallel, args.pipeline_stages
     tp, sp = args.tensor_parallel, args.sequence_parallel
-    if tp > 1 or sp > 1:
+    if pp > 1 and tp > 1:
+        # PP x TP: the stage body runs the explicit Megatron block
+        # (parallel/pipeline_tp.py).
+        mesh = make_mesh(("data", "stage", "model"),
+                         shape=(process_count() // (pp * tp), pp, tp),
+                         device=device)
+    elif pp > 1:
+        mesh = make_mesh(("data", "stage"),
+                         shape=(process_count() // pp, pp), device=device)
+    elif tp > 1 or sp > 1:
         mesh = make_mesh(("data", "model", "seq"),
                          shape=(process_count() // (tp * sp), tp, sp),
                          device=device)
@@ -1126,12 +1193,13 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     set_loss_impl(args.loss)
     if args.moe_dispatch != "dense":
         model_kwargs["dispatch"] = args.moe_dispatch
-    if model_accepts(args.model, "mesh") and mesh.reduces:
+    if model_accepts(args.model, "mesh") and mesh.reduces and pp == 1:
         # The MoE splits its experts over the expert axis, offsets its
         # capacity positions and sums its aux statistic over the data
         # axis; the ViT runs Megatron blocks over the model axis and
         # shards its tokens over the seq axis: they need the mesh; one
-        # process runs them alone.
+        # process runs them alone. (The pipeline builds its own stage
+        # bodies on the mesh, from the mesh-less model.)
         model_kwargs["mesh"] = mesh
     if sp > 1:
         # The attention over the seq axis; under --attention flash (the
@@ -1156,9 +1224,11 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
             model_kwargs["attention_fn"] = functools.partial(
                 ring_attention, mesh=mesh, axis="seq", batch_axis="data",
                 head_axis="model" if tp > 1 else None)
-    elif tp > 1 and model_kwargs.get("attention_fn") is not None:
+    elif tp > 1 and pp == 1 and model_kwargs.get("attention_fn") is not None:
         # --tensor-parallel + --attention flash: the kernels on each
         # rank's (B/dp, T, H/tp, D) block, whole heads by the rules.
+        # (Under --pipeline-stages the kernels need no wrapper: the
+        # Megatron stage body hands them this rank's heads.)
         from pytorch_distributed_mnist_tpu_torch.ops.flash import (
             sharded_flash_attention,
         )
@@ -1166,7 +1236,25 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         model_kwargs["attention_fn"] = functools.partial(
             sharded_flash_attention, mesh=mesh, batch_axis="data",
             head_axis="model")
-    if tp > 1 and args.tp_overlap:
+    pp_sharding = None
+    if pp > 1:
+        # The pipelined split tree and the GPipe schedule, whole until it
+        # is placed below, after the resume: once, onto the pipeline's
+        # layout or ZeRO's composed on it.
+        from pytorch_distributed_mnist_tpu_torch.parallel import (
+            pipeline_tp,
+            pipeline_vit,
+        )
+
+        create_pp_state = (pipeline_tp.create_pipelined_tp_vit_state
+                           if tp > 1 else
+                           pipeline_vit.create_pipelined_vit_state)
+        state, pp_sharding = create_pp_state(
+            get_model(args.model, **model_kwargs), seed, mesh, device,
+            data_axis="data", lr=args.lr, optimizer=args.optimizer,
+            momentum=args.momentum, weight_decay=args.weight_decay,
+            place=False)
+    elif tp > 1 and args.tp_overlap:
         # The head-major split tree and the collective-matmul schedule
         # (parallel/tensor.py); placed below, after the resume.
         from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
@@ -1188,7 +1276,10 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         # A resumed checkpoint's epoch wins over --start-epoch.
         start_epoch = args.start_epoch
     rules = None
-    if tp > 1:
+    if pp > 1:
+        if args.optimizer_sharding == "none":
+            pipeline_vit.place_state(state, mesh, pp_sharding)
+    elif tp > 1:
         # Megatron's rules over 'model' (head-aligned qkv), or the
         # overlapped schedule's on its split tree. ZeRO composes
         # rules-first, its moments claiming the rest.
@@ -1221,9 +1312,13 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
             shard_state_zero,
         )
 
+        # Under --pipeline-stages the pipeline's layout is the base: the
+        # stage-split block moments gain a data dim, the embed and head
+        # moments shard over data alone.
         shard_state_zero(
             state, mesh, rules=rules,
             level=3 if args.optimizer_sharding == "zero3" else 1,
+            base_sharding=pp_sharding,
             bucket_mb=args.zero_bucket_mb if args.zero_overlap else None,
             overlap=args.zero_overlap)
     train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
@@ -1302,7 +1397,7 @@ def _train_or_evaluate(args, trainer, start_epoch: int, best_acc: float,
                 parallel_layout={"tensor": args.tensor_parallel,
                                  "sequence": args.sequence_parallel,
                                  "expert": args.expert_parallel,
-                                 "pipeline": 1},
+                                 "pipeline": args.pipeline_stages},
                 publish=args.publish, chunk_mb=args.chunk_mb)
             if saver is not None:
                 # The span is the drain of the previous epoch's write and

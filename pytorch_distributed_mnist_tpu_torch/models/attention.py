@@ -241,7 +241,9 @@ class VisionTransformer(nn.Module):
             return [self.head.kernel, self.head.bias]
         return []
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Images -> this rank's embedded tokens ``(B, T or T/sp, C)``:
+        patchify, embed, add ``pos_embed``."""
         x = patchify(x, self.patch_size, self.compute_dtype)
         pos = self.pos_embed
         if self._seq_live():
@@ -249,14 +251,11 @@ class VisionTransformer(nn.Module):
             rows = slice(self.seq_axis.rank * tl,
                          (self.seq_axis.rank + 1) * tl)
             x, pos = x[:, rows], pos[:, rows]
-        x = self.embed(x) + pos.to(self.compute_dtype)
-        for i in range(self.depth):
-            block = getattr(self, f"block{i}")
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = block(x)
+        return self.embed(x) + pos.to(self.compute_dtype)
+
+    def pool_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tokens -> float32 logits: LayerNorm, mean over the tokens,
+        head."""
         x = self.ln_f(x)
         if self._seq_live():
             pooled = reduce_from_region(x.float().sum(dim=1), self.seq_axis)
@@ -264,3 +263,14 @@ class VisionTransformer(nn.Module):
         else:
             x = x.mean(dim=1)
         return self.head(x).float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.embed_tokens(x)
+        for i in range(self.depth):
+            block = getattr(self, f"block{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
+        return self.pool_logits(x)

@@ -59,10 +59,16 @@ class GradBuffer:
     """One flat float32 buffer holding every gradient of ``params``; each
     parameter's ``.grad`` is its view (padded to :data:`ALIGN` elements,
     the padding zero). ``copies`` are the params whose gradients this
-    rank holds as copies of another rank's (:meth:`zero_copies`)."""
+    rank holds as copies of another rank's (:meth:`zero_copies`).
+    ``stage``, when given, is ``(axis, params)``: the pipeline's
+    replicated leaves, whose gradients sum over the stage axis
+    (:meth:`sum_stage`); they must lie side by side in ``params``, as the
+    JAX flatten order puts the pipelined tree's ``embed`` and ``head``
+    after its ``blocks``."""
 
     def __init__(self, params: Sequence[torch.Tensor],
-                 copies: Sequence[torch.Tensor] = ()) -> None:
+                 copies: Sequence[torch.Tensor] = (),
+                 stage=None) -> None:
         self.params: List[torch.Tensor] = list(params)
         ids = {id(c) for c in copies}
         self.copies = [i for i, p in enumerate(self.params) if id(p) in ids]
@@ -77,6 +83,18 @@ class GradBuffer:
                                 device=self.params[0].device)
         self.views = [self.flat[o:o + p.numel()].view_as(p)
                       for o, p in zip(offsets, self.params)]
+        self.stage = None
+        if stage is not None:
+            axis, leaves = stage
+            ids = {id(p) for p in leaves}
+            rows = [i for i, p in enumerate(self.params) if id(p) in ids]
+            if len(rows) != len(ids) or rows != list(range(rows[0],
+                                                           rows[-1] + 1)):
+                raise ValueError("GradBuffer: the stage-summed params are "
+                                 "not one run of the buffer's params")
+            end = offsets[rows[-1]] + -(-self.params[rows[-1]].numel()
+                                        // ALIGN) * ALIGN
+            self.stage = (axis, self.flat[offsets[rows[0]]:end])
         self.zero_()
 
     def zero_(self) -> None:
@@ -93,6 +111,17 @@ class GradBuffer:
         hold them: the rank that does not zero them counts them once."""
         for i in self.copies:
             self.views[i].zero_()
+
+    @torch.no_grad()
+    def sum_stage(self) -> None:
+        """Sum the replicated leaves' gradients over the stage axis, each
+        copy counted once (zeroed first): one all-reduce of their run of
+        the buffer. Nothing without a ``stage``."""
+        if self.stage is None:
+            return
+        self.zero_copies()
+        axis, run = self.stage
+        dist.all_reduce(run, group=axis.group)
 
     def check(self) -> None:
         """Raise unless every ``.grad`` is still its view: autograd added
@@ -112,11 +141,20 @@ def grad_copies(model) -> list:
     return list(copies()) if copies is not None else []
 
 
+def grad_stage(model):
+    """``(stage axis, params)`` of ``model``'s leaves whose gradients sum
+    over a pipeline's stage axis (its ``grad_stage()``), or None: no
+    such leaves, or a stage axis of one rank."""
+    stage = getattr(model, "grad_stage", None)
+    return stage() if stage is not None else None
+
+
 def grad_buffer(state) -> GradBuffer:
     """The train state's :class:`GradBuffer`, made at its first use."""
     if state.grad_buffer is None:
         state.grad_buffer = GradBuffer(state.optimizer.params,
-                                       grad_copies(state.model))
+                                       grad_copies(state.model),
+                                       grad_stage(state.model))
     return state.grad_buffer
 
 
@@ -142,14 +180,19 @@ count_all_reduce.launches = 0
 
 
 def grad_all_reduce(grads: GradBuffer, axis) -> None:
-    """Sum every gradient over ``axis`` (a ``parallel/mesh.py::DataAxis``
-    that reduces; over its ``sums`` when it has one, the copied
-    gradients zeroed first): one all-reduce of the flat buffer. The
-    caller chose the loss's divisor so that the sum is the gradient it
-    wants (the global count's, or the axis size's under DDP's rule). A
-    world of one sums one rank: exact."""
+    """Sum every gradient over ``axis`` (a ``parallel/mesh.py::DataAxis``;
+    over its ``sums`` when it has one, the copied gradients zeroed
+    first): one all-reduce of the flat buffer, after the pipeline's
+    replicated leaves are summed over its stage axis
+    (:meth:`GradBuffer.sum_stage`). An axis that does not reduce sums
+    nothing. The caller chose the loss's divisor so that the sum is the
+    gradient it wants (the global count's, or the axis size's under
+    DDP's rule). A world of one sums one rank: exact."""
     grads.check()
+    grads.sum_stage()
     over = grad_axis(axis)
+    if over is None or not over.reduces:
+        return
     if over is not axis:
         grads.zero_copies()
     dist.all_reduce(grads.flat, group=over.group)

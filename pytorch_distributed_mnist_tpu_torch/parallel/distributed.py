@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
+
 _init_info: dict = {}
 _host_group = None  # the gloo group of the supervision records
 
@@ -91,8 +93,7 @@ def backend_for(device: torch.device) -> str:
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
-                           device: torch.device = torch.device("cpu")) \
-        -> None:
+                           device: Optional[torch.device] = None) -> None:
     """Join the world (idempotent: a second call, or a call in a process
     whose group exists already, does nothing).
 
@@ -100,7 +101,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
     ``--world-size`` / ``--rank``; with none, a launcher's environment is
     read; a single process with neither skips the rendezvous entirely. A
     rank on the card binds to ``device`` first (NCCL needs it), and its
-    communicator is created at the rendezvous."""
+    communicator is created at the rendezvous. ``device`` None is the
+    card (``utils/device.py::resolve_device``, which raises when none is
+    visible): a world on the CPU (gloo) is asked for by name."""
+    device = resolve_device("cuda") if device is None else device
     if dist.is_initialized():
         return
     explicit = coordinator is not None or (num_processes or 0) > 1

@@ -3,10 +3,13 @@ JAX package's ``parallel/mesh.py::make_mesh``.
 
 There a mesh is an array of devices with named axes; data parallelism is
 ``Mesh(devices, ('data',))``, expert parallelism ``make_mesh(('data',
-'expert'), shape=(n // ep, ep))`` and tensor and sequence parallelism
-``make_mesh(('data', 'model', 'seq'), shape=(n // (tp * sp), tp, sp))``,
-the devices laid out row-major (on the 3-D mesh device ``i`` sits at data
-``i // (tp * sp)``, model ``(i // sp) % tp``, seq ``i % sp``). Here every
+'expert'), shape=(n // ep, ep))``, tensor and sequence parallelism
+``make_mesh(('data', 'model', 'seq'), shape=(n // (tp * sp), tp, sp))``
+and pipeline parallelism ``make_mesh(('data', 'stage'), shape=(n // pp,
+pp))`` or, with tensor parallelism, ``make_mesh(('data', 'stage',
+'model'), shape=(n // (pp * tp), pp, tp))``, the devices laid out
+row-major (on the 3-D mesh device ``i`` sits at data ``i // (tp * sp)``,
+model ``(i // sp) % tp``, seq ``i % sp``). Here every
 process drives one device, so an axis is a small record: how many ranks
 it spans, this process's coordinate on it, its device, the global ranks
 along it and the process group its collectives run over.
@@ -26,8 +29,15 @@ axis the train step's gradient all-reduce runs over
 (``parallel/collectives.py::grad_all_reduce``). The example count and the
 metrics sum over ``data`` alone.
 
-The pipeline ``stage`` axis and the two-tier ``('dcn', 'ici')`` mesh
-raise: those wait for ROADMAP Queue 1 item 16 parts 5-6.
+On a mesh with a ``stage`` axis the ranks of one data coordinate (every
+stage, and every model rank under PP x TP) hold the same rows, as the
+JAX package's ``data_replica_coords`` groups them: the loader shards over
+``data`` alone.
+
+The two-tier ``('dcn', 'ici')`` mesh raises: it waits for ROADMAP Queue 1
+item 16 part 6. Every mesh is on the card unless ``device`` says
+otherwise: with none given, it resolves ``cuda`` and raises when no card
+is visible.
 """
 
 from __future__ import annotations
@@ -43,14 +53,17 @@ from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from pytorch_distributed_mnist_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
 EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 # The axis layouts the JAX CLI builds, in its axis order.
 _LAYOUTS = ((DATA_AXIS,), (DATA_AXIS, EXPERT_AXIS),
-            (DATA_AXIS, MODEL_AXIS, SEQ_AXIS))
+            (DATA_AXIS, MODEL_AXIS, SEQ_AXIS), (DATA_AXIS, STAGE_AXIS),
+            (DATA_AXIS, STAGE_AXIS, MODEL_AXIS))
 
 
 @dataclass(frozen=True)
@@ -98,6 +111,10 @@ class DataAxis:
 
     @property
     def seq(self) -> Optional["DataAxis"]:
+        return None
+
+    @property
+    def stage(self) -> Optional["DataAxis"]:
         return None
 
     def axis(self, name: str) -> "DataAxis":
@@ -155,6 +172,10 @@ class GridMesh:
     @property
     def seq(self) -> Optional[DataAxis]:
         return self._get(SEQ_AXIS)
+
+    @property
+    def stage(self) -> Optional[DataAxis]:
+        return self._get(STAGE_AXIS)
 
 
 def ExpertMesh(size: int, rank: int, device: torch.device, data: DataAxis,
@@ -233,21 +254,26 @@ def _grid(axes: Tuple[str, ...], shape: Tuple[int, ...],
 
 def make_mesh(axes: Sequence[str] = (DATA_AXIS,),
               shape: Optional[Sequence[int]] = None,
-              device: torch.device = torch.device("cpu")):
+              device: Optional[torch.device] = None):
     """The mesh over every process of the world (the process group's
     world, or this process alone when there is none), with this process
-    on ``device``: the data axis, or with ``axes=('data', 'expert')`` and
-    ``shape=(n // ep, ep)`` the expert mesh, or with ``axes=('data',
-    'model', 'seq')`` and ``shape=(n // (tp * sp), tp, sp)`` the tensor
-    and sequence mesh."""
+    on ``device`` (None: the card, ``utils/device.py::resolve_device``,
+    which raises when none is visible): the data axis, or with
+    ``axes=('data', 'expert')`` and ``shape=(n // ep, ep)`` the expert
+    mesh, with ``axes=('data', 'model', 'seq')`` and ``shape=(n // (tp *
+    sp), tp, sp)`` the tensor and sequence mesh, with ``axes=('data',
+    'stage')`` and ``shape=(n // pp, pp)`` the pipeline mesh, or with
+    ``axes=('data', 'stage', 'model')`` and ``shape=(n // (pp * tp), pp,
+    tp)`` the pipeline x tensor mesh."""
+    device = resolve_device("cuda") if device is None else device
     n = process_count()
     axes = tuple(axes)
     if axes not in _LAYOUTS:
         raise NotImplementedError(
             f"mesh axes {axes}: the port has the ('data',) axis and the "
-            f"('data', 'expert') and ('data', 'model', 'seq') meshes; the "
-            f"pipeline 'stage' axis and the two-tier ('dcn', 'ici') axes "
-            f"wait for ROADMAP Queue 1 item 16 parts 5-6")
+            f"('data', 'expert'), ('data', 'model', 'seq'), ('data', "
+            f"'stage') and ('data', 'stage', 'model') meshes; the two-tier "
+            f"('dcn', 'ici') axes wait for ROADMAP Queue 1 item 16 part 6")
     if axes != (DATA_AXIS,):
         if shape is None or len(shape) != len(axes) \
                 or int(np.prod(shape)) != n or min(shape) < 1:

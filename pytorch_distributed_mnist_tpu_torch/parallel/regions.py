@@ -31,7 +31,9 @@ columns):
 
 :func:`ppermute` is the ring hop: every rank sends to coordinate ``+shift``
 and receives from ``-shift`` (``dist.batch_isend_irecv``); its backward
-sends the gradient the other way. :func:`all_to_all` is
+sends the gradient the other way. With ``wrap=False`` it is the open
+chain's hop of the pipeline (``parallel/pipeline.py``): no pair wraps
+round the ends. :func:`all_to_all` is
 ``torch.distributed.nn.functional.all_to_all_single`` on dim 0, which
 carries its own gradient.
 """
@@ -165,22 +167,31 @@ class _ScatterReduce(torch.autograd.Function):
 
 
 def ring_exchange(tensors: Sequence[torch.Tensor], axis, shift: int,
-                  wait: bool = True):
+                  wait: bool = True, wrap: bool = True):
     """Send each of ``tensors`` to coordinate ``rank + shift`` of
     ``axis`` and receive as many from ``rank - shift``; returns the
     received tensors (and, with ``wait=False``, the requests to wait on
-    before reading them)."""
+    before reading them). ``wrap=False`` is the open chain: a rank whose
+    partner would lie past either end sends nothing there, and a rank
+    that receives nothing gets zeros (``lax.ppermute`` with the pairs
+    ``(i, i + shift)`` that stay on the axis)."""
     n = axis.size
-    to = axis.peer((axis.rank + shift) % n)
-    frm = axis.peer((axis.rank - shift) % n)
+    to, frm = axis.rank + shift, axis.rank - shift
+    if wrap:
+        to, frm = to % n, frm % n
     ops, out = [], []
     for t in tensors:
         t = t.contiguous()
-        buf = torch.empty_like(t)
-        ops.append(dist.P2POp(dist.isend, t, to, axis.group))
-        ops.append(dist.P2POp(dist.irecv, buf, frm, axis.group))
+        if 0 <= to < n:
+            ops.append(dist.P2POp(dist.isend, t, axis.peer(to), axis.group))
+        if 0 <= frm < n:
+            buf = torch.empty_like(t)
+            ops.append(dist.P2POp(dist.irecv, buf, axis.peer(frm),
+                                  axis.group))
+        else:
+            buf = torch.zeros_like(t)
         out.append(buf)
-    reqs = dist.batch_isend_irecv(ops)
+    reqs = dist.batch_isend_irecv(ops) if ops else []
     if not wait:
         return out, reqs
     for r in reqs:
@@ -190,18 +201,19 @@ def ring_exchange(tensors: Sequence[torch.Tensor], axis, shift: int,
 
 class _PPermute(torch.autograd.Function):
     """Every rank's tensors to coordinate ``+shift`` forward; the
-    gradients to ``-shift`` backward."""
+    gradients to ``-shift`` backward (on the open chain too: the
+    transpose of a send from ``i`` to ``i + shift`` is one back)."""
 
     @staticmethod
-    def forward(ctx, axis, shift, *xs):
-        ctx.axis, ctx.shift = axis, shift
-        return tuple(ring_exchange(xs, axis, shift))
+    def forward(ctx, axis, shift, wrap, *xs):
+        ctx.axis, ctx.shift, ctx.wrap = axis, shift, wrap
+        return tuple(ring_exchange(xs, axis, shift, wrap=wrap))
 
     @staticmethod
     def backward(ctx, *gs):
         back = ring_exchange([g.contiguous() for g in gs], ctx.axis,
-                             -ctx.shift)
-        return (None, None, *back)
+                             -ctx.shift, wrap=ctx.wrap)
+        return (None, None, None, *back)
 
 
 def copy_to_region(x, axis):
@@ -236,11 +248,15 @@ def scatter_reduce(x, axis, dim: int = 0):
     return _ScatterReduce.apply(x, axis.group, axis.size, dim)
 
 
-def ppermute(xs: Sequence[torch.Tensor], axis, shift: int = 1):
-    """The ring hop of ``xs`` (a tuple) over ``axis``, differentiable."""
+def ppermute(xs: Sequence[torch.Tensor], axis, shift: int = 1,
+             wrap: bool = True):
+    """The ring hop of ``xs`` (a tuple) over ``axis``, differentiable;
+    ``wrap=False`` the open chain's hop (the pipeline's: the last rank's
+    tensors leave the chain, the first rank receives zeros)."""
     if not _live(axis):
-        return tuple(xs)
-    return _PPermute.apply(axis, shift, *xs)
+        # One rank: the ring hands it its own tensors, the chain nothing.
+        return tuple(xs) if wrap else tuple(torch.zeros_like(x) for x in xs)
+    return _PPermute.apply(axis, shift, wrap, *xs)
 
 
 def all_to_all(x, axis):

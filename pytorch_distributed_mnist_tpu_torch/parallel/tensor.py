@@ -51,11 +51,16 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from pytorch_distributed_mnist_tpu_torch.parallel.split_tree import (
+    SplitTree,
+    ViTParts,
+)
 
 Rules = Union[Dict[Tuple[str, str], "P"], Callable[[str], "P"]]
 
@@ -205,35 +210,124 @@ class Placement:
         return torch.stack(parts, dim=self.dim + 1).flatten(
             self.dim, self.dim + 2)
 
+    def region(self) -> Tuple[Tuple[int, ...], List[int], List[int]]:
+        """``(whole shape, start, stop)`` in the JAX layout of the
+        contiguous slice at this rank's coordinate: what its file in a
+        sharded directory holds."""
+        whole = jax_shape(self.shape)
+        start, stop = [0] * len(whole), list(whole)
+        jax_dim = [d for d, a in enumerate(self.spec) if a is not None][0]
+        start[jax_dim] = self.index * self.chunk
+        stop[jax_dim] = (self.index + 1) * self.chunk
+        return whole, start, stop
+
+
+@dataclass(frozen=True)
+class Placements:
+    """A leaf split over several mesh axes, one dim each (the pipeline's
+    stage dim with the Megatron model dim, or with ZeRO's data dim):
+    ``parts`` are single-axis :class:`Placement` records applied in
+    order, each on the slice the one before leaves. It reads like one
+    :class:`Placement`: ``spec`` and ``shape`` are the whole leaf's,
+    :meth:`local` and :meth:`gather` compose the parts', and ``writes``
+    marks coordinate 0 on every mesh axis the leaf does not split."""
+
+    parts: Tuple[Placement, ...]
+    writes: bool = True
+    blocks: int = 1
+
+    @property
+    def spec(self) -> P:
+        entries = [None] * len(self.parts[0].spec)
+        for part in self.parts:
+            for d, a in enumerate(part.spec):
+                if a is not None:
+                    entries[d] = a
+        return P(*entries)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.parts[0].shape
+
+    @property
+    def index(self) -> str:
+        return "_".join(str(p.index) for p in self.parts)
+
+    def local(self, full):
+        for part in self.parts:
+            full = part.local(full)
+        return full
+
+    def contiguous(self, full):
+        for part in self.parts:
+            full = part.contiguous(full)
+        return full
+
+    @torch.no_grad()
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        for part in reversed(self.parts):
+            shard = part.gather(shard)
+        return shard
+
+    def region(self) -> Tuple[Tuple[int, ...], List[int], List[int]]:
+        whole = jax_shape(self.shape)
+        start, stop = [0] * len(whole), list(whole)
+        for part in self.parts:
+            _, lo, hi = part.region()
+            for d, a in enumerate(part.spec):
+                if a is not None:
+                    start[d], stop[d] = lo[d], hi[d]
+        return whole, start, stop
+
+
+def jax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A port-layout shape in the JAX layout (OIHW -> HWIO)."""
+    if len(shape) != 4:
+        return tuple(shape)
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        _OIHW_TO_HWIO,
+    )
+
+    return tuple(shape[i] for i in _OIHW_TO_HWIO)
+
 
 def placement_of(spec: P, shape: Tuple[int, ...], mesh) -> \
-        Optional[Placement]:
+        Optional[Union[Placement, Placements]]:
     """The :class:`Placement` a spec gives a leaf of port-layout ``shape``
-    on ``mesh``, or None when it is replicated. A spec may split one dim
-    over one axis (all this slice's layouts do)."""
+    on ``mesh``, or None when it is replicated; a spec that splits
+    several dims, each over its own axis, gives :class:`Placements`."""
     axes = [(d, a) for d, a in enumerate(spec) if a is not None]
     if not axes:
         return None
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"spec {spec!r} splits {len(axes)} dims; the port places a leaf "
-            f"over one mesh axis (more waits for ROADMAP Queue 1 item 16)")
-    jax_dim, name = axes[0]
-    axis = mesh.axis(name)
-    others = [mesh.axis(a) for a in mesh.shape if a != name]
-    dim = port_dim(jax_dim, len(shape))
-    if shape[dim] % axis.size:
-        raise ValueError(f"dim {dim} of shape {shape} is not divisible by "
-                         f"mesh axis {name!r} of size {axis.size}")
+    names = {a for _, a in axes}
+    if len(names) < len(axes):
+        raise ValueError(f"spec {spec!r} names a mesh axis twice")
     blocks = getattr(spec, "blocks", 1)
-    if shape[dim] % (axis.size * blocks):
-        raise ValueError(f"dim {dim} of shape {shape} is not {blocks} "
-                         f"block(s) divisible by mesh axis {name!r} of "
-                         f"size {axis.size}")
-    return Placement(spec=P(*spec, blocks=blocks), axis=name, dim=dim,
-                     size=axis.size, index=axis.rank, group=axis.group,
-                     shape=tuple(shape),
-                     writes=all(o.rank == 0 for o in others), blocks=blocks)
+    if blocks != 1 and len(axes) > 1:
+        raise NotImplementedError(
+            f"spec {spec!r}: a block-aligned split composes with no other "
+            f"axis")
+    writes = all(mesh.axis(a).rank == 0 for a in mesh.shape
+                 if a not in names)
+    parts = []
+    shape = tuple(shape)
+    for jax_dim, name in axes:
+        axis = mesh.axis(name)
+        dim = port_dim(jax_dim, len(shape))
+        if shape[dim] % axis.size:
+            raise ValueError(f"dim {dim} of shape {shape} is not divisible "
+                             f"by mesh axis {name!r} of size {axis.size}")
+        if shape[dim] % (axis.size * blocks):
+            raise ValueError(f"dim {dim} of shape {shape} is not {blocks} "
+                             f"block(s) divisible by mesh axis {name!r} of "
+                             f"size {axis.size}")
+        entries = [a if d == jax_dim else None for d, a in enumerate(spec)]
+        parts.append(Placement(
+            spec=P(*entries, blocks=blocks), axis=name, dim=dim,
+            size=axis.size, index=axis.rank, group=axis.group, shape=shape,
+            writes=writes, blocks=blocks))
+        shape = shape[:dim] + (shape[dim] // axis.size,) + shape[dim + 1:]
+    return parts[0] if len(parts) == 1 else Placements(tuple(parts), writes)
 
 
 @torch.no_grad()
@@ -368,14 +462,6 @@ def overlap_tp_rules(axis: str = "model") -> Dict[Tuple[str, str], P]:
     }
 
 
-_HWIO_TO_OIHW = (3, 2, 0, 1)
-_OIHW_TO_HWIO = (2, 3, 1, 0)
-
-
-def _dense(x, kernel, bias, cd):
-    return torch.matmul(x.to(cd), kernel.to(cd)) + bias.to(cd)
-
-
 def overlap_block_apply(bp: Dict[str, torch.Tensor], h: torch.Tensor, *,
                         tp_axis, compute_dtype,
                         attention_fn: Optional[Callable] = None):
@@ -430,62 +516,31 @@ def overlap_block_apply(bp: Dict[str, torch.Tensor], h: torch.Tensor, *,
     return x + v2 + whole("mlp2.bias").to(cd)
 
 
-class OverlapTPViT(torch.nn.Module):
+class OverlapTPViT(SplitTree):
     """The ViT on the overlapped-TP schedule, its params the head-major
-    split tree (``parallel/pipeline_tp.py``), named as that tree nests
-    them (``blocks.attn.qkv.kernel``, ``embed.pos_embed``,
-    ``head.ln_f.weight``). The embed runs replicated over ``model``, the
-    blocks on this rank's ``T/tp`` tokens (entered by ``split``, whose
-    gradient is all-gathered back), and the final LayerNorm and head on
-    the gathered sequence (``gather``: every rank computes them alike).
-    Its checkpoint leaves hang straight off ``params``, as the JAX
-    split state's do (``param_root``). Its 4-D leaves (the qkv bias
-    ``(depth, 3, H, D)`` and the proj kernel ``(depth, H, D, C)``) are
-    kept in the port's 4-D layout (``models/convert.py``: the JAX one
-    transposed as a conv kernel is), so the checkpoint and placement
-    layers carry them as they carry every 4-D leaf; :meth:`split_params`
-    gives the tree in the JAX layout."""
+    split tree (``parallel/pipeline_tp.py``) held as
+    ``parallel/split_tree.py::SplitTree`` holds a split tree. The embed
+    runs replicated over ``model``, the blocks on this rank's ``T/tp``
+    tokens (entered by ``split``, whose gradient is all-gathered back),
+    and the final LayerNorm and head on the gathered sequence
+    (``gather``: every rank computes them alike); the embed and the head
+    are the model's own (``parts``, a ``split_tree.ViTParts``)."""
 
-    param_root = ""
-
-    def __init__(self, split: Dict[str, torch.Tensor], *, patch_size: int,
-                 num_heads: int, depth: int, compute_dtype: torch.dtype,
+    def __init__(self, split: Dict[str, torch.Tensor], *, parts: ViTParts,
+                 depth: int, compute_dtype: torch.dtype,
                  attention_fn: Optional[Callable], remat: bool,
                  tp_axis) -> None:
-        super().__init__()
-        self.patch_size = patch_size
-        self.num_heads = num_heads
+        super().__init__(split)
+        self.parts = parts
         self.depth = depth
         self.compute_dtype = compute_dtype
         self.attention_fn = attention_fn
         self.remat = remat
         self.tp_axis = tp_axis
-        for name, value in split.items():
-            *path, leaf = name.split(".")
-            module = self
-            for key in path:
-                if not hasattr(module, key):
-                    module.add_module(key, torch.nn.Module())
-                module = getattr(module, key)
-            value = torch.as_tensor(value, dtype=torch.float32)
-            if value.dim() == 4:
-                value = value.permute(_HWIO_TO_OIHW)
-            module.register_parameter(leaf, torch.nn.Parameter(
-                value.contiguous().clone()))
-
-    def split_params(self) -> Dict[str, torch.Tensor]:
-        """``{split name: param}`` in the JAX layout (views of the live
-        params)."""
-        return {n: p.permute(_OIHW_TO_HWIO) if p.dim() == 4 else p
-                for n, p in self.named_parameters()}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from torch.utils.checkpoint import checkpoint
 
-        from pytorch_distributed_mnist_tpu_torch.models.attention import (
-            layer_norm,
-            patchify,
-        )
         from pytorch_distributed_mnist_tpu_torch.parallel.regions import (
             gather,
             split,
@@ -493,11 +548,7 @@ class OverlapTPViT(torch.nn.Module):
 
         cd = self.compute_dtype
         params = self.split_params()
-        h = patchify(x, self.patch_size, cd)
-        h = _dense(h, params["embed.embed.kernel"],
-                   params["embed.embed.bias"], cd)
-        h = h + params["embed.pos_embed"].to(cd)
-        h = split(h, self.tp_axis, dim=1)
+        h = split(self.parts.embed(params, x), self.tp_axis, dim=1)
         blocks = {n[len("blocks."):]: p for n, p in params.items()
                   if n.startswith("blocks.")}
 
@@ -513,13 +564,7 @@ class OverlapTPViT(torch.nn.Module):
                                preserve_rng_state=False)
             else:
                 h = block(h, i)
-        h = gather(h, self.tp_axis, dim=1)
-        h = layer_norm(h, params["head.ln_f.weight"],
-                       params["head.ln_f.bias"], cd)
-        h = h.mean(dim=1)
-        h = _dense(h, params["head.head.kernel"], params["head.head.bias"],
-                   cd)
-        return h.float()
+        return self.parts.head(params, gather(h, self.tp_axis, dim=1))
 
 
 def make_overlap_tp_vit_apply(model, mesh, *, tp_axis: str = "model",
@@ -557,8 +602,7 @@ def make_overlap_tp_vit_apply(model, mesh, *, tp_axis: str = "model",
             f"{tp}; the overlapped schedule shards the sequence")
     params = {n: p.detach() for n, p in model.named_parameters()}
     return OverlapTPViT(
-        split_vit_params_tp(params, model.num_heads),
-        patch_size=model.patch_size, num_heads=model.num_heads,
+        split_vit_params_tp(params, model.num_heads), parts=ViTParts(model),
         depth=model.depth, compute_dtype=model.compute_dtype,
         attention_fn=model.attention_fn, remat=model.remat, tp_axis=axis)
 

@@ -60,6 +60,10 @@ from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
     _path_keys,
     leaf_spec,
     placement_of,
+    port_dim,
+)
+from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
+    jax_shape as _jax_shape,
 )
 
 # The per-param optimizer trees ZeRO claims in the JAX layout: Adam's
@@ -99,16 +103,6 @@ def _zero_spec(shape: Tuple[int, ...], axis_size: int, axis: str,
     entries[best] = axis
     return P(*entries)
 
-
-def _jax_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
-    """A port-layout shape in the JAX layout (OIHW -> HWIO)."""
-    if len(shape) != 4:
-        return tuple(shape)
-    from pytorch_distributed_mnist_tpu_torch.models.convert import (
-        _OIHW_TO_HWIO,
-    )
-
-    return tuple(shape[i] for i in _OIHW_TO_HWIO)
 
 
 def zero_state_sharding(state, mesh, data_axis: str = "data",
@@ -217,6 +211,7 @@ class ZeroPlane:
         from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
             GradBuffer,
             grad_copies,
+            grad_stage,
         )
 
         if level not in (1, 3):
@@ -269,7 +264,8 @@ class ZeroPlane:
                 n = self.params[i].numel() // self.n
                 self.shards[i] = self.shard_flat[lo:lo + n].view(shape)
                 self.grad_shards[i] = self.grad_flat[lo:lo + n].view(shape)
-        self.grads = GradBuffer(self.params, grad_copies(state.model))
+        self.grads = GradBuffer(self.params, grad_copies(state.model),
+                                grad_stage(state.model))
         state.grad_buffer = self.grads
         # A seq axis whose ranks hold partial gradients (the tokens shard
         # over it): summed over it before the data-axis plane runs.
@@ -380,6 +376,7 @@ class ZeroPlane:
         reduced gradients and unpack the unsplit ones."""
         self.armed = False
         self.grads.check()
+        self.grads.sum_stage()
         if self.seq is not None and self.seq.group is not None:
             self.grads.zero_copies()
             dist.all_reduce(self.grads.flat, group=self.seq.group)
@@ -485,7 +482,15 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
     over the ``data_axis`` axis (``state.zero``), whose optimizer replaces
     the state's, carrying its counts, hyperparameters and moments. With
     ``bucket_mb`` the leaves group into the overlapped path's buckets,
-    else into one."""
+    else into one.
+
+    ``base_sharding`` (the pipeline's ``{leaf name: P}``,
+    ``parallel/pipeline_vit.py``) is placed first, and each moment then
+    splits over ``data_axis`` too, on the dim :func:`zero_state_sharding`
+    adds: a stage-split block moment becomes stage x data (and stage x
+    model x data under PP x TP), an embed or head moment data alone. The
+    plane works on each rank's base slices (the data dim is never one
+    the base splits)."""
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
         jax_leaf_name,
         jax_param_order,
@@ -511,18 +516,34 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
                                    base_sharding)
     if rules:
         shard_state(state, mesh, rules)
+    if base_sharding is not None:
+        shard_state(state, mesh, lambda path: base_sharding.get(path, P()))
     axis = mesh.axis(data_axis)
     old = state.optimizer
     named = dict(state.model.named_parameters())
     names = jax_param_order(named)
+    root = getattr(state.model, "param_root", "['params']")
     axis_size = axis.size
     # A leaf splits when ZeRO claims its moments (or, at level 3, the
     # param itself) and no rule owns its layout.
     claims = level == 3 or any(_is_moment_path(path)
                                for path, _ in old.inner_leaves())
-    dims = [d if claims and leaf_spec(jax_leaf_name(n), rules) == P()
-            else None for n, d in zip(names, _shard_dims(
-                [named[n] for n in names], axis_size, data_axis))]
+    prefixes = [path for path, v in old.inner_leaves()
+                if isinstance(v, list)]
+    if base_sharding is not None:
+        # The data dim ZeRO added to each leaf's first moment.
+        dims = []
+        for n in names:
+            spec = sharding[prefixes[0] + jax_param_path(n, root)] \
+                if claims else P()
+            found = [d for d, a in enumerate(spec) if a == data_axis]
+            dims.append(port_dim(found[0], named[n].dim()) if found
+                        else None)
+    else:
+        dims = [d if claims and leaf_spec(jax_leaf_name(n, root),
+                                          rules) == P()
+                else None for n, d in zip(names, _shard_dims(
+                    [named[n] for n in names], axis_size, data_axis))]
     plan = (bucket_plan([named[n] for n in names], bucket_mb)
             if bucket_mb else [list(range(len(names)))])
     plane = ZeroPlane(state, axis, level, dims, plan, overlap=overlap)
@@ -544,16 +565,23 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
     placements: Dict[str, Placement] = {}
     prefixes = [path for path, v in new.inner_leaves()
                 if isinstance(v, list)]
+    base = state.placements or {}
     for i, n in enumerate(names):
         if plane.dims[i] is None:
             continue
-        whole = tuple(plane.params[i].shape)
-        spec = _zero_spec(_jax_shape(whole), axis_size, data_axis, P())
-        leaf_names = [prefix + jax_param_path(n) for prefix in prefixes]
+        leaf_names = [prefix + jax_param_path(n, root) for prefix in prefixes]
         if level == 3:
-            leaf_names.append(jax_leaf_name(n))
+            leaf_names.append(jax_leaf_name(n, root))
+        local = tuple(plane.params[i].shape)
         for leaf in leaf_names:
-            placements[leaf] = placement_of(spec, whole, mesh)
+            if base_sharding is None:
+                spec = _zero_spec(_jax_shape(local), axis_size, data_axis,
+                                  P())
+                placements[leaf] = placement_of(spec, local, mesh)
+            else:
+                # The whole leaf, split over the base axes and data.
+                whole = base[leaf].shape if leaf in base else local
+                placements[leaf] = placement_of(sharding[leaf], whole, mesh)
     state.placements = {**(state.placements or {}), **placements}
     plane.gather_params()
     return state, sharding

@@ -395,16 +395,9 @@ def _sharded_collect_placed(state, pid: int):
                               "start": [0] * arr.ndim,
                               "stop": list(arr.shape)})
         else:
-            jax_dim = [d for d, a in enumerate(pl.spec) if a is not None][0]
-            shape = list(arr.shape)
-            shape[jax_dim] = pl.shape[pl.dim]
-            shape = tuple(shape)
+            shape, start, stop = pl.region()
             if pl.writes:
                 key = f"leaf{i}_s{pl.index}"
-                start = [0] * arr.ndim
-                stop = list(shape)
-                start[jax_dim] = pl.index * pl.chunk
-                stop[jax_dim] = (pl.index + 1) * pl.chunk
                 payload[key] = arr
                 index.append({"leaf": i, "key": key, "start": start,
                               "stop": stop})

@@ -60,6 +60,7 @@ from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
     grad_all_reduce,
     grad_axis,
     grad_buffer,
+    grad_stage,
 )
 from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 from pytorch_distributed_mnist_tpu_torch.utils.profiling import compile_log
@@ -152,9 +153,11 @@ def train_step(state, batch: Dict[str, torch.Tensor], axis=None,
     logits, aux = _forward_with_aux(state.model, images, aux_weight)
     reduce = axis is not None and axis.reduces
     # The gradients may sum over a wider axis than the count (data x seq
-    # when the tokens shard over seq).
+    # when the tokens shard over seq), and a pipeline's replicated leaves
+    # over its stage axis too.
     over = grad_axis(axis)
-    if not (over is not None and over.reduces) and zero is None:
+    if not (over is not None and over.reduces) and zero is None \
+            and grad_stage(state.model) is None:
         loss = cross_entropy(logits, labels, mask)
         state.optimizer.zero_grad(set_to_none=True)
         (loss + aux_weight * aux if aux_weight else loss).backward()
@@ -224,7 +227,6 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         raise ValueError(f"global batch {b} not divisible by --grad-accum "
                          f"{accum}")
     reduce = axis is not None and axis.reduces
-    over = grad_axis(axis)
     zero = state.zero
     total = example_count(labels, mask)
     if reduce:
@@ -258,8 +260,7 @@ def _accum_train_step(state, batch: Dict[str, torch.Tensor], axis,
         zero.step(state.optimizer, divisor=total)
         state.step.add_(1)
         return metrics
-    if over is not None and over.reduces:
-        grad_all_reduce(grads, axis)
+    grad_all_reduce(grads, axis)
     grads.flat.div_(torch.clamp(total, min=1.0))
     state.optimizer.step()
     state.step.add_(1)

@@ -824,17 +824,38 @@ def test_one_process_without_flags_makes_no_group():
 
 
 def test_the_mesh_refuses_other_axes():
-    """The pipeline 'stage' axis and the two-tier meshes wait; the
-    ('data', 'model', 'seq') mesh is the port's now."""
+    """The two-tier meshes wait (part 6); the ('data', 'model', 'seq')
+    mesh and the pipeline's ('data', 'stage') mesh are the port's now."""
+    mesh = make_mesh(("data", "stage"), (1, 1), device=CPU)
+    assert mesh.shape == {"data": 1, "stage": 1}
+    assert mesh.stage.size == 1 and mesh.model is None
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item 16 part 6"):
+        make_mesh(("dcn", "ici"), (1, 1), device=CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        make_mesh(("data", "stage"), (1, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        make_mesh(("dcn", "ici"), (1, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        make_mesh(("data",), (2,))
-    mesh = make_mesh(("data", "model", "seq"), (1, 1, 1))
+        make_mesh(("data",), (2,), device=CPU)
+    mesh = make_mesh(("data", "model", "seq"), (1, 1, 1), device=CPU)
     assert mesh.shape == {"data": 1, "model": 1, "seq": 1}
     assert not mesh.reduces and mesh.data.sums is None
+
+
+def test_the_mesh_and_the_rendezvous_default_to_the_card():
+    """F8: with no device, ``make_mesh`` and ``initialize_distributed``
+    ask for the card, as every entry point of the port does, and raise
+    where none is visible; the CPU is asked for by name."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_mesh(("data", "stage"), (1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        distributed.initialize_distributed()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        distributed.initialize_distributed(
+            "127.0.0.1:1", 1, 0)
+    assert not torch.distributed.is_initialized()
+    assert make_mesh(device=CPU).device == CPU
 
 
 def test_log0_prints_nothing_on_rank_1(monkeypatch, capsys):

@@ -163,19 +163,14 @@ def test_cli_expert_parallel_rejects_non_moe(tmp_path):
 
 
 def test_cli_expert_parallel_rejects_vit_family_combos(tmp_path, capsys):
-    """The JAX CLI refuses EP with TP/SP, in its words; the pipeline flag
-    is not in the port's parser yet, so argparse refuses it by name."""
-    for flag in ("--tensor-parallel", "--sequence-parallel"):
+    """The JAX CLI refuses EP with TP/SP/PP, in its words."""
+    for flag in ("--tensor-parallel", "--sequence-parallel",
+                 "--pipeline-stages"):
         assert _refused(tmp_path, "--expert-parallel", "2", flag, "2") == (
             "--expert-parallel does not combine with "
             "--tensor-parallel/--sequence-parallel/--pipeline-stages: "
             "EP shards the moe_mlp expert dim over a data x expert "
             "mesh; the others shard the ViT")
-    with pytest.raises(SystemExit) as info:
-        cli.build_parser().parse_args(_base(
-            tmp_path, "--expert-parallel", "2", "--pipeline-stages", "2"))
-    assert info.value.code == 2
-    assert "--pipeline-stages" in capsys.readouterr().err
 
 
 def test_cli_rule_table_parallelism_rejects_zero3(tmp_path):
@@ -204,8 +199,8 @@ def _train_flags(parser) -> set:
 
 def test_the_train_parser_lacks_exactly_the_unported_flags():
     """Beside the JAX CLI's train parser, the port's lacks the flags of the
-    pipeline and two-tier meshes only, and offers ``--model moe_mlp``;
-    the tensor- and sequence-parallel flags have the JAX defaults and
+    two-tier meshes only, and offers ``--model moe_mlp``; the tensor-,
+    sequence- and pipeline-parallel flags have the JAX defaults and
     choices."""
     from pytorch_distributed_mnist_tpu.cli import (
         build_parser as jax_build_parser,
@@ -213,8 +208,7 @@ def test_the_train_parser_lacks_exactly_the_unported_flags():
 
     missing = _train_flags(jax_build_parser()) - _train_flags(
         cli.build_parser())
-    assert missing == {"--pipeline-stages", "--dcn-slices",
-                       "--zero-bucket-mb-dcn"}
+    assert missing == {"--dcn-slices", "--zero-bucket-mb-dcn"}
     model = next(a for a in cli.build_parser()._actions
                  if "--model" in a.option_strings)
     assert "moe_mlp" in model.choices
@@ -223,7 +217,7 @@ def test_the_train_parser_lacks_exactly_the_unported_flags():
     for flag in ("expert_parallel", "moe_aux_weight", "moe_dispatch",
                  "optimizer_sharding", "zero_overlap", "zero_bucket_mb",
                  "tensor_parallel", "tp_overlap", "sequence_parallel",
-                 "sequence_parallel_impl"):
+                 "sequence_parallel_impl", "pipeline_stages"):
         assert getattr(args, flag) == getattr(jargs, flag), flag
     impl = {a.dest: a.choices for a in cli.build_parser()._actions}
     jimpl = {a.dest: a.choices for a in jax_build_parser()._actions}

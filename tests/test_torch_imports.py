@@ -64,5 +64,7 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "runtime.elastic", "runtime.chaos", "cli", "__main__",
                 "models.moe", "parallel.moe_dispatch", "parallel.expert",
                 "parallel.tensor", "parallel.zero", "parallel.zero_overlap",
-                "parallel.ring", "parallel.ulysses", "parallel.pipeline_tp"):
+                "parallel.ring", "parallel.ulysses", "parallel.pipeline_tp",
+                "parallel.pipeline", "parallel.pipeline_vit",
+                "parallel.split_tree"):
         assert f"{port.__name__}.{rel}" in names, rel

@@ -367,7 +367,7 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--zero-bucket-mb-dcn", "1"],
-                                  ["--pipeline-stages", "2"],
+                                  ["--zero-bucket-mb-dcn=2"],
                                   ["--dcn-slices", "2"]])
 def test_flags_of_later_slices_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as info:
