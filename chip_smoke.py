@@ -4266,6 +4266,308 @@ def phase_server_moe(ckpt: str, device_flag: str = "cuda") -> dict:
     return row
 
 
+# -- sharded and pipeline serving: mesh groups and chains on the card ---------
+
+SHARD_MESH = 2  # devices per tensor/expert group, stages per chain
+# The int8 products of one forward: a tensor group of m devices runs the
+# embed and the head once (on its lead) and each block's four Dense
+# layers once per shard; a chain runs the unsplit ViT's ten.
+TENSOR_I8_PER_FORWARD = 2 + 4 * SHARD_MESH * VIT_DEPTH
+PIPELINE_I8_PER_FORWARD = VIT_I8_PER_FORWARD
+SHARD_REQUESTS = 64  # requests of 1-40 images per traffic run
+WINDOW_BATCHES = 48  # bucket-128 batches per window drive
+WINDOW_TURNS = (1, 3, 3, 1)  # in-flight windows, in turns
+
+
+def shard_shapes(bucket: int, mesh: int = SHARD_MESH) -> dict:
+    """``{layer: (M, K, N)}`` of the int8 products each shard of a tensor
+    group runs at ``bucket``: the column products (qkv, mlp1) split N,
+    the row products (proj, mlp2) split K."""
+    m = VIT_TOKENS * bucket
+    return {"qkv": (m, 64, 192 // mesh), "proj": (m, 64 // mesh, 64),
+            "mlp1": (m, 64, 256 // mesh), "mlp2": (m, 256 // mesh, 64)}
+
+
+def _window_drive(engine, raw, window: int, batches: int) -> float:
+    """Images/s of ``batches`` dispatches of ``raw`` through ``engine``
+    with up to ``window`` batches in flight (dispatch the next before
+    completing the oldest)."""
+    import collections
+
+    inflight = collections.deque()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        inflight.append(engine.dispatch_logits(raw))
+        if len(inflight) >= window:
+            inflight.popleft().complete()
+    while inflight:
+        inflight.popleft().complete()
+    return batches * len(raw) / (time.perf_counter() - t0)
+
+
+def _shard_timings(device, peaks) -> list:
+    """K3 alone at each per-shard shape of a 2-way tensor group at bucket
+    128, held against its plain version and timed beside its bound and
+    ``torch._int_mm`` (B row- and column-major)."""
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        _sm_count,
+        matmul_i8,
+        matmul_i8_plain,
+        split_k,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    rows = []
+    for layer, (m, k, n) in shard_shapes(PATH_BUCKETS[-1]).items():
+        a, b = random_i8((m, k), gen, device), random_i8((k, n), gen, device)
+        got, want = matmul_i8(a, b), matmul_i8_plain(a, b)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"matmul_i8 disagrees with its plain "
+                                 f"version at the shard shape {m}x{k}x{n}: "
+                                 f"max |err| {err}")
+        calls = {"kernel": lambda: matmul_i8(a, b),
+                 "plain": lambda: matmul_i8_plain(a, b)}
+        if int_mm_takes(m, k, n):
+            calls["library"] = lambda: torch._int_mm(a, b)
+            b_cm = b.t().contiguous().t()
+            calls["library_colmajor"] = lambda: torch._int_mm(a, b_cm)
+        least, by = bound_ms(m, k, n, peaks)
+        splits, cluster = split_k(m, n, k, _sm_count(device.index))
+        row = {"layer": f"tensor{SHARD_MESH}.{layer}", "m": m, "k": k,
+               "n": n, "bound_ms": least, "bound_by": by,
+               "library_ms": None, "splits": splits, "cluster": cluster,
+               "max_abs_err": err}
+        for what, fn in calls.items():
+            per = device_ms(fn)
+            row[f"{what}_ms"] = sum(per.values())
+            if what == "kernel":
+                row["gemm_ms"] = sum(v for name, v in per.items()
+                                     if "matmul_i8_kernel" in name)
+        rows.append(row)
+        emit("timing", kernel="matmul_i8", **row)
+    return rows
+
+
+def phase_server_sharded(device_flag: str = "cuda") -> dict:
+    """Sharded and pipeline serving (``serve/sharded.py``,
+    ``serve/pipeline.py``) through the pool's API on ``[cuda:0, cuda:0]``:
+    the int8 ViT (registered widths, fused plane, buckets 1/8/32/128) as
+    one ``tensor`` group of 2 shards and as one ``pipeline`` chain of 2
+    stages (each stage on its own stream), each under live traffic from
+    4 clients: no request dropped, every served batch's labels equal to
+    the same pool's with ``matmul_i8_plain``, a replay of the served
+    batches bit for bit the plain pool's logits, and exactly
+    ``TENSOR_I8_PER_FORWARD`` (``2 + 4 * m * depth``) or
+    ``PIPELINE_I8_PER_FORWARD`` (10) K3 launches per forward (the counts
+    set to 0 just before each traffic run and read just after). Then K3
+    at each per-shard shape, timed; the chain's images/s at in-flight
+    window 3 against 1 in turns (printed, not gated) and its per-stage
+    step walls; ``moe_mlp`` as one ``expert`` group of 2 against its
+    replicated engine (f32 and int8: no K3 launch); and one CLI boot at
+    ``--serve-mode tensor --serve-mesh 1`` answering requests."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        init_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.ops.matmul_i8 import (
+        int8_linear,
+        matmul_i8,
+        matmul_i8_plain,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.pipeline_vit import (
+        split_vit_params,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.pool import EnginePool
+    from pytorch_distributed_mnist_tpu_torch.serve.server import (
+        build_parser,
+        create_server,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import ServeLog
+
+    t_phase = time.perf_counter()
+    device = torch.device(device_flag, 0) if device_flag == "cuda" \
+        else torch.device("cpu")
+    devices = [device] * SHARD_MESH
+    params0 = init_params("vit", SEED)
+    split0 = split_vit_params(params0)
+    count_lock = threading.Lock()
+    plain_linear = functools.partial(int8_linear, matmul=matmul_i8_plain)
+    out = {"launches": {}, "per_forward": {}, "forwards": {}}
+    rows = {}
+    for mode, params, want_per in (
+            ("tensor", params0, TENSOR_I8_PER_FORWARD),
+            ("pipeline", split0, PIPELINE_I8_PER_FORWARD)):
+        calls = [0]
+
+        def counted(x, w, out_dtype=None, _calls=calls, **kw):
+            with count_lock:
+                _calls[0] += 1
+            return int8_linear(x, w, out_dtype, **kw)
+
+        common = dict(devices=devices, buckets=PATH_BUCKETS,
+                      precision="int8", fuse=True, serve_mode=mode,
+                      mesh_size=SHARD_MESH, model_name="vit")
+        pool = EnginePool(functools.partial(get_model, "vit",
+                                            matmul=counted), params,
+                          serve_log=ServeLog(), **common)
+        plain = EnginePool(functools.partial(get_model, "vit",
+                                             matmul=plain_linear), params,
+                           **common)
+        t0 = time.perf_counter()
+        pool.warmup()
+        plain.warmup()
+        warm_s = time.perf_counter() - t0
+        # The main path's run starts here (both pools warm).
+        matmul_i8.launches = 0
+        calls[0] = 0
+        served = []
+        run = _pool_traffic(pool, _requests(SHARD_REQUESTS, SEED + 61),
+                            record=served)
+        launches = matmul_i8.launches  # ... and ends here.
+        products = calls[0]
+        forwards = len(served)
+        if device_flag == "cuda" and (launches == 0
+                                      or launches != products):
+            raise AssertionError(f"{mode}: K3 launches {launches} against "
+                                 f"the model's int8 products {products}")
+        if products != want_per * forwards:
+            raise AssertionError(
+                f"{mode}: {products} int8 products over {forwards} "
+                f"forwards, expected {want_per} each")
+        _same_as_plain(plain, served, f"server_sharded {mode}")
+        for images, _ in served[:8]:
+            got = pool.complete(pool.dispatch(images))[0]
+            want = plain.complete(plain.dispatch(images))[0]
+            if got.tobytes() != want.tobytes():
+                raise AssertionError(
+                    f"{mode}: a replayed batch of {len(images)} differs "
+                    f"from the plain pool's logits by "
+                    f"{float(np.abs(got - want).max())}")
+            if got.shape != (len(images), 10) or not np.all(
+                    np.isfinite(got)):
+                raise AssertionError(f"{mode}: bad logits {got.shape}")
+        topo = pool.topology()
+        out["launches"][mode] = launches
+        out["per_forward"][mode] = want_per
+        out["forwards"][mode] = forwards
+        rows[mode] = {"warm_s": warm_s, "batches": forwards,
+                      "requests": SHARD_REQUESTS, "dropped": 0,
+                      "launches": launches, "int8_products": products,
+                      "per_forward": want_per, "rps": run["rps"],
+                      "p50_ms": run["p50_ms"], "p99_ms": run["p99_ms"],
+                      "replies_exact": True, "replay_bitwise": True,
+                      "topology": {k: topo.get(k) for k in (
+                          "serve_mode", "groups", "mesh_devices",
+                          "pipeline_stages")}}
+        if mode == "pipeline":
+            chain = pool.replicas[0].engine
+            raw = np.resize(_requests(1, seed=SEED + 62)[0],
+                            (PATH_BUCKETS[-1], 28, 28))
+            _window_drive(chain, raw, 1, 4)
+            turns = [{"window": w,
+                      "images_per_s": _window_drive(chain, raw, w,
+                                                    WINDOW_BATCHES)}
+                     for w in WINDOW_TURNS]
+            by_w = {}
+            for turn in turns:
+                by_w.setdefault(turn["window"], []).append(
+                    turn["images_per_s"])
+            rows[mode]["window_turns"] = turns
+            rows[mode]["window_speedup"] = (
+                float(np.mean(by_w[max(by_w)])) / float(np.mean(by_w[1])))
+            rows[mode]["stage_step_ms"] = chain.stage_step_ms(
+                PATH_BUCKETS[-1])
+            rows[mode]["streams"] = [
+                None if s.stream is None else int(s.stream.cuda_stream)
+                for s in chain._stages]
+    # K3 alone at each per-shard shape.
+    shard_rows = []
+    if device_flag == "cuda":
+        _, peaks = peaks_for(torch.cuda.get_device_name(0))
+        shard_rows = _shard_timings(device, peaks)
+    # moe_mlp: one expert group of 2 against its replicated engine.
+    moe_params = init_params("moe_mlp", SEED)
+    moe_rows = {}
+    burst = _requests(8, seed=SEED + 63)
+    for precision in ("f32", "int8"):
+        matmul_i8.launches = 0
+        pool = EnginePool(functools.partial(get_model, "moe_mlp"),
+                          moe_params, devices=devices, buckets=PATH_BUCKETS,
+                          precision=precision, fuse=True,
+                          serve_mode="expert", mesh_size=SHARD_MESH,
+                          model_name="moe_mlp")
+        pool.warmup()
+        ref = InferenceEngine(get_model("moe_mlp"), moe_params,
+                              precision=precision, fuse=True, device=device)
+        gap, agree = 0.0, []
+        for x in burst:
+            got = pool.complete(pool.dispatch(pool.preprocess(x)))[0]
+            want = ref.logits(x)
+            gap = max(gap, float(np.abs(got - want).max()))
+            agree.append(np.mean(got.argmax(-1) == want.argmax(-1)))
+        if gap > 1e-4 or min(agree) < 1.0:
+            raise AssertionError(f"expert {precision}: the group's logits "
+                                 f"differ from the replicated engine's by "
+                                 f"{gap} (argmax agreement {min(agree)})")
+        if matmul_i8.launches:
+            raise AssertionError(f"moe_mlp launched matmul_i8 "
+                                 f"{matmul_i8.launches} times")
+        moe_rows[precision] = {"max_abs_logit_gap": gap,
+                               "requests": len(burst)}
+    # One CLI boot: --serve-mode tensor --serve-mesh 1.
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_sharded_cli_")
+    matmul_i8.launches = 0
+    try:
+        httpd = create_server(build_parser().parse_args([
+            "--model", "vit", "--serve-precision", "int8", "--port", "0",
+            "--device", device_flag, "--checkpoint-dir", ckpt,
+            "--serve-mode", "tensor", "--serve-mesh", "1", "--no-reload"]))
+        serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+        serving.start()
+        try:
+            client = _Client(httpd.server_address[1])
+            replies = [client.post("/predict", {"images": x.tolist()})
+                       for x in burst]
+            stats = client.get("/stats")
+        finally:
+            httpd.shutdown()
+            httpd.ctx.close()
+            httpd.server_close()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if any(len(r["predictions"]) != len(x) for r, x in zip(replies, burst)) \
+            or stats["serve_mode"] != "tensor" \
+            or stats["mesh_devices"] != 1:
+        raise AssertionError(f"the --serve-mode tensor boot: "
+                             f"{stats.get('serve_mode')} "
+                             f"{stats.get('mesh_devices')}")
+    cli_launches = matmul_i8.launches
+    if device_flag == "cuda" and cli_launches == 0:
+        raise AssertionError("the --serve-mode tensor server launched no K3")
+    label = smi_name_and_limit() if device_flag == "cuda" else "cpu"
+    emit("server_sharded", device=label, devices=[str(d) for d in devices],
+         runs=rows, shard_shapes=shard_rows, expert=moe_rows,
+         cli={"requests": len(burst), "launches": cli_launches,
+              "serve_mode": stats["serve_mode"],
+              "mesh_devices": stats["mesh_devices"]},
+         seconds=time.perf_counter() - t_phase)
+    out.update(rows=rows, shard_shapes=shard_rows, cli_launches=cli_launches)
+    return out
+
+
 # ZeRO on the cnn run in an NCCL world of one (its explicit rendezvous):
 # (phase, flags, whether its lines equal the unsharded run's bit for
 # bit). The first run is the unsharded one, for the peak device memory
@@ -6653,6 +6955,9 @@ def main() -> int:
         phase_server_moe(moe_run["best"])
     finally:
         shutil.rmtree(os.path.dirname(moe_run["best"]), ignore_errors=True)
+    # Sharded and pipeline serving: a tensor group and a chain sharing the
+    # card, K3 at the per-shard shapes, an expert group.
+    sharded_run = phase_server_sharded()
     # The fleet: the port's router over two backends in this process, then
     # the chaos tool's router and backend processes sharing the card.
     fleet_run = phase_fleet_router()
@@ -6718,6 +7023,10 @@ def main() -> int:
         "launches_server_autoscale": autoscale_launches,
         "launches_fleet_router": fleet_run["launches"],
         "launches_fleet_chaos": fleet_chaos["launches_per_backend"],
+        "launches_server_sharded": sharded_run["launches"],
+        "launches_server_sharded_per_forward": sharded_run["per_forward"],
+        "launches_server_sharded_cli": sharded_run["cli_launches"],
+        "shard_shapes": sharded_run["shard_shapes"],
         "vit_shapes": vit_i8_rows,
         "vit_forward_profiles": server_vit["profiles"],
     }]

@@ -177,31 +177,35 @@ class DeltaFetcher:
             f"{len(self.peers)} peer(s), or the source dir; skipping this "
             f"publish until a newer manifest appears")
 
-    def load(self, path: str, model_name: str) -> Tuple[dict, int]:
+    def load(self, path: str, template) -> Tuple[dict, int]:
         """The watcher's loader: the delta path for a manifest; for an npz
         file or a ``.ckpt`` directory the whole-file load, which also
         drops the cached leaves (the next manifest rebuilds every
-        leaf)."""
+        leaf). ``template`` is a model name or a ``serve/programs.py::
+        ServeTemplate`` (the pipeline plane's split tree)."""
         from pytorch_distributed_mnist_tpu_torch.models.convert import (
             _to_port_layout,
             jax_leaf_name,
-            param_shapes,
         )
         from pytorch_distributed_mnist_tpu_torch.serve.engine import (
             load_params_for_serving,
+        )
+        from pytorch_distributed_mnist_tpu_torch.serve.programs import (
+            template_of,
         )
 
         if not is_manifest(path):
             self._hashes, self._values = {}, {}
             self.total["full_loads"] += 1
-            return load_params_for_serving(path, model_name)
+            return load_params_for_serving(path, template)
+        tpl = template_of(template)
         t0 = time.perf_counter()
         manifest = read_manifest(path)  # torn: JSONDecodeError
         stats = _zeroed()
         records = {rec["name"]: rec for rec in manifest["leaves"]}
         params, hashes = {}, {}
-        for name, shape in param_shapes(model_name).items():
-            key = jax_leaf_name(name)
+        for name, shape in tpl.shapes.items():
+            key = jax_leaf_name(name, tpl.root)
             rec = records.get(key)
             if rec is None:
                 raise ValueError(f"{path}: no leaf {key!r} in the manifest: "
@@ -215,7 +219,7 @@ class DeltaFetcher:
                 self._obtain(dg, stats)
             arr = _to_port_layout(np.asarray(assemble_leaf(rec, self.store),
                                              dtype=np.float32))
-            if arr.shape != shape:
+            if arr.shape != tuple(shape):
                 raise ValueError(f"{path}: leaf {key} has shape {arr.shape} "
                                  f"in the port's layout, expected {shape}")
             stats["bytes_local"] += arr.nbytes
@@ -227,7 +231,8 @@ class DeltaFetcher:
             # only dirty ones pay.
             params = self._precision.quantize(params, workers=self._workers)
         self._hashes = hashes
-        self._values = {jax_leaf_name(n): v for n, v in params.items()}
+        self._values = {jax_leaf_name(n, tpl.root): v
+                        for n, v in params.items()}
         stats["fetch_ms"] = (t1 - t0) * 1e3
         stats["install_ms"] = (time.perf_counter() - t0) * 1e3
         stats["delta_loads"] = 1

@@ -94,17 +94,28 @@ def params_from_jax(model_name: str, flat: Dict[str, np.ndarray],
     shape (of the model built with ``model_kwargs``). Raises
     ``ValueError`` when a leaf is missing or misshapen: a checkpoint of
     another model is refused, never half-loaded."""
+    return params_from_flat(flat, param_shapes(model_name, **model_kwargs),
+                            model_name)
+
+
+def params_from_flat(flat: Dict[str, np.ndarray], shapes: Dict[str, tuple],
+                     model_name: str,
+                     root: str = "['params']") -> Dict[str, np.ndarray]:
+    """:func:`params_from_jax` over given port names and shapes: each
+    leaf read from ``flat`` at its JAX name under ``root`` (``""`` for a
+    tree the JAX state holds as its params directly, the pipeline's split
+    tree), validated by shape."""
     out = {}
-    for name, shape in param_shapes(model_name, **model_kwargs).items():
-        key = jax_leaf_name(name)
+    for name, shape in shapes.items():
+        key = jax_leaf_name(name, root)
         if key not in flat:
             raise ValueError(f"model {model_name!r}: checkpoint has no leaf "
                              f"{key}")
         arr = _to_port_layout(np.asarray(flat[key], dtype=np.float32))
-        if arr.shape != shape:
+        if arr.shape != tuple(shape):
             raise ValueError(f"model {model_name!r}: leaf {key} has shape "
                              f"{arr.shape} in the port's layout, expected "
-                             f"{shape}")
+                             f"{tuple(shape)}")
         out[name] = arr
     return out
 

@@ -26,8 +26,8 @@ import torch
 
 from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
 
-__all__ = ["int8_linear", "matmul_i8", "matmul_i8_plain",
-           "quantize_dynamic_i8", "split_k"]
+__all__ = ["abs_peak", "int8_linear", "matmul_i8", "matmul_i8_plain",
+           "quantize_dynamic_i8", "quantize_i8", "rescale_i8", "split_k"]
 
 # The reference writes the scale as ``max|x| / 127.0``; XLA's algebraic
 # simplifier rewrites a divide by a constant into a multiply by the f32
@@ -148,13 +148,32 @@ def matmul_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 matmul_i8.launches = 0
 
 
+def abs_peak(x: torch.Tensor) -> torch.Tensor:
+    """``max(max|x|, 1e-12)`` in float32, a 0-d tensor on ``x``'s device:
+    what a per-tensor scale is taken from. The peak of a tensor split in
+    pieces is the max of the pieces' peaks, bit for bit."""
+    return torch.clamp(x.float().abs().amax(), min=1e-12)
+
+
+def quantize_i8(x: torch.Tensor, peak: torch.Tensor) -> torch.Tensor:
+    """``x`` quantized with the scale of ``peak``: ``clip(round_half_even(
+    x / (peak / 127)), +-127)`` as int8."""
+    scale = peak * _INV_127
+    q = torch.round(x.float() / scale)
+    return q.clamp(-127.0, 127.0).to(torch.int8)
+
+
+def rescale_i8(acc: torch.Tensor, peak_a: torch.Tensor,
+               peak_b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums back to float32: ``acc * ((peak_a * peak_b) *
+    _INV_127_SQ)``."""
+    return acc.float() * ((peak_a * peak_b) * _INV_127_SQ)
+
+
 def _quantize(x: torch.Tensor):
     """``(q_int8, scale, max)`` with ``max = max(max|x|, 1e-12)``."""
-    x = x.float()
-    peak = torch.clamp(x.abs().amax(), min=1e-12)
-    scale = peak * _INV_127
-    q = torch.round(x / scale)
-    return q.clamp(-127.0, 127.0).to(torch.int8), scale, peak
+    peak = abs_peak(x)
+    return quantize_i8(x, peak), peak * _INV_127, peak
 
 
 def quantize_dynamic_i8(x: torch.Tensor):
@@ -169,18 +188,30 @@ def quantize_dynamic_i8(x: torch.Tensor):
 
 
 def int8_linear(x: torch.Tensor, w_kn: torch.Tensor, out_dtype=None,
-                matmul=matmul_i8) -> torch.Tensor:
+                matmul=matmul_i8, *, peaks=None,
+                raw: bool = False) -> torch.Tensor:
     """``(..., K) x (K, N)`` as quantize + int8 product + rescale — the
     counterpart of ``int8_dot_general``'s Dense branch. ``out_dtype``
     defaults to the promoted input dtype (the reference's
     ``result_type(lhs, rhs)``). ``matmul`` picks the int8 product:
     the kernel by default, :func:`matmul_i8_plain` for a reference run on
-    the same device."""
+    the same device.
+
+    A sharded serving engine (``serve/sharded.py``) runs one product per
+    shard of a split Dense: ``peaks=(peak_a, peak_b)`` then gives the
+    peaks of the WHOLE input and weight (:func:`abs_peak` of each piece,
+    maxed), so every shard quantizes with the unsharded scales, and
+    ``raw=True`` returns the exact int32 sums, shaped ``(..., N)``, for
+    the caller to add over the shards and :func:`rescale_i8` once."""
     if out_dtype is None:
         out_dtype = torch.promote_types(x.dtype, w_kn.dtype)
     lead = x.shape[:-1]
-    qa, _, peak_a = _quantize(x.reshape(-1, x.shape[-1]))
-    qb, _, peak_b = _quantize(w_kn)
-    acc = matmul(qa, qb.contiguous())
-    out = acc.float() * ((peak_a * peak_b) * _INV_127_SQ)
+    x2 = x.reshape(-1, x.shape[-1])
+    peak_a, peak_b = peaks if peaks is not None \
+        else (abs_peak(x2), abs_peak(w_kn))
+    acc = matmul(quantize_i8(x2, peak_a),
+                 quantize_i8(w_kn, peak_b).contiguous())
+    if raw:
+        return acc.reshape(*lead, w_kn.shape[-1])
+    out = rescale_i8(acc, peak_a, peak_b)
     return out.reshape(*lead, w_kn.shape[-1]).to(out_dtype)

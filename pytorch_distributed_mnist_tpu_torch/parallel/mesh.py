@@ -35,15 +35,17 @@ JAX package's ``data_replica_coords`` groups them: the loader shards over
 ``data`` alone.
 
 The two-tier ``('dcn', 'ici')`` mesh raises: it waits for ROADMAP Queue 1
-item 16 part 6. Every mesh is on the card unless ``device`` says
-otherwise: with none given, it resolves ``cuda`` and raises when no card
-is visible.
+item 16 part 6. Of that part only :func:`device_slice_map` is here, for
+the serving pool's slice-aligned mesh groups. Every mesh is on the card
+unless ``device`` says otherwise: with none given, it resolves ``cuda``
+and raises when no card is visible.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +62,8 @@ EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
+# Emulated slice map: N contiguous equal blocks of the device order.
+DCN_SLICES_ENV = "TPUMNIST_DCN_SLICES"
 # The axis layouts the JAX CLI builds, in its axis order.
 _LAYOUTS = ((DATA_AXIS,), (DATA_AXIS, EXPERT_AXIS),
             (DATA_AXIS, MODEL_AXIS, SEQ_AXIS), (DATA_AXIS, STAGE_AXIS),
@@ -288,3 +292,39 @@ def make_mesh(axes: Sequence[str] = (DATA_AXIS,),
     group = dist.group.WORLD if dist.is_initialized() else None
     return DataAxis(size=n, rank=process_index(), device=device,
                     group=group)
+
+
+def device_slice_map(devices: Sequence) -> Optional[List[int]]:
+    """Per-device slice of ``devices`` (any subset of the local devices),
+    or None when no slice topology exists: the emulated
+    ``TPUMNIST_DCN_SLICES`` map, ``N`` contiguous equal blocks of the
+    local device order (``utils/device.py::local_devices``), as the JAX
+    package's emulated map cuts the world's device ids. A device's
+    position in that order is its card index; the CPU's slots are one
+    device repeated, so there a device's position in ``devices`` stands
+    for it. Serving orders its mesh groups slice-major with this
+    (``serve/programs.py::partition_groups``) and flags the groups that
+    straddle slices.
+
+    The JAX package reads real ``slice_index`` stamps first; a CUDA
+    device carries none, so that branch has no counterpart here."""
+    from pytorch_distributed_mnist_tpu_torch.utils.device import (
+        local_devices,
+    )
+
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        return None
+    env = os.environ.get(DCN_SLICES_ENV, "")
+    if not env:
+        return None
+    try:
+        n_slices = int(env)
+    except ValueError:
+        return None
+    world = len(local_devices(devs[0].type))
+    if n_slices < 2 or world % n_slices:
+        return None
+    per = world // n_slices
+    return [(d.index if d.index is not None else i) // per
+            for i, d in enumerate(devs)]

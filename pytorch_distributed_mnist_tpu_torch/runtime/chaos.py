@@ -58,6 +58,14 @@ with ``tools/loadgen.py`` and run each scenario beside its no-fault twin
     python -m pytorch_distributed_mnist_tpu_torch.runtime.chaos --serve \
         --device cpu --serve-devices 2 --resize 3,2 --expect-groups 2
 
+    # a pipeline chain dies: the whole chain is quarantined and every
+    # stage regrouped, every request answered (--serve-mode tensor or
+    # expert chaos a sharded plane's mesh group alike)
+    python -m pytorch_distributed_mnist_tpu_torch.runtime.chaos --serve \
+        --device cpu --serve-devices 4 --serve-mode pipeline \
+        --serve-mesh 2 --serve-model vit --serve-fault 0:5 \
+        --expect-groups 2
+
     # every shadow comparison disagrees: the canary rolls back and the
     # f32 baseline answers every request
     python -m pytorch_distributed_mnist_tpu_torch.runtime.chaos --serve \
@@ -387,8 +395,11 @@ def _serve_once(args, injected: bool) -> dict:
         env[CANARY_FAULT_ENV] = "disagree"
     flags = ["--model", args.serve_model, "--buckets", "1,8,32",
              "--serve-devices", str(args.serve_devices),
+             "--serve-mode", args.serve_mode,
              "--quarantine-after", str(args.quarantine_after),
              "--max-wait-ms", "2", "--poll-interval", "1"]
+    if args.serve_mesh:
+        flags += ["--serve-mesh", str(args.serve_mesh)]
     precision = args.serve_precision
     if args.canary_rollback and not precision:
         precision = "bf16"  # the canary needs a quantized plane
@@ -466,7 +477,8 @@ def run_serve_chaos(args) -> int:
     print(json.dumps({"chaos": {
         "serve": {"fault": args.serve_fault, "resize": args.resize_targets,
                   "canary_rollback": args.canary_rollback,
-                  "device": args.device},
+                  "device": args.device, "serve_mode": args.serve_mode,
+                  "serve_mesh": args.serve_mesh},
         "faulted": faulted, "twin": twin, "ok": ok,
         "seconds": time.perf_counter() - t0}}), flush=True)
     return 0 if ok else 1
@@ -1249,6 +1261,14 @@ def main(argv=None) -> int:
                        choices=["cuda", "cpu"],
                        help="the served device (serving and fleet modes)")
     serve.add_argument("--serve-devices", type=int, default=2)
+    serve.add_argument("--serve-mode", type=str, default="replicated",
+                       help="the data plane to chaos (replicated, tensor, "
+                            "expert, pipeline); a pipeline group's death "
+                            "is a whole-chain quarantine and a regroup of "
+                            "every stage")
+    serve.add_argument("--serve-mesh", type=int, default=0,
+                       help="devices per mesh group, stages per pipeline "
+                            "chain (0: the server's default)")
     serve.add_argument("--serve-model", type=str, default="linear")
     serve.add_argument("--serve-precision", type=str, default=None,
                        help="the served plane (the fleet modes: int8 "

@@ -28,6 +28,16 @@ completion thread (``serve/pool.py``). A batch's event waits for its own
 device's stream only; two replicas sharing one card share its stream,
 in the order they enqueued.
 
+A SHARDED engine (``placement=``, a ``serve/programs.py::MeshPlacement``)
+spans a mesh group's devices: its params are one dict per device (each
+split leaf's piece on its device, the rest on the lead, ``devices[0]``),
+the staged batch goes to the lead, the forward is the placement's
+(``serve/sharded.py``: each shard's products on its device, the partial
+sums on the lead) and the float32 logits come back from the lead. The
+engine's ``device`` is then the lead: dispatch runs under it and the
+batch's event is recorded on its stream, after the last copy. Names
+follow ``serve_forward_b{b}@{mode}[.g{i}][.{prec}]``.
+
 The fused plane (the server's default) takes raw uint8 requests: the
 normalize and, on ``int8``, the activation quantization run on the device
 (``serve/programs.py``), so the host's work is one byte copy. Float
@@ -245,6 +255,7 @@ class InferenceEngine:
         device="cuda",
         workers: int = 4,
         warmup_log: Optional[WarmupLog] = None,
+        placement=None,
     ) -> None:
         buckets = sorted({int(b) for b in buckets})
         if not buckets or buckets[0] < 1:
@@ -257,7 +268,11 @@ class InferenceEngine:
         self.workers = int(workers)  # the split plane's host threads
         self.warmup_log = warmup_log if warmup_log is not None \
             else WarmupLog()
-        self.device = resolve_device(device)
+        # The sharded plane: the placement owns where params live and
+        # the forward; the engine runs on its lead device.
+        self.placement = placement
+        self.device = resolve_device(device) if placement is None \
+            else placement.lead
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             # float32 must mean float32: cuDNN would run float32
@@ -268,7 +283,8 @@ class InferenceEngine:
         self.model = model.eval()
         # Evaluation's forward (train/steps.py): serve and eval cannot
         # disagree on the forward's math.
-        self._apply = make_forward_program(self.model)
+        self._apply = make_forward_program(self.model) if placement is None \
+            else placement.make_forward(self.model)
         self._precision_spec = get_precision(precision)
         self.precision = self._precision_spec.name
         self._forward = self._precision_spec.wrap_forward(self._apply)
@@ -291,9 +307,12 @@ class InferenceEngine:
 
     def _place(self, params):
         """Quantize (host-side, per install) and move a params dict to this
-        engine's device. Runs outside the lock, from ``__init__`` and
+        engine's device, or through the placement onto its group's
+        devices. Runs outside the lock, from ``__init__`` and
         ``swap_params``."""
         tree = self._precision_spec.quantize(params)
+        if self.placement is not None:
+            return self.placement.place_params(tree)
         dev = self.device
 
         def put(leaf):
@@ -409,7 +428,9 @@ class InferenceEngine:
                     bucket = self.bucket_for(n)
                     staged = stage_batch(chunk, bucket, pool, buffers,
                                          self.workers)
-                    dev_in = staged.to(self.device, non_blocking=True)
+                    dev_in = staged.to(self.device, non_blocking=True) \
+                        if self.placement is None \
+                        else self.placement.place_input(staged)
                     out = forward(params, dev_in)
                     if self._cuda:
                         host = torch.empty(out.shape, dtype=out.dtype,
@@ -472,17 +493,23 @@ class InferenceEngine:
         return np.argmax(logits, axis=-1), epoch
 
 
-def load_params_for_serving(path: str, model_name: str) -> Tuple[dict, int]:
+def load_params_for_serving(path: str, template) -> Tuple[dict, int]:
     """``(params, epoch)`` from a published checkpoint, in the port's
-    layout for ``model_name`` (name/shape mismatches raise
-    ``ValueError``). ``epoch`` is the file's own ``checkpoint_{e}``
-    index."""
+    layout of ``template``: a model name (the model's own params), or a
+    ``serve/programs.py::ServeTemplate`` (the pipeline plane's split
+    tree). Name and shape mismatches raise ``ValueError``. ``epoch`` is
+    the file's own ``checkpoint_{e}`` index."""
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
-        params_from_jax,
+        params_from_flat,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.programs import (
+        template_of,
     )
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         load_params,
     )
 
+    tpl = template_of(template)
     flat, epoch = load_params(path)
-    return params_from_jax(model_name, flat), epoch
+    return params_from_flat(flat, tpl.shapes, tpl.model_name,
+                            tpl.root), epoch

@@ -1,7 +1,7 @@
-"""The serving data plane over several replicas: one engine per device.
+"""The serving data plane over several replicas: one engine per device, or
+one engine per mesh group.
 
-Counterpart of the replicated mode of
-``pytorch_distributed_mnist_tpu/serve/pool.py``. A single
+Counterpart of ``pytorch_distributed_mnist_tpu/serve/pool.py``. A single
 :class:`~pytorch_distributed_mnist_tpu_torch.serve.engine.InferenceEngine`
 drives one device; the pool owns one :class:`EngineReplica` per device
 (its own model module, params placed there, every bucket warmed) behind a
@@ -46,8 +46,23 @@ layout while the old one serves, swap the replica list atomically, and
 let in-flight batches complete on the engines their handles hold.
 ``topology()`` is what ``/stats`` and ``loadgen --expect-groups`` read.
 
-The sharded and pipeline serve modes of the reference wait for ROADMAP
-Queue 1 item 12; the pool refuses them by name. The reference's
+**Sharded and staged plane** (``serve_mode`` other than replicated): a
+sharded engine spans a mesh, so the pool partitions its devices into
+``mesh_size``-device GROUPS (``serve/programs.py::partition_groups``,
+slice-major under an emulated slice map) and builds one engine per group
+through ``build_group_engine``: a ``tensor`` or ``expert`` group is a
+sharded ``InferenceEngine``, a ``pipeline`` group a chain of stage
+programs (``serve/pipeline.py``). Everything above the engine is
+group-agnostic: least-loaded dispatch picks among groups, quarantine and
+regroup take a WHOLE group or chain (a chain with a dead stage serves
+nothing), the reload fan-out installs the one host-side load per group
+(a pipeline's engines split and quantize it per stage themselves), and
+the names are ``{mode}[.g{i}][.{prec}]`` (``{mode}`` alone when one
+group spans the pool). ``resize(mesh_size=)`` re-shapes the groups; the
+mode itself is fixed at boot. On the card the pool's groups may repeat a
+device (``[cuda:0, cuda:0]``: two shards, or two stages, on one card).
+
+The reference's
 ``fused_staging_retired`` counts donated staging buffers; the port reuses
 its buffers after their copy's event instead of donating them, and the
 pool's observable of the same lifecycle is :meth:`EnginePool.
@@ -70,10 +85,18 @@ from pytorch_distributed_mnist_tpu_torch.serve.engine import (
     _InFlightBatch,
     sum_staging,
 )
+from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+    device_slice_map,
+)
 from pytorch_distributed_mnist_tpu_torch.serve.programs import (
     REPLICATED,
+    build_group_engine,
     get_precision,
+    group_name,
+    partition_groups,
     precision_engine_name,
+    staged_mode,
+    validate_serve_mode,
 )
 from pytorch_distributed_mnist_tpu_torch.utils.device import (
     local_devices,
@@ -118,15 +141,19 @@ class EngineReplica:
     needs one consistent view over every replica. ``generation`` counts
     rebuilds (0 = the boot engine)."""
 
-    __slots__ = ("index", "name", "device", "engine", "pending",
+    __slots__ = ("index", "name", "device", "devices", "engine", "pending",
                  "dispatched", "completed", "failures",
                  "consecutive_failures", "quarantined", "generation")
 
     def __init__(self, index: int, device, engine: InferenceEngine,
-                 name: Optional[str] = None) -> None:
+                 name: Optional[str] = None, devices=None) -> None:
         self.index = index
         self.name = name if name is not None else f"r{index}"
         self.device = device
+        # The engine's whole span: the one device on the replicated
+        # plane, the mesh group (or the chain, stage k on device k) on
+        # the sharded one.
+        self.devices = tuple(devices) if devices is not None else (device,)
         self.engine = engine
         self.pending = 0  # in-flight batches
         self.dispatched = 0  # lifetime batches assigned
@@ -152,12 +179,16 @@ class _PoolHandle:
 
 
 class EnginePool:
-    """N engine replicas over N devices behind a least-loaded dispatcher.
+    """N engine replicas over N devices (or N / mesh_size mesh groups)
+    behind a least-loaded dispatcher.
 
     ``model_factory()`` returns a fresh model module per replica (the
     engine's forward swaps the module's parameters for the length of a
     call, so replicas never share one); ``params`` maps its parameter
-    names to float32 host arrays. ``devices`` defaults to every visible
+    names to float32 host arrays (the pipelined tree under
+    ``serve_mode="pipeline"``). A sharded ``serve_mode`` needs
+    ``model_name`` (the rule tables are per model family) and takes
+    ``mesh_size`` devices per group. ``devices`` defaults to every visible
     card (:func:`~pytorch_distributed_mnist_tpu_torch.utils.device.
     local_devices`); a device may repeat (two replicas sharing one card).
     Every replica of a pool is on one device type.
@@ -179,6 +210,8 @@ class EnginePool:
         params_epoch: Optional[int] = None,
         workers: int = 4,
         serve_mode: str = REPLICATED,
+        mesh_size: int = 1,
+        model_name: Optional[str] = None,
         quarantine_after: int = 3,
         auto_regroup: bool = True,
         regroup_retries: int = 3,
@@ -201,6 +234,9 @@ class EnginePool:
         self.model_factory = model_factory
         self.serve_log = serve_log
         self.serve_mode = serve_mode
+        self.mesh_size = int(mesh_size)
+        self.model_name = model_name
+        self.staged = staged_mode(serve_mode)
         self.device_type = kinds.pop()
         self.input_shape = tuple(input_shape)
         self.workers = workers
@@ -236,36 +272,66 @@ class EnginePool:
         self._failovers = 0
         self._resizing = False
         self.replicas: List[EngineReplica] = self._make_replicas(
-            devices, params, params_epoch)
+            devices, self.mesh_size, params, params_epoch)
         if serve_log is not None:
             serve_log.set_replicas_probe(self.snapshot)
 
-    def _build_engine(self, device, name: str, params,
+    def _build_engine(self, devices: Tuple, name: str, params,
                       params_epoch: Optional[int]) -> InferenceEngine:
-        """One fresh engine on ``device``: the boot layout, a regroup and
-        a resize all build through here."""
+        """One fresh engine over ``devices`` (one device on the
+        replicated plane, a mesh group or a chain on the sharded one):
+        the boot layout, a regroup and a resize all build through here,
+        so they cannot drift."""
+        if self.serve_mode != REPLICATED:
+            return build_group_engine(
+                self.serve_mode, self.model_name, list(devices), params,
+                name, model=self.model_factory(), buckets=self._buckets,
+                input_shape=self.input_shape, serve_log=self.serve_log,
+                params_epoch=params_epoch, workers=self.workers,
+                precision=self.precision, fuse=self.fuse,
+                warmup_log=self.warmup_log)
         return InferenceEngine(
             self.model_factory(), params, buckets=self._buckets,
             input_shape=self.input_shape, serve_log=self.serve_log,
             params_epoch=params_epoch, name=name, precision=self.precision,
-            fuse=self.fuse, device=device, workers=self.workers,
+            fuse=self.fuse, device=devices[0], workers=self.workers,
             warmup_log=self.warmup_log)
 
-    def _make_replicas(self, devices: List, params,
+    def _make_replicas(self, devices: List, mesh_size: int, params,
                        params_epoch: Optional[int]) -> List[EngineReplica]:
         """One generation of replicas over ``devices`` (the boot layout
-        and every :meth:`resize` target)."""
-        if self.serve_mode != REPLICATED:
-            raise ValueError(
-                f"serve_mode {self.serve_mode!r}: the port's pool runs "
-                f"the replicated mode only; the sharded and pipeline "
-                f"serve modes wait for ROADMAP Queue 1 item 12")
+        and every :meth:`resize` target): one per device, or on the
+        sharded plane one per ``mesh_size``-device group.
+        ``serve/programs.py`` owns the validity checks and the group
+        engines, so the pool names no mode."""
         replicas = []
+        if self.serve_mode != REPLICATED:
+            if self.model_name is None:
+                raise ValueError(
+                    f"serve_mode {self.serve_mode!r} needs model_name= "
+                    f"(the mode's rule table is per model family)")
+            validate_serve_mode(self.serve_mode, self.model_name,
+                                mesh_size, params)
+            groups = partition_groups(devices, mesh_size)
+            for i, group in enumerate(groups):
+                name = precision_engine_name(
+                    self.name_prefix
+                    + group_name(self.serve_mode, i, len(groups)),
+                    self.precision)
+                replicas.append(EngineReplica(
+                    i, group[0], self._build_engine(group, name, params,
+                                                    params_epoch),
+                    name=name, devices=group))
+            return replicas
+        if mesh_size != 1:
+            raise ValueError(
+                "replicated serving runs one engine per chip; a "
+                f"{mesh_size}-device mesh needs a sharded serve_mode")
         for i, device in enumerate(devices):
             name = precision_engine_name(f"{self.name_prefix}r{i}",
                                          self.precision)
             replicas.append(EngineReplica(
-                i, device, self._build_engine(device, name, params,
+                i, device, self._build_engine((device,), name, params,
                                               params_epoch), name=name))
         return replicas
 
@@ -335,8 +401,12 @@ class EnginePool:
         if stale:
             return 0
         # Quantize once per publish, not once per replica: an engine's
-        # install-time quantize passes QuantLeaf leaves through.
-        params = self._precision_spec.quantize(params, workers=self.workers)
+        # install-time quantize passes QuantLeaf leaves through. A staged
+        # mode's engines quantize per stage slice after splitting (the
+        # split runs on the float32 tree), so they get the raw tree.
+        if not self.staged:
+            params = self._precision_spec.quantize(params,
+                                                   workers=self.workers)
         installed = 0
         for replica in replicas:
             if replica.engine.swap_params(params, epoch=epoch, path=path):
@@ -488,7 +558,7 @@ class EnginePool:
                 with self._lock:
                     params = self._params_host
                     epoch = self._params_host_epoch
-                engine = self._build_engine(replica.device, replica.name,
+                engine = self._build_engine(replica.devices, replica.name,
                                             params, epoch)
                 engine.warmup()
             except BaseException as exc:  # noqa: BLE001 - retried, never fatal
@@ -517,8 +587,9 @@ class EnginePool:
             # the stale-refusing swap makes this catch-up idempotent.
             engine.swap_params(params, epoch=epoch)
             print(f"serve pool: REGROUPED {replica.name} (generation "
-                  f"{generation}) on {replica.device}; back in dispatch",
-                  flush=True)
+                  f"{generation}) from its {len(replica.devices)} "
+                  f"device(s) {[str(d) for d in replica.devices]}; back "
+                  f"in dispatch", flush=True)
             if self.serve_log is not None:
                 self.serve_log.record_pool_event(
                     "serve_regroup", group=replica.name,
@@ -534,15 +605,17 @@ class EnginePool:
     def resize(self, n_devices: Optional[int] = None,
                mesh_size: Optional[int] = None,
                devices: Optional[Sequence] = None) -> dict:
-        """Re-shape the pool under live traffic to ``n_devices`` replicas
+        """Re-shape the pool under live traffic to ``n_devices`` devices
         (0: every local device) over ``devices`` (default: the local
-        devices of the pool's type). The new layout is built and warmed
+        devices of the pool's type), and on the sharded plane to
+        ``mesh_size`` devices per group (0: one group over all of them;
+        it must divide ``n_devices``). The new layout is built and warmed
         while the old one serves; the swap is one atomic replica-list
         install; in-flight batches complete on the old engines their
         handles hold. Returns ``{"old": topology, "new": topology}``. One
-        resize at a time (a concurrent call raises ``RuntimeError``);
-        ``mesh_size`` other than 1 is refused: the replicated pool has no
-        mesh."""
+        resize at a time (a concurrent call raises ``RuntimeError``); the
+        replicated pool has no mesh (``mesh_size`` other than 1 is
+        refused), and the serve mode is fixed at boot."""
         with self._lock:
             if self._resizing:
                 raise RuntimeError("a resize is already in progress")
@@ -560,19 +633,34 @@ class EnginePool:
                 raise ValueError(
                     f"resize to {n} device(s): this host has "
                     f"{len(local)} local device(s)")
-            if mesh_size is not None and int(mesh_size) not in (0, 1):
-                raise ValueError(
-                    "replicated serving has no mesh to resize; "
-                    "serve_mesh must stay 1")
+            mesh = self.mesh_size if mesh_size is None else int(mesh_size)
+            if self.serve_mode != REPLICATED:
+                if mesh == 0:
+                    mesh = n
+                if n % mesh:
+                    raise ValueError(
+                        f"serve_mesh {mesh} must divide serve_devices "
+                        f"{n} (the pool runs one spanning engine per "
+                        f"mesh group)")
+                validate_serve_mode(self.serve_mode, self.model_name,
+                                    mesh, params)
+            else:
+                if mesh not in (0, 1):
+                    raise ValueError(
+                        "replicated serving has no mesh to resize; "
+                        "serve_mesh must stay 1")
+                mesh = 1
             if {d.type for d in local[:n]} != {self.device_type}:
                 raise ValueError(
                     f"resize onto {[str(d) for d in local[:n]]}: this "
                     f"pool's replicas are on {self.device_type}")
-            new_replicas = self._make_replicas(local[:n], params, epoch)
+            new_replicas = self._make_replicas(local[:n], mesh, params,
+                                               epoch)
             self._warm(new_replicas)
             with self._lock:
                 self.replicas = new_replicas
                 self.n_devices = n
+                self.mesh_size = mesh
                 self._topology_generation += 1
                 # The injection targets the BOOT layout only.
                 self._injected_fault = None
@@ -582,8 +670,9 @@ class EnginePool:
             # Latest-params catch-up, as in a regroup.
             for replica in new_replicas:
                 replica.engine.swap_params(params, epoch=epoch)
-            print(f"serve pool: RESIZED {old['groups']} -> {new['groups']} "
-                  f"replica(s) (topology generation "
+            print(f"serve pool: RESIZED {old['groups']} group(s) x "
+                  f"{old['mesh_devices']} -> {new['groups']} group(s) x "
+                  f"{new['mesh_devices']} (topology generation "
                   f"{new['topology_generation']}); in-flight batches "
                   f"drain on the old engines", flush=True)
             if self.serve_log is not None:
@@ -598,19 +687,37 @@ class EnginePool:
 
     def _topology_locked(self) -> dict:
         quarantined = [r.name for r in self.replicas if r.quarantined]
-        return {
+        topo = {
             "topology_generation": self._topology_generation,
             "serve_mode": self.serve_mode,
             "serve_precision": self.precision,
             "fused": self.fuse,
             "serve_devices": self.n_devices,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh_size,
             "groups": len(self.replicas),
             "active_groups": len(self.replicas) - len(quarantined),
             "quarantined_groups": quarantined,
             "regroups": self._regroups,
             "failovers": self._failovers,
         }
+        if self.staged:
+            # A staged group is a chain of this many stage programs.
+            topo["pipeline_stages"] = self.mesh_size
+        if self.serve_mode != REPLICATED:
+            # Present only under a slice map: the groups whose devices
+            # straddle slices (partition_groups keeps a group in one
+            # slice whenever the mesh size fits).
+            straddling = None
+            for r in self.replicas:
+                smap = device_slice_map(r.devices)
+                if smap is None:
+                    continue
+                straddling = [] if straddling is None else straddling
+                if len(set(smap)) > 1:
+                    straddling.append(r.name)
+            if straddling is not None:
+                topo["slice_straddling_groups"] = straddling
+        return topo
 
     def topology(self) -> dict:
         """The pool's shape and self-healing counters: the ``/stats``
@@ -627,9 +734,11 @@ class EnginePool:
 
     def snapshot(self) -> dict:
         """Per-replica rows for ``/stats`` and the JSONL sink: device,
-        serving epoch, in-flight and lifetime dispatch counts; the health
-        fields (``quarantined``, ``generation``, ``failures``) appear only
-        once they are true or nonzero."""
+        serving epoch, in-flight and lifetime dispatch counts; a sharded
+        group's row also carries the mode and its devices (a chain's, its
+        stage count); the health fields (``quarantined``, ``generation``,
+        ``failures``) appear only once they are true or nonzero."""
+        sharded = self.serve_mode != REPLICATED
         with self._lock:
             rows = {}
             replicas = list(self.replicas)
@@ -637,6 +746,11 @@ class EnginePool:
                 row = {"device": str(r.device),
                        "pending": r.pending,
                        "dispatched": r.dispatched}
+                if sharded:
+                    row["mode"] = self.serve_mode
+                    row["devices"] = [str(d) for d in r.devices]
+                    if self.staged:
+                        row["stages"] = len(r.devices)
                 if r.quarantined:
                     row["quarantined"] = True
                 if r.generation:

@@ -15,9 +15,12 @@ The watcher polls on its own daemon thread, loads the newest file through
 checkpoint of another model aborts the reload, not the server), and hands
 the params to ``on_params`` — the engine's ``swap_params``, an atomic
 reference swap, so the in-flight batch finishes on the old params and the
-next one sees the new. Failures are contained: a corrupt or vanished
-checkpoint is recorded (``serve_reload_failed`` in the stats/JSONL
-stream) and the server keeps answering on the params it has.
+next one sees the new. The callback owns the fan-out: per replica or
+mesh group on a pool, per STAGE inside a pipeline chain (all stages under
+one lock, so no batch spans two epochs), to both planes of a canary.
+Failures are contained: a corrupt or vanished checkpoint is recorded
+(``serve_reload_failed`` in the stats/JSONL stream) and the server keeps
+answering on the params it has.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ from pytorch_distributed_mnist_tpu_torch.train.checkpoint import latest_checkpoi
 class CheckpointWatcher:
     """Polls ``directory`` and hands newly published params to ``on_params``.
 
-    ``template`` is what the loader restores onto: the model name for the
-    default ``load_params_for_serving``.
+    ``template`` is what the loader restores onto, per serve mode
+    (``serve/programs.py::make_serve_template``): the model name (the
+    model's own params), or the pipeline plane's ``ServeTemplate`` of the
+    stage-stacked split tree, which its engines split by stage
+    themselves.
 
     ``on_params(params, epoch, path)`` runs on the watcher thread and must
     be cheap + thread-safe (the engine's ``swap_params`` is both). A

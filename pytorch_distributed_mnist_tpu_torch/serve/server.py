@@ -1,7 +1,6 @@
 """The ``serve`` subcommand: a stdlib HTTP JSON inference endpoint.
 
-Counterpart of ``pytorch_distributed_mnist_tpu/serve/server.py`` in its
-replicated mode.
+Counterpart of ``pytorch_distributed_mnist_tpu/serve/server.py``.
 ``python -m pytorch_distributed_mnist_tpu_torch serve --checkpoint-dir ckpt
 --model cnn --serve-precision int8`` boots: the model, the newest
 published checkpoint (or seeded fresh params with a loud warning), the
@@ -28,6 +27,17 @@ The data plane of one process at full breadth:
   visible cards; under ``--device cpu`` up to
   :data:`~pytorch_distributed_mnist_tpu_torch.utils.device.CPU_SLOTS`
   replicas share the host.
+- ``--serve-mode tensor|expert|pipeline`` with ``--serve-mesh M`` (0: one
+  group over every serve device) serves a model sharded over M-device
+  mesh groups, one engine per group (``serve/programs.py``): the
+  Megatron ViT (``tensor``), the expert-parallel ``moe_mlp``
+  (``expert``), or a chain of M per-device stage programs with batches
+  streamed along it (``pipeline``, ``serve/pipeline.py``; the mode a
+  pipeline-trained checkpoint serves under). The layout gate refuses a
+  checkpoint whose training layout names another mode, at boot and at
+  every reload. On one card the CLI runs ``--serve-mesh 1``; groups of
+  several devices on one card are built through the API
+  (``EnginePool(..., devices=[cuda:0, cuda:0], serve_mode=...)``).
 - ``--canary-fraction`` puts the f32 baseline in front and shadows that
   fraction of batches on the ``--serve-precision`` plane
   (:class:`~pytorch_distributed_mnist_tpu_torch.serve.canary.
@@ -62,9 +72,10 @@ batchers' workers, which own device submission):
   ``failovers``) and one row per replica, a canary its ``canary`` block,
   the autoscaler its ``autoscaler`` block, and a multi-model server one
   ``models`` block per plane and the ``fair_dispatch`` block.
-- ``POST /resize`` — ``{"serve_devices": N, "model": ...?}`` re-shapes a
-  plane's pool under live traffic with zero dropped requests (refused
-  without a pool and under a canary).
+- ``POST /resize`` — ``{"serve_devices": N, "serve_mesh": M, "model":
+  ...?}`` re-shapes a plane's pool (its mesh groups on a sharded plane)
+  under live traffic with zero dropped requests (refused without a pool
+  and under a canary).
 - ``POST /drain`` — ``{"drain": true|false}`` closes/reopens /predict
   admission (503 + Retry-After) while in-flight requests complete.
 - ``GET /chunks/<sha256>`` — the gossip plane of delta distribution: one
@@ -88,9 +99,8 @@ are warm, removed while draining and on shutdown. ``/healthz`` carries
 what the router reads of a backend: ``model_epoch``, ``model`` (or
 ``models`` per plane) and ``draining``.
 
-Not ported yet: the sharded and pipeline serve modes (``--serve-mode``,
-``--serve-mesh``: ROADMAP Queue 1 item 12). Their flags are absent from
-the parser rather than accepted and ignored.
+The parser equals the reference's, flag for flag, with ``--device``
+added.
 """
 
 from __future__ import annotations
@@ -137,7 +147,9 @@ from pytorch_distributed_mnist_tpu_torch.serve.engine import (
 from pytorch_distributed_mnist_tpu_torch.serve.programs import (
     REPLICATED,
     precision_engine_name,
+    serve_modes,
     serve_precisions,
+    staged_mode,
 )
 from pytorch_distributed_mnist_tpu_torch.serve.reload import CheckpointWatcher
 from pytorch_distributed_mnist_tpu_torch.utils.device import CPU_SLOTS
@@ -198,6 +210,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "visible cards; under --device cpu, up to "
                         f"{CPU_SLOTS} replicas sharing the host. Default 1 "
                         "is the single-device data plane")
+    # choices read the live registry when the parser is built, so a mode
+    # added through register_serve_mode is accepted.
+    p.add_argument("--serve-mode", type=str, default="replicated",
+                   choices=serve_modes(),
+                   help="how one forward spans devices: 'replicated' runs "
+                        "the whole model per device (default, every "
+                        "model); 'tensor' Megatron-shards the ViT weights "
+                        "over a mesh group (parallel/tensor.py rules); "
+                        "'expert' shards moe_mlp's experts "
+                        "(parallel/expert.py); 'pipeline' runs one stage "
+                        "program per device and streams batches along the "
+                        "chain (serve/pipeline.py; the mode "
+                        "pipeline-trained checkpoints serve under)")
+    p.add_argument("--serve-mesh", type=int, default=0,
+                   help="devices per serving mesh group for the sharded "
+                        "modes (for --serve-mode pipeline, the STAGE count "
+                        "per chain); 0 = all --serve-devices in ONE group. "
+                        "Must divide --serve-devices; the pool then runs "
+                        "one spanning engine per group. Ignored (must be "
+                        "left 0) in replicated mode")
     p.add_argument("--serve-precision", type=str, default="f32",
                    choices=serve_precisions(),
                    help="'f32' (default); 'bf16' stores weights bfloat16; "
@@ -430,6 +462,7 @@ class ServeContext:
     def __init__(self, planes, default_model: str, sink,
                  max_request_images: int = 1024, max_inflight: int = 1,
                  serve_precision: str = "f32", quotas=None,
+                 serve_mode: str = REPLICATED,
                  fair_gate=None, fused: bool = True, cache=None,
                  price_admission: bool = False) -> None:
         self.planes = planes
@@ -437,7 +470,7 @@ class ServeContext:
         self.sink = sink
         self.max_request_images = max_request_images
         self.max_inflight = max_inflight
-        self.serve_mode = REPLICATED
+        self.serve_mode = serve_mode
         self.serve_precision = serve_precision
         self.quotas = quotas
         self.fair_gate = fair_gate
@@ -630,6 +663,16 @@ class _Handler(BaseHTTPRequestHandler):
             for key in ("topology_generation", "groups", "active_groups",
                         "quarantined_groups", "regroups", "failovers"):
                 stats[key] = topo[key]
+            if ctx.serve_mode != REPLICATED:
+                # The mesh shape of the sharded plane (loadgen's report
+                # and --expect-mode read these).
+                stats["mesh_devices"] = plane.pool.mesh_size
+                stats["mesh_groups"] = plane.pool.n_replicas
+            if "pipeline_stages" in topo:
+                stats["pipeline_stages"] = topo["pipeline_stages"]
+            if "slice_straddling_groups" in topo:
+                stats["slice_straddling_groups"] = \
+                    topo["slice_straddling_groups"]
         return stats
 
     def _stats(self) -> dict:
@@ -1043,14 +1086,18 @@ def _parse_watermarks(spec: Optional[str]) -> ShedPolicy:
         raise SystemExit(f"--shed-watermarks: {exc}") from None
 
 
-def _restore(args, model_name: str, checkpoint_dir: str, loader):
+def _restore(args, model_name: str, checkpoint_dir: str, loader,
+             serve_mode: str, template):
     """Boot restore, newest -> oldest, each checkpoint through ``loader``
-    (the delta fetcher's: a manifest's chunks may come from peers): one
-    corrupt or mismatched latest checkpoint must not turn a restart into
-    an outage. Returns ``(path, params, epoch)``; seeded fresh params
-    (path and epoch None) when nothing is loadable, unless
+    (the delta fetcher's: a manifest's chunks may come from peers) onto
+    the serve mode's ``template``: one corrupt or mismatched latest
+    checkpoint must not turn a restart into an outage. The layout gate
+    runs per candidate, before the load: a checkpoint trained for
+    another serve mode is skipped, and only when such mismatches are the
+    sole reason nothing is servable does the boot fail, naming the valid
+    ``--serve-mode``. Returns ``(path, params, epoch)``; seeded fresh
+    params (path and epoch None) when nothing is loadable, unless
     ``--require-checkpoint``."""
-    from pytorch_distributed_mnist_tpu_torch.models.convert import init_params
     from pytorch_distributed_mnist_tpu_torch.serve.programs import (
         check_checkpoint_layout,
     )
@@ -1066,7 +1113,7 @@ def _restore(args, model_name: str, checkpoint_dir: str, loader):
                 layout = checkpoint_parallel_layout(candidate)
             except Exception:  # noqa: BLE001 - let the load classify it
                 layout = None
-            check_checkpoint_layout(layout, REPLICATED, model_name)
+            check_checkpoint_layout(layout, serve_mode, model_name)
         except ValueError as exc:
             if layout_rejection is None:
                 layout_rejection = (candidate, str(exc))
@@ -1074,7 +1121,7 @@ def _restore(args, model_name: str, checkpoint_dir: str, loader):
                   f"({exc}); trying the next-older epoch", flush=True)
             continue
         try:
-            params, epoch = loader(candidate, model_name)
+            params, epoch = loader(candidate, template)
         except Exception as exc:  # noqa: BLE001 - keep walking older epochs
             print(f"WARNING: cannot serve checkpoint {candidate!r} "
                   f"({exc!r}); trying the next-older epoch", flush=True)
@@ -1091,7 +1138,7 @@ def _restore(args, model_name: str, checkpoint_dir: str, loader):
     print(f"WARNING: no loadable checkpoint in {checkpoint_dir!r}; "
           f"serving fresh params (seed {args.seed}) until one is "
           f"published", flush=True)
-    return None, init_params(model_name, args.seed), None
+    return None, template.fresh(args.seed), None
 
 
 def _build_plane(args, model_name: str, checkpoint_dir: str, *,
@@ -1116,6 +1163,8 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
     from pytorch_distributed_mnist_tpu_torch.serve.programs import (
         check_checkpoint_layout,
         get_precision,
+        make_serve_template,
+        validate_serve_mode,
     )
     from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
         checkpoint_parallel_layout,
@@ -1125,6 +1174,26 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
     device, devices = shape["device"], shape["devices"]
     n_devices, pooled = shape["n_devices"], shape["pooled"]
     max_inflight = shape["max_inflight"]
+    serve_mode, mesh_size = shape["serve_mode"], shape["mesh_size"]
+    sharded, n_groups = shape["sharded"], shape["n_groups"]
+    if sharded:
+        try:
+            # The mode/model pair first: a mode's template hook assumes
+            # its model family (the pipeline splits block layers), so an
+            # unservable pair dies here with flag language.
+            validate_serve_mode(serve_mode, model_name, 1)
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+    template = make_serve_template(serve_mode, model_name)
+    try:
+        # One rule source: a mesh on the replicated plane, a mode without
+        # a rule table for the model, a split weight dim the mesh does
+        # not divide (the template's shapes are every loadable
+        # checkpoint's) all fail here, before any engine is built.
+        validate_serve_mode(serve_mode, model_name, mesh_size,
+                            template if sharded else None)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
     precision = args.serve_precision
     canary_fraction = float(args.canary_fraction or 0.0)
     fuse = not args.no_fuse
@@ -1150,16 +1219,19 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
         return functools.partial(get_model, model_name, **kwargs)
 
     # The delta-distribution loader, at boot and for every reload. It
-    # quantizes in the fetcher only when one plane owns its output: a
-    # canary's f32 baseline must never receive quantized leaves.
+    # quantizes in the fetcher only when one plane owns its output (a
+    # canary's f32 baseline must never receive quantized leaves) and the
+    # engines take whole quantized leaves (a pipeline's quantize per
+    # stage slice).
     fetcher = DeltaFetcher(
         checkpoint_dir,
-        precision=get_precision(precision) if not canary_fraction else None,
+        precision=get_precision(precision)
+        if not canary_fraction and not staged_mode(serve_mode) else None,
         peers=[u.strip() for u in (args.chunk_peers or "").split(",")
                if u.strip()],
         source_dir=args.chunk_source, workers=args.workers)
     boot_path, params, epoch = _restore(args, model_name, checkpoint_dir,
-                                        fetcher.load)
+                                        fetcher.load, serve_mode, template)
     serve_log = ServeLog(window_s=args.stats_window_s)
     if sink is not None:
         serve_log.set_sink(
@@ -1177,7 +1249,8 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
             return EnginePool(
                 factory, params, devices=devices[:n_devices],
                 buckets=buckets, serve_log=serve_log, params_epoch=epoch,
-                workers=args.workers,
+                workers=args.workers, serve_mode=serve_mode,
+                mesh_size=mesh_size, model_name=model_name,
                 quarantine_after=args.quarantine_after,
                 precision=plane_precision, name_prefix=name_prefix,
                 fuse=fuse, warmup_log=warmup_log)
@@ -1258,7 +1331,15 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
                      f"{args.canary_budget})")
     elif precision != "f32":
         words.append(precision)
-    if pooled:
+    if sharded and staged_mode(serve_mode):
+        words.append(f"{serve_mode} chain(s): {n_groups} x {mesh_size} "
+                     f"per-device stage programs, in-flight window "
+                     f"{max_inflight},")
+    elif sharded:
+        words.append(f"{serve_mode}-sharded: {n_groups} mesh group(s) x "
+                     f"{mesh_size} device(s), in-flight window "
+                     f"{max_inflight},")
+    elif pooled:
         words.append(f"{n_devices} replica(s), in-flight window "
                      f"{max_inflight},")
     if fuse:
@@ -1272,13 +1353,16 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
     watcher = None
     if not args.no_reload:
         def _validate_reload(path: str) -> None:
+            # The boot's layout gate, per reload: a checkpoint published
+            # under a mismatched training layout is skipped for good.
             check_checkpoint_layout(checkpoint_parallel_layout(path),
-                                    REPLICATED, model_name)
+                                    serve_mode, model_name)
 
         # A pool or canary's swap_params is the fan-out: one host-side
-        # load, an atomic and stale-refusing install per replica.
+        # load, an atomic and stale-refusing install per replica (per
+        # stage inside a chain).
         watcher = CheckpointWatcher(
-            checkpoint_dir, model_name, engine.swap_params,
+            checkpoint_dir, template, engine.swap_params,
             poll_interval_s=args.poll_interval, serve_log=serve_log,
             current_path=boot_path, validate_fn=_validate_reload,
             loader=fetcher.load,
@@ -1287,15 +1371,20 @@ def _build_plane(args, model_name: str, checkpoint_dir: str, *,
     autoscaler = None
     if args.autoscale:
         # The SLO loop over this plane's pool: its rolling-window p95 and
-        # queue depth in, its resize out, one replica a step. Validated
-        # in create_server before any plane was built.
-        max_devices = args.autoscale_max_devices or len(devices)
+        # queue depth in, its resize out. Validated in create_server
+        # before any plane was built. On a sharded pool a step is one
+        # whole mesh group (resize requires serve_mesh | serve_devices).
+        max_devices = args.autoscale_max_devices or \
+            (len(devices) - len(devices) % mesh_size)
         queue_high = max(1, int(args.autoscale_queue_high * args.max_queue))
+        min_devices = args.autoscale_min_devices
+        if sharded:
+            min_devices = max(min_devices, mesh_size)
         autoscaler = AutoScaler(
             pool, serve_log.window_stats, slo_p95_ms=args.slo_p95_ms,
             queue_high=queue_high,
-            min_devices=args.autoscale_min_devices,
-            max_devices=max_devices,
+            min_devices=min_devices,
+            max_devices=max_devices, step=mesh_size,
             interval_s=args.autoscale_interval_s,
             cooldown_s=args.autoscale_cooldown_s,
             down_after=args.autoscale_down_after,
@@ -1355,15 +1444,42 @@ def create_server(args) -> ThreadingHTTPServer:
     if n_devices < 0 or n_devices > len(devices):
         raise SystemExit(f"--serve-devices {n_devices}: this host has "
                          f"{len(devices)} local device(s)")
+    # --serve-mode decides how one forward spans the devices: whole per
+    # device (replicated), sharded over --serve-mesh-device groups, or a
+    # chain of per-device stage programs.
+    serve_mode, serve_mesh = args.serve_mode, args.serve_mesh
+    sharded = serve_mode != REPLICATED
+    mesh_size = 1
+    if sharded:
+        mesh_size = serve_mesh or n_devices
+        if n_devices % mesh_size:
+            raise SystemExit(
+                f"--serve-mesh {mesh_size} must divide --serve-devices "
+                f"{n_devices} (the pool runs one spanning engine per "
+                f"mesh group)")
+    elif serve_mesh not in (0, 1):
+        mesh_size = serve_mesh  # refused by the per-plane validation
     max_inflight = args.max_inflight
     if max_inflight < 0:
         raise SystemExit(f"--max-inflight {max_inflight}: must be >= 0")
+    n_groups = n_devices // mesh_size
     if max_inflight == 0:
-        # One in-flight batch per replica plus one forming.
-        max_inflight = n_devices + 1 if n_devices > 1 else 1
-    pooled = n_devices > 1 or max_inflight > 1
+        # One in-flight batch per engine plus one forming. A single
+        # sharded group still gets 2 (staging batch N+1 overlaps the
+        # group running batch N); a chain needs at least S batches in
+        # flight before every stage is busy, so a staged mode's window
+        # sizes per device.
+        if sharded and staged_mode(serve_mode):
+            max_inflight = n_devices + 1
+        elif sharded:
+            max_inflight = n_groups + 1
+        else:
+            max_inflight = n_devices + 1 if n_devices > 1 else 1
+    pooled = n_devices > 1 or max_inflight > 1 or sharded
     shape = {"device": device, "devices": devices, "n_devices": n_devices,
-             "max_inflight": max_inflight, "pooled": pooled}
+             "max_inflight": max_inflight, "pooled": pooled,
+             "serve_mode": serve_mode, "mesh_size": mesh_size,
+             "sharded": sharded, "n_groups": n_groups}
 
     # Control-plane flags, validated before any plane is built, so a bad
     # flag dies in milliseconds, not after the warm-ups.
@@ -1416,6 +1532,21 @@ def create_server(args) -> ThreadingHTTPServer:
             raise SystemExit(
                 f"--autoscale-max-devices {max_dev}: this host has "
                 f"{len(devices)} local device(s)")
+        if sharded:
+            # The sharded pool scales by whole mesh groups: bounds that
+            # are not mesh multiples would make every actuation a
+            # refused resize.
+            min_dev = args.autoscale_min_devices
+            if min_dev > 1 and min_dev % mesh_size:
+                raise SystemExit(
+                    f"--autoscale-min-devices {min_dev}: the sharded "
+                    f"pool scales by whole {mesh_size}-device mesh "
+                    f"groups; pass a multiple of --serve-mesh")
+            if max_dev and max_dev % mesh_size:
+                raise SystemExit(
+                    f"--autoscale-max-devices {max_dev}: the sharded "
+                    f"pool scales by whole {mesh_size}-device mesh "
+                    f"groups; pass a multiple of --serve-mesh")
     fair_gate = None
     if multi_model:
         try:
@@ -1451,7 +1582,7 @@ def create_server(args) -> ThreadingHTTPServer:
         planes, next(iter(model_dirs)), sink,
         max_request_images=args.max_request_images,
         max_inflight=max_inflight, serve_precision=args.serve_precision,
-        quotas=quotas, fair_gate=fair_gate, fused=not args.no_fuse,
+        serve_mode=serve_mode, quotas=quotas, fair_gate=fair_gate, fused=not args.no_fuse,
         cache=resp_cache if resp_cache.enabled else None,
         price_admission=args.price_admission)
     if args.register_dir:

@@ -66,5 +66,8 @@ def test_the_ported_modules_keep_their_counterparts_paths():
                 "parallel.tensor", "parallel.zero", "parallel.zero_overlap",
                 "parallel.ring", "parallel.ulysses", "parallel.pipeline_tp",
                 "parallel.pipeline", "parallel.pipeline_vit",
-                "parallel.split_tree"):
+                "parallel.split_tree", "serve.pipeline"):
         assert f"{port.__name__}.{rel}" in names, rel
+    # The sharded serving forward has no counterpart module in the JAX
+    # package (XLA partitions its one program there).
+    assert f"{port.__name__}.serve.sharded" in names

@@ -719,16 +719,61 @@ def test_the_port_pp_checkpoint_resumes_in_jax(world, layout):
 
 
 def test_serving_refuses_a_pipeline_checkpoint_by_name(world):
-    """Until MPMD pipeline serving (ROADMAP Queue 1 item 12), the serve
-    gate refuses a pipeline-trained checkpoint, naming its S."""
+    """The serve gate refuses the world's pipeline-trained checkpoint
+    under ``replicated``, naming its S and ``--serve-mode pipeline`` in
+    the JAX words; under ``pipeline`` it passes, loads onto the split
+    tree (the depth-4 ViT's) and a chain of 2 stages answers as the
+    one-device engine on the merged params."""
+    from pytorch_distributed_mnist_tpu.serve.programs import (
+        check_checkpoint_layout as jax_check,
+    )
+    from pytorch_distributed_mnist_tpu_torch.models.convert import (
+        param_shapes,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.engine import (
+        InferenceEngine,
+        load_params_for_serving,
+    )
+    from pytorch_distributed_mnist_tpu_torch.serve.pipeline import (
+        PipelineEngine,
+    )
     from pytorch_distributed_mnist_tpu_torch.serve.programs import (
+        ServeTemplate,
         check_checkpoint_layout,
     )
 
     path = port_ckpt.latest_checkpoint(str(world["root"] / "npz"))
-    with pytest.raises(ValueError, match="pipeline-parallel 4"):
-        check_checkpoint_layout(port_ckpt.checkpoint_parallel_layout(path),
-                                "replicated", "vit")
+    layout = port_ckpt.checkpoint_parallel_layout(path)
+    with pytest.raises(ValueError, match="pipeline-parallel 4") as port_err:
+        check_checkpoint_layout(layout, "replicated", "vit")
+    with pytest.raises(ValueError) as jax_err:
+        jax_check(layout, "replicated", "vit")
+    assert str(port_err.value) == str(jax_err.value)
+    check_checkpoint_layout(layout, "pipeline", "vit")
+    whole = {n: np.zeros(s, np.float32)
+             for n, s in param_shapes("vit", depth=4).items()}
+    template = ServeTemplate("vit", {n: v.shape for n, v in
+                                     split_vit_params(whole).items()},
+                             root="", split=True)
+    params, _ = load_params_for_serving(path, template)
+    images = np.random.default_rng(7).integers(
+        0, 256, (8, 28, 28)).astype(np.uint8)
+    chain = PipelineEngine(
+        get_model("vit", compute_dtype=torch.float32, depth=4), params,
+        [CPU, CPU], buckets=(8,), fuse=True)
+    one = InferenceEngine(
+        get_model("vit", compute_dtype=torch.float32, depth=4),
+        merge_vit_params(params), buckets=(8,), fuse=True, device="cpu")
+    # One intra-op thread: with more, a loaded host can change the CPU
+    # GEMMs' summation from call to call; with one the chain is the
+    # one-device forward's ops on the same values.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got, want = chain.logits(images), one.logits(images)
+    finally:
+        torch.set_num_threads(threads)
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("layout", ["npz", "sharded", "delta"])

@@ -584,12 +584,48 @@ def test_injected_fault_fires_quarantines_and_heals(setup, monkeypatch):
     assert pool.topology()["quarantined_groups"] == []
 
 
+_MODE_MODEL = {"tensor": "vit", "expert": "moe_mlp", "pipeline": "vit"}
+
+
 @pytest.mark.parametrize("mode", ["tensor", "expert", "pipeline"])
 def test_sharded_serve_modes_are_refused_by_name(setup, mode):
-    """The reference's sharded and pipeline pools (its chain-quarantine
-    cases) have no port yet: the pool refuses them naming the item."""
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 12"):
-        EnginePool(_linear, setup[0], devices=_cpus(2), serve_mode=mode)
+    """Each sharded mode builds a pool of one 2-device group over its
+    model that answers like the replicated engine (argmax; the logits
+    within the float32 reassociation of the partial sums), and refuses a
+    model it has no rule table for with the reference's words, the
+    servable modes named (``--serve-mode expert --model vit``, ``tensor``
+    or ``pipeline`` with ``moe_mlp``)."""
+    from pytorch_distributed_mnist_tpu.serve.programs import (
+        validate_serve_mode as jax_validate,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.pipeline_vit import (
+        split_vit_params,
+    )
+
+    model_name = _MODE_MODEL[mode]
+    images = setup[1][:5]
+    params = init_params(model_name, 0)
+    factory = functools.partial(get_model, model_name,
+                                compute_dtype=torch.float32)
+    want = InferenceEngine(factory(), params, buckets=(8,),
+                           device="cpu").logits(images)
+    served = split_vit_params(params) if mode == "pipeline" else params
+    pool = EnginePool(factory, served, devices=_cpus(2), buckets=(8,),
+                      serve_mode=mode, mesh_size=2, model_name=model_name)
+    assert [r.name for r in pool.replicas] == [mode]
+    assert pool.topology()["mesh_devices"] == 2
+    got, _ = pool.complete(pool.dispatch(pool.preprocess(images)))
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+    assert np.array_equal(got.argmax(-1), want.argmax(-1))
+    other = "vit" if model_name == "moe_mlp" else "moe_mlp"
+    with pytest.raises(ValueError) as port_err:
+        EnginePool(functools.partial(get_model, other), init_params(other, 0),
+                   devices=_cpus(2), serve_mode=mode, mesh_size=2,
+                   model_name=other)
+    with pytest.raises(ValueError) as jax_err:
+        jax_validate(mode, other, 2)
+    assert str(port_err.value) == str(jax_err.value)
+    assert "no sharding rule table" in str(port_err.value)
 
 
 # -- the port's own: devices, modules, device scoping -------------------------

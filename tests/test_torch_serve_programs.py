@@ -85,7 +85,8 @@ def test_dequantize_params_bitwise():
 
 def test_precision_registry_and_names():
     assert port.serve_precisions() == ref.serve_precisions()
-    assert port.serve_modes() == ["replicated"]
+    assert port.serve_modes() == ref.serve_modes() == [
+        "replicated", "expert", "pipeline", "tensor"]
     for name in (None, "f32", "bf16", "int8"):
         assert port.precision_engine_name(None, name) == \
             ref.precision_engine_name(None, name)

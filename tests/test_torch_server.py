@@ -147,16 +147,38 @@ def test_boot_without_checkpoint(tmp_path, capsys):
         srv.close()
 
 
+def _flags(parser) -> dict:
+    return {a.option_strings[-1] if a.option_strings else a.dest:
+            (a.default, a.choices, a.nargs, type(a).__name__)
+            for a in parser._actions}
+
+
 def test_parser_leaves_out_unported_flags_and_defaults_to_cuda():
+    """The serve parser is the reference's flag for flag (every flag, its
+    default and its choices, ``--serve-mode`` and ``--serve-mesh`` too),
+    with ``--device`` (default ``cuda``) added."""
+    from pytorch_distributed_mnist_tpu.serve.server import (
+        build_parser as jax_build_parser,
+    )
+
     args = build_parser().parse_args([])
     assert args.device == "cuda" and args.serve_precision == "f32"
     assert args.buckets == "1,8,32,128" and args.cache_mb == 64.0
     assert args.register_dir is None
     assert build_parser().parse_args(["--register-dir", "d"]).register_dir \
         == "d"
-    for flag in ("--serve-mode", "--serve-mesh"):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args([flag, "1"])
+    got, want = _flags(build_parser()), _flags(jax_build_parser())
+    assert got.pop("--device") == ("cuda", ["cuda", "cpu"], None,
+                                   "_StoreAction")
+    assert got == want
+    assert args.serve_mode == "replicated" and args.serve_mesh == 0
+    assert want["--serve-mode"][1] == ["replicated", "expert", "pipeline",
+                                       "tensor"]
+    parsed = build_parser().parse_args(["--serve-mode", "pipeline",
+                                        "--serve-mesh", "2"])
+    assert (parsed.serve_mode, parsed.serve_mesh) == ("pipeline", 2)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--serve-mode", "ring"])
 
 
 def test_cli_dispatches_serve_and_refuses_training(capsys, tmp_path):
