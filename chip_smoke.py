@@ -255,7 +255,7 @@ Phases, each printing one JSON line:
    from ``checkpoint_0`` with ``world_shrunk`` recorded, its epoch-1 line
    equal to a direct 2-rank world's), and beside them tensor and sequence
    parallelism's gloo worlds (``tp_sp_spawn``: the ViT at patch 7 in
-   float32 on 2048 images with ``--tensor-parallel 2`` plain, with the
+   float32 on 1024 images with ``--tensor-parallel 2`` plain, with the
    flash, cross-entropy and Adam kernels' flags and with ``--tp-overlap``,
    ``--sequence-parallel 2`` ring and Ulysses with flash, ``--tensor-parallel
    2 --sequence-parallel 2`` and ``--tensor-parallel 2
@@ -289,7 +289,22 @@ Phases, each printing one JSON line:
    gloo worlds of 2 and 4 on the CPU for ``--expert-parallel 2`` (dense,
    and capacity on a 2 x 2 mesh) and ZeRO-1 and ZeRO-3, each held to a
    run of one process: the only place EP and ZeRO run across ranks, the
-   card's machine having one card;
+   card's machine having one card. The two-tier ``('dcn', 'ici')`` mesh
+   (``train_hier``, after the ZeRO runs): the cnn with ZeRO-1, ZeRO-1
+   overlapped and ZeRO-3 overlapped and the ViT (flash) with ZeRO-1,
+   ``adam_pallas``, ``--loss xla``, on a (1, 1) ``make_hier_mesh`` in an
+   NCCL world of one through the CLI's epoch loop, each held to the
+   CLI's flat run of the same flags: equal epoch lines, Adam exactly once
+   a step on the ``ici`` shards, the flash pair ``depth`` times a step
+   each way, no collective on the (1, 1) mesh; ``--dcn-slices 2`` over
+   the one card refused ("split into"). In ``tp_sp_spawn``'s pool
+   (``hier_spawn``): ``--dcn-slices 2`` over 4 gloo ranks, the linear
+   model under ZeRO-1 overlapped with ``--zero-bucket-mb-dcn 1`` against
+   the flat world of 4, TP 2 x ZeRO-1 nested in the slices against the
+   flat ``tp2_zero1``, and the DCN tier's buckets counted through the
+   API at two budgets (1 and 2 all-reduces a step); in
+   ``chaos_cpu``, ``--kill-slice 1`` of 2 emulated slices, the survivor
+   continuing on the flat mesh (``dcn_flat_fallback``);
 19. the smoke's seconds (``smoke``), the ``{"kernels": [...]}`` line,
    then the card's name and power limit, then ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -4590,7 +4605,7 @@ def phase_train_zero(want_lines: list, device_flag: str = "cuda") -> dict:
     over an axis of one), the counts exact, the collectives a count
     all-reduce a step and a metric all-reduce a pass (the gradient
     all-reduce is the plane's reduce-scatter). Returns each run's
-    launches."""
+    launches and each run's epoch lines."""
     import gc
     import shutil
 
@@ -4600,7 +4615,7 @@ def phase_train_zero(want_lines: list, device_flag: str = "cuda") -> dict:
         read_checkpoint_arrays,
     )
 
-    out = {}
+    out, printed = {}, {}
     for phase, flags, exact in ZERO_RUNS:
         want_coll = _want_collectives(True)
         if "none" not in flags:  # the plane's reduce-scatter instead
@@ -4665,6 +4680,208 @@ def phase_train_zero(want_lines: list, device_flag: str = "cuda") -> dict:
              images_per_sec=[r["images_per_sec"]
                              for r in summary["history"]])
         out[phase] = launches
+        printed[phase] = lines
+    return out, printed
+
+
+# The two-tier ('dcn', 'ici') mesh on the card: (phase, model, ZeRO level,
+# --zero-overlap), each run through the port's API on make_hier_mesh(1) (a
+# (1, 1) mesh: one slice of one rank) and on the flat mesh of the same
+# NCCL world of one, the cnn's and the ViT's runs with --loss xla (the
+# two-tier mesh refuses --loss fused, as the JAX CLI does).
+HIER_RUNS = [("train_hier_zero1", "cnn", 1, False),
+             ("train_hier_zero1_overlap", "cnn", 1, True),
+             ("train_hier_zero3_overlap", "cnn", 3, True),
+             ("train_hier_vit_zero1", "vit", 1, False)]
+TIER_COLLECTIVES = COLLECTIVES + ("shard_collective", "dcn_all_reduce")
+
+
+def _tier_counts() -> dict:
+    from pytorch_distributed_mnist_tpu_torch.parallel import collectives
+
+    return {name: getattr(collectives, name).launches
+            for name in TIER_COLLECTIVES}
+
+
+def _hier_argv(model: str, level: int, overlap: bool,
+               device_flag: str) -> list:
+    args = list(TRAIN_RUNS[model]["args"])
+    args[args.index("--loss") + 1] = "xla"
+    return args + ["--optimizer-sharding", f"zero{level}", "--epochs",
+                   str(TRAIN_EPOCHS), "--device", device_flag] + (
+        ["--zero-overlap"] if overlap else [])
+
+
+def _api_epochs(argv: list) -> dict:
+    """The training run of ``argv`` (the CLI's flags) on ``make_hier_mesh
+    (1)`` in an NCCL world of one (gloo on the CPU), which the CLI cannot
+    build (it refuses ``--dcn-slices`` over one device): the set-up of
+    ``cli.run`` written out with the mesh swapped, then the CLI's own
+    epoch loop (``cli._train_or_evaluate``), whose epoch lines it prints.
+    Returns ``{"lines", "launches", "collectives", "mesh", "dcn_plan"}``,
+    the counts from 0 over the run."""
+    import contextlib
+    import io
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_mnist_tpu_torch import cli
+    from pytorch_distributed_mnist_tpu_torch.models import get_model
+    from pytorch_distributed_mnist_tpu_torch.ops.loss import set_loss_impl
+    from pytorch_distributed_mnist_tpu_torch.parallel import (
+        collectives,
+        distributed,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        free_port,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+        make_hier_mesh,
+    )
+    from pytorch_distributed_mnist_tpu_torch.parallel.zero import (
+        shard_state_zero,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from pytorch_distributed_mnist_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_mnist_tpu_torch.utils.device import (
+        resolve_device,
+    )
+    from pytorch_distributed_mnist_tpu_torch.utils.profiling import (
+        StagingLog,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_api_")
+    args = cli.build_parser().parse_args(argv + ["--checkpoint-dir", root])
+    device = resolve_device(args.device)
+    model = "vit" if args.model == "vit" else "cnn"
+    distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                       device)
+    try:
+        random.seed(args.seed)
+        np.random.seed(args.seed)
+        torch.manual_seed(args.seed)
+        set_loss_impl(args.loss)
+        _zero_counters(model)
+        for name in TIER_COLLECTIVES:
+            getattr(collectives, name).launches = 0
+        mesh = make_hier_mesh(1, device=device)
+        state = create_train_state(
+            get_model(args.model, **cli._model_kwargs(args)), args.seed,
+            device, lr=args.lr, optimizer=args.optimizer,
+            momentum=args.momentum, weight_decay=args.weight_decay)
+        shard_state_zero(
+            state, mesh, level=3 if args.optimizer_sharding == "zero3" else 1,
+            bucket_mb=args.zero_bucket_mb if args.zero_overlap else None,
+            overlap=args.zero_overlap,
+            bucket_mb_dcn=args.zero_bucket_mb_dcn or None)
+        train_loader, test_loader, synthesized = cli._build_loaders(
+            args, args.seed, mesh.data)
+        trainer = Trainer(state, train_loader, test_loader, device,
+                          mode=args.trainer_mode,
+                          epoch_gather=args.epoch_gather,
+                          staging_log=StagingLog(), axis=mesh.data,
+                          grad_accum=args.grad_accum,
+                          feed_window=args.feed_window,
+                          aux_weight=args.moe_aux_weight,
+                          zero_overlap=args.zero_overlap,
+                          zero_bucket_mb_dcn=args.zero_bucket_mb_dcn)
+        out = io.StringIO()
+        with contextlib.closing(trainer), contextlib.redirect_stdout(out):
+            cli._train_or_evaluate(args, trainer, args.start_epoch, 0.0,
+                                   synthesized, None, None)
+        return {"lines": _train_lines(out.getvalue(), "Epoch: "),
+                "launches": _read_counters(model),
+                "collectives": _tier_counts(),
+                "mesh": mesh.shape, "dcn_plan": state.zero.dcn_plan}
+    finally:
+        distributed.teardown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_hier(zero_lines: dict, device_flag: str = "cuda") -> dict:
+    """The two-tier mesh on the card (``HIER_RUNS``): the cnn at full
+    width with ZeRO-1, ZeRO-1 overlapped and ZeRO-3 overlapped, and the
+    ViT at its registered widths with ``--attention flash`` and ZeRO-1,
+    each with ``adam_pallas`` in scan mode, on a (1, 1) ``make_hier_mesh``
+    through the CLI's epoch loop (``_api_epochs``). Each run's epoch
+    lines must equal, character for character, the CLI's run of the same
+    flags on the flat mesh of a world of one: ``zero_lines`` (the lines
+    ``phase_train_zero`` printed) where it ran them (ZeRO-1 overlapped is
+    ``train_zero1_overlap``), else a CLI run here. Its counts, from 0 over
+    the run, exactly Adam once a step on the ``ici`` shards (and the
+    ViT's flash forward and backward ``depth`` times a step each way, the
+    forward also per eval batch), and no collective at all: every axis of
+    a (1, 1) mesh is one rank, so no tier has a group and the two-tier
+    schedule runs only in ``hier_spawn``'s worlds. Then the CLI's
+    ``--dcn-slices 2`` over this one card, refused ("split into"), as the
+    JAX CLI refuses it over one device. Returns each run's launches."""
+    import shutil
+
+    same_flags = {"train_hier_zero1_overlap": "train_zero1_overlap"}
+    out = {}
+    for phase, model, level, overlap in HIER_RUNS:
+        argv = _hier_argv(model, level, overlap, device_flag)
+        t0 = time.perf_counter()
+        if phase in same_flags:
+            ref = same_flags[phase]
+            flat_lines = zero_lines[ref]
+        else:
+            ref = "cli"
+            root = tempfile.mkdtemp(prefix="chip_smoke_hier_flat_")
+            try:
+                text = _run_cli(argv + ["--checkpoint-dir", root],
+                                dp=True)[1]
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            flat_lines = _train_lines(text, "Epoch: ")
+        flat_s = time.perf_counter() - t0
+        hier = _api_epochs(argv)
+        hier_s = time.perf_counter() - t0 - flat_s
+        want = dict(_want_launches(model), xent_fwd=0, xent_bwd=0)
+        steps = TRAIN_EPOCHS * (8192 // TRAIN_BATCH)
+        if hier["launches"] != want or want["adam"] != steps:
+            raise AssertionError(f"{phase}: launch counts "
+                                 f"{hier['launches']}, expected {want}")
+        if any(hier["collectives"].values()):
+            raise AssertionError(f"{phase}: collectives on the (1, 1) mesh "
+                                 f"{hier['collectives']}")
+        if hier["mesh"] != {"dcn": 1, "ici": 1}:
+            raise AssertionError(f"{phase}: mesh {hier['mesh']}")
+        if hier["lines"] != flat_lines or len(flat_lines) != TRAIN_EPOCHS:
+            raise AssertionError(f"{phase} printed\n{hier['lines']}\nwhere "
+                                 f"the CLI's flat world of one printed\n"
+                                 f"{flat_lines}")
+        emit(phase, model=model, zero=level, overlap=overlap,
+             mesh=hier["mesh"], epoch_lines=hier["lines"],
+             equal_to_cli_flat_world_of_one=True,
+             flat_reference="this phase's CLI run" if ref == "cli"
+             else ref, launches=hier["launches"],
+             expected_launches=want, adam_launches_per_step=1,
+             collectives=hier["collectives"],
+             dcn_buckets=len(hier["dcn_plan"]), flat_s=flat_s,
+             hier_s=hier_s)
+        out[phase] = hier["launches"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        _run_cli(_hier_argv("cnn", 1, False, device_flag)
+                 + ["--dcn-slices", "2", "--checkpoint-dir", root], dp=True)
+    except SystemExit as exc:
+        refusal = str(exc.code)
+    else:
+        raise AssertionError("--dcn-slices 2 trained on one card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if "split into" not in refusal:
+        raise AssertionError(f"--dcn-slices 2 on one card: {refusal}")
+    print(f"chip_smoke.py: --dcn-slices 2 on one card: {refusal}",
+          file=sys.stderr, flush=True)
+    emit("train_hier_refusal", flags=["--dcn-slices", "2"],
+         refusal=refusal)
     return out
 
 
@@ -5547,7 +5764,7 @@ def phase_dp_spawn() -> dict:
         row["cpu_world_2"] = {"exit": 0, "wall_s": wall, "epoch_lines": lines,
                               "devices_line": devices[0], "files": files,
                               "world": meta["world"]}
-        row["cpu_worlds_parallel"] = _spawn_parallel_worlds(spawn_here, root)
+        row["cpu_worlds_parallel"] = _spawn_parallel_worlds(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("dp_spawn", **row)
@@ -5587,41 +5804,52 @@ LOOSE_HOLDS = {"moe_capacity_one": (5e-3, 1.0, "other token groups: the "
                                     "per 64 interleaved rows")}
 
 
-def _spawn_parallel_worlds(spawn_here, root: str) -> dict:
-    """``PARALLEL_WORLDS`` through ``--spawn`` on the CPU: each must exit
-    0, print its mesh and one epoch line, and hold its line to the same
-    flags' run without EP or ZeRO (losses within 1e-5, accuracies within
-    one example; ``LOOSE_HOLDS`` names the looser ones): EP and ZeRO are
-    layout changes. Only here do EP and ZeRO run across ranks: the card's
+def _spawn_parallel_worlds(root: str) -> dict:
+    """``PARALLEL_WORLDS`` through ``--spawn`` on the CPU, each a process
+    of its own, ``TP_SP_THREADS`` at a time while this process runs the
+    one-process references: each must exit 0, print its mesh and one
+    epoch line, and hold its line to the same flags' run without EP or
+    ZeRO (losses within 1e-5, accuracies within one example;
+    ``LOOSE_HOLDS`` names the looser ones): EP and ZeRO are layout
+    changes. Only here do EP and ZeRO run across ranks: the card's
     machine has one card."""
-    refs = {}
-    for ref, argv in (("moe_one", SPAWN_MOE_ARGS),
-                      ("moe_capacity_one",
-                       SPAWN_MOE_ARGS + ["--moe-dispatch", "capacity"]),
-                      ("linear_one_f32", SPAWN_CPU_ARGS + ["--dtype", "f32"])):
-        _, text = _run_cli(argv + ["--checkpoint-dir",
-                                   os.path.join(root, ref)])
-        refs[ref] = _train_lines(text, "Epoch: ")
+    from concurrent.futures import ThreadPoolExecutor
+
     out = {"note": "expert parallelism and ZeRO across 2 or more ranks run "
                    "here only, as gloo worlds on the CPU: the card's "
                    "machine has one card"}
-    for name, n, argv, mesh, ref in PARALLEL_WORLDS:
-        code, text, err, wall = spawn_here(
-            ["--spawn", str(n), *argv], os.path.join(root, name))
-        lines = _train_lines(text, "Epoch: ")
-        devices = _train_lines(text, "devices: ")
-        want_dev = f"devices: {n} (cpu), processes: {n}, mesh: {mesh}"
-        if code != 0 or len(lines) != 1 or devices != [want_dev]:
-            raise AssertionError(f"{name}: exit {code}\n{text}\n{err}")
-        loss_tol, acc_tol, why = LOOSE_HOLDS.get(ref, (1e-5, 100 / 2048,
-                                                       None))
-        if not _lines_close(lines, refs[ref], loss_tol, acc_tol):
-            raise AssertionError(f"{name} printed {lines}; {ref} printed "
-                                 f"{refs[ref]}")
-        out[name] = {"world": n, "wall_s": wall, "epoch_lines": lines,
-                     "devices_line": devices[0], "held_to": ref,
-                     "reference_lines": refs[ref], "loss_tol": loss_tol,
-                     "acc_tol_points": acc_tol, "loose_because": why}
+    with ThreadPoolExecutor(TP_SP_THREADS) as pool:
+        worlds = {name: pool.submit(_chaos_run, [
+            "--spawn", str(n), *argv, "--checkpoint-dir",
+            os.path.join(root, name)])
+            for name, n, argv, _, _ in PARALLEL_WORLDS}
+        refs = {}
+        for ref, argv in (("moe_one", SPAWN_MOE_ARGS),
+                          ("moe_capacity_one",
+                           SPAWN_MOE_ARGS + ["--moe-dispatch", "capacity"]),
+                          ("linear_one_f32",
+                           SPAWN_CPU_ARGS + ["--dtype", "f32"])):
+            _, text = _run_cli(argv + ["--checkpoint-dir",
+                                       os.path.join(root, ref)])
+            refs[ref] = _train_lines(text, "Epoch: ")
+        for name, n, argv, mesh, ref in PARALLEL_WORLDS:
+            proc, wall = worlds[name].result()
+            lines = _train_lines(proc.stdout, "Epoch: ")
+            devices = _train_lines(proc.stdout, "devices: ")
+            want_dev = f"devices: {n} (cpu), processes: {n}, mesh: {mesh}"
+            if proc.returncode != 0 or len(lines) != 1 \
+                    or devices != [want_dev]:
+                raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                                     f"{proc.stdout}\n{proc.stderr}")
+            loss_tol, acc_tol, why = LOOSE_HOLDS.get(ref, (1e-5, 100 / 2048,
+                                                           None))
+            if not _lines_close(lines, refs[ref], loss_tol, acc_tol):
+                raise AssertionError(f"{name} printed {lines}; {ref} "
+                                     f"printed {refs[ref]}")
+            out[name] = {"world": n, "wall_s": wall, "epoch_lines": lines,
+                         "devices_line": devices[0], "held_to": ref,
+                         "reference_lines": refs[ref], "loss_tol": loss_tol,
+                         "acc_tol_points": acc_tol, "loose_because": why}
     print("chip_smoke.py: " + out["note"], flush=True)
     return out
 
@@ -6538,6 +6766,44 @@ def _chaos_elastic(root: str) -> dict:
             "direct_wall_s": direct_wall, "epoch_1_equal": True}
 
 
+def _chaos_slice(root: str) -> dict:
+    """(c): the slice-loss twin through ``runtime/chaos.py --elastic
+    --dcn-slices 2 --kill-slice 1``: 2 ranks as 2 emulated DCN slices,
+    ZeRO-1, every rank of slice 1 killed inside epoch 1's step loop; the
+    survivor lands on the flat mesh (``dcn_flat_fallback``), reshards the
+    two-tier checkpoint and trains epochs 1 and 2."""
+    metrics = os.path.join(root, "c.jsonl")
+    proc, wall = _chaos_run(
+        ["--elastic", "--dcn-slices", "2", "--kill-slice", "1", "--nprocs",
+         "2", "--agreement-timeout", CHAOS_DEADLINE, "--no-twin", "--",
+         "--device", "cpu", "--model", "linear", "--dataset", "synthetic",
+         "--synthetic-train-size", "256", "--synthetic-test-size", "128",
+         "--trainer-mode", "stepwise", "--seed", str(SEED), "--resume",
+         "auto", "--epochs", "3", "--batch-size", "64",
+         "--optimizer-sharding", "zero1", "--metrics-file", metrics,
+         "--checkpoint-dir", os.path.join(root, "c")],
+        module="pytorch_distributed_mnist_tpu_torch.runtime.chaos")
+    out = proc.stdout + proc.stderr
+    rows = []
+    if os.path.isfile(metrics):
+        with open(metrics) as f:
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+    kinds = {r.get("kind") for r in rows}
+    shrunk = [r for r in rows if r.get("kind") == "world_shrunk"]
+    fallback = [r for r in rows if r.get("kind") == "dcn_flat_fallback"]
+    after = rows[rows.index(shrunk[0]) + 1:] if shrunk else []
+    epochs = [r["epoch"] for r in after if "train_loss" in r]
+    if (proc.returncode != 0 or len(shrunk) != 1 or not fallback
+            or "flat" not in fallback[0]["detail"]
+            or "checkpoint_reshard" not in kinds or epochs != [1, 2]
+            or "mesh: {'dcn': 2, 'ici': 1}" not in out):
+        raise AssertionError(f"chaos (c): rc {proc.returncode}, events "
+                             f"{rows}\n{out[-4000:]}")
+    return {"returncode": proc.returncode, "wall_s": wall,
+            "world_shrunk": shrunk[0], "dcn_flat_fallback": fallback[0],
+            "epochs_after_shrink": epochs}
+
+
 def start_chaos_cpu() -> dict:
     """Start ``phase_chaos_cpu``'s two worlds, each on a thread (their
     processes run on the CPU only, so they can overlap the kernel builds,
@@ -6545,7 +6811,8 @@ def start_chaos_cpu() -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
     return {"root": root, "t0": time.perf_counter(),
             "kill": _Background(lambda: _chaos_kill(root)),
-            "elastic": _Background(lambda: _chaos_elastic(root))}
+            "elastic": _Background(lambda: _chaos_elastic(root)),
+            "slice": _Background(lambda: _chaos_slice(root))}
 
 
 def phase_chaos_cpu(started=None) -> dict:
@@ -6560,13 +6827,15 @@ def phase_chaos_cpu(started=None) -> dict:
     1's entry: generation 1 must run on 2 ranks resumed from
     ``checkpoint_0``, ``world_shrunk`` must be recorded, and rank 0's
     epoch-1 line must equal a direct 2-rank world's resumed from the same
-    checkpoint."""
+    checkpoint. (c) ``--kill-slice 1`` on 2 emulated DCN slices
+    (``_chaos_slice``): the survivor continues on the flat mesh."""
     import shutil
 
     started = started or start_chaos_cpu()
     try:
         row = {"kill_at_publish": started["kill"].result(),
                "elastic_shrink_3_to_2": started["elastic"].result(),
+               "slice_loss_flat_fallback": started["slice"].result(),
                "wall_s": time.perf_counter() - started["t0"],
                "note": "both worlds ran side by side, beside the kernel "
                        "builds"}
@@ -6579,13 +6848,14 @@ def phase_chaos_cpu(started=None) -> dict:
 # Tensor and sequence parallelism across ranks, as gloo worlds on the CPU
 # (the card's machine has one card, and NCCL takes one card per rank): the
 # ViT at --patch-size 7 (16 tokens, the JAX tests' shape) in float32 on
-# the dp_spawn cut (2048 images, 1 epoch). (name, world size, flags, the
+# 1024 images, 1 epoch (half the dp_spawn cut, to make room in the pool
+# for hier_spawn's worlds). (name, world size, flags, the
 # mesh its devices line prints, the run its epoch line is held to: a run
 # of one process of the same flags, or, for the overlap, the unoverlapped
 # TP world.)
 SPAWN_VIT_ARGS = ["--model", "vit", "--patch-size", "7", "--dtype", "f32",
                   "--dataset", "synthetic", "--synthetic-train-size",
-                  "2048", "--synthetic-test-size", "512", "--batch-size",
+                  "1024", "--synthetic-test-size", "512", "--batch-size",
                   "256", "--seed", str(SEED), "--epochs", "1", "--device",
                   "cpu"]
 VIT_KERNEL_FLAGS = ["--attention", "flash", "--loss", "fused",
@@ -6630,48 +6900,199 @@ PP_WORLDS = [
 ]
 
 
+# The two-tier ('dcn', 'ici') mesh across ranks (``hier_spawn``), in the
+# same pool: --dcn-slices 2 over 4 ranks, the linear model under ZeRO-1
+# overlapped with its own DCN bucket budget against the flat world of 4
+# (HIER_REFS), and TP 2 x ZeRO-1 (dense attention) nested in the slices
+# against TP_SP_WORLDS' flat tp2_zero1. (name, world size, the full flags,
+# the mesh its devices line prints, the run its epoch line is held to.)
+HIER_ZERO_FLAGS = ["--optimizer-sharding", "zero1", "--zero-overlap"]
+HIER_REFS = {"linear_zero1_overlap_flat": (4, [*SPAWN_CPU_ARGS,
+                                               *HIER_ZERO_FLAGS])}
+HIER_WORLDS = [
+    ("hier_linear_zero1_overlap", 4,
+     [*SPAWN_CPU_ARGS, *HIER_ZERO_FLAGS, "--dcn-slices", "2",
+      "--zero-bucket-mb-dcn", "1"], {"dcn": 2, "ici": 2},
+     "linear_zero1_overlap_flat"),
+    ("hier_tp2_zero1", 4,
+     [*SPAWN_VIT_ARGS, "--tensor-parallel", "2", "--optimizer-sharding",
+      "zero1", "--dcn-slices", "2"],
+     {"dcn": 2, "ici": 1, "model": 2, "seq": 1}, "tp2_zero1"),
+]
+HIER_LINE = "hierarchical mesh: 2 DCN slice(s) x 2 chip(s)/slice"
+# The DCN tier's buckets on the 2 x 2 mesh (``hier_dcn_counts``): the
+# linear model under ZeRO-1 overlapped through the port's API, at two
+# --zero-bucket-mb-dcn budgets that cut its owner shards (15,680 and 20
+# bytes) into 1 and 2 buckets, each step counted, beside the flat world of
+# 4 from the same init and batches.
+HIER_DCN_BUDGETS = (1.0, 0.01)
+HIER_DCN_STEPS = 3
+_HIER_COUNT_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+from pytorch_distributed_mnist_tpu_torch.models import get_model
+from pytorch_distributed_mnist_tpu_torch.parallel import collectives as C
+from pytorch_distributed_mnist_tpu_torch.parallel import distributed
+from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+    make_hier_mesh, make_mesh)
+from pytorch_distributed_mnist_tpu_torch.parallel.zero import (
+    shard_state_zero)
+from pytorch_distributed_mnist_tpu_torch.parallel.zero_overlap import (
+    make_overlap_train_step)
+from pytorch_distributed_mnist_tpu_torch.train.state import (
+    create_train_state)
+
+torch.set_num_threads(1)
+coord, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+budgets, steps = json.loads(sys.argv[4]), int(sys.argv[5])
+cpu = torch.device("cpu")
+distributed.initialize_distributed(coord, 4, rank, cpu)
+meshes = [("flat", None, make_mesh(device=cpu))] + [
+    (f"dcn_{b:g}", b, make_hier_mesh(2, device=cpu)) for b in budgets]
+rng = np.random.default_rng(0)
+data = [(rng.normal(size=(64, 28, 28, 1)).astype(np.float32),
+         rng.integers(0, 10, size=64)) for _ in range(steps)]
+res = {}
+for name, budget, mesh in meshes:
+    axis = mesh.data
+    st = create_train_state(get_model("linear", compute_dtype=torch.float32),
+                            0, cpu, optimizer="adam")
+    shard_state_zero(st, mesh, level=1, bucket_mb=4.0, overlap=True,
+                     bucket_mb_dcn=budget)
+    step = make_overlap_train_step(st, axis, bucket_mb_dcn=budget)
+    per_step, losses = [], []
+    for img, lab in data:
+        b = 64 // axis.size
+        rows = slice(axis.rank * b, (axis.rank + 1) * b)
+        before = C.dcn_all_reduce.launches
+        m = step({"image": torch.from_numpy(img[rows]),
+                  "label": torch.from_numpy(lab[rows]).long(),
+                  "mask": torch.ones(b)})
+        per_step.append(C.dcn_all_reduce.launches - before)
+        losses.append(float(C.metric_all_reduce(m, axis).loss_sum))
+    res[name] = {"dcn_buckets": len(st.zero.dcn_plan),
+                 "dcn_all_reduce_per_step": per_step, "loss_sums": losses,
+                 "params": [p.detach().numpy().ravel().tolist()
+                            for p in st.zero.params]}
+if rank == 0:
+    with open(out, "w") as f:
+        json.dump(res, f)
+distributed.teardown()
+"""
+
+
+def _hier_dcn_counts(root: str) -> dict:
+    """``_HIER_COUNT_RANK`` in a gloo world of 4 on the CPU: per step,
+    exactly one DCN all-reduce per bucket of the plane's plan at each of
+    ``HIER_DCN_BUDGETS``, the budgets' plans of different lengths, and
+    each budget's loss sums and params within 1e-5 of the flat world's
+    (the buckets change the grouping of the collectives, not the sums)."""
+    import numpy as np
+
+    from pytorch_distributed_mnist_tpu_torch.parallel.launcher import (
+        free_port,
+    )
+
+    out = os.path.join(root, "hier_dcn_counts.json")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=_HERE, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HIER_COUNT_RANK, f"127.0.0.1:{port}",
+         str(r), out, json.dumps(HIER_DCN_BUDGETS), str(HIER_DCN_STEPS)],
+        cwd=_HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    try:
+        texts = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, texts):
+        if p.returncode != 0:
+            raise AssertionError(f"hier_dcn_counts: rc {p.returncode}\n"
+                                 f"{text[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    flat = res.pop("flat")
+    buckets = {name: r["dcn_buckets"] for name, r in res.items()}
+    if sorted(buckets.values()) != [1, 2]:
+        raise AssertionError(f"hier_dcn_counts: DCN plans {buckets}, "
+                             f"expected 1 and 2 buckets")
+    for name, r in res.items():
+        if r["dcn_all_reduce_per_step"] != \
+                [r["dcn_buckets"]] * HIER_DCN_STEPS:
+            raise AssertionError(
+                f"hier_dcn_counts {name}: DCN all-reduces per step "
+                f"{r['dcn_all_reduce_per_step']}, plan {r['dcn_buckets']}")
+        for got, want in zip([r["loss_sums"]] + r["params"],
+                             [flat["loss_sums"]] + flat["params"]):
+            if not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"hier_dcn_counts {name}: apart from "
+                                     f"the flat world of 4")
+    if flat["dcn_all_reduce_per_step"] != [0] * HIER_DCN_STEPS:
+        raise AssertionError(f"hier_dcn_counts: the flat world ran DCN "
+                             f"all-reduces {flat}")
+    return {"world": 4, "wall_s": wall, "steps": HIER_DCN_STEPS,
+            "budgets_mb": list(HIER_DCN_BUDGETS), "dcn_buckets": buckets,
+            "dcn_all_reduce_per_step": {
+                name: r["dcn_all_reduce_per_step"] for name, r in res.items()},
+            "loss_sums": {name: r["loss_sums"] for name, r in res.items()},
+            "flat_loss_sums": flat["loss_sums"]}
+
 TP_SP_THREADS = 3  # runs at once: the card machine's 8 cores, beside
 # the kernel builds and chaos_cpu's worlds
 
 
 def _tp_sp_worlds(root: str) -> dict:
-    """``TP_SP_WORLDS`` through ``--spawn`` on the CPU, after the
-    one-process references, ``TP_SP_THREADS`` runs at a time: each must
-    exit 0, print its mesh and one epoch line, and hold that line to its
-    reference's (losses within 1e-5, accuracies within one example of
-    512): TP and SP are layout changes."""
+    """``TP_SP_WORLDS``, ``PP_WORLDS`` and ``HIER_WORLDS`` through
+    ``--spawn`` on the CPU, after the one-process references (and the
+    flat world ``HIER_REFS``), ``TP_SP_THREADS`` runs at a time: each
+    must exit 0, print its mesh and one epoch line, and hold that line to
+    its reference's (losses within 1e-5, accuracies within one example
+    of 512): TP, SP, PP and the two-tier mesh are layout changes."""
     from concurrent.futures import ThreadPoolExecutor
 
     def run(name, argv):
-        proc, wall = _chaos_run([*argv, *SPAWN_VIT_ARGS, "--checkpoint-dir",
+        proc, wall = _chaos_run([*argv, "--checkpoint-dir",
                                  os.path.join(root, name)])
         if proc.returncode != 0:
             raise AssertionError(f"{name}: rc {proc.returncode}\n"
                                  f"{proc.stdout}\n{proc.stderr[-3000:]}")
         return proc, wall
 
+    spawned = [(name, n, [*flags, *SPAWN_VIT_ARGS], mesh, ref)
+               for name, n, flags, mesh, ref in TP_SP_WORLDS + PP_WORLDS]
+    spawned += HIER_WORLDS
     out = {}
     with ThreadPoolExecutor(TP_SP_THREADS) as pool:
-        refs = {ref: pool.submit(run, ref, flags)
+        refs = {ref: pool.submit(run, ref, [*flags, *SPAWN_VIT_ARGS])
                 for ref, flags in TP_SP_REFS.items()}
-        worlds = {name: pool.submit(run, name, ["--spawn", str(n), *flags])
-                  for name, n, flags, _, _ in TP_SP_WORLDS + PP_WORLDS}
+        refs.update({ref: pool.submit(run, ref, ["--spawn", str(n), *argv])
+                     for ref, (n, argv) in HIER_REFS.items()})
+        worlds = {name: pool.submit(run, name, ["--spawn", str(n), *argv])
+                  for name, n, argv, _, _ in spawned}
+        counts = pool.submit(_hier_dcn_counts, root)
         lines = {}
         for ref, fut in refs.items():
             proc, wall = fut.result()
             lines[ref] = _train_lines(proc.stdout, "Epoch: ")
             out[ref] = {"wall_s": wall, "epoch_lines": lines[ref]}
-        for name, n, flags, mesh, _ in TP_SP_WORLDS + PP_WORLDS:
+        for name, n, argv, mesh, _ in spawned:
             proc, wall = worlds[name].result()
             lines[name] = _train_lines(proc.stdout, "Epoch: ")
             devices = _train_lines(proc.stdout, "devices: ")
             want_dev = f"devices: {n} (cpu), processes: {n}, mesh: {mesh}"
-            if len(lines[name]) != 1 or devices != [want_dev]:
+            if len(lines[name]) != 1 or devices != [want_dev] or (
+                    "dcn" in mesh and not _train_lines(proc.stdout,
+                                                       HIER_LINE)):
                 raise AssertionError(f"{name}: {devices}\n{proc.stdout}")
-            out[name] = {"world": n, "flags": flags, "wall_s": wall,
+            out[name] = {"world": n, "flags": argv, "wall_s": wall,
                          "epoch_lines": lines[name],
                          "devices_line": devices[0]}
-    for name, _, _, _, ref in TP_SP_WORLDS + PP_WORLDS:
+        out["hier_dcn_counts"] = counts.result()
+    for name, _, _, _, ref in spawned:
         if not _lines_close(lines[name], lines[ref], 1e-5, 100 / 512):
             raise AssertionError(f"{name} printed {lines[name]}; {ref} "
                                  f"printed {lines[ref]}")
@@ -6709,7 +7130,10 @@ def phase_tp_sp_spawn(started=None) -> dict:
         shutil.rmtree(started["root"], ignore_errors=True)
     pp = {name for name, *_ in PP_WORLDS}
     pp_refs = {ref for *_, ref in PP_WORLDS}
-    row = {"worlds": {k: v for k, v in worlds.items() if k not in pp},
+    hier = {name for name, *_ in HIER_WORLDS} | set(HIER_REFS) | {
+        "hier_dcn_counts"}
+    row = {"worlds": {k: v for k, v in worlds.items()
+                      if k not in pp | hier},
            "wall_s": wall, "card_kernel_launches": 0,
            "note": "TP and SP across 2 or more ranks run here only, as "
                    "gloo worlds on the CPU: the card's machine has one "
@@ -6724,7 +7148,17 @@ def phase_tp_sp_spawn(started=None) -> dict:
                       "stage axis (train_pipeline) and the kernels at the "
                       "per-microbatch shapes (pipeline_shapes)"}
     emit("pp_spawn", **pp_row)
-    return {**row, "pp": pp_row}
+    hier_row = {"worlds": {k: v for k, v in worlds.items()
+                           if k in hier or k == "tp2_zero1"},
+                "wall_s": wall, "card_kernel_launches": 0,
+                "note": "the two-tier ('dcn', 'ici') mesh of 2 slices runs "
+                        "here only, as gloo worlds on the CPU, in "
+                        "tp_sp_spawn's pool: the card runs the (1, 1) mesh "
+                        "(train_hier); whether NCCL collectives of two "
+                        "groups capture in one CUDA graph across cards is "
+                        "not measured"}
+    emit("hier_spawn", **hier_row)
+    return {**row, "pp": pp_row, "hier": hier_row}
 
 
 def _cold_run(argv: list) -> dict:
@@ -6977,7 +7411,8 @@ def main() -> int:
                      cnn_run["lines"], dp=True)
     phase_train(model="vit", dp=True, want_lines=vit_run["lines"])
     phase_train_scan_profile_dp(device)
-    zero_launches = phase_train_zero(cnn_run["lines"])
+    zero_launches, zero_lines = phase_train_zero(cnn_run["lines"])
+    hier_launches = phase_train_hier(zero_lines)
     phase_dp_spawn()
 
     def new_path_launches(kname):
@@ -7226,6 +7661,12 @@ def main() -> int:
             entry[key] = picked
             entry[f"{key}_max_abs_err"] = run["max_abs_err"][
                 errs.get(kname, kname)]
+    # The two-tier mesh's runs on the card (train_hier): Adam on the ici
+    # shards, the flash pair on the ViT's.
+    for entry in kernels:
+        for phase, launched in hier_launches.items():
+            if entry["name"] in launched:
+                entry[f"launches_{phase}"] = launched[entry["name"]]
     # The one-rank pipelined step's launches per run (train_pipeline).
     for entry in kernels:
         if entry["name"] in ("flash_fwd", "flash_bwd", "xent_fwd",

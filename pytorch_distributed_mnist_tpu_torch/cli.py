@@ -35,7 +35,13 @@ rank by rank; a launcher's environment (``MASTER_ADDR`` with
 each rank takes its share of every batch, the step's loss is one masked
 mean over the global batch, the metrics are summed, and process 0 prints
 and writes the checkpoints. A single process with none of these makes no
-process group. The two-tier meshes' flags are not accepted yet.
+process group. ``--dcn-slices N`` (or ``TPUMNIST_DCN_SLICES``) trains on
+the two-tier ``('dcn', 'ici')`` mesh of N slices, each a contiguous
+block of ranks (``parallel/mesh.py::make_hier_mesh``): ZeRO shards within
+the slice and only the owner shards cross slices, in
+``--zero-bucket-mb-dcn`` buckets under ``--zero-overlap``; TP and EP nest
+inside one slice. An elastic rebuild that the slice count no longer fits
+continues on the flat mesh (``dcn_flat_fallback``).
 
 ``--model vit`` also trains over a ``('data', 'model', 'seq')`` mesh:
 ``--tensor-parallel N`` runs Megatron blocks over a model axis of N
@@ -122,7 +128,12 @@ from pytorch_distributed_mnist_tpu_torch.parallel.distributed import (
     process_index,
     teardown,
 )
-from pytorch_distributed_mnist_tpu_torch.parallel.mesh import make_mesh
+from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+    infer_dcn_slices,
+    make_hier_mesh,
+    make_mesh,
+    validate_dcn_slices,
+)
 from pytorch_distributed_mnist_tpu_torch.runtime import elastic, supervision
 from pytorch_distributed_mnist_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
@@ -313,6 +324,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "communication-issue group (smaller = earlier "
                         "first reduce-scatter, larger = fewer, "
                         "better-utilized collectives)")
+    p.add_argument("--zero-bucket-mb-dcn", type=float, default=0.0,
+                   metavar="MB",
+                   help="cross-slice (DCN-tier) bucket budget for "
+                        "--zero-overlap on a hierarchical mesh: the "
+                        "owner shards (1/ici_size of each gradient) "
+                        "all-reduce across slices in buckets of at most "
+                        "this many MiB, sized independently of "
+                        "--zero-bucket-mb because the tier between slices "
+                        "is the slow one (bigger buckets amortize its "
+                        "latency). 0 (default) = same as --zero-bucket-mb; "
+                        "no-op on a flat (single-slice) mesh")
+    p.add_argument("--dcn-slices", type=int, default=0, metavar="N",
+                   help="build the hierarchical ('dcn', 'ici') mesh over "
+                        "N slices instead of the flat single-slice mesh: "
+                        "batch rows shard over the composed pair, ZeRO "
+                        "shards within the slice (weight-update "
+                        "collectives ride the fast tier; only 1/ici_size "
+                        "owner shards cross slices), and model axes "
+                        "(TP/EP) nest inside one slice. 0 (default) = "
+                        "auto: the TPUMNIST_DCN_SLICES env (emulated "
+                        "slice map: N contiguous blocks of the rank "
+                        "order), else flat. N must divide the process "
+                        "count")
     p.add_argument("--dataset", type=str, default="mnist",
                    choices=["mnist", "fashion_mnist", "synthetic"])
     p.add_argument("--download", action="store_true",
@@ -502,11 +536,12 @@ def _moe_num_experts() -> int:
     return model_field_default("moe_mlp", "num_experts")
 
 
-def _check_parallel_flags(args, n_devices: int) -> None:
+def _check_parallel_flags(args, n_devices: int):
     """The JAX CLI's refusals of the tensor-, sequence- and
-    expert-parallel, MoE and ZeRO flags, in its order and words, before
-    the model or the data is built. ``n_devices`` is the world's (one
-    device per process)."""
+    expert-parallel, MoE, ZeRO and two-tier mesh flags, in its order and
+    words, before the model or the data is built. ``n_devices`` is the
+    world's (one device per process). Returns :func:`_check_dcn_flags`'s
+    ``(dcn slices, fallback)``."""
     ep = args.expert_parallel
     tp = args.tensor_parallel
     sp = args.sequence_parallel
@@ -620,6 +655,7 @@ def _check_parallel_flags(args, n_devices: int) -> None:
         if args.zero_bucket_mb <= 0:
             raise SystemExit(
                 f"--zero-bucket-mb must be > 0, got {args.zero_bucket_mb:g}")
+    dcn, fallback = _check_dcn_flags(args, n_devices)
     if pp > 1 and sp > 1:
         raise SystemExit(
             "--pipeline-stages does not compose with --sequence-parallel: "
@@ -641,6 +677,94 @@ def _check_parallel_flags(args, n_devices: int) -> None:
             f"--optimizer-sharding zero1 requires an Adam optimizer "
             f"(got --optimizer {args.optimizer}: no mu/nu moment state "
             f"to shard)")
+    return dcn, fallback
+
+
+def _check_dcn_flags(args, n_devices: int):
+    """The JAX CLI's resolution and refusals of the two-tier mesh, in its
+    order and words: ``--zero-bucket-mb-dcn``'s, then the slice count
+    (the flag, else ``TPUMNIST_DCN_SLICES``, else flat) validated against
+    the ``n_devices`` ranks, then the compositions that cannot run on it
+    and a model width that would straddle slices. Returns ``(dcn
+    slices, fallback)``: on an elastic rebuild the slices no longer fit,
+    ``fallback`` says why and the run goes on flat (``dcn`` 1)."""
+    tp, sp = args.tensor_parallel, args.sequence_parallel
+    ep, pp = args.expert_parallel, args.pipeline_stages
+    if args.zero_bucket_mb_dcn < 0:
+        raise SystemExit(
+            f"--zero-bucket-mb-dcn must be >= 0 (0 = same as "
+            f"--zero-bucket-mb), got {args.zero_bucket_mb_dcn:g}")
+    if args.zero_bucket_mb_dcn and not args.zero_overlap:
+        raise SystemExit(
+            "--zero-bucket-mb-dcn sizes the --zero-overlap schedule's "
+            "cross-slice buckets; pass --zero-overlap (and a "
+            "hierarchical mesh via --dcn-slices) with it")
+    dcn = args.dcn_slices or 0
+    if dcn < 0:
+        raise SystemExit(f"--dcn-slices must be >= 0, got {dcn}")
+    if not dcn:
+        try:
+            dcn = infer_dcn_slices()
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+    fallback = None
+    if dcn > 1:
+        try:
+            validate_dcn_slices(dcn, range(n_devices))
+        except ValueError as exc:
+            if elastic.generation() == 0:
+                raise SystemExit(f"--dcn-slices {dcn}: {exc}")
+            # A slice loss can leave a world the slice count no longer
+            # fits (the surviving slice alone): landing flat is the
+            # designed outcome, the checkpoint reshards as for any layout.
+            fallback = (f"{dcn} DCN slices no longer fit the rebuilt "
+                        f"{n_devices}-device world ({exc}); continuing on "
+                        f"the flat mesh")
+            dcn = 1
+    if dcn > 1:
+        if pp > 1:
+            raise SystemExit(
+                "--dcn-slices does not compose with --pipeline-stages "
+                "(the GPipe shard_map owns the mesh's data axis by "
+                "name); pipeline stages stay on the flat single-slice "
+                "mesh")
+        if sp > 1:
+            raise SystemExit(
+                "--dcn-slices does not compose with --sequence-parallel "
+                "(the ring/Ulysses shard_map owns the mesh's data axis "
+                "by name); sequence parallelism stays on the flat "
+                "single-slice mesh")
+        if args.trainer_mode == "explicit":
+            raise SystemExit(
+                "--dcn-slices does not compose with --trainer-mode "
+                "explicit (the explicit shard_map owns the whole mesh "
+                "as one flat data axis); use scan or stepwise")
+        if args.loss == "fused":
+            raise SystemExit(
+                "--dcn-slices does not compose with --loss fused (the "
+                "kernel's nested shard_map names the flat data axis); "
+                "use the default --loss xla")
+        if ep > 1 and args.moe_dispatch == "capacity":
+            raise SystemExit(
+                "--dcn-slices does not compose with --moe-dispatch "
+                "capacity (the dispatch shard_map crosses every mesh "
+                "axis by name); use --moe-dispatch dense")
+        if tp > 1 and args.attention == "flash":
+            raise SystemExit(
+                "--dcn-slices with --tensor-parallel does not compose "
+                "with --attention flash (the kernel's shard_map names "
+                "the flat data axis); use --attention dense")
+        per_slice = n_devices // dcn
+        model_width = tp * sp * ep
+        if per_slice % model_width:
+            raise SystemExit(
+                f"model parallelism (width {model_width}) would "
+                f"straddle the DCN boundary: --dcn-slices {dcn} leaves "
+                f"{per_slice} chip(s) per slice, and TP/EP groups must "
+                f"nest inside one slice's ICI domain (every layer "
+                f"collective would otherwise ride the 10-100x slower "
+                f"cross-slice axis)")
+    return dcn, fallback
 
 
 def _check_pp_flags(args, n_devices: int, pp: int, tp: int) -> None:
@@ -1109,9 +1233,10 @@ def run(args, epoch_callback=None) -> dict:
     # The switch is process-wide: on for this run only, so a later run in
     # the same process without the flag does not inherit it.
     try:
-        _check_parallel_flags(args, process_count())
+        dcn, fallback = _check_parallel_flags(args, process_count())
         with debug_nans.enabled_for(args.debug_nans):
-            return _run_in_world(args, model_kwargs, device, epoch_callback)
+            return _run_in_world(args, model_kwargs, device, epoch_callback,
+                                 dcn, fallback)
     except BaseException as exc:
         if not (isinstance(exc, SystemExit)
                 and exc.code in (0, None, elastic.EXIT_GROW)):
@@ -1127,8 +1252,10 @@ def run(args, epoch_callback=None) -> dict:
 
 
 def _run_in_world(args, model_kwargs: dict, device: torch.device,
-                  epoch_callback) -> dict:
-    """:func:`run` once this process is in its world."""
+                  epoch_callback, dcn: int = 1,
+                  fallback: Optional[str] = None) -> dict:
+    """:func:`run` once this process is in its world, on ``dcn`` DCN
+    slices (``fallback``: why an elastic rebuild landed flat)."""
     build_dir = compile_cache.configure(getattr(args, "compile_cache", None))
     compile_log.reset()
     agreement_timeout = supervision.configure(
@@ -1141,7 +1268,11 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
     if sink is not None:
         failure_events.set_sink(sink, source="train")
     elastic.note_rebuilt_world()
+    if fallback is not None:
+        failure_events.record("dcn_flat_fallback", fallback)
     log0(args)
+    if fallback is not None:
+        log0(f"=> elastic rebuild: {fallback}")
     log0(f"build directory: {build_dir}")
     if agreement_timeout:
         log0(f"agreement watchdog: {agreement_timeout:g}s deadline")
@@ -1162,18 +1293,37 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
         mesh = make_mesh(("data", "stage"),
                          shape=(process_count() // pp, pp), device=device)
     elif tp > 1 or sp > 1:
-        mesh = make_mesh(("data", "model", "seq"),
-                         shape=(process_count() // (tp * sp), tp, sp),
-                         device=device)
+        # sp > 1 with dcn > 1 was refused: the two-tier mesh carries the
+        # model axis alone.
+        if dcn > 1:
+            mesh = make_hier_mesh(dcn, extra_axes=("model", "seq"),
+                                  extra_shape=(tp, sp), device=device)
+        else:
+            mesh = make_mesh(("data", "model", "seq"),
+                             shape=(process_count() // (tp * sp), tp, sp),
+                             device=device)
     elif ep > 1:
-        mesh = make_mesh(("data", "expert"),
-                         shape=(process_count() // ep, ep), device=device)
+        if dcn > 1:
+            mesh = make_hier_mesh(dcn, extra_axes=("expert",),
+                                  extra_shape=(ep,), device=device)
+        else:
+            mesh = make_mesh(("data", "expert"),
+                             shape=(process_count() // ep, ep),
+                             device=device)
+    elif dcn > 1:
+        mesh = make_hier_mesh(dcn, device=device)
     else:
         mesh = make_mesh(device=device)
-    # Batches shard, and gradients and metrics sum, over the data axis.
+    # Batches shard, and gradients and metrics sum, over the data axis
+    # (on a two-tier mesh the composed ('dcn', 'ici') pair).
     axis = mesh.data
     log0(f"devices: {mesh.size} ({'gpu' if device.type == 'cuda' else 'cpu'}"
          f"), processes: {process_count()}, mesh: {mesh.shape}")
+    if dcn > 1:
+        log0(f"hierarchical mesh: {dcn} DCN slice(s) x "
+             f"{process_count() // dcn} chip(s)/slice (emulated slice map "
+             f"— host-thread collectives say nothing about real DCN "
+             f"latency)")
     local_batch = args.batch_size // axis.size
     if (args.grad_accum > 1 and args.batch_size % axis.size == 0
             and local_batch % args.grad_accum):
@@ -1320,7 +1470,8 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
             level=3 if args.optimizer_sharding == "zero3" else 1,
             base_sharding=pp_sharding,
             bucket_mb=args.zero_bucket_mb if args.zero_overlap else None,
-            overlap=args.zero_overlap)
+            overlap=args.zero_overlap,
+            bucket_mb_dcn=args.zero_bucket_mb_dcn or None)
     train_loader, test_loader, synthesized = _build_loaders(args, seed, axis)
     if precompile is not None:
         precompile.join()
@@ -1330,7 +1481,8 @@ def _run_in_world(args, model_kwargs: dict, device: torch.device,
                       grad_accum=args.grad_accum,
                       feed_window=args.feed_window,
                       aux_weight=args.moe_aux_weight,
-                      zero_overlap=args.zero_overlap)
+                      zero_overlap=args.zero_overlap,
+                      zero_bucket_mb_dcn=args.zero_bucket_mb_dcn)
     # closing(trainer) joins an in-flight epoch prefetch on every exit.
     with closing(trainer):
         summary = _train_or_evaluate(args, trainer, start_epoch, best_acc,
@@ -1539,6 +1691,10 @@ def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     _check_elastic_flags(args)
     if args.spawn:
+        if args.spawn >= 2:
+            # The two-tier mesh's refusals need only the world's size:
+            # before any rank starts.
+            _check_dcn_flags(args, args.spawn)
         raise SystemExit(_spawn(args, argv))
     try:
         run(args)

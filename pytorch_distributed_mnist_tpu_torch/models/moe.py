@@ -85,9 +85,14 @@ class SwitchMoE(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(e, c))
 
     def _axis(self, name: Optional[str]):
-        if self.mesh is None or not name or name not in self.mesh.shape:
+        """The mesh's axis ``name`` (``'data'`` is the composed pair on a
+        two-tier mesh), or None."""
+        if self.mesh is None or not name:
             return None
-        return self.mesh.axis(name)
+        try:
+            return self.mesh.axis(name)
+        except KeyError:
+            return None
 
     def forward(self, x: torch.Tensor, want_aux: bool = False):
         """``(out, aux)``: aux is the load-balance loss, or None unless

@@ -27,7 +27,9 @@ WRAPPERS = (("ops.xent", "xent_fwd"), ("ops.xent", "xent_bwd"),
             ("ops.flash", "flash_dkv"), ("ops.matmul_i8", "matmul_i8"),
             ("parallel.collectives", "count_all_reduce"),
             ("parallel.collectives", "grad_all_reduce"),
-            ("parallel.collectives", "metric_all_reduce"))
+            ("parallel.collectives", "metric_all_reduce"),
+            ("parallel.collectives", "shard_collective"),
+            ("parallel.collectives", "dcn_all_reduce"))
 
 Key = Tuple[str, str, str]  # (module, wrapper, "launches" or a route)
 

@@ -28,6 +28,14 @@ the global batch. Here each rank is a process with one device:
   metrics still sum over ``data`` alone.
 - :func:`metric_all_reduce` sums a pass's (or, in the explicit mode, a
   step's) three metric accumulators in one collective.
+- On a two-tier ``('dcn', 'ici')`` mesh the axis these run over is the
+  mesh's composed data axis (``parallel/mesh.py::make_hier_mesh``): the
+  gradient, count and metric sums span both tiers in one collective.
+  The ZeRO plane (``parallel/zero.py``) splits them by tier:
+  :func:`shard_collective` is each of its reduce-scatters, unsplit
+  all-reduces and all-gathers over the shard axis (``ici``, or the flat
+  data axis), :func:`dcn_all_reduce` each owner-shard all-reduce over
+  ``dcn``.
 - :func:`make_explicit_dp_train_step` and
   :func:`make_explicit_dp_eval_step` are the ``--trainer-mode explicit``
   steps: one eager step per batch on DDP's rule (each rank's masked-mean
@@ -218,6 +226,52 @@ def metric_all_reduce(ms: MetricState, axis) -> MetricState:
 
 
 metric_all_reduce.launches = 0
+
+
+_SHARD_OPS = ("reduce_scatter", "all_reduce", "all_gather")
+
+
+def shard_collective(op: str, out: torch.Tensor, inp, group,
+                     async_op: bool = False):
+    """One collective of the ZeRO plane over its shard axis's ``group``:
+    ``reduce_scatter`` of ``inp`` into ``out``, ``all_reduce`` of ``out``
+    in place, or ``all_gather`` of ``inp`` into ``out``. Returns the work
+    handle (None unless ``async_op``). Counted per call in ``launches``
+    and per op in ``route_launches``."""
+    if op == "reduce_scatter":
+        work = dist.reduce_scatter_tensor(out, inp, group=group,
+                                          async_op=async_op)
+    elif op == "all_gather":
+        work = dist.all_gather_into_tensor(out, inp, group=group,
+                                           async_op=async_op)
+    elif op == "all_reduce":
+        work = dist.all_reduce(out, group=group, async_op=async_op)
+    else:
+        raise ValueError(f"unknown shard collective {op!r} "
+                         f"({', '.join(_SHARD_OPS)})")
+    with _count_lock:
+        shard_collective.launches += 1
+        shard_collective.route_launches[op] += 1
+    return work
+
+
+shard_collective.launches = 0
+shard_collective.route_launches = dict.fromkeys(_SHARD_OPS, 0)
+
+
+def dcn_all_reduce(t: torch.Tensor, axis, async_op: bool = False):
+    """``t`` summed in place over ``axis`` (the two-tier mesh's ``dcn``
+    axis: the ranks of this rank's ``ici`` and model coordinates, one per
+    slice), the cross-slice tier of the ZeRO plane. Returns the work
+    handle (None unless ``async_op``); counted per call in
+    ``launches``."""
+    work = dist.all_reduce(t, group=axis.group, async_op=async_op)
+    with _count_lock:
+        dcn_all_reduce.launches += 1
+    return work
+
+
+dcn_all_reduce.launches = 0
 
 
 def make_explicit_dp_train_step(state, axis) \

@@ -34,11 +34,21 @@ stage, and every model rank under PP x TP) hold the same rows, as the
 JAX package's ``data_replica_coords`` groups them: the loader shards over
 ``data`` alone.
 
-The two-tier ``('dcn', 'ici')`` mesh raises: it waits for ROADMAP Queue 1
-item 16 part 6. Of that part only :func:`device_slice_map` is here, for
-the serving pool's slice-aligned mesh groups. Every mesh is on the card
-unless ``device`` says otherwise: with none given, it resolves ``cuda``
-and raises when no card is visible.
+The two-tier ``('dcn', 'ici', *extra)`` mesh of the JAX package's
+``make_hier_mesh`` is :func:`make_hier_mesh`: ``dcn`` indexes the slice
+(the slow tier between hosts or pods), ``ici`` the data position inside
+it, and together they are the data axis. Its ``data`` is one composed
+:class:`DataAxis` over the ``(dcn, ici)`` span (size ``dcn * ici``,
+coordinate ``d * ici + i``, one subgroup per fixed model coordinate), so
+the loader, the steps and the collectives follow the mesh through
+``mesh.data`` without knowing about tiers; ZeRO addresses ``ici`` and
+``dcn`` by name (``parallel/zero.py``). Model axes (``model``, ``seq``,
+``expert``) nest inside one slice. A CUDA device carries no slice stamp,
+so the slice count comes from ``--dcn-slices`` or ``TPUMNIST_DCN_SLICES``
+and a slice is a contiguous block of the rank order (with a launcher's
+node-major rank order, the nodes). Every mesh is on the card unless
+``device`` says otherwise: with none given, it resolves ``cuda`` and
+raises when no card is visible.
 """
 
 from __future__ import annotations
@@ -62,6 +72,11 @@ EXPERT_AXIS = "expert"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
+DCN_AXIS = "dcn"
+ICI_AXIS = "ici"
+# The two tiers of a hierarchical mesh, leading (data-major): together
+# they are the data axis; model axes follow.
+HIER_DATA_AXES: Tuple[str, str] = (DCN_AXIS, ICI_AXIS)
 # Emulated slice map: N contiguous equal blocks of the device order.
 DCN_SLICES_ENV = "TPUMNIST_DCN_SLICES"
 # The axis layouts the JAX CLI builds, in its axis order.
@@ -137,22 +152,28 @@ class GridMesh:
     """An N-D mesh of ``size`` ranks: ``axes`` are this rank's axes, in
     the mesh's order. The batch shards over ``data`` (the ranks of one
     data coordinate hold the same rows) and the example count and the
-    metrics sum over it; a rule table splits leaves over the others."""
+    metrics sum over it; a rule table splits leaves over the others.
+    ``composed``, on a two-tier mesh, is the data axis made of the
+    ``('dcn', 'ici')`` pair: ``data`` (and ``axis('data')``) return it."""
 
     size: int
     rank: int
     device: torch.device
     axes: Tuple[DataAxis, ...]
+    composed: Optional[DataAxis] = None
 
     @property
     def reduces(self) -> bool:
-        return any(a.reduces for a in self.axes)
+        return any(a.reduces for a in self.axes) or (
+            self.composed is not None and self.composed.reduces)
 
     @property
     def shape(self) -> Dict[str, int]:
         return {a.name: a.size for a in self.axes}
 
     def axis(self, name: str) -> DataAxis:
+        if name == DATA_AXIS and self.composed is not None:
+            return self.composed
         for a in self.axes:
             if a.name == name:
                 return a
@@ -229,30 +250,39 @@ def _subgroups(shape: Sequence[int], spans: Sequence[Tuple[int, ...]]):
 
 def _grid(axes: Tuple[str, ...], shape: Tuple[int, ...],
           device: torch.device) -> GridMesh:
-    """The N-D mesh of ``axes`` over ``shape``: one subgroup per axis
-    (and the ``('data', 'seq')`` one when ``seq`` spans ranks)."""
+    """The N-D mesh of ``axes`` over ``shape``: one subgroup per axis,
+    the composed ``('dcn', 'ici')`` data axis's on a two-tier mesh, and
+    the data x ``seq`` one when ``seq`` spans ranks."""
     n = process_count()
     me = process_index()
     coords = _coords(me, shape)
+    hier = tuple(axes[:2]) == HIER_DATA_AXES
+    data_dims = (0, 1) if hier else (axes.index(DATA_AXIS),)
     spans = [(d,) for d in range(len(axes))]
+    if hier:
+        spans.append(data_dims)
     seq = axes.index(SEQ_AXIS) if SEQ_AXIS in axes else None
     wide = seq is not None and shape[seq] > 1
     if wide:
-        spans.append((axes.index(DATA_AXIS), seq))
+        spans.append(data_dims + (seq,))
     found = _subgroups(shape, spans)
-    records = []
-    for d, name in enumerate(axes):
-        ranks, group = found[d]
-        records.append(DataAxis(shape[d], coords[d], device, group, name,
-                                ranks))
+    records = [DataAxis(shape[d], coords[d], device, found[d][1], name,
+                        found[d][0]) for d, name in enumerate(axes)]
+    sums = None
     if wide:
         ranks, group = found[-1]
-        d_data = axes.index(DATA_AXIS)
-        sums = DataAxis(shape[d_data] * shape[seq], ranks.index(me), device,
-                        group, f"{DATA_AXIS}+{SEQ_AXIS}", ranks)
-        data = records[d_data]
-        records[d_data] = DataAxis(data.size, data.rank, device, data.group,
-                                   DATA_AXIS, data.ranks, sums)
+        sums = DataAxis(len(ranks), ranks.index(me), device, group,
+                        f"{DATA_AXIS}+{SEQ_AXIS}", ranks)
+    if hier:
+        ranks, group = found[len(axes)]
+        composed = DataAxis(len(ranks), ranks.index(me), device, group,
+                            DATA_AXIS, ranks, sums)
+        return GridMesh(size=n, rank=me, device=device, axes=tuple(records),
+                        composed=composed)
+    d = data_dims[0]
+    data = records[d]
+    records[d] = DataAxis(data.size, data.rank, device, data.group,
+                          DATA_AXIS, data.ranks, sums)
     return GridMesh(size=n, rank=me, device=device, axes=tuple(records))
 
 
@@ -272,12 +302,17 @@ def make_mesh(axes: Sequence[str] = (DATA_AXIS,),
     device = resolve_device("cuda") if device is None else device
     n = process_count()
     axes = tuple(axes)
+    if tuple(axes[:2]) == HIER_DATA_AXES:
+        raise ValueError(
+            f"mesh axes {axes}: the two-tier ('dcn', 'ici') mesh is built "
+            f"by make_hier_mesh(dcn_slices, extra_axes, extra_shape), which "
+            f"checks the slice topology")
     if axes not in _LAYOUTS:
         raise NotImplementedError(
             f"mesh axes {axes}: the port has the ('data',) axis and the "
             f"('data', 'expert'), ('data', 'model', 'seq'), ('data', "
-            f"'stage') and ('data', 'stage', 'model') meshes; the two-tier "
-            f"('dcn', 'ici') axes wait for ROADMAP Queue 1 item 16 part 6")
+            f"'stage') and ('data', 'stage', 'model') meshes, and the "
+            f"two-tier ones of make_hier_mesh")
     if axes != (DATA_AXIS,):
         if shape is None or len(shape) != len(axes) \
                 or int(np.prod(shape)) != n or min(shape) < 1:
@@ -292,6 +327,177 @@ def make_mesh(axes: Sequence[str] = (DATA_AXIS,),
     group = dist.group.WORLD if dist.is_initialized() else None
     return DataAxis(size=n, rank=process_index(), device=device,
                     group=group)
+
+
+def device_slice_index(device) -> Optional[int]:
+    """The device's real slice assignment (the JAX runtimes of multi-slice
+    TPUs stamp ``slice_index``), or None when it carries none. A CUDA
+    device (``torch.device``) carries none, so the port's slices are the
+    emulated map's."""
+    idx = getattr(device, "slice_index", None)
+    return int(idx) if isinstance(idx, (int, np.integer)) else None
+
+
+def _env_slices() -> Optional[int]:
+    """``TPUMNIST_DCN_SLICES`` as an integer, None when unset."""
+    env = os.environ.get(DCN_SLICES_ENV, "")
+    if not env:
+        return None
+    try:
+        return int(env)
+    except ValueError:
+        raise ValueError(
+            f"{DCN_SLICES_ENV}={env!r} is not an integer slice count") \
+            from None
+
+
+def _world_devices() -> list:
+    """Stand-ins for the world's devices, one per process in rank order
+    (none carries a slice stamp)."""
+    return list(range(process_count()))
+
+
+def infer_dcn_slices(devices: Optional[Sequence] = None) -> int:
+    """How many DCN slices this world spans: the ``TPUMNIST_DCN_SLICES``
+    emulation env when set, else the count of distinct real
+    ``slice_index`` stamps of ``devices`` (default: the world's, which
+    carry none), else 1 (a flat single-slice world)."""
+    env = _env_slices()
+    if env is not None:
+        return env
+    devs = list(devices) if devices is not None else _world_devices()
+    real = {device_slice_index(d) for d in devs}
+    if None in real or len(real) < 2:
+        return 1
+    return len(real)
+
+
+def _emulated_slice(position: int, world: int, dcn_slices: int) -> int:
+    """The emulated map's block rule (:func:`device_slice_map`): position
+    ``position`` of a ``world`` cut into ``dcn_slices`` contiguous equal
+    blocks. :func:`make_hier_mesh`'s row-major layout puts rank ``r`` in
+    the same slice, ``r // per_slice``."""
+    return position // (world // dcn_slices)
+
+
+def _slice_blocks(devices: Sequence, dcn_slices: int) -> list:
+    """Order ``devices`` slice-major and validate the slice topology
+    (pure: drivable with fake device objects). With real ``slice_index``
+    stamps the devices are grouped by slice (equal sizes required, slice
+    count must match); without them the given order is the emulated map:
+    ``dcn_slices`` contiguous equal blocks."""
+    devices = list(devices)
+    n = len(devices)
+    if dcn_slices < 1:
+        raise ValueError(f"dcn_slices must be >= 1, got {dcn_slices}")
+    if n % dcn_slices:
+        raise ValueError(
+            f"{n} device(s) do not split into {dcn_slices} equal DCN "
+            f"slices")
+    per = n // dcn_slices
+    real = [device_slice_index(d) for d in devices]
+    if all(r is not None for r in real) and len(set(real)) > 1:
+        groups: dict = {}
+        for d, r in zip(devices, real):
+            groups.setdefault(r, []).append(d)
+        if len(groups) != dcn_slices:
+            raise ValueError(
+                f"devices report {len(groups)} distinct slice_index "
+                f"value(s), not the requested {dcn_slices} DCN slices")
+        bad = {k: len(v) for k, v in groups.items() if len(v) != per}
+        if bad:
+            raise ValueError(
+                f"unequal slice sizes (expected {per} chips/slice, got "
+                f"{bad}): every DCN slice must contribute the same chip "
+                f"count")
+        return [d for k in sorted(groups) for d in groups[k]]
+    return devices
+
+
+def validate_dcn_slices(dcn_slices: int,
+                        devices: Optional[Sequence] = None) -> None:
+    """Raise ``ValueError`` unless ``devices`` (default: the world's, one
+    per process) can form ``dcn_slices`` equal slices: the checks
+    :func:`make_hier_mesh` runs, so the CLI can refuse a flag (or fall
+    back to the flat mesh after an elastic rebuild) before anything is
+    built."""
+    _slice_blocks(list(devices) if devices is not None else _world_devices(),
+                  dcn_slices)
+
+
+def make_hier_mesh(dcn_slices: Optional[int] = None,
+                   extra_axes: Tuple[str, ...] = (),
+                   extra_shape: Tuple[int, ...] = (),
+                   device: Optional[torch.device] = None) -> GridMesh:
+    """The data-major two-tier ``('dcn', 'ici', *extra_axes)`` mesh over
+    every process of the world, this process on ``device`` (None: the
+    card, raising when none is visible).
+
+    ``dcn`` indexes the slice, ``ici`` the data position inside it; the
+    mesh's ``data`` is the composed pair. ``extra_axes``/``extra_shape``
+    append model axes (``model``/``seq``/``expert``), which nest inside
+    one slice: their width must divide the ranks of a slice, so no
+    model-parallel group straddles the slow tier. Ranks are laid out
+    row-major (rank ``r`` sits at slice ``r // per_slice``), the
+    emulated slice map's blocks.
+
+    ``dcn_slices=None`` resolves through :func:`infer_dcn_slices` and
+    refuses a flat world: build a flat mesh with :func:`make_mesh`."""
+    device = resolve_device("cuda") if device is None else device
+    devs = _world_devices()
+    if dcn_slices is None:
+        dcn_slices = infer_dcn_slices(devs)
+        if dcn_slices < 2:
+            raise ValueError(
+                f"no DCN slice topology: devices carry no slice_index "
+                f"and {DCN_SLICES_ENV} is unset — pass dcn_slices "
+                f"explicitly (or build a flat make_mesh)")
+    extra_axes, extra_shape = tuple(extra_axes), tuple(extra_shape)
+    if len(extra_axes) != len(extra_shape):
+        raise ValueError(
+            f"extra_axes {extra_axes} and extra_shape {extra_shape} "
+            f"must pair up")
+    for ax in extra_axes:
+        if ax in HIER_DATA_AXES + (DATA_AXIS,):
+            raise ValueError(
+                f"extra axis {ax!r} collides with the hierarchical "
+                f"data axes {HIER_DATA_AXES}")
+    ordered = _slice_blocks(devs, dcn_slices)
+    per_slice = len(ordered) // dcn_slices
+    model = int(np.prod(extra_shape, dtype=np.int64)) if extra_shape else 1
+    if model < 1 or per_slice % model:
+        raise ValueError(
+            f"model axes {dict(zip(extra_axes, extra_shape))} (width "
+            f"{model}) would straddle the DCN boundary: each slice has "
+            f"{per_slice} chip(s), and model-parallel groups must nest "
+            f"inside one slice's ICI domain")
+    shape = (dcn_slices, per_slice // model) + tuple(
+        int(s) for s in extra_shape)
+    return _grid(HIER_DATA_AXES + extra_axes, shape, device)
+
+
+def is_hier_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a two-tier ``('dcn', 'ici', ...)`` mesh."""
+    return tuple(getattr(mesh, "shape", {}))[:2] == HIER_DATA_AXES
+
+
+def resolve_data_axis(mesh, axis="data"):
+    """The axis (a name, or the composed pair of names) batch rows shard
+    over: ``axis`` as it is, except that ``'data'`` on a two-tier mesh is
+    the ``('dcn', 'ici')`` pair."""
+    if mesh is not None and axis == DATA_AXIS and is_hier_mesh(mesh):
+        return HIER_DATA_AXES
+    return axis
+
+
+def data_replica_coords(mesh):
+    """``(num_replicas, rank)`` of this process on the mesh's data axis,
+    for the host-side batch sharder: the processes that share a data
+    coordinate feed identical rows. A port mesh is one process per
+    device, so this is ``mesh.data``'s size and coordinate; on a two-tier
+    mesh the composed ``(dcn, ici)`` axis's, ``d * ici + i``, as the JAX
+    ``data_replica_coords`` collapses the leading pair."""
+    return mesh.data.size, mesh.data.rank
 
 
 def device_slice_map(devices: Sequence) -> Optional[List[int]]:
@@ -315,16 +521,12 @@ def device_slice_map(devices: Sequence) -> Optional[List[int]]:
     devs = [resolve_device(d) for d in devices]
     if not devs:
         return None
-    env = os.environ.get(DCN_SLICES_ENV, "")
-    if not env:
-        return None
     try:
-        n_slices = int(env)
+        n_slices = _env_slices()
     except ValueError:
         return None
     world = len(local_devices(devs[0].type))
-    if n_slices < 2 or world % n_slices:
+    if n_slices is None or n_slices < 2 or world % n_slices:
         return None
-    per = world // n_slices
-    return [(d.index if d.index is not None else i) // per
-            for i, d in enumerate(devs)]
+    return [_emulated_slice(d.index if d.index is not None else i, world,
+                            n_slices) for i, d in enumerate(devs)]

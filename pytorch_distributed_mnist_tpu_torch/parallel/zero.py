@@ -39,6 +39,17 @@ shards the params too: the state's params leaves ARE the shards, and the
 model's whole params are a workspace all-gathered from them before each
 forward (and before each eval pass, ``train/trainer.py``).
 
+On a two-tier ``('dcn', 'ici')`` mesh (``parallel/mesh.py::
+make_hier_mesh``) ZeRO shards over ``ici`` and is replicated over
+``dcn``, the JAX layout's resolution of ``'data'``: the plane's
+reduce-scatter, unsplit all-reduce and all-gather run over the ``ici``
+group, and between them the owner shards (and the unsplit leaves)
+all-reduce over the ``dcn`` group, the ranks that share this rank's
+``ici`` and model coordinates (``parallel/zero_overlap.py``). The shard
+index is the ``ici`` coordinate, so each slice's rank ``i`` runs the
+identical update, and the gradient divisor is the example count over the
+composed data axis.
+
 The per-leaf record the checkpoint layer reads is a
 ``parallel/tensor.py::Placement`` (``state.placements``): a checkpoint
 saved here holds whole leaves (npz) or the shards' slices (``.ckpt``),
@@ -54,6 +65,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
+    shard_collective,
+)
 from pytorch_distributed_mnist_tpu_torch.parallel.tensor import (
     P,
     Placement,
@@ -105,6 +119,19 @@ def _zero_spec(shape: Tuple[int, ...], axis_size: int, axis: str,
 
 
 
+def _shard_axis(mesh, data_axis: str) -> str:
+    """The axis ZeRO shards over: ``data_axis``, except that ``'data'`` on
+    a two-tier mesh is ``'ici'`` (replicated over ``dcn``: only the
+    ``1/ici`` owner shards ever cross slices)."""
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+        ICI_AXIS,
+        is_hier_mesh,
+    )
+
+    return ICI_AXIS if data_axis == "data" and is_hier_mesh(mesh) \
+        else data_axis
+
+
 def zero_state_sharding(state, mesh, data_axis: str = "data",
                         rules=None, level: int = 1,
                         base_sharding: Optional[Dict[str, P]] = None) \
@@ -119,13 +146,15 @@ def zero_state_sharding(state, mesh, data_axis: str = "data",
     and ZeRO applies to the remaining leaves only. ``base_sharding`` (a
     ``{name: P}`` base layout) adds ``data_axis`` to the claimed moment
     leaves on their largest still-unsharded divisible dim; it excludes
-    ``rules`` and ``level=3``."""
+    ``rules`` and ``level=3``. On a two-tier mesh ``'data'`` resolves to
+    ``'ici'``."""
     from pytorch_distributed_mnist_tpu_torch.models.convert import (
         state_leaves,
     )
 
     if level not in (1, 3):
         raise ValueError(f"zero level must be 1 or 3, got {level}")
+    data_axis = _shard_axis(mesh, data_axis)
     if rules and base_sharding is not None:
         raise ValueError("pass rules or base_sharding, not both")
     if level == 3 and base_sharding is not None:
@@ -201,10 +230,16 @@ class ZeroPlane:
     leaves into buckets (:func:`distrib.cas.bucket_plan`; the
     propagation path has one). ``overlap`` issues each bucket's
     reduce-scatter from a backward hook as soon as its gradients exist
-    (``parallel/zero_overlap.py``)."""
+    (``parallel/zero_overlap.py``). ``outer``, on a two-tier mesh, is the
+    ``dcn`` axis the owner shards all-reduce over after the reduce-scatter
+    over ``axis`` (``ici``), one all-reduce per bucket of ``dcn_plan``
+    (``parallel/zero_overlap.py::_dcn_bucket_plan``; None: one bucket of
+    every leaf), fixed when the plane is built."""
 
     def __init__(self, state, axis, level: int, dims: List[Optional[int]],
-                 plan: List[List[int]], overlap: bool = False) -> None:
+                 plan: List[List[int]], overlap: bool = False,
+                 outer=None,
+                 dcn_plan: Optional[List[List[int]]] = None) -> None:
         from pytorch_distributed_mnist_tpu_torch.models.convert import (
             jax_param_order,
         )
@@ -219,6 +254,7 @@ class ZeroPlane:
         self.axis = axis
         self.level = level
         self.overlap = overlap
+        self.outer = outer
         self.group = axis.group
         self.n = axis.size
         self.rank = axis.rank
@@ -264,6 +300,21 @@ class ZeroPlane:
                 n = self.params[i].numel() // self.n
                 self.shards[i] = self.shard_flat[lo:lo + n].view(shape)
                 self.grad_shards[i] = self.grad_flat[lo:lo + n].view(shape)
+        # Each leaf's reduced gradient as the DCN tier moves it: a view of
+        # its shard, or of its run of the bucket's unsplit buffer.
+        self._dcn_views: Dict[int, torch.Tensor] = {
+            i: g.view(-1) for i, g in self.grad_shards.items()}
+        for k, b in enumerate(self.buckets):
+            off = 0
+            for i in b.unsplit:
+                n = self.params[i].numel()
+                self._dcn_views[i] = self.unsplit_flat[k][off:off + n]
+                off += n
+        self.dcn_plan: List[List[int]] = (
+            dcn_plan or [list(range(len(self.params)))])
+        self._dcn_bufs = (self.dcn_buffers(self.dcn_plan)
+                          if outer is not None and outer.group is not None
+                          else [])
         self.grads = GradBuffer(self.params, grad_copies(state.model),
                                 grad_stage(state.model))
         state.grad_buffer = self.grads
@@ -337,16 +388,16 @@ class ZeroPlane:
                 self.grad_shards[i].copy_(views[i])
             return
         if b.packed:
-            self._handles.append(dist.reduce_scatter_tensor(
-                out, self.packing[k], group=self.group,
-                async_op=self.overlap))
+            self._handles.append(shard_collective(
+                "reduce_scatter", out, self.packing[k], self.group,
+                self.overlap))
         for i in b.direct:
-            self._handles.append(dist.reduce_scatter_tensor(
-                self.grad_shards[i].view(-1), views[i].view(-1),
-                group=self.group, async_op=self.overlap))
+            self._handles.append(shard_collective(
+                "reduce_scatter", self.grad_shards[i].view(-1),
+                views[i].view(-1), self.group, self.overlap))
         if b.unsplit:
-            self._handles.append(dist.all_reduce(
-                unsplit, group=self.group, async_op=self.overlap))
+            self._handles.append(shard_collective(
+                "all_reduce", unsplit, None, self.group, self.overlap))
 
     def _on_grad(self, i: int) -> None:
         """Backward hook (overlap): leaf ``i``'s gradient is final; issue
@@ -368,12 +419,69 @@ class ZeroPlane:
         self._next = 0
         self.armed = self.overlap
 
+    def dcn_buffers(self, plan: List[List[int]]) -> List:
+        """The packing buffer of each DCN bucket of ``plan``: None for a
+        bucket of one leaf (its view is contiguous and all-reduces in
+        place), else a flat buffer of the bucket's reduced gradients."""
+        return [None if len(b) == 1 else torch.zeros(
+            sum(self._dcn_views[i].numel() for i in b), dtype=torch.float32,
+            device=self.grad_flat.device) for b in plan]
+
+    @torch.no_grad()
+    def reduce_dcn(self, plan: Optional[List[List[int]]] = None,
+                   buffers: Optional[List] = None) -> None:
+        """The DCN tier: one all-reduce per bucket of ``plan`` (default
+        ``dcn_plan``, with ``buffers`` from :meth:`dcn_buffers`) over the
+        ``dcn`` group, of the bucket's reduced shards (and unsplit
+        leaves) packed from the reduce-scattered gradients; issued in
+        bucket order (asynchronous under overlap), then waited and
+        unpacked bucket by bucket in that order. Nothing on a flat mesh or
+        a one-slice world."""
+        if self.outer is None or self.outer.group is None:
+            return
+        from pytorch_distributed_mnist_tpu_torch.parallel.collectives import (
+            dcn_all_reduce,
+        )
+
+        if plan is None:
+            plan, buffers = self.dcn_plan, self._dcn_bufs
+        views = self._dcn_views
+        handles = []
+        for b, buf in zip(plan, buffers):
+            if buf is None:
+                buf = views[b[0]]
+            else:
+                torch.cat([views[i] for i in b], out=buf)
+            handles.append(dcn_all_reduce(buf, self.outer,
+                                          async_op=self.overlap))
+        for b, buf, h in zip(plan, buffers, handles):
+            if h is not None:
+                h.wait()
+            if buf is not None:
+                parts = buf.split([views[i].numel() for i in b])
+                for i, part in zip(b, parts):
+                    views[i].copy_(part)
+
+    @torch.no_grad()
+    def local_shards(self) -> None:
+        """This rank's slice of each gradient into its shard, and the
+        unsplit gradients into their buckets' buffers: what the ICI tier
+        would leave there on one rank, with no communication."""
+        for i, g in self.grad_shards.items():
+            g.copy_(self._rank_major(self.grads.views[i], i)[self.rank])
+        for k, b in enumerate(self.buckets):
+            if b.unsplit:
+                torch.cat([self.grads.views[i].reshape(-1)
+                           for i in b.unsplit], out=self.unsplit_flat[k])
+
     @torch.no_grad()
     def reduce(self, divisor: Optional[torch.Tensor] = None,
-               scale: Optional[torch.Tensor] = None) -> None:
+               scale: Optional[torch.Tensor] = None,
+               dcn: bool = True) -> None:
         """Finish the gradient reduction: issue the buckets the hooks did
-        not, wait for every bucket in order, then divide (or scale) the
-        reduced gradients and unpack the unsplit ones."""
+        not, wait for every bucket in order, run the DCN tier
+        (:meth:`reduce_dcn`, unless not ``dcn``), then divide (or scale)
+        the reduced gradients and unpack the unsplit ones."""
         self.armed = False
         self.grads.check()
         self.grads.sum_stage()
@@ -388,6 +496,8 @@ class ZeroPlane:
                 h.wait()
         self._handles = []
         self._next = 0
+        if dcn:
+            self.reduce_dcn()
         factor = None
         if divisor is not None:
             factor = 1.0 / torch.clamp(divisor, min=1.0)
@@ -414,7 +524,9 @@ class ZeroPlane:
         dim-0 leaves straight into their params, the packed ones into the
         packing buffer, then unpacked (bucket order; asynchronous under
         overlap, all waited). The packing buffer is free here: every
-        reduce-scatter was waited for before the update."""
+        reduce-scatter was waited for before the update. Over the shard
+        axis alone: on a two-tier mesh every slice's shards are already
+        the same, so ``dcn`` carries nothing here."""
         handles: Dict[int, List] = {}
         for k, b in enumerate(self.buckets):
             src = self.shard_flat[b.start:b.start + b.packed_size]
@@ -423,14 +535,14 @@ class ZeroPlane:
                 for i in b.direct:
                     self.params[i].copy_(self.shards[i])
                 continue
-            handles[k] = [dist.all_gather_into_tensor(
-                self.params[i].view(-1), self.shards[i].view(-1),
-                group=self.group, async_op=self.overlap)
+            handles[k] = [shard_collective(
+                "all_gather", self.params[i].view(-1),
+                self.shards[i].view(-1), self.group, self.overlap)
                 for i in b.direct]
             if b.packed:
-                handles[k].append(dist.all_gather_into_tensor(
-                    self.packing[k], src, group=self.group,
-                    async_op=self.overlap))
+                handles[k].append(shard_collective(
+                    "all_gather", self.packing[k], src, self.group,
+                    self.overlap))
         for k, b in enumerate(self.buckets):
             for h in handles.get(k, []):
                 if h is not None:
@@ -474,7 +586,8 @@ class ZeroPlane:
 def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
                      level: int = 1, base_sharding=None,
                      bucket_mb: Optional[float] = None,
-                     overlap: bool = False):
+                     overlap: bool = False,
+                     bucket_mb_dcn: Optional[float] = None):
     """Place a whole train state onto ``mesh`` with ZeRO-``level``
     sharding; returns ``(state, {leaf name: P})``. Ruled leaves
     (``rules``, e.g. the EP table) are placed by their rule first; the
@@ -482,7 +595,12 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
     over the ``data_axis`` axis (``state.zero``), whose optimizer replaces
     the state's, carrying its counts, hyperparameters and moments. With
     ``bucket_mb`` the leaves group into the overlapped path's buckets,
-    else into one.
+    else into one. On a two-tier mesh ``'data'`` is ``'ici'`` and the
+    plane all-reduces the owner shards over ``dcn`` too, one collective
+    per bucket of ``bucket_mb_dcn`` MiB of shard bytes (None or 0: the
+    ``bucket_mb`` budget; neither: one bucket), planned here once
+    (``parallel/zero_overlap.py::_dcn_bucket_plan``); ignored on a flat
+    mesh.
 
     ``base_sharding`` (the pipeline's ``{leaf name: P}``,
     ``parallel/pipeline_vit.py``) is placed first, and each moment then
@@ -500,6 +618,7 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
         shard_state,
     )
     from pytorch_distributed_mnist_tpu_torch.parallel.zero_overlap import (
+        _dcn_bucket_plan,
         _shard_dims,
         bucket_plan,
     )
@@ -514,6 +633,10 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
         _tier_axes(mesh, data_axis)
     sharding = zero_state_sharding(state, mesh, data_axis, rules, level,
                                    base_sharding)
+    # On a two-tier mesh the shards split over 'ici' and the owner
+    # shards cross slices over 'dcn'.
+    data_axis = _shard_axis(mesh, data_axis)
+    outer = mesh.axis("dcn") if data_axis == "ici" else None
     if rules:
         shard_state(state, mesh, rules)
     if base_sharding is not None:
@@ -546,7 +669,12 @@ def shard_state_zero(state, mesh, data_axis: str = "data", rules=None,
                     [named[n] for n in names], axis_size, data_axis))]
     plan = (bucket_plan([named[n] for n in names], bucket_mb)
             if bucket_mb else [list(range(len(names)))])
-    plane = ZeroPlane(state, axis, level, dims, plan, overlap=overlap)
+    dcn_budget = bucket_mb_dcn or bucket_mb
+    dcn_plan = (_dcn_bucket_plan([named[n] for n in names], dims, axis_size,
+                                 dcn_budget)
+                if outer is not None and dcn_budget else None)
+    plane = ZeroPlane(state, axis, level, dims, plan, overlap=overlap,
+                      outer=outer, dcn_plan=dcn_plan)
     plane.seq = getattr(mesh, "seq", None)
     new = _rebuild_optimizer(old, plane.update)
     with torch.no_grad():

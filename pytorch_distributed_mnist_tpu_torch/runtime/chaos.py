@@ -28,6 +28,18 @@ world on the CPU, and without a card the ranks fail as the CLI does::
         --synthetic-train-size 2048 --synthetic-test-size 512 \\
         --batch-size 96 --checkpoint-dir /tmp/chaos/el
 
+    # SLICE LOSS: a 2-rank world as 2 emulated DCN slices of 1 rank;
+    # killing every rank of slice 1 mid epoch shrinks it to one rank,
+    # which 2 slices no longer fit: it resumes on the flat mesh
+    # (dcn_flat_fallback)
+    python -m pytorch_distributed_mnist_tpu_torch.runtime.chaos \\
+        --elastic --dcn-slices 2 --kill-slice 1 --nprocs 2 -- \\
+        --device cpu --model linear --dataset synthetic --epochs 3 \\
+        --synthetic-train-size 256 --synthetic-test-size 128 \\
+        --trainer-mode stepwise --optimizer-sharding zero1 \\
+        --batch-size 64 --metrics-file /tmp/chaos/slice.jsonl \\
+        --checkpoint-dir /tmp/chaos/slice
+
     # GROW (2 -> 1 -> 2): rank 1 dies at epoch 1's entry, the world
     # shrinks to host 0; --rejoin 1@1 writes host 1's join record while
     # generation 1 runs, the epoch-boundary grow rendezvous admits it,
@@ -161,6 +173,9 @@ from pytorch_distributed_mnist_tpu_torch.runtime.supervision import (
 SERVE_FAULT_ENV = "TPUMNIST_SERVE_FAULT"
 CANARY_FAULT_ENV = "TPUMNIST_CANARY_FAULT"
 FLEET_FAULT_ENV = "TPUMNIST_FLEET_FAULT"
+# parallel/mesh.py's emulated slice map, spelled out as tools/chaos.py
+# spells it.
+DCN_SLICES_ENV = "TPUMNIST_DCN_SLICES"
 PACKAGE = "pytorch_distributed_mnist_tpu_torch"
 # Open-loop seconds of the fleet modes' and the cache storm's traffic.
 LOAD_SECONDS = 4.0
@@ -1222,6 +1237,22 @@ def main(argv=None) -> int:
                    help="--elastic: write HOST's join record while "
                         "generation GEN runs (a returning host announcing "
                         "itself; e.g. 1@1 for the 2 -> 1 -> 2 twin)")
+    p.add_argument("--dcn-slices", type=int, default=0, metavar="N",
+                   help="run the world on the emulated hierarchical "
+                        f"(DCN x ICI) mesh: sets {DCN_SLICES_ENV}=N for "
+                        "every rank (N must divide --nprocs; each "
+                        "slice is a contiguous block of ranks). The "
+                        "slice-loss twins compose this with "
+                        "--kill-slice")
+    p.add_argument("--kill-slice", type=int, default=None, metavar="S",
+                   help="elastic slice-loss twin: SIGKILL EVERY rank of "
+                        "emulated slice S (mid-epoch, the train_step "
+                        "point, skip 5): the survivors shrink to the "
+                        "remaining slice(s), and a world the slice "
+                        "count no longer divides lands on the FLAT "
+                        "mesh (the CLI's elastic fallback) and resumes "
+                        "through the ordinary (W, W') reshard. "
+                        "Requires --elastic and --dcn-slices")
     p.add_argument("--settle-timeout", type=float, default=60.0,
                    help="--elastic: seconds the supervisor waits for the "
                         "other ranks once one failed, before it stops "
@@ -1356,6 +1387,28 @@ def main(argv=None) -> int:
             and not args.elastic:
         raise SystemExit("--elastic-grow/--rejoin/--max-world require "
                          "--elastic")
+    if args.dcn_slices:
+        if args.dcn_slices < 2 or args.nprocs % args.dcn_slices:
+            raise SystemExit(
+                f"--dcn-slices {args.dcn_slices} must divide --nprocs "
+                f"{args.nprocs} into equal slices (>= 2)")
+        os.environ[DCN_SLICES_ENV] = str(args.dcn_slices)
+    # No flag: an exported TPUMNIST_DCN_SLICES is the CLI's own contract
+    # and stays in force for the ranks.
+    if args.kill_slice is not None:
+        if not args.elastic or not args.dcn_slices:
+            raise SystemExit(
+                "--kill-slice is the elastic slice-loss twin; it "
+                "requires --elastic and --dcn-slices")
+        per = args.nprocs // args.dcn_slices
+        if not 0 <= args.kill_slice < args.dcn_slices:
+            raise SystemExit(
+                f"--kill-slice {args.kill_slice} is not one of the "
+                f"{args.dcn_slices} slices")
+        specs = [f"train_step:{h}:kill:5"
+                 for h in range(args.kill_slice * per,
+                                (args.kill_slice + 1) * per)]
+        args.fault = ",".join(specs + ([args.fault] if args.fault else []))
     rejoin = parse_rejoin(args.rejoin) if args.rejoin else []
     if args.fault:
         parse_fault_specs(args.fault)  # fail fast with the spec's message

@@ -37,7 +37,9 @@ and a ZeRO-placed state (``parallel/zero.py``). Under ZeRO-3 the whole
 params are gathered from the shards before each eval pass;
 ``zero_overlap`` asks for the overlapped plane
 (``parallel/zero_overlap.py``), whose carry is rebuilt before a train
-pass when a load replaced the shards.
+pass when a load replaced the shards; ``zero_bucket_mb_dcn``, on a
+two-tier mesh, must plan the cross-slice buckets the state was placed
+with.
 
 Under ``--debug-nans`` (``utils/debug_nans.py``) the per-batch modes run
 every step under the NaN-checking dispatch mode; ``scan`` keeps a copy of
@@ -123,7 +125,8 @@ class Trainer:
                  mode: str = "scan", epoch_gather: str = "host",
                  staging_log=None, axis=None, grad_accum: int = 1,
                  feed_window: int = 2, aux_weight: float = 0.0,
-                 zero_overlap: bool = False) -> None:
+                 zero_overlap: bool = False,
+                 zero_bucket_mb_dcn: float = 0.0) -> None:
         if mode not in MODES:
             raise ValueError(f"unknown trainer mode {mode!r} "
                              f"({', '.join(MODES)})")
@@ -152,6 +155,16 @@ class Trainer:
                     "zero_overlap requires epoch_gather='host' (the "
                     "overlapped step is not embedded in the device-gather "
                     "epoch program)")
+            # On a two-tier mesh the cross-slice buckets' budget (0: as
+            # placed), as the JAX Trainer builds its step with it.
+            from pytorch_distributed_mnist_tpu_torch.parallel.zero_overlap \
+                import check_dcn_budget
+
+            check_dcn_budget(state, zero_bucket_mb_dcn)
+        elif zero_bucket_mb_dcn:
+            raise ValueError(
+                "zero_bucket_mb_dcn sizes the zero_overlap schedule's "
+                "cross-slice buckets; it requires zero_overlap")
         if mode == "explicit" and (state.zero is not None
                                    or state.placements):
             raise ValueError(

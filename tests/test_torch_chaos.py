@@ -23,6 +23,11 @@ harness (``runtime/chaos.py``) and the CLI.
   at epoch 1's entry, shrinks to host 0, admits host 1's join record at
   the next epoch boundary and ends at a world of 2, whose epoch-2 line
   equals a direct world of 2's resumed from the same checkpoint.
+- The slice-loss twin: 2 ranks as 2 emulated DCN slices
+  (``TPUMNIST_DCN_SLICES=2``), ZeRO-1, slice 1 killed inside epoch 1;
+  the survivor lands on the flat mesh (``dcn_flat_fallback``), reshards
+  and trains on; ``--kill-slice``'s fault composition and the chaos
+  parser's flags against ``tools/chaos.py``'s.
 - The world's device is the CLI args' ``--device``, ``cuda`` when they
   name none: the chaos tool hands it to ``run_local`` and ``supervise``
   (their defaults are ``cuda`` too).
@@ -387,3 +392,119 @@ def test_single_server_chaos_beside_its_twin(world_env, capfd, mode):
     else:
         assert faulted["stale_replies"] == 0 and faulted["dropped"] == 0
         assert faulted["epochs"][1] == 7 and twin["client_hits"] > 0
+
+
+# -- the slice-loss twins (the two-tier mesh) --------------------------------
+
+
+def _parser_flags(main) -> set:
+    """The option strings of the parser ``main`` builds, read as it
+    parses (and stopped there)."""
+    import argparse
+
+    class _Built(Exception):
+        pass
+
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def grab(self, *a, **kw):
+        seen["parser"] = self
+        raise _Built
+
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        with pytest.raises(_Built):
+            main([])
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return {opt for action in seen["parser"]._actions
+            for opt in action.option_strings if opt.startswith("--")}
+
+
+def test_the_chaos_parser_has_the_jax_flags():
+    """Beside ``tools/chaos.py``'s parser the port's lacks only
+    ``--cpu-devices`` (it sets XLA's host device count; the port's worlds
+    take the CLI args' ``--device`` instead) and adds ``--no-twin`` and
+    ``--device``; ``--dcn-slices`` and ``--kill-slice`` are there."""
+    from pytorch_distributed_mnist_tpu_torch.runtime import chaos
+    from tools import chaos as jax_chaos
+
+    port, jax_flags = _parser_flags(chaos.main), _parser_flags(jax_chaos.main)
+    assert jax_flags - port == {"--cpu-devices"}
+    assert port - jax_flags == {"--no-twin", "--device"}
+    assert {"--dcn-slices", "--kill-slice"} <= port
+    assert chaos.DCN_SLICES_ENV == jax_chaos.DCN_SLICES_ENV
+
+
+def test_chaos_kill_slice_composes_fault_specs(monkeypatch):
+    """``--kill-slice S`` kills every rank of emulated slice S mid epoch:
+    ``--dcn-slices`` sets the env and the kills compose one fault spec per
+    rank (``tests/test_hier_mesh.py``'s twin), with JAX's refusals."""
+    from pytorch_distributed_mnist_tpu_torch.runtime import chaos
+
+    monkeypatch.setenv("TPUMNIST_FAULT", "sentinel")
+    monkeypatch.setenv("TPUMNIST_DCN_SLICES", "sentinel")
+    monkeypatch.setenv("TPUMNIST_AGREEMENT_TIMEOUT", "300")
+    captured = {}
+
+    def fake_supervise(nprocs, cli_args, **kw):
+        captured.setdefault("nprocs", nprocs)
+        captured.setdefault("fault", os.environ.get("TPUMNIST_FAULT"))
+        captured.setdefault("slices", os.environ.get("TPUMNIST_DCN_SLICES"))
+        return 0
+
+    monkeypatch.setattr(chaos, "supervise", fake_supervise)
+    rc = chaos.main(["--elastic", "--dcn-slices", "2", "--kill-slice", "1",
+                     "--nprocs", "4", "--", "--dataset", "synthetic"])
+    assert rc == 0 and captured["nprocs"] == 4
+    assert captured["slices"] == "2"
+    assert captured["fault"] == "train_step:2:kill:5,train_step:3:kill:5"
+    with pytest.raises(SystemExit, match="elastic"):
+        chaos.main(["--kill-slice", "0", "--dcn-slices", "2"])
+    with pytest.raises(SystemExit, match="divide"):
+        chaos.main(["--elastic", "--dcn-slices", "3", "--nprocs", "4"])
+    with pytest.raises(SystemExit, match="not one of"):
+        chaos.main(["--elastic", "--dcn-slices", "2", "--kill-slice", "2",
+                    "--nprocs", "4"])
+
+
+def test_slice_loss_shrinks_to_the_surviving_slice_flat_world(
+        tmp_path, world_env, monkeypatch, capfd):
+    """The slice-loss twin of ``tests/test_elastic_chaos.py``: 2 ranks as
+    2 emulated DCN slices, ZeRO-1, rank 1 (all of slice 1) SIGKILLed
+    inside epoch 1's step loop. The survivor's world of one no longer
+    fits 2 slices: it lands on the flat mesh (``dcn_flat_fallback``),
+    reshards the two-tier checkpoint and trains epochs 1 and 2."""
+    from pytorch_distributed_mnist_tpu_torch.runtime.elastic import (
+        supervise,
+    )
+
+    ckpt, metrics = tmp_path / "ckpts", tmp_path / "metrics.jsonl"
+    monkeypatch.setenv("TPUMNIST_AGREEMENT_TIMEOUT", _DEADLINE)
+    monkeypatch.setenv("TPUMNIST_DCN_SLICES", "2")
+    # Epoch 0's four steps run whole (its checkpoint publishes); the 6th
+    # step, in epoch 1, kills: the --kill-slice spec.
+    monkeypatch.setenv("TPUMNIST_FAULT", "train_step:1:kill:5")
+    rc = supervise(2, ["--device", "cpu", "--model", "linear", "--dataset",
+                       "synthetic", "--synthetic-train-size", "256",
+                       "--synthetic-test-size", "128", "--trainer-mode",
+                       "stepwise", "--seed", "0", "--resume", "auto",
+                       "--epochs", "3", "--batch-size", "64",
+                       "--optimizer-sharding", "zero1", "--checkpoint-dir",
+                       str(ckpt), "--metrics-file", str(metrics)],
+                   settle_timeout=60.0, generation_timeout=WORLD_TIMEOUT,
+                   device="cpu")
+    cap = capfd.readouterr()
+    assert rc == 0, (cap.out + cap.err)[-4000:]
+    rows = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    (shrunk,) = [r for r in rows if r.get("kind") == "world_shrunk"]
+    assert shrunk["old_members"] == [0, 1]
+    assert shrunk["new_members"] == [0]
+    fallback = [r for r in rows if r.get("kind") == "dcn_flat_fallback"]
+    assert fallback and "flat" in fallback[0]["detail"]
+    reshard = [r for r in rows if r.get("kind") == "checkpoint_reshard"]
+    assert reshard and reshard[0]["saved"]["processes"] == 2
+    after = rows[rows.index(shrunk) + 1:]
+    assert [r["epoch"] for r in after if "train_loss" in r] == [1, 2]
+    assert "mesh: {'dcn': 2, 'ici': 1}" in cap.out

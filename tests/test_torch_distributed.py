@@ -824,14 +824,21 @@ def test_one_process_without_flags_makes_no_group():
 
 
 def test_the_mesh_refuses_other_axes():
-    """The two-tier meshes wait (part 6); the ('data', 'model', 'seq')
-    mesh and the pipeline's ('data', 'stage') mesh are the port's now."""
+    """The two-tier meshes are built by ``make_hier_mesh`` (make_mesh
+    points there); the ('data', 'model', 'seq') mesh and the pipeline's
+    ('data', 'stage') mesh are the port's too."""
+    from pytorch_distributed_mnist_tpu_torch.parallel.mesh import (
+        make_hier_mesh,
+    )
+
     mesh = make_mesh(("data", "stage"), (1, 1), device=CPU)
     assert mesh.shape == {"data": 1, "stage": 1}
     assert mesh.stage.size == 1 and mesh.model is None
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 16 part 6"):
+    with pytest.raises(ValueError, match="make_hier_mesh"):
         make_mesh(("dcn", "ici"), (1, 1), device=CPU)
+    hier = make_hier_mesh(1, device=CPU)
+    assert hier.shape == {"dcn": 1, "ici": 1} and not hier.reduces
+    assert (hier.data.size, hier.data.rank) == (1, 0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         make_mesh(("data",), (2,), device=CPU)
     mesh = make_mesh(("data", "model", "seq"), (1, 1, 1), device=CPU)

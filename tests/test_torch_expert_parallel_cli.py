@@ -7,9 +7,9 @@ writing the epoch rows into ``--metrics-file``; a one-process run goes
 through ``cli.run``. EP is a layout change, not a math change: the EP
 run's trajectory equals the one-process run's (dense dispatch is
 layout-exact; the router is float32). The refusals carry the JAX CLI's
-words. The pipeline and two-tier flags (``--pipeline-stages`` and the
-rest) wait for ROADMAP Queue 1 item 16 parts 5-6: the port's parser does
-not take them.
+words. The port's train parser has every JAX train flag, the two-tier
+meshes' (``--dcn-slices``, ``--zero-bucket-mb-dcn``) included, with the
+JAX defaults.
 """
 
 import json
@@ -198,17 +198,17 @@ def _train_flags(parser) -> set:
 
 
 def test_the_train_parser_lacks_exactly_the_unported_flags():
-    """Beside the JAX CLI's train parser, the port's lacks the flags of the
-    two-tier meshes only, and offers ``--model moe_mlp``; the tensor-,
-    sequence- and pipeline-parallel flags have the JAX defaults and
-    choices."""
+    """Beside the JAX CLI's train parser, the port's lacks no flag (the
+    two-tier meshes' were the last), and offers ``--model moe_mlp``; the
+    tensor-, sequence-, pipeline-parallel and two-tier flags have the JAX
+    defaults and choices."""
     from pytorch_distributed_mnist_tpu.cli import (
         build_parser as jax_build_parser,
     )
 
     missing = _train_flags(jax_build_parser()) - _train_flags(
         cli.build_parser())
-    assert missing == {"--dcn-slices", "--zero-bucket-mb-dcn"}
+    assert missing == set()
     model = next(a for a in cli.build_parser()._actions
                  if "--model" in a.option_strings)
     assert "moe_mlp" in model.choices
@@ -217,7 +217,8 @@ def test_the_train_parser_lacks_exactly_the_unported_flags():
     for flag in ("expert_parallel", "moe_aux_weight", "moe_dispatch",
                  "optimizer_sharding", "zero_overlap", "zero_bucket_mb",
                  "tensor_parallel", "tp_overlap", "sequence_parallel",
-                 "sequence_parallel_impl", "pipeline_stages"):
+                 "sequence_parallel_impl", "pipeline_stages",
+                 "dcn_slices", "zero_bucket_mb_dcn"):
         assert getattr(args, flag) == getattr(jargs, flag), flag
     impl = {a.dest: a.choices for a in cli.build_parser()._actions}
     jimpl = {a.dest: a.choices for a in jax_build_parser()._actions}

@@ -182,15 +182,14 @@ def test_parser_leaves_out_unported_flags_and_defaults_to_cuda():
 
 
 def test_cli_dispatches_serve_and_refuses_training(capsys, tmp_path):
-    # A bare invocation trains (the JAX package's default subcommand);
-    # training flags the port does not have yet (every trainer mode,
-    # --grad-accum and ZeRO are ported; --dcn-slices is not) exit 2.
+    # A bare invocation trains (the JAX package's default subcommand):
+    # --dcn-slices 2 reaches the training world, where one CPU process
+    # does not split into two slices.
     with pytest.raises(SystemExit) as info:
         cli.main(["--epochs", "1", "--dcn-slices", "2", "--device",
                   "cpu", "--checkpoint-dir", str(tmp_path)])
-    assert info.value.code == 2
-    assert "unrecognized arguments: --dcn-slices" \
-        in capsys.readouterr().err
+    assert "--dcn-slices 2: 1 device(s) do not split into 2 equal DCN " \
+        "slices" in str(info.value.code)
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", "--help"])
     assert info.value.code == 0

@@ -369,11 +369,21 @@ def test_unported_trainer_modes_exit_2(mode, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--zero-bucket-mb-dcn", "1"],
                                   ["--zero-bucket-mb-dcn=2"],
                                   ["--dcn-slices", "2"]])
-def test_flags_of_later_slices_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as info:
-        build_parser().parse_args(flag)
-    assert info.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_flags_of_later_slices_are_refused(flag):
+    """The two-tier meshes' flags were the last of a later slice: the
+    parser takes them now, with the JAX parser's defaults and values
+    (``parallel/mesh.py::make_hier_mesh``; a world refuses what it cannot
+    split, ``tests/test_torch_hier_mesh.py``)."""
+    from pytorch_distributed_mnist_tpu.cli import (
+        build_parser as jax_build_parser,
+    )
+
+    args, jargs = build_parser().parse_args(flag), \
+        jax_build_parser().parse_args(flag)
+    for dest in ("dcn_slices", "zero_bucket_mb_dcn"):
+        assert getattr(args, dest) == getattr(jargs, dest), dest
+    defaults = build_parser().parse_args([])
+    assert (defaults.dcn_slices, defaults.zero_bucket_mb_dcn) == (0, 0.0)
 
 
 def test_training_asks_for_the_card_by_default(tmp_path):
