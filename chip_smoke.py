@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 1. device and build: the card's name and power limit (``nvidia-smi``) and
    the build of every hand-written kernel from ``csrc/`` (``nvcc``,
    ``sm_90a``, one process per source, all at once), with each kernel
-   instantiation's registers and spills from ``ptxas -v``; before them,
+   instantiation's registers and spills from ``ptxas -v`` (the 3xTF32
+   kernels' 30 must all be there and none may spill); before them,
    alone, the native host library (``native_vs_plain``): built from
    ``native/tpumnist_native.cpp`` into the build directory (its seconds,
    version 4, its path), each entry point bitwise equal to its NumPy
@@ -125,9 +126,10 @@ Phases, each printing one JSON line:
    ``flash_bwd_plain``, twice, for the same bits, at the ViT's shape (256,
    49, 4, 16) and at T in {1, 16, 30, 33, 40, 57, 70, 90, 100, 128, 130,
    196, 200}, D in {4, 7, 8, 10, 12, 16, 20, 32, 48, 64, 100, 128},
-   float32 and bfloat16, causal and not, and the tiled pair also at (32,
-   196, 4, 16), (256, 196, 4, 16) and (32, 196, 4, 12)
-   (``flash_tolerance`` states each tolerance and why), with the route
+   float32 and bfloat16, causal and not, and the tiled pair in bf16 and
+   the 3xTF32 forward and pair in float32 also at (32, 196, 4, 16), (256,
+   196, 4, 16) and (32, 196, 4, 12) (``flash_tolerance`` states each
+   tolerance and why), with the route
    each forward and backward took, each shape's copy width, and the share
    of its tolerance each used, worst per route and path (16-byte or
    narrow); the tensor-core forwards (bf16 and 3xTF32) twice for the same
@@ -2706,7 +2708,9 @@ def phase_flash_vs_plain(device) -> dict:
     it. The head dims that are not a multiple of 8 run the tensor-core
     kernels' narrow instantiation: each shape's copy width
     (``flash._copy_width``) is printed, and the ViT's D = 12 slices must
-    take 8 bytes in bf16. Returns each kernel's largest error, keyed by
+    take 8 bytes in bf16. ``TILED_CHECK_SHAPES`` hold the tiled pair in
+    bf16 and the 3xTF32 forward and pair in float32, each twice for the
+    same bits. Returns each kernel's largest error, keyed by
     ``FWD_KEYS`` and ``BWD_KEYS`` (and ``flash_dq``, ``flash_dkv``: the
     CUDA-core dQ and dK/dV kernels called directly)."""
     import torch
@@ -2803,7 +2807,7 @@ def phase_flash_vs_plain(device) -> dict:
                 used[key] = max(used.get(key, 0.0), share)
                 at = f"{route} {path}"
                 bwd_route_used[at] = max(bwd_route_used.get(at, 0.0), share)
-    # The tiled route at the ViT's --patch-size 2 shapes, bf16 only.
+    # The tiled route at the ViT's --patch-size 2 shapes in bf16.
     tol = flash_tolerance(torch.bfloat16)
     for shape in TILED_CHECK_SHAPES:
         for causal in (False, True):
@@ -2824,8 +2828,49 @@ def phase_flash_vs_plain(device) -> dict:
             used[key] = max(used.get(key, 0.0), share)
             at = f"{route} {path}"
             bwd_route_used[at] = max(bwd_route_used.get(at, 0.0), share)
+    # The 3xTF32 route at the same shapes in float32: the forward twice for
+    # the same bits, the pair through _bwd_twice.
+    for shape in TILED_CHECK_SHAPES:
+        for causal in (False, True):
+            where = f"{shape} float32 causal={causal}"
+            key = f"{'x'.join(map(str, shape))} float32"
+            q, k, v, do = flash_inputs(shape, torch.float32, gen, device)
+            widths[key] = flash._copy_width(q, k, v)
+            path = "16-byte" if widths[key] == 16 and shape[-1] % 8 == 0 \
+                else "narrow"
+            for route in (flash._fwd_route(shape, torch.float32),
+                          flash._bwd_route(shape, torch.float32)):
+                if route != "tf32x3":
+                    raise AssertionError(f"{where} takes the {route} route")
+            o, lse = flash.flash_fwd(q, k, v, causal=causal)
+            o2, lse2 = flash.flash_fwd(q, k, v, causal=causal)
+            want_o, want_lse = flash.flash_fwd_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"flash_fwd (tf32x3) gave other bits on "
+                                     f"a second call at {where}")
+            worst["flash_fwd_tf32"] = max(
+                worst["flash_fwd_tf32"],
+                _close("O (tf32x3)", o, want_o, f32, where),
+                _close("lse (tf32x3)", lse, want_lse, f32, where))
+            share = max(tolerance_used(o, want_o, f32),
+                        tolerance_used(lse, want_lse, f32))
+            fwd_routes[key] = "tf32x3"
+            fwd_used[key] = max(fwd_used.get(key, 0.0), share)
+            at = f"tf32x3 {path}"
+            fwd_route_used[at] = max(fwd_route_used.get(at, 0.0), share)
+            want = flash.flash_bwd_plain(q, k, v, want_o, want_lse, do,
+                                         causal=causal)
+            err, share = _bwd_twice(flash, "tf32x3",
+                                    (q, k, v, want_o, want_lse, do), want,
+                                    causal, f32, where)
+            worst["flash_bwd_tf32"] = max(worst["flash_bwd_tf32"], err)
+            routes[key] = "tf32x3"
+            used[key] = max(used.get(key, 0.0), share)
+            bwd_route_used[at] = max(bwd_route_used.get(at, 0.0), share)
     emit("flash_vs_plain", shapes=[list(s) for s in FLASH_CHECK_SHAPES],
          tiled_shapes=[list(s) for s in TILED_CHECK_SHAPES],
+         tiled_dtypes=["bfloat16", "float32"],
          dtypes=["float32", "bfloat16"], causal=[False, True],
          tolerance={"float32": flash_tolerance(torch.float32),
                     "bfloat16": flash_tolerance(torch.bfloat16)},
@@ -7284,6 +7329,27 @@ def ptxas_counts(log: str) -> dict:
     return counts
 
 
+# Instantiations of csrc/flash_tf32.cu: three kernels at five head-dim
+# capacities, each on the 16-byte path and the narrow one.
+TF32_INSTANTIATIONS = 3 * 5 * 2
+
+
+def require_no_spill(log: str) -> dict:
+    """The 3xTF32 kernels' ptxas counts (``ptxas_counts``) from a fresh
+    build's log: raises unless every instantiation is there and none
+    spills a register."""
+    counts = ptxas_counts(log)
+    if len(counts) != TF32_INSTANTIATIONS:
+        raise AssertionError(f"flash_tf32's build reported "
+                             f"{len(counts)} instantiations, not "
+                             f"{TF32_INSTANTIATIONS}: {sorted(counts)}")
+    spilled = {k: v for k, v in counts.items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"flash_tf32 spills registers: {spilled}")
+    return counts
+
+
 def main() -> int:
     import shutil
 
@@ -7308,12 +7374,18 @@ def main() -> int:
     tp_sp = start_tp_sp_cpu()
     t0 = time.perf_counter()
     info = cuda_build.build()
+    # A library found built already carries no log to read.
+    tf32_ptxas = (require_no_spill(info["flash_tf32"]["log"])
+                  if info["flash_tf32"]["log"] else {})
     emit("device_build", device=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, peaks_of=part,
          build_s=time.perf_counter() - t0,
          kernels={k: {"build_s": v["seconds"],
                       "ptxas": ptxas_counts(v["log"])}
                   for k, v in info.items()},
+         flash_tf32_registers_and_spills={
+             k: [v.get("registers"), v.get("spill_stores", 0)]
+             for k, v in tf32_ptxas.items()},
          beside="chaos_cpu's and tp_sp_spawn's CPU worlds ran during "
                 "the builds")
 

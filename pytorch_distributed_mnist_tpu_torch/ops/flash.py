@@ -45,8 +45,9 @@ and T alone:
 - ``"tf32x3"`` (forward and backward, float32, such as the ViT under
   ``--dtype f32``): ``csrc/flash_tf32.cu``, the forward and a dQ then a
   dK/dV kernel as in the tiled pair, every product as three TF32
-  ``mma.sync`` (each operand split into a high and a low TF32 part) with
-  float32 sums, which keeps the float32 route's 1e-4 tolerance.
+  ``wgmma`` (each operand split once, as it is staged, into a high and a
+  low TF32 part) with float32 sums, which keeps the float32 route's 1e-4
+  tolerance (:func:`_tf32_tiles`, :func:`_tf32_plane_words`).
 
 The tensor-core kernels pad the head dims to DP in {16, 32, 64, 128} (8
 too in float32) with zeros in shared memory. With D a multiple of 8 and
@@ -271,6 +272,41 @@ def _copy_width(*tensors: torch.Tensor) -> int:
     while width > 1 and bits % width:
         width //= 2
     return width
+
+
+def _tf32_tiles(dp: int) -> Tuple[int, int, int]:
+    """The rows of a streamed tile of the 3xTF32 kernels at head-dim
+    capacity ``dp`` (``fwd_tile``, ``dq_tile`` and ``dkv_tile`` in
+    ``csrc/flash_tf32.cu``): the forward's and the dQ kernel's keys, the
+    dK/dV kernel's queries. Each block owns 64 rows."""
+    return (32 if dp == 128 else 64, 16 if dp == 128 else 64,
+            64 if dp <= 16 else 16 if dp == 128 else 32)
+
+
+def _tf32_plane_words(rows: int, dp: int, transposed: bool = False) \
+        -> torch.Tensor:
+    """Where the 3xTF32 kernels' split pass (``split_tile`` in
+    ``csrc/flash_tf32.cu``) writes each element of a ``rows x dp`` raw
+    tile: a ``(rows, dp)`` tensor of 32-bit word offsets into its plane.
+    Chunk ``c`` of the pass is 4 columns of one row, ``(c & 7) + 8 ((c >>
+    3) // (dp / 4))``, from column ``4 ((c >> 3) % (dp / 4))``, and lands at
+    words ``4c`` of the plane. ``transposed``: the tile's transposed plane
+    (``dp`` rows of ``rows`` columns), row ``r`` at column ``(r & ~7) +
+    ((r & 7) >> 1) + 4 (r & 1)`` (each group of 8 rows reordered: row 2i at
+    column i, row 2i + 1 at i + 4), in cores of 8 rows by 4 columns, 32
+    words each, ``rows / 4`` cores a row of cores."""
+    cpr = dp // 4
+    words = torch.empty((rows, dp), dtype=torch.int64)
+    for c in range(rows * cpr):
+        r, x = (c & 7) + 8 * ((c >> 3) // cpr), (c >> 3) % cpr
+        for i in range(4):
+            if not transposed:
+                words[r, 4 * x + i] = 4 * c + i
+                continue
+            d, p = 4 * x + i, (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1)
+            words[r, d] = (((d >> 3) * (rows // 4) + (p >> 2)) * 32
+                           + (d & 7) * 4 + (p & 3))
+    return words
 
 
 def _fwd_route(shape, dtype) -> str:

@@ -14,6 +14,8 @@ bounds the smoke reports are checked too. The kernels themselves are held
 against the plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,8 +27,8 @@ from pytorch_distributed_mnist_tpu_torch.ops import cuda_build, flash
 
 torch.set_num_threads(2)
 
-ROWS = 64  # rows of a kernel tile (query rows of a block, keys of a tile)
-KSTEP = 8  # the k-depth of mma.sync m16n8k8
+ROWS = 64  # rows a block owns (wgmma's M): query rows, or keys for dK/dV
+KSTEP = 8  # the k-depth of wgmma m64nNk8 in TF32
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -81,20 +83,21 @@ def pad_to_dp(x: torch.Tensor) -> torch.Tensor:
 def tf32x3_forward(q, k, v, causal, single=False):
     """``flash_fwd_plain`` with the 3xTF32 forward's arithmetic, on head
     dims zero-padded to DP as the kernel stages them: q scaled by D's
-    scale and rounded once, then per 64-key tile S = Q K^T, the masked
-    online softmax (running max, P = exp(s - m), the sums rescaled by
-    exp(m_old - m)) and O += P V, both products split 3xTF32. Returns (O,
-    lse), O's D columns."""
+    scale and rounded once, then per key tile (``flash._tf32_tiles``: 64
+    keys, 32 at DP = 128) S = Q K^T, the masked online softmax (running
+    max, P = exp(s - m), the sums rescaled by exp(m_old - m)) and O += P V,
+    both products split 3xTF32. Returns (O, lse), O's D columns."""
     d = q.shape[-1]
     q, k, v = (pad_to_dp(x) for x in (q, k, v))
     b, t, h, dp = q.shape
+    tile = flash._tf32_tiles(dp)[0]
     qh = flash._heads(q) * d ** -0.5
     kh, vh = flash._heads(k), flash._heads(v)
     m = torch.full((b, h, t, 1), flash.NEG_INF)
     l = torch.zeros((b, h, t, 1))
     acc = torch.zeros((b, h, t, dp))
-    for k0 in range(0, t, ROWS):
-        ks = slice(k0, min(t, k0 + ROWS))
+    for k0 in range(0, t, tile):
+        ks = slice(k0, min(t, k0 + tile))
         s = _mm3(qh, kh[..., ks, :].transpose(-1, -2), single=single)
         s = torch.where(_keep(slice(0, t), ks, causal), s,
                         torch.full((), flash.NEG_INF))
@@ -113,31 +116,42 @@ def tf32x3_forward(q, k, v, causal, single=False):
 def tf32x3_backward(q, k, v, o, lse, do, causal):
     """``flash_bwd_plain`` with the 3xTF32 pair's arithmetic, on head dims
     zero-padded to DP as the kernels stage them: delta from O and dO in
-    float32; per (64-row query tile, 64-key tile), in the order the
-    kernels take them, S and dP, P = exp(scale s - lse) and dS = P (dP -
-    delta) in float32, then dQ += dS K, dK += dS^T Q and dV += P^T dO,
-    every product split 3xTF32; tiles wholly above the causal diagonal are
-    skipped. Returns dQ, dK and dV's D columns."""
+    float32; S and dP, P = exp(scale s - lse) and dS = P (dP - delta) in
+    float32 per (query rows, key rows) tile; every product split 3xTF32.
+    The dQ kernel's 64-query blocks take key tiles of
+    ``flash._tf32_tiles``' dQ rows in order, dQ += dS K; the dK/dV
+    kernel's 64-key blocks take query tiles of its dK/dV rows in order,
+    dK += dS^T Q and dV += P^T dO; tiles wholly past the causal diagonal
+    are skipped. Returns dQ, dK and dV's D columns."""
     d = q.shape[-1]
     scale = d ** -0.5
     q, k, v, o, do = (pad_to_dp(x) for x in (q, k, v, o, do))
     b, t, h, dp = q.shape
+    _, dq_tile, dkv_tile = flash._tf32_tiles(dp)
     qh, kh, vh, oh, doh = (flash._heads(x) for x in (q, k, v, o, do))
     delta = (doh * oh).sum(-1)
     dq, dk, dv = (torch.zeros(b, h, t, dp) for _ in range(3))
+
+    def p_ds(qs, ks):
+        s = _mm3(qh[..., qs, :], kh[..., ks, :].transpose(-1, -2))
+        p = torch.where(_keep(qs, ks, causal),
+                        torch.exp(scale * s - lse[..., qs, None]),
+                        torch.zeros(()))
+        dp_ = _mm3(doh[..., qs, :], vh[..., ks, :].transpose(-1, -2))
+        return p, p * (dp_ - delta[..., qs, None])
+
     for q0 in range(0, t, ROWS):
         qs = slice(q0, min(t, q0 + ROWS))
-        for k0 in range(0, t, ROWS):
-            if causal and k0 > qs.stop - 1:
-                break
-            ks = slice(k0, min(t, k0 + ROWS))
-            s = _mm3(qh[..., qs, :], kh[..., ks, :].transpose(-1, -2))
-            p = torch.where(_keep(qs, ks, causal),
-                            torch.exp(scale * s - lse[..., qs, None]),
-                            torch.zeros(()))
-            dp = _mm3(doh[..., qs, :], vh[..., ks, :].transpose(-1, -2))
-            ds = p * (dp - delta[..., qs, None])
+        for k0 in range(0, min(t, qs.stop) if causal else t, dq_tile):
+            ks = slice(k0, min(t, k0 + dq_tile))
+            _, ds = p_ds(qs, ks)
             dq[..., qs, :] = _mm3(ds, kh[..., ks, :], acc=dq[..., qs, :])
+    for k0 in range(0, t, ROWS):
+        ks = slice(k0, min(t, k0 + ROWS))
+        first = k0 // dkv_tile * dkv_tile if causal else 0
+        for q0 in range(first, t, dkv_tile):
+            qs = slice(q0, min(t, q0 + dkv_tile))
+            p, ds = p_ds(qs, ks)
             dk[..., ks, :] = _mm3(ds.transpose(-1, -2), qh[..., qs, :],
                                   acc=dk[..., ks, :])
             dv[..., ks, :] = _mm3(p.transpose(-1, -2), doh[..., qs, :],
@@ -411,12 +425,230 @@ def test_the_library_is_registered_with_both_entries():
     # the bf16 kernels, so an edit to their tensor-core header
     # (mma_common.cuh) does not rebuild it.
     assert cuda_build.local_headers(source) == ["stage_common.cuh"]
-    for instr in (b"mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+    # Every product is a TF32 wgmma (m64nNk8, float32 sums); no mma.sync.
+    for instr in (b"wgmma.mma_async.sync.aligned.m64n", b".f32.tf32.tf32",
                   b"ex2.approx.ftz.f32"):
         assert instr in source
+    assert b"mma.sync" not in source
     # The split rounds as _tf32 does: half a unit of the kept last bit
     # added, the 13 dropped bits cleared, for hi and for lo.
     assert source.count(b"+ 0x1000u) & 0xffffe000u") == 2
+
+
+# ------------------------------------------------- the staged planes
+
+
+def _source() -> str:
+    with open(cuda_build.source_path("flash_tf32")) as f:
+        return f.read()
+
+
+def _c_ternary(expr: str, dp: int) -> int:
+    """Evaluates a chain ``c1 ? v1 : c2 ? v2 : v3`` of the kernel source
+    at ``dp``."""
+    parts = [x.strip() for x in re.split(r"[?:]", expr)]
+    while len(parts) > 1:
+        cond, value = parts[0], parts[1]
+        if eval(cond, {"dp": dp}):
+            return int(value)
+        parts = parts[2:]
+    return int(parts[0])
+
+
+def test_the_tile_rows_mirror_the_kernel_source():
+    # flash._tf32_tiles is the Python copy of fwd_tile, dq_tile and
+    # dkv_tile: the streamed tiles' rows at each head-dim capacity.
+    source = _source()
+    rules = [re.search(rf"constexpr int {name}\(int dp\) \{{\s*return "
+                       rf"([^;]+);", source).group(1)
+             for name in ("fwd_tile", "dq_tile", "dkv_tile")]
+    for dp in (8, 16, 32, 64, 128):
+        assert flash._tf32_tiles(dp) == tuple(_c_ternary(r, dp)
+                                             for r in rules)
+        # wgmma's N takes every streamed tile, and a tile is whole chunks
+        # of 8 rows that the products may take two at a time.
+        assert all(t % 16 == 0 for t in flash._tf32_tiles(dp))
+
+
+def test_the_split_pass_formulas_are_the_sources():
+    # _tf32_plane_words mirrors these lines of split_tile and reordered.
+    source = re.sub(r"\s+", " ", _source())
+    for line in ("const int r = (c & 7) + 8 * ((c >> 3) / CPR), "
+                 "x = (c >> 3) % CPR;",
+                 "*reinterpret_cast<uint4*>(hi + 4 * c) =",
+                 "const int at = ((x >> 1) * (ROWS / 4) + (p >> 2)) * 32 + "
+                 "(x & 1) * 16 + (p & 3);",
+                 "thi[at + 4 * e] = hr[j];",
+                 "return (r & ~7) + ((r & 7) >> 1) + 4 * (r & 1);"):
+        assert line in source, line
+
+
+PLANES = [(rows, dp) for dp in (8, 16, 32, 64, 128)
+          for rows in sorted({64, *flash._tf32_tiles(dp)})]
+
+
+def _raw_at(rows: int, dp: int, r: int, x: int) -> int:
+    """``raw_at`` of the 16-byte path: chunk x of row r of a raw tile that
+    the tensor memory accelerator wrote in boxes of min(4 DP, 128) bytes a
+    row, each swizzled (16-byte chunk j of row r at j ^ ((r SW >> 7) &
+    (SW / 16 - 1)))."""
+    sw = min(4 * dp, 128)
+    cb = sw // 16
+    b, j = divmod(x, cb)
+    return b * rows * (sw // 4) + r * (sw // 4) + 4 * (j ^ ((r * sw >> 7)
+                                                              & (cb - 1)))
+
+
+def test_the_tensor_copy_layout_is_the_sources():
+    source = re.sub(r"\s+", " ", _source())
+    for line in ("return dp * 4 < 128 ? dp * 4 : 128;",
+                 "return b * ROWS * (SW / 4) + r * (SW / 4) + "
+                 "4 * (j ^ ((r * SW >> 7) & (CB - 1)));",
+                 "SW == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : SW == 64 ? "
+                 "CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert line in source, line
+
+
+@pytest.mark.parametrize("rows,dp", PLANES,
+                         ids=[f"{r}x{d}" for r, d in PLANES])
+def test_a_swizzled_tile_reads_without_bank_conflicts(rows, dp):
+    # Every chunk of the tile has a slot of its own, and the split pass's
+    # reads (8 consecutive rows, one chunk column) fall on 8 distinct
+    # 16-byte groups of banks: a 128-byte wavefront.
+    at = [[_raw_at(rows, dp, r, x) for x in range(dp // 4)]
+          for r in range(rows)]
+    flat = sorted(a for row in at for a in row)
+    assert flat == list(range(0, rows * dp, 4))
+    for x in range(dp // 4):
+        for r0 in range(0, rows, 8):
+            assert len({at[r][x] // 4 % 8 for r in range(r0, r0 + 8)}) == 8
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["nat", "t"])
+@pytest.mark.parametrize("rows,dp", PLANES,
+                         ids=[f"{r}x{d}" for r, d in PLANES])
+def test_a_plane_takes_every_element_once(rows, dp, transposed):
+    words = flash._tf32_plane_words(rows, dp, transposed)
+    assert sorted(words.flatten().tolist()) == list(range(rows * dp))
+
+
+def _operand(plane: torch.Tensor, rows: int, k: int, j: int) -> torch.Tensor:
+    """The (rows x 8) operand one wgmma reads at k-step j from a K-major
+    plane of ``k`` columns without swizzle: LBO 128 bytes (the next 4
+    columns), SBO 32 k bytes (the next 8 rows), start 256 j bytes."""
+    i = torch.arange(rows)[:, None]
+    c = torch.arange(8)[None, :]
+    at = 64 * j + (8 * k) * (i >> 3) + 32 * (c >> 2) + 4 * (i & 7) + (c & 3)
+    return plane[at]
+
+
+def _planes(tile: torch.Tensor, transposed: bool) -> torch.Tensor:
+    rows, dp = tile.shape
+    plane = torch.zeros(rows * dp, dtype=tile.dtype)
+    plane[flash._tf32_plane_words(rows, dp, transposed).flatten()] = \
+        tile.flatten()
+    return plane
+
+
+@pytest.mark.parametrize("rows,dp", PLANES,
+                         ids=[f"{r}x{d}" for r, d in PLANES])
+def test_a_descriptor_reads_the_tile_back(rows, dp):
+    # The natural plane read by k-steps gives the tile's columns in order;
+    # the transposed plane gives its rows, each group of 8 reordered (row
+    # 2i at column i, row 2i + 1 at column i + 4).
+    tile = torch.arange(rows * dp, dtype=torch.float64).reshape(rows, dp)
+    nat, tra = _planes(tile, False), _planes(tile, True)
+    order = [0, 2, 4, 6, 1, 3, 5, 7]
+    for j in range(dp // 8):
+        assert torch.equal(_operand(nat, rows, dp, j), tile[:, 8 * j:8 * j + 8])
+    for j in range(rows // 8):
+        assert torch.equal(_operand(tra, dp, rows, j),
+                           tile[8 * j:8 * j + 8][order].T)
+
+
+def _a_operand(c: torch.Tensor, j: int) -> torch.Tensor:
+    """The (64 x 8) A operand of chunk j as the kernels form it from a 64 x
+    N sum in mma's C layout (a_frag): thread (warp w, g, tq) holds columns
+    8j + 2tq, 8j + 2tq + 1 of rows 16w + g and 16w + g + 8 and passes them as
+    a0 (g, tq), a2 (g, tq + 4), a1 (g + 8, tq), a3 (g + 8, tq + 4)."""
+    a = torch.empty((64, 8), dtype=c.dtype)
+    for w in range(4):
+        for lane in range(32):
+            g, tq = lane >> 2, lane & 3
+            r = 16 * w + g
+            frag = [c[r, 8 * j + 2 * tq], c[r + 8, 8 * j + 2 * tq],
+                    c[r, 8 * j + 2 * tq + 1], c[r + 8, 8 * j + 2 * tq + 1]]
+            a[r, tq], a[r + 8, tq] = frag[0], frag[1]
+            a[r, tq + 4], a[r + 8, tq + 4] = frag[2], frag[3]
+    return a
+
+
+@pytest.mark.parametrize("keys,dp", [(64, 16), (64, 8), (32, 128), (16, 128),
+                                     (64, 64), (32, 32)])
+def test_a_product_through_the_reordered_plane_is_mm3(keys, dp):
+    # O += P V as the kernels run it: P's C fragments as A through the
+    # reordered axis, V's hi and lo split once into transposed planes read
+    # by descriptor, per chunk of 8 keys a_lo b_hi, a_hi b_lo and a_hi b_hi.
+    # The products are exact; summed in float64 they equal _mm3's plain
+    # order summed in float64, and _mm3 itself to float32 rounding (one
+    # rounding of the largest sum per key).
+    rng = np.random.default_rng(keys + dp)
+    p = torch.from_numpy(rng.random((64, keys)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((keys, dp)).astype(np.float32))
+    vh, vl = _split(v)
+    planes = [_planes(x.double(), True) for x in (vh, vl)]
+    got = torch.zeros((64, dp), dtype=torch.float64)
+    for j in range(keys // KSTEP):
+        ah, al = _split(_a_operand(p, j))
+        bh, bl = (_operand(x, dp, keys, j).T for x in planes)
+        got += al.double() @ bh + ah.double() @ bl + ah.double() @ bh
+    want = torch.zeros((64, dp), dtype=torch.float64)
+    for k0 in range(0, keys, KSTEP):
+        ah, al = (x.double() for x in _split(p[:, k0:k0 + KSTEP]))
+        bh, bl = (x.double() for x in _split(v[k0:k0 + KSTEP]))
+        want += al @ bh + ah @ bl + ah @ bh
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got.float(), _mm3(p, v), rtol=0,
+                               atol=keys * 2.0 ** -24 * float(
+                                   (p.abs() @ v.abs()).max()))
+
+
+# ------------------------------------------------------ the smoke's builds
+
+
+def _ptxas_log(spill_of=None, drop=None) -> str:
+    """An nvcc -Xptxas -v log of the 30 3xTF32 instantiations, one of
+    them (``spill_of``) spilling 16 bytes, one (``drop``) left out."""
+    lines = []
+    for kernel in ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel",
+                   "flash_dkv_tf32_kernel"):
+        for dp in (8, 16, 32, 64, 128):
+            for narrow in (0, 1):
+                name = f"{kernel}<{dp}, {'true' if narrow else 'false'}>"
+                if name == drop:
+                    continue
+                spill = 16 if name == spill_of else 0
+                mangled = (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{dp}"
+                           f"ELb{narrow}EEEvPKf")
+                lines += [f"ptxas info    : Compiling entry function "
+                          f"'{mangled}' for 'sm_90a'",
+                          f"    0 bytes stack frame, {spill} bytes spill "
+                          f"stores, {spill} bytes spill loads",
+                          "ptxas info    : Used 128 registers"]
+    return "\n".join(lines)
+
+
+def test_the_smoke_requires_every_instantiation_and_no_spill():
+    counts = chip_smoke.require_no_spill(_ptxas_log())
+    assert len(counts) == chip_smoke.TF32_INSTANTIATIONS == 30
+    assert counts["flash_dkv_tf32_kernel<128, true>"] == {
+        "spill_stores": 0, "spill_loads": 0, "registers": 128}
+    with pytest.raises(AssertionError, match="spills registers"):
+        chip_smoke.require_no_spill(
+            _ptxas_log(spill_of="flash_dq_tf32_kernel<8, true>"))
+    with pytest.raises(AssertionError, match="29 instantiations"):
+        chip_smoke.require_no_spill(
+            _ptxas_log(drop="flash_fwd_tf32_kernel<64, false>"))
 
 
 # ------------------------------------------------------ the smoke's bounds
