@@ -20,11 +20,15 @@ Phases, each printing one JSON line:
    ViT's, M up to 6272 at K = 16, 64 and 256) plus ragged ones (exactly
    equal, and the same bits on a second call), with the split-K plan of
    each shape; the cross-entropy kernels against ``xent_fwd_plain`` /
-   ``xent_bwd_plain`` at B in {1, 7, 128, 256, 300} and C in {10, 128} with
-   saturated tie rows (``rtol=atol=1e-6``: the sum of exp is taken in
-   another order); the Adam kernel against ``adam_leaf_plain`` one leaf at
-   a time (every cnn leaf shape and two ragged sizes, steps 1, 2 and 10),
-   and as one launch over the cnn's 8 and the ViT's 31 leaves against
+   ``xent_bwd_plain`` at B in {1, 7, 128, 256, 300} and C in {1, 10, 16,
+   32, 33, 128} (a group of lanes per row up to 32 classes, a warp
+   above) with saturated tie rows (``rtol=atol=1e-6``: the sum of exp is
+   taken in another order), the fused loss's backward from a sum's
+   broadcast cotangent (stride 0) equal to the kernel's from ones, and
+   both kernels the same bits on a second call; the Adam kernel against
+   ``adam_leaf_plain`` one leaf at a time (every cnn leaf shape and two
+   ragged sizes, steps 1, 2 and 10), and as one launch over the cnn's 8
+   and the ViT's 31 leaves against
    ``adam_leaves_plain`` for 200 steps, with the hypers it forms in the
    launch equal to ``adam_hypers`` on the card at t = 1..3000 (all bit for
    bit);
@@ -410,6 +414,9 @@ ACCUM_MICRO = TRAIN_BATCH // 2
 # versions at: the full batch, --grad-accum 2's micro-batch, and sizes
 # around them.
 XENT_CHECK_BATCHES = (1, 7, ACCUM_MICRO, TRAIN_BATCH, 300)
+# Class counts they are held at: both layouts (a group of lanes per row
+# up to 32, a warp above) and their edges; the paths' C is 10.
+XENT_CHECK_CLASSES = (1, 10, 16, 32, 33, 128)
 PROFILE_STEPS = 4  # train steps whose kernel launches a profile counts
 VIT_DEPTH = 2
 # K3 launches per int8 ViT forward: embed and head, and 4 Dense a block.
@@ -2361,9 +2368,10 @@ def xent_inputs(b: int, c: int, gen, device):
     logits[0, 0] = 20.0
     labels[0] = 0
     if b > 1:
+        hot = min(1, c - 1)
         logits[1] = 0.0
-        logits[1, 1] = 1e4
-        labels[1] = 1
+        logits[1, hot] = 1e4
+        labels[1] = hot
     g = torch.rand(b, device=device, generator=gen)
     return logits, labels, g
 
@@ -2399,23 +2407,40 @@ def phase_train_kernels_vs_plain(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     worst = {"xent_fwd": 0.0, "xent_bwd": 0.0}
     for b in XENT_CHECK_BATCHES:
-        for c in (10, 128):
+        for c in XENT_CHECK_CLASSES:
             logits, labels, g = xent_inputs(b, c, gen, device)
             loss, lse = xent.xent_fwd(logits, labels)
+            loss2, lse2 = xent.xent_fwd(logits, labels)
             want_loss, want_lse = xent.xent_fwd_plain(logits, labels)
             # Both backwards from the kernel's lse, so they gate alike.
             dl = xent.xent_bwd(logits, labels, lse, g)
+            dl2 = xent.xent_bwd(logits, labels, lse, g)
             want_dl = xent.xent_bwd_plain(logits, labels, lse, g)
+            # A sum's cotangent reaches the backward broadcast (stride 0).
+            x = logits.clone().requires_grad_(True)
+            xent.fused_cross_entropy_per_example(x, labels).sum().backward()
+            ones = torch.ones_like(g)
+            dl0 = xent.xent_bwd(logits, labels, lse, ones)
+            want_dl0 = xent.xent_bwd_plain(logits, labels, lse, ones)
             torch.cuda.synchronize()
             for got, want in ((loss, want_loss), (lse, want_lse),
-                              (dl, want_dl)):
+                              (dl, want_dl), (dl0, want_dl0)):
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            if not (torch.equal(loss, loss2) and torch.equal(lse, lse2)
+                    and torch.equal(dl, dl2)):
+                raise AssertionError(f"xent gave other bits on a second "
+                                     f"call at {b}x{c}")
+            if not torch.equal(x.grad, dl0):
+                raise AssertionError(f"the fused loss's gradient from a "
+                                     f"stride-0 cotangent differs from the "
+                                     f"kernel's from ones at {b}x{c}")
             if float(loss[0]) != 0.0:
                 raise AssertionError("the tie row's loss is not clamped to 0")
             worst["xent_fwd"] = max(worst["xent_fwd"], float(max(
                 (loss - want_loss).abs().max(), (lse - want_lse).abs().max())))
             worst["xent_bwd"] = max(worst["xent_bwd"],
-                                    float((dl - want_dl).abs().max()))
+                                    float((dl - want_dl).abs().max()),
+                                    float((dl0 - want_dl0).abs().max()))
     hyper = adam_hyper_scalars(device)
     sizes = [s for _, s in leaf_shapes()] + [(1,), (1000003,)]
     adam_err, adam_ulps = 0.0, 0
@@ -2460,8 +2485,8 @@ def phase_train_kernels_vs_plain(device) -> dict:
         raise AssertionError(f"adam kernel is {adam_ulps} ulp from its "
                              f"plain version (bit for bit required)")
     emit("kernel_vs_plain", kernel="xent_fwd+xent_bwd",
-         batches=list(XENT_CHECK_BATCHES), classes=[10, 128], rtol=1e-6,
-         atol=1e-6,
+         batches=list(XENT_CHECK_BATCHES), classes=list(XENT_CHECK_CLASSES),
+         cotangent_strides=[1, 0], same_bits_twice=True, rtol=1e-6, atol=1e-6,
          max_abs_err_fwd=worst["xent_fwd"], max_abs_err_bwd=worst["xent_bwd"])
     emit("kernel_vs_plain", kernel="adam", shapes=[list(s) for s in sizes],
          steps=[1, 2, 10], multi_leaf_models=["cnn", "vit", "moe_mlp"],

@@ -13,7 +13,10 @@ clamp (1, 0.5 or 0 as ``lse - picked`` is > 0, == 0 or < 0).
 tensors (built at first use, ``ops/cuda_build.py``) and take
 :func:`xent_fwd_plain` / :func:`xent_bwd_plain` only for tensors on the
 CPU. There is no fallback from one to the other: a CUDA tensor launches
-the kernel or raises.
+the kernel or raises. Up to 32 classes a group of lanes owns a row (the
+forward: the next power of two >= C lanes, one class each; the
+backward: half as many, two classes each); above, a warp does. The
+layout is chosen from C alone.
 
 The wrappers launch on the current stream and keep no state between
 calls but their launch counts, so a CUDA graph can capture them
@@ -34,8 +37,8 @@ from pytorch_distributed_mnist_tpu_torch.utils import debug_nans
 __all__ = ["fused_cross_entropy", "fused_cross_entropy_per_example",
            "xent_bwd", "xent_bwd_plain", "xent_fwd", "xent_fwd_plain"]
 
-# One warp holds a row, four classes per lane (the TPU kernel's one
-# 128-lane tile).
+# The TPU kernel's one 128-lane tile: a warp holds a row of up to 128
+# classes, four per lane.
 MAX_CLASSES = 128
 
 _count_lock = threading.Lock()

@@ -27,7 +27,6 @@ from pytorch_distributed_mnist_tpu.train.state import (
 from pytorch_distributed_mnist_tpu_torch import cli
 from pytorch_distributed_mnist_tpu_torch.models import get_model
 from pytorch_distributed_mnist_tpu_torch.models.convert import state_to_jax
-from pytorch_distributed_mnist_tpu_torch.parallel import launcher
 from pytorch_distributed_mnist_tpu_torch.train import checkpoint as port_ckpt
 from pytorch_distributed_mnist_tpu_torch.train.state import (
     create_train_state,
@@ -93,18 +92,38 @@ def test_a_jax_directory_from_the_8_device_mesh_resumes_in_the_port(
     assert "Epoch: 1/2" in capsys.readouterr().out
 
 
+# Rank 0 binds the rendezvous's port itself (port 0: the system picks a
+# free one, held from then on) and hands the number to rank 1 through a
+# file; the rendezvous then shares that listening store (multi-tenant).
+# No other process can take the port between its choice and the bind.
 _RANK = r"""
 import os
 import sys
+import time
 import torch
+import torch.distributed as dist
 from pytorch_distributed_mnist_tpu_torch.models import get_model
 from pytorch_distributed_mnist_tpu_torch.parallel import distributed
 from pytorch_distributed_mnist_tpu_torch.train import checkpoint as ck
 from pytorch_distributed_mnist_tpu_torch.train.state import create_train_state
 
-coordinator, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+port_file, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+deadline = time.monotonic() + float(sys.argv[4])
+if rank == 0:
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
+                          multi_tenant=True)
+    with open(port_file + ".tmp", "w") as f:
+        f.write(str(store.port))
+    os.replace(port_file + ".tmp", port_file)
+else:
+    while not os.path.exists(port_file):
+        if time.monotonic() > deadline:
+            sys.exit("rank 1: rank 0 never published its port")
+        time.sleep(0.05)
+with open(port_file) as f:
+    port = int(f.read())
 cpu = torch.device("cpu")
-distributed.initialize_distributed(coordinator, 2, rank, cpu)
+distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank, cpu)
 state = create_train_state(get_model("linear", compute_dtype=torch.float32),
                            3, cpu)
 path = ck.save_checkpoint(state, epoch=4, best_acc=0.5, is_best=True,
@@ -120,12 +139,12 @@ distributed.teardown()
 
 
 def test_a_port_directory_from_a_world_of_2_loads_in_jax(tmp_path):
-    port = launcher.free_port()
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, f"127.0.0.1:{port}", str(r),
-         str(tmp_path)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        [sys.executable, "-c", _RANK, str(tmp_path / "port"), str(r),
+         str(tmp_path), str(WORLD_TIMEOUT)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
     try:
         outs = [p.communicate(timeout=WORLD_TIMEOUT)[0] for p in procs]
     finally:

@@ -39,18 +39,28 @@ def test_matmul_i8_kernel_equals_plain(card, m, k, n):
     assert torch.equal(got, matmul_i8_plain(a, b))
 
 
-@pytest.mark.parametrize("b", [1, 7, 128, 256, 300])
-@pytest.mark.parametrize("c", [10, 128])
-def test_xent_kernels_match_plain(card, b, c):
-    from pytorch_distributed_mnist_tpu_torch.ops import xent
-
-    gen = torch.Generator(device=card).manual_seed(b * 1000 + c)
-    logits = torch.randn(b, c, device=card, generator=gen) * 3
+def _xent_case(card, b, c, seed, ld=None):
+    """Logits (a view of row stride ``ld``, default ``c``) with the exact
+    tie in row 0, labels, and an upstream gradient."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    ld = c if ld is None else ld
+    whole = torch.randn(b, ld, device=card, generator=gen) * 3
+    logits = whole[:, ld - c:]
     labels = torch.randint(0, c, (b,), device=card, generator=gen)
     logits[0] = 0.0
     logits[0, 0] = 20.0  # the exact tie: lse == picked in float32
     labels[0] = 0
     g = torch.rand(b, device=card, generator=gen)
+    return logits, labels, g
+
+
+# C up to 32 takes a group of lanes per row, above it a warp per row.
+@pytest.mark.parametrize("b", [1, 7, 128, 256, 300])
+@pytest.mark.parametrize("c", [1, 10, 16, 32, 33, 128])
+def test_xent_kernels_match_plain(card, b, c):
+    from pytorch_distributed_mnist_tpu_torch.ops import xent
+
+    logits, labels, g = _xent_case(card, b, c, b * 1000 + c)
     before = (xent.xent_fwd.launches, xent.xent_bwd.launches)
     loss, lse = xent.xent_fwd(logits, labels)
     dl = xent.xent_bwd(logits, labels, lse, g)
@@ -58,12 +68,49 @@ def test_xent_kernels_match_plain(card, b, c):
     assert (xent.xent_fwd.launches, xent.xent_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
     want_loss, want_lse = xent.xent_fwd_plain(logits, labels)
-    # exp's sum is taken in another order (warp shuffles vs torch's sum).
+    # exp's sum is taken in another order (a group's or a warp's shuffles
+    # vs torch's sum).
     torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(dl, xent.xent_bwd_plain(logits, labels, lse, g),
                                rtol=1e-6, atol=1e-6)
     assert float(loss[0]) == 0.0
+
+
+@pytest.mark.parametrize("c,ld", [(1, 1), (2, 2), (2, 3), (3, 3),
+                                  (10, 10), (10, 11),
+                                  (10, 12), (16, 16), (16, 17), (32, 32),
+                                  (33, 33), (128, 130)])
+def test_xent_kernels_give_the_same_bits_at_any_row_stride_and_twice(card, c,
+                                                                     ld):
+    """Row strides and offsets that load two floats at a time or one, the
+    same bits as the contiguous rows' and from a second call, and a sum's
+    broadcast cotangent (stride 0) through the fused loss."""
+    from pytorch_distributed_mnist_tpu_torch.ops import xent
+
+    b = 256
+    logits, labels, g = _xent_case(card, b, c, 7 * c + ld, ld)
+    packed = logits.contiguous()
+    loss, lse = xent.xent_fwd(logits, labels)
+    again = xent.xent_fwd(logits, labels)
+    dl = xent.xent_bwd(logits, labels, lse, g)
+    dl_again = xent.xent_bwd(logits, labels, lse, g)
+    x = packed.clone().requires_grad_(True)
+    xent.fused_cross_entropy_per_example(x, labels).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(dl, dl_again)
+    packed_loss, packed_lse = xent.xent_fwd(packed, labels)
+    assert torch.equal(loss, packed_loss) and torch.equal(lse, packed_lse)
+    assert torch.equal(dl, xent.xent_bwd(packed, labels, lse, g))
+    assert torch.equal(x.grad, xent.xent_bwd(packed, labels, lse,
+                                             torch.ones_like(g)))
+    want_loss, want_lse = xent.xent_fwd_plain(logits, labels)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(
+        dl, xent.xent_bwd_plain(logits, labels, lse, g), rtol=1e-6,
+        atol=1e-6)
 
 
 @pytest.mark.parametrize("n", [10, 288, 12544 * 128, 1000003])

@@ -112,6 +112,113 @@ def test_fused_mean_and_masked_mean_match_jax(masked):
     np.testing.assert_allclose(float(got), float(want), **TOL)
 
 
+def _recording_bwd(monkeypatch):
+    """Swaps a recorder of each ``g`` stride into the wrapper the fused
+    loss's backward calls; returns the list it fills."""
+    seen, bwd = [], port.xent_bwd
+
+    def recording(logits, labels, lse, g):
+        seen.append(g.stride(0))
+        return bwd(logits, labels, lse, g)
+
+    monkeypatch.setattr(port, "xent_bwd", recording)
+    return seen
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_a_stride_0_cotangent_gives_the_contiguous_gradient_bit_for_bit(
+        monkeypatch, masked):
+    """The world step's objective (a per-example sum over the count)
+    hands the backward a broadcast cotangent, stride 0; the backward
+    copies it and gives the contiguous cotangent's gradient bit for bit,
+    which is JAX's fused gradient (interpret mode) within the row
+    tolerance."""
+    b = 9
+    logits, labels, _ = _inputs(b, 10, seed=15)
+    mask = np.array([1, 1, 0, 1, 0, 1, 1, 1, 0], np.float32) if masked \
+        else np.ones(b, np.float32)
+    live = _t(mask)
+    seen = _recording_bwd(monkeypatch)
+    x = _t(logits).clone().requires_grad_(True)
+    per_ex = port.fused_cross_entropy_per_example(x, _t(labels))
+    num = (per_ex * live).sum() if masked else per_ex.sum()
+    (num / torch.clamp(live.sum(), min=1.0)).backward()
+    assert seen == [1]
+    g = torch.full((b,), 1.0) / torch.clamp(live.sum(), min=1.0)
+    if masked:
+        g = g * live
+    y = _t(logits).clone().requires_grad_(True)
+    port.fused_cross_entropy_per_example(y, _t(labels)).backward(
+        g.contiguous())
+    assert seen == [1, 1]
+    assert torch.equal(x.grad, y.grad)
+    want = jax.grad(lambda l: jax_xent.fused_cross_entropy(
+        l, jnp.asarray(labels), jnp.asarray(mask) if masked else None))(
+        jnp.asarray(logits))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+    # The mean itself (masked_mean) matches JAX's gradient too.
+    z = _t(logits).clone().requires_grad_(True)
+    port.fused_cross_entropy(z, _t(labels),
+                             _t(mask) if masked else None).backward()
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(want), **TOL)
+
+
+def test_a_cotangent_of_another_stride_is_copied_first(monkeypatch):
+    """A column of a stacked loss arrives at stride 2; the backward
+    copies it and gives the contiguous cotangent's gradient."""
+    logits, labels, _ = _inputs(6, 10, seed=16)
+    seen = _recording_bwd(monkeypatch)
+    x = _t(logits).clone().requires_grad_(True)
+    per_ex = port.fused_cross_entropy_per_example(x, _t(labels))
+    weights = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    (torch.stack([per_ex, torch.zeros(6)], dim=1) * weights).sum().backward()
+    assert seen == [1]
+    y = _t(logits).clone().requires_grad_(True)
+    port.fused_cross_entropy_per_example(y, _t(labels)).backward(
+        weights[:, 0].contiguous())
+    assert torch.equal(x.grad, y.grad)
+
+
+# The kernels' layout edges (csrc/xent.cu): one class, two (the
+# backward's one lane of two), an odd C (the backward's two classes a
+# lane not neighbours), the group sizes 16 and 32, and the first C a
+# warp owns.
+@pytest.mark.parametrize("c", [1, 2, 3, 15, 16, 32, 33])
+def test_plain_loss_and_gradient_match_jax_at_the_layout_edges(c):
+    logits, labels, g = _inputs(7, c, seed=19 * c, tie=False)
+    want_loss, want_lse = jax_xent._fwd_impl(
+        jnp.asarray(logits), jnp.asarray(labels), interpret=True)
+    loss, lse = port.xent_fwd(_t(logits), _t(labels).long())
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[:7, 0],
+                               **TOL)
+    _, vjp = jax.vjp(
+        lambda l: jax_xent.fused_cross_entropy_per_example(
+            l, jnp.asarray(labels)), jnp.asarray(logits))
+    (want,) = vjp(jnp.asarray(g))
+    x = _t(logits).clone().requires_grad_(True)
+    port.fused_cross_entropy_per_example(x, _t(labels)).backward(_t(g))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+
+
+def test_check_refuses_a_g_of_stride_2_or_0():
+    logits, labels, g = _inputs(5, 10, seed=17)
+    l, lab = _t(logits), _t(labels).long()
+    _, lse = port.xent_fwd(l, lab)
+    wide = torch.from_numpy(np.repeat(g, 2))
+    with pytest.raises(ValueError, match="contiguous per-row"):
+        port.xent_bwd(l, lab, lse, wide[::2])
+    with pytest.raises(ValueError, match="contiguous per-row"):
+        port.xent_bwd(l, lab, torch.from_numpy(np.repeat(
+            lse.numpy(), 2))[::2], _t(g))
+    broadcast = torch.tensor(float(g[0])).expand(5)
+    assert broadcast.stride(0) == 0
+    with pytest.raises(ValueError, match="contiguous per-row"):
+        port.xent_bwd(l, lab, lse, broadcast)
+    with pytest.raises(ValueError, match="contiguous per-row"):
+        port.xent_bwd(l, lab, lse[:1].expand(5), _t(g))
+
+
 def test_all_masked_batch_gives_zero():
     logits, labels, _ = _inputs(4, 10, seed=6)
     got = port.fused_cross_entropy(_t(logits), _t(labels), torch.zeros(4))

@@ -31,17 +31,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-
-def register(sources: dict) -> None:
-    """Declares each {library name: source path} to ``cuda_build`` as a
-    library of ``KERNELS["flash_tf32"]``'s entries."""
-    from pytorch_distributed_mnist_tpu_torch.ops import cuda_build
-
-    own = cuda_build.source_path
-    paths = {name: os.path.abspath(path) for name, path in sources.items()}
-    cuda_build.source_path = lambda name: paths.get(name) or own(name)
-    for name in paths:
-        cuda_build.KERNELS[name] = cuda_build.KERNELS["flash_tf32"]
+from tools.ab_builds import in_turns, register  # noqa: E402
 
 
 def fwd(lib, q, k, v, causal=False):
@@ -132,7 +122,6 @@ def timings(libs, device, peaks) -> list:
     import chip_smoke as smoke
     from pytorch_distributed_mnist_tpu_torch.ops import flash
 
-    a, b = libs
     shapes = ([("vit", smoke.VIT_SHAPE), ("p2", smoke.P2_SHAPE),
                ("d12", smoke.D12_SHAPE), ("d12_p2", smoke.D12_P2_SHAPE)]
               + list(smoke.RANK_SHAPES) + list(smoke.PIPELINE_SHAPES))
@@ -150,11 +139,9 @@ def timings(libs, device, peaks) -> list:
             calls = {lib: (lambda lib=lib: fwd(lib, q, k, v)) if what == "fwd"
                      else (lambda lib=lib: bwd(lib, q, k, v, o, lse, do))
                      for lib in libs}
-            times = {lib: [] for lib in libs}
-            for lib in (a, b, b, a):
-                times[lib].append(sum(smoke.device_ms(calls[lib]).values()))
-            row[what] = {"bound_ms": bound,
-                         **{lib: times[lib] for lib in libs}}
+            times = in_turns(libs, lambda lib: sum(
+                smoke.device_ms(calls[lib]).values()))
+            row[what] = {"bound_ms": bound, **times}
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows
@@ -180,7 +167,7 @@ def main() -> int:
     sources = {"flash_tf32_a": args.a}
     if args.b is not None:
         sources["flash_tf32_b"] = args.b
-    register(sources)
+    register(sources, "flash_tf32")
     libs = ["flash_tf32_a", "flash_tf32_b" if args.b else "flash_tf32"]
     info = cuda_build.build(libs)  # one nvcc each, in parallel
     for lib in libs:
